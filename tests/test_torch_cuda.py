@@ -13,8 +13,14 @@ import math
 import pytest
 import torch
 
+from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
-from vid2vid_tpu_torch.ops.warp import warp_blend, warp_blend_plain
+from vid2vid_tpu_torch.ops.warp import (
+    flow_warp,
+    flow_warp_plain,
+    warp_blend,
+    warp_blend_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +30,7 @@ TOL = {
     ("respair", torch.bfloat16): dict(atol=5e-2, rtol=2e-2),
     ("warp", torch.float32): dict(atol=1e-5, rtol=0.0),
     ("warp", torch.bfloat16): dict(atol=1e-2, rtol=4e-3),
+    ("correlation", torch.float32): dict(atol=1e-5, rtol=1e-5),
 }
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -91,3 +98,55 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="cpu"):
         warp_blend(img.cpu(), img, torch.zeros(1, 2, 6, 6, device=cuda),
                    torch.zeros(1, 1, 6, 6, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,c,h,w,scale", [(2, 3, 5, 7, 4.0), (1, 17, 7, 9, 30.0), (2, 3, 1, 1, 2.0)]
+)
+def test_flow_warp_kernel_any_shape(cuda, dtype, b, c, h, w, scale):
+    g = torch.Generator().manual_seed(c * 100 + h)
+    image = torch.randn((b, c, h, w), generator=g)
+    flow = scale * torch.randn((b, 2, h, w), generator=g)
+    args = [t.to(cuda, dtype) for t in (image, flow)]
+    before = flow_warp.launches
+    got = flow_warp(*args)
+    assert flow_warp.launches == before + 1
+    assert got.dtype == dtype and got.shape == image.shape
+    _close("warp", got, flow_warp_plain(*(a.float() for a in args)), dtype)
+
+
+@pytest.mark.parametrize(
+    "b,c,h,w",
+    [(2, 3, 7, 9), (1, 17, 13, 70), (2, 17, 1, 1), (1, 3, 45, 130), (1, 256, 8, 16)],
+)
+def test_correlation_kernel_any_shape(cuda, b, c, h, w):
+    g = torch.Generator().manual_seed(c * 1000 + h * 10 + w)
+    f1, f2 = (torch.randn((b, c, h, w), generator=g).to(cuda) for _ in range(2))
+    before = correlation.launches
+    got = correlation(f1, f2)
+    assert correlation.launches == before + 1
+    assert got.shape == (b, 441, h, w) and got.dtype == torch.float32
+    _close("correlation", got, correlation_plain(f1, f2), torch.float32)
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    f = torch.zeros(1, 8, 6, 6, device=cuda)
+    with pytest.raises(ValueError, match="not supported"):
+        correlation(f.bfloat16(), f.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation(f.transpose(2, 3), f)
+    with pytest.raises(ValueError, match="cpu"):
+        correlation(f, f.cpu())
+    with pytest.raises(ValueError, match="max_displacement"):
+        correlation(f, f, max_displacement=4, stride2=1)
+    img = torch.zeros(1, 3, 6, 6, device=cuda)
+    flow = torch.zeros(1, 2, 6, 6, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        flow_warp(img, flow.bfloat16())
+    with pytest.raises(ValueError, match="not supported"):
+        flow_warp(img.half(), flow.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flow_warp(img.transpose(2, 3), flow)
+    with pytest.raises(ValueError, match="cpu"):
+        flow_warp(img, flow.cpu())

@@ -9,8 +9,9 @@ import sys
 import pytest
 import torch
 
+from vid2vid_tpu_torch.ops.correlation import correlation
 from vid2vid_tpu_torch.ops.respair import respair
-from vid2vid_tpu_torch.ops.warp import warp_blend
+from vid2vid_tpu_torch.ops.warp import flow_warp, warp_blend
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,6 +53,14 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.ops.respair", "vid2vid_tpu_torch.ops.warp",
         "vid2vid_tpu_torch.models.inference", "vid2vid_tpu_torch.utils.from_jax",
         "vid2vid_tpu_torch.data.test_stream",
+        "vid2vid_tpu_torch.ops.correlation", "vid2vid_tpu_torch.ops.channelnorm",
+        "vid2vid_tpu_torch.ops.resize",
+        "vid2vid_tpu_torch.models.flownet2.nets",
+        "vid2vid_tpu_torch.models.flownet2.flownet2",
+        "vid2vid_tpu_torch.models.flownet2.wrapper",
+        "vid2vid_tpu_torch.models.flownet2.datasets",
+        "vid2vid_tpu_torch.models.flownet2.harness",
+        "vid2vid_tpu_torch.models.flownet2.main_cli",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []
@@ -84,3 +93,17 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         warp_blend(img, img, torch.zeros(1, 2, 6, 6, device=device),
                    torch.zeros(1, 1, 6, 6, device=device))
     assert respair.launches == before
+
+
+def test_flownet2_wrappers_never_take_the_plain_path_off_cpu():
+    """correlation and flow_warp on a non-CPU tensor go to the CUDA kernel's
+    checks, which reject a non-CUDA device; no launch is counted."""
+    device = "meta"
+    f = torch.zeros(1, 8, 6, 6, device=device)
+    before = (correlation.launches, flow_warp.launches)
+    with pytest.raises(ValueError, match="not CUDA"):
+        correlation(f, f)
+    img = torch.zeros(1, 3, 6, 6, device=device)
+    with pytest.raises(ValueError, match="not CUDA"):
+        flow_warp(img, torch.zeros(1, 2, 6, 6, device=device))
+    assert (correlation.launches, flow_warp.launches) == before

@@ -11,12 +11,21 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import randomize
+import jax.numpy as jnp
+
+import vid2vid_tpu.models.flownet2.nets as jax_flow_nets
+from torch_parity import init_like, randomize
 from vid2vid_tpu.config import Options
+from vid2vid_tpu.models.flownet2.flownet2 import FlowNet2 as JaxFlowNet2
 from vid2vid_tpu.models.generator import Vid2VidGenerator as JaxGenerator
-from vid2vid_tpu.utils.torch_import import apply_mapping
+from vid2vid_tpu.utils.torch_import import apply_mapping, flownet2_mapping
+from vid2vid_tpu_torch.models.flownet2 import nets as flow_nets
+from vid2vid_tpu_torch.models.flownet2.flownet2 import FlowNet2
 from vid2vid_tpu_torch.models.generator import Vid2VidGenerator
 from vid2vid_tpu_torch.utils.from_jax import (
+    flownet2_state_dict,
+    flownet_mapping,
+    flownet_state_dict,
     generator_mappings,
     generator_state_dict,
     jax_variables_to_state_dict,
@@ -105,3 +114,46 @@ def test_conversion_layouts():
     assert tuple(sd["convT.weight"].shape) == (4, 5, 2, 3)   # (I, O, kH, kW)
     assert sd["conv.weight"][1, 2, 0, 1] == hwio[0, 1, 2, 1]
     assert sd["convT.weight"][2, 1, 0, 1] == hwio[0, 1, 2, 1]
+
+
+def _jax_variables(module, *inputs, seed=0):
+    """Variables in the tree of `module`'s flax init, drawn with numpy."""
+    shapes = jax.eval_shape(module.init, jax.random.key(0), *inputs)
+    rng = np.random.default_rng(seed)
+    return randomize(init_like(shapes, rng), rng)
+
+
+def _round_trip(port, variables, mapping):
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    back = dict(_leaves(apply_mapping(sd, mapping)))
+    want = dict(_leaves(variables))
+    assert set(back) == set(want)
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg=str(path))
+
+
+def test_flownet2_strict_load_and_round_trip():
+    z = jnp.zeros((1, 64, 64, 3))
+    variables = _jax_variables(JaxFlowNet2(), z, z)
+    port = FlowNet2()
+    sd = flownet2_state_dict(variables)
+    assert set(sd) == set(port.state_dict())
+    result = port.load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    assert sum(p.numel() for p in port.parameters()) == 162_518_834
+    _round_trip(port, variables, flownet2_mapping())
+    # FlowNetS has no bias on its learned flow upsampling; C, SD, Fusion do
+    assert port.flownets_1.upsampled_flow6_to_5.bias is None
+    assert port.flownetc.upsampled_flow6_to_5.bias is not None
+
+
+@pytest.mark.parametrize(
+    "name,in_ch", [("FlowNetC", 6), ("FlowNetS", 6), ("FlowNetSD", 6), ("FlowNetFusion", 11)]
+)
+def test_standalone_flow_net_load_and_round_trip(name, in_ch):
+    variables = _jax_variables(getattr(jax_flow_nets, name)(), jnp.zeros((1, 64, 64, in_ch)))
+    kwargs = {} if name == "FlowNetC" else {"input_channels": in_ch}
+    port = getattr(flow_nets, name)(**kwargs)
+    result = port.load_state_dict(flownet_state_dict(variables, name), strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    _round_trip(port, variables, flownet_mapping(name))

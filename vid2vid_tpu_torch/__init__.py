@@ -2,13 +2,17 @@
 
 It keeps the JAX package's layout and names, so each module's counterpart
 is found by path:
-  ops/      — encoding, pyramids, the warp + blend and the residual block;
-              the last two launch hand-written CUDA kernels on a CUDA tensor
+  ops/      — encoding, pyramids, resize, channel norm, the flow warp (alone
+              and with the temporal blend), the residual block and the
+              FlowNetC correlation; the last four launch hand-written CUDA
+              kernels on a CUDA tensor
   csrc/     — the CUDA C++ sources of those kernels (sm_90a)
   kernels/  — nvcc build at first use, ctypes loading
   nn/       — the composite generators as torch.nn modules with the
               reference's state-dict names (NCHW)
-  models/   — the scale-stacked generator and the streaming inference engine
+  models/   — the scale-stacked generator, the streaming inference engine,
+              and flownet2/: the FlowNet2 reference-flow stack and its
+              standalone inference CLI
   utils/    — weights carried across from the JAX package
   test_cli  — the streaming inference CLI
 

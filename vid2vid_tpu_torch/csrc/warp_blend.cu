@@ -1,10 +1,14 @@
-// Bilinear border warp fused with the temporal blend, for Hopper (sm_90a).
+// Bilinear border warp, fused with the temporal blend or alone, for Hopper
+// (sm_90a).
 //
 // Replaces the forward of vid2vid_tpu/ops/warp.py::flow_warp (a custom_vjp
 // in the JAX package, not a Pallas kernel) together with the blend of
 // vid2vid_tpu/nn/composite.py::_blend; the reference ran the warp as a CUDA
-// op (resample2d). It computes
-//     out = raw * w + bilinear_border(prev, flow) * (1 - w)
+// op (resample2d). Two entries share one kernel template:
+//   v2v_warp_blend:  out = raw * w + bilinear_border(prev, flow) * (1 - w)
+//   v2v_flow_warp:   out = bilinear_border(image, flow)
+// the second for the unfused callers (FlowNet2's four warps and the
+// FlowEstimator confidence, models/flownet2/{flownet2,wrapper}.py).
 // prev, raw: (B, C, H, W); flow: (B, 2, H, W), channel 0 = dx in pixels;
 // w: (B, 1, H, W). Every output pixel samples prev at (x + dx, y + dy) with
 // the floor / clamp semantics of flow_warp_ref (warp.py:57-82): corner
@@ -28,11 +32,42 @@ namespace {
 
 constexpr int NTHREADS = 256;
 
+// Sample one channel plane at the bilinear taps of (sx, sy), the
+// flow_warp_ref arithmetic: corner indices clamped to the image, fractional
+// weights from the unclamped coordinate, all in f32.
+struct Taps {
+  size_t i00, i01, i10, i11;
+  float wx, wy;
+};
+
+__device__ __forceinline__ Taps bilinear_taps(float sx, float sy, int H, int W) {
+  const float fx = floorf(sx);
+  const float fy = floorf(sy);
+  // clamp before the int conversion; indices clamp to the same texels
+  const int x0 = (int)fminf(fmaxf(fx, -1.f), (float)W);
+  const int y0 = (int)fminf(fmaxf(fy, -1.f), (float)H);
+  const int x0c = min(max(x0, 0), W - 1);
+  const int x1c = min(max(x0 + 1, 0), W - 1);
+  const int y0c = min(max(y0, 0), H - 1);
+  const int y1c = min(max(y0 + 1, 0), H - 1);
+  return {(size_t)y0c * W + x0c, (size_t)y0c * W + x1c,
+          (size_t)y1c * W + x0c, (size_t)y1c * W + x1c, sx - fx, sy - fy};
+}
+
 template <typename T>
+__device__ __forceinline__ float sample(const T* p, const Taps& t) {
+  const float top = to_f(p[t.i00]) * (1.f - t.wx) + to_f(p[t.i01]) * t.wx;
+  const float bot = to_f(p[t.i10]) * (1.f - t.wx) + to_f(p[t.i11]) * t.wx;
+  return top * (1.f - t.wy) + bot * t.wy;
+}
+
+// BLEND: out = raw * w + warp(prev) * (1 - w); otherwise out = warp(prev)
+// and raw / weight are not read.
+template <typename T, bool BLEND>
 __global__ void __launch_bounds__(NTHREADS)
-warp_blend_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
-                  const T* __restrict__ flow, const T* __restrict__ weight,
-                  T* __restrict__ out, int B, int C, int H, int W) {
+warp_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
+            const T* __restrict__ flow, const T* __restrict__ weight,
+            T* __restrict__ out, int B, int C, int H, int W) {
   const size_t hw = (size_t)H * W;
   const size_t i = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
   if (i >= (size_t)B * hw) return;
@@ -43,43 +78,43 @@ warp_blend_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
 
   const float sx = (float)x + to_f(flow[((size_t)b * 2 + 0) * hw + pix]);
   const float sy = (float)y + to_f(flow[((size_t)b * 2 + 1) * hw + pix]);
-  const float fx = floorf(sx);
-  const float fy = floorf(sy);
-  const float wx = sx - fx;
-  const float wy = sy - fy;
-  // clamp before the int conversion; indices clamp to the same texels
-  const int x0 = (int)fminf(fmaxf(fx, -1.f), (float)W);
-  const int y0 = (int)fminf(fmaxf(fy, -1.f), (float)H);
-  const int x0c = min(max(x0, 0), W - 1);
-  const int x1c = min(max(x0 + 1, 0), W - 1);
-  const int y0c = min(max(y0, 0), H - 1);
-  const int y1c = min(max(y0 + 1, 0), H - 1);
-  const float wb = to_f(weight[(size_t)b * hw + pix]);
+  const Taps taps = bilinear_taps(sx, sy, H, W);
+  const float wb = BLEND ? to_f(weight[(size_t)b * hw + pix]) : 0.f;
 
   for (int ch = 0; ch < C; ++ch) {
     const size_t base = ((size_t)b * C + ch) * hw;
-    const T* p = prev + base;
-    const float v00 = to_f(p[(size_t)y0c * W + x0c]);
-    const float v01 = to_f(p[(size_t)y0c * W + x1c]);
-    const float v10 = to_f(p[(size_t)y1c * W + x0c]);
-    const float v11 = to_f(p[(size_t)y1c * W + x1c]);
-    const float top = v00 * (1.f - wx) + v01 * wx;
-    const float bot = v10 * (1.f - wx) + v11 * wx;
-    const float warped = top * (1.f - wy) + bot * wy;
-    out[base + pix] = from_f<T>(to_f(raw[base + pix]) * wb + warped * (1.f - wb));
+    const float warped = sample(prev + base, taps);
+    out[base + pix] = from_f<T>(
+        BLEND ? to_f(raw[base + pix]) * wb + warped * (1.f - wb) : warped);
   }
 }
 
-template <typename T>
+template <typename T, bool BLEND>
 void launch(const void* raw, const void* prev, const void* flow,
             const void* weight, void* out, int B, int C, int H, int W,
             cudaStream_t stream) {
   const size_t n = (size_t)B * H * W;
   const unsigned blocks = (unsigned)((n + NTHREADS - 1) / NTHREADS);
-  warp_blend_kernel<T><<<blocks, NTHREADS, 0, stream>>>(
+  warp_kernel<T, BLEND><<<blocks, NTHREADS, 0, stream>>>(
       static_cast<const T*>(raw), static_cast<const T*>(prev),
       static_cast<const T*>(flow), static_cast<const T*>(weight),
       static_cast<T*>(out), B, C, H, W);
+}
+
+template <bool BLEND>
+int dispatch(const void* raw, const void* prev, const void* flow,
+             const void* weight, void* out, int B, int C, int H, int W,
+             int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B * H * W == 0) return (int)cudaSuccess;  // nothing to launch
+  if (dtype == kFloat32) {
+    launch<float, BLEND>(raw, prev, flow, weight, out, B, C, H, W, s);
+  } else if (dtype == kBFloat16) {
+    launch<__nv_bfloat16, BLEND>(raw, prev, flow, weight, out, B, C, H, W, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -89,13 +124,13 @@ extern "C" int v2v_warp_blend(const void* raw, const void* prev,
                               const void* flow, const void* weight, void* out,
                               int B, int C, int H, int W, int dtype,
                               void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == v2v::kFloat32) {
-    v2v::launch<float>(raw, prev, flow, weight, out, B, C, H, W, s);
-  } else if (dtype == v2v::kBFloat16) {
-    v2v::launch<__nv_bfloat16>(raw, prev, flow, weight, out, B, C, H, W, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return v2v::dispatch<true>(raw, prev, flow, weight, out, B, C, H, W, dtype,
+                             stream);
+}
+
+extern "C" int v2v_flow_warp(const void* image, const void* flow, void* out,
+                             int B, int C, int H, int W, int dtype,
+                             void* stream) {
+  return v2v::dispatch<false>(nullptr, image, flow, nullptr, out, B, C, H, W,
+                              dtype, stream);
 }

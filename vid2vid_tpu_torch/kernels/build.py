@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/*.cu` compile with nvcc, in one invocation, into one shared library
-with a plain C interface under `build/vid2vid_tpu_torch/` at the root of
-the checkout; the file name carries a hash of the sources and flags, so a
-changed source builds anew and an unchanged one is reused. The library is
+`csrc/*.cu` compile with nvcc, one process per source, all started
+together, and link into one shared library with a plain C interface under
+`build/vid2vid_tpu_torch/` at the root of the checkout; the file name
+carries a hash of the sources and flags, so a changed source builds anew
+and an unchanged one is reused. The library is
 loaded with ctypes. Nothing here runs at import: the build happens at the
 first kernel launch (or an explicit `library()` call).
 """
@@ -24,10 +25,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "vid2vid_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def _sources() -> list[Path]:
@@ -57,31 +56,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libv2v_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and wait for every one; raise on the
+    first that failed, with its output. Returns each one's output."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    return logs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu for sm_90a unless the hashed library exists."""
     out = library_path()
     if out.exists():
         return out
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else [])
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a temporary name, then rename: a cut build leaves no
+    # build into a temporary directory, then rename: a cut build leaves no
     # half-written library behind under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd += ["-o", tmp, *(str(s) for s in _sources() if s.suffix == ".cu")]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        sources = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        logs = _run_all([
+            [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+            for src, obj in zip(sources, objs)
+        ])
+        lib = os.path.join(tmp, out.name)
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
         if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print("".join(logs))
+        os.replace(lib, out)
     return out
 
 

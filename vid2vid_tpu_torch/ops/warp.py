@@ -3,7 +3,10 @@
 `flow_warp(image, flow)` samples `image` at pixel coordinates (x + u, y + v),
 bilinearly, with the coordinates clamped to the border: the semantics of
 vid2vid_tpu/ops/warp.py::flow_warp_ref, computed with the same f32 floor /
-clamp arithmetic. It equals the reference's
+clamp arithmetic. On a CUDA tensor it launches the hand-written kernel in
+csrc/warp_blend.cu (the unfused entry `v2v_flow_warp`), on a CPU tensor
+`flow_warp_plain`; FlowNet2 and its confidence call it unfused. It equals
+the reference's
 `F.grid_sample(image, grid, mode="bilinear", padding_mode="border",
 align_corners=True)` over a normalized [-1, 1] meshgrid plus the
 normalized flow, up to the rounding of the normalization round trip
@@ -39,8 +42,9 @@ def _check_flow(image: torch.Tensor, flow: torch.Tensor) -> None:
         )
 
 
-def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy)."""
+def flow_warp_plain(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy), in
+    plain PyTorch (gathers)."""
     _check_flow(image, flow)
     b, c, h, w = image.shape
     flow = flow.float()
@@ -73,11 +77,39 @@ def warp_blend_plain(
     raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor, weight: torch.Tensor
 ) -> torch.Tensor:
     """raw * w + flow_warp(prev, flow) * (1 - w) in plain PyTorch."""
-    return raw * weight + flow_warp(prev, flow) * (1.0 - weight)
+    return raw * weight + flow_warp_plain(prev, flow) * (1.0 - weight)
 
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+
+
+def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy).
+
+    A CPU tensor takes `flow_warp_plain`; a CUDA tensor launches the kernel
+    (image and flow in one dtype, f32 or bf16, contiguous) or raises.
+    """
+    _check_flow(image, flow)
+    if image.device.type == "cpu":
+        return flow_warp_plain(image, flow)
+    code = build.require_cuda_operands(
+        "flow_warp", image.device, image.dtype, image=image, flow=flow
+    )
+    fn = build.function("v2v_flow_warp", [_VOID] * 3 + [_INT] * 5 + [_VOID])
+    b, c, h, w = image.shape
+    out = torch.empty_like(image)
+    with torch.cuda.device(image.device):  # launch on the operands' card
+        err = fn(
+            image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, c, h, w, code,
+            torch.cuda.current_stream(image.device).cuda_stream,
+        )
+    build.check(err, "flow_warp kernel launch")
+    flow_warp.launches += 1
+    return out
+
+
+flow_warp.launches = 0
 
 
 def warp_blend(

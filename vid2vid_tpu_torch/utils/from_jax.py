@@ -23,7 +23,19 @@ from vid2vid_tpu.config import Options
 from vid2vid_tpu.utils.torch_import import (
     composite_generator_mapping,
     composite_local_mapping,
+    flownet2_mapping,
+    flownet_c_mapping,
+    flownet_fusion_mapping,
+    flownet_s_mapping,
+    flownet_sd_mapping,
 )
+
+_FLOWNET_MAPPINGS = {
+    "FlowNetC": flownet_c_mapping,
+    "FlowNetS": flownet_s_mapping,
+    "FlowNetSD": flownet_sd_mapping,
+    "FlowNetFusion": flownet_fusion_mapping,
+}
 
 # output channels of the keys that the JAX package concatenates
 _CONCAT_WIDTHS = {"model_final_flow": 2, "model_final_w": 1}
@@ -91,3 +103,21 @@ def generator_state_dict(params: dict, opt: Options) -> dict:
         sd = jax_variables_to_state_dict(params[f"G{s}"], mapping)
         out.update({f"G{s}.{k}": v for k, v in sd.items()})
     return out
+
+
+def flownet_mapping(name: str) -> list:
+    """The torch_import mapping of one standalone flow net ('FlowNetC',
+    'FlowNetS', 'FlowNetSD' or 'FlowNetFusion'): the reference's keys and
+    the flax paths of the net on its own, without FlowNet2's prefix."""
+    raw = _FLOWNET_MAPPINGS[name]("_")
+    return [(key[2:], (path[0],) + path[2:], kind) for key, path, kind in raw]
+
+
+def flownet_state_dict(variables: dict, name: str) -> dict:
+    """JAX variables of one standalone flow net -> the port's state_dict."""
+    return jax_variables_to_state_dict(variables, flownet_mapping(name))
+
+
+def flownet2_state_dict(variables: dict) -> dict:
+    """JAX FlowNet2 variables -> the port's FlowNet2 state_dict."""
+    return jax_variables_to_state_dict(variables, flownet2_mapping())
