@@ -10,20 +10,28 @@ non-zero):
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds, ptxas report);
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
-     bf16, correlation (FlowNetC, f32) and flow_warp (FlowNet2, f32 and
-     bf16);
+     bf16, correlation (FlowNetC, f32), flow_warp (FlowNet2, f32 and bf16),
+     and the warp backward (training): warp_blend's and flow_warp's;
   4. small-input references: the port on the card (kernels) against the
      port on the CPU (plain versions), same weights, f32: the label2city
-     generator and the FlowNet2 FlowEstimator;
+     generator, the FlowNet2 FlowEstimator (4b) and two training chunks
+     (4c);
   5. the label2city path: the flagship configuration at 2048x1024
      (3 scales, ngf 128, fg, instance edges, bf16) streaming frames through
      InferenceEngine.step, with every kernel's launch count checked;
   5b. the FlowNet2 reference-flow path: FlowEstimator at full FlowNet2
      width (162.5M parameters, f32) on (B=1, T=2) pairs of 1024x2048
      frames, with every kernel's launch count checked;
-  6. kernel and plain times at the paths' shapes.
+  7. the training path: Trainer.train_clip at the 512x256 label2city
+     training recipe's full width (ngf 128, bf16 generator, remat, two
+     temporal scales) with the FlowEstimator reference flow, timed per
+     chunk, with the kernels' launch counts and a torch.profiler breakdown
+     of one chunk's device time by kernel family;
+  6. kernel, plain and library-call times at the paths' shapes, and each
+     kernel's bound (the least time the card could take for its work).
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
+Long tables go to build/chip_smoke_profile.txt.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -38,11 +47,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-from vid2vid_tpu.config import Options  # noqa: E402
+from vid2vid_tpu_torch.config import Options  # noqa: E402
+from vid2vid_tpu_torch.data.synthetic import moving_square_clip  # noqa: E402
 from vid2vid_tpu_torch.kernels import build  # noqa: E402
 from vid2vid_tpu_torch.models.flownet2.nets import init_flownet_weights  # noqa: E402
 from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator  # noqa: E402
@@ -52,12 +63,18 @@ from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain  # 
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain  # noqa: E402
 from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
     flow_warp,
+    flow_warp_backward_plain,
+    flow_warp_bwd,
     flow_warp_plain,
     warp_blend,
+    warp_blend_backward_plain,
+    warp_blend_bwd,
     warp_blend_plain,
 )
+from vid2vid_tpu_torch.train.loop import Trainer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
+OUT_DIR = "build"  # listed in .gitignore
 
 # (C, H, W, calls per frame) of every respair on the main path at 2048x1024
 RESPAIR_SHAPES = [
@@ -73,12 +90,31 @@ WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
 CORR_SHAPES = [(2, 256, 128, 256), (2, 256, 64, 128), (2, 256, 32, 64)]
 # (B, C, H, W) of FlowNet2's five unfused warps per FlowEstimator call
 FLOW_WARP_SHAPE = (2, 3, 1024, 2048)
+# the warp backward's checks: (kernel, (B, C, H, W), dtype). The training
+# path's shapes at 512x256 (the generator's blend per frame, the F_Warp
+# loss over the chunk's two frames) and one 1024x2048 shape
+BWD_CHECKS = [
+    ("warp_blend_bwd", (2, 3, 256, 512), torch.bfloat16),
+    ("warp_blend_bwd", (2, 3, 256, 512), torch.float32),
+    ("flow_warp_bwd", (2, 3, 256, 512), torch.float32),
+    ("flow_warp_bwd", (2, 3, 1024, 2048), torch.float32),
+]
+# (kernel, (B, C, H, W), dtype, calls per training chunk) on the training
+# path: two blends of one frame each in bf16, one F_Warp loss in f32
+BWD_PATH = {
+    "warp_blend_bwd": ((1, 3, 256, 512), torch.bfloat16, 2),
+    "flow_warp_bwd": ((2, 3, 256, 512), torch.float32, 1),
+}
 
 # Tolerances, kernel vs plain on the same inputs. The plain reference runs
 # in f32 with TF32 off. bf16: the kernel's inputs are bf16 and the plain
 # version runs in f32 on the same (upcast) values. The warp bf16 bound adds
 # rtol 4e-3 to atol 1e-2: the kernel's only rounding is the final store to
 # bf16, up to 2**-8 of the value, which exceeds 1e-2 where |out| > 2.56.
+# The backward's image gradient sums with f32 atomics in an order that
+# changes from run to run: f32 rounding of up to ~100 terms of O(1) where
+# the border gathers many samples, hence atol 1e-4 + rtol 1e-5; in bf16 the
+# store to bf16 adds up to 2**-8 of the value.
 TOL = {
     ("respair", torch.float32): dict(atol=1e-3, rtol=1e-4),
     ("respair", torch.bfloat16): dict(atol=5e-2, rtol=2e-2),
@@ -89,9 +125,20 @@ TOL = {
     # the correlation is a multiply-sum on the CUDA cores in both versions
     # (TF32 never touches it); only the summation order differs
     ("correlation", torch.float32): dict(atol=1e-5, rtol=1e-5),
+    ("warp_blend_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
+    ("warp_blend_bwd", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
+    ("flow_warp_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
 }
 KERNELS = {"respair": respair, "warp_blend": warp_blend,
-           "flow_warp": flow_warp, "correlation": correlation}
+           "flow_warp": flow_warp, "correlation": correlation,
+           "warp_blend_bwd": warp_blend_bwd, "flow_warp_bwd": flow_warp_bwd}
+PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
+         "flow_warp": flow_warp_plain, "correlation": correlation_plain,
+         "warp_blend_bwd": warp_blend_backward_plain,
+         "flow_warp_bwd": flow_warp_backward_plain}
+# the H100 SXM's published peaks (dense): HBM bytes/s; FLOP/s in bf16 on
+# the tensor cores and in f32 on the CUDA cores
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 FLAGSHIP = dict(
     label_nc=35, use_instance=True, fg=True, fg_labels=(26,), ngf=128,
     n_downsample_G=3, n_blocks=9, n_blocks_local=3, n_scales_spatial=3,
@@ -102,6 +149,30 @@ SMALL = dict(
     n_downsample_G=2, n_blocks=3, n_blocks_local=1, n_scales_spatial=2,
     n_frames_G=3, norm="batch", isTrain=False,
 )
+# the 512x256 label2city training recipe at full width (bench.py's
+# bench_train; recipes/street/train_512.sh on one card: loadSize 512,
+# n_frames_total 6, max_frames_per_gpu 2, with bf16 and remat)
+TRAIN_RECIPE = dict(
+    label_nc=35, use_instance=True, fg=True, fg_labels=(26,), ngf=128,
+    n_downsample_G=3, n_blocks=9, n_scales_spatial=1, n_frames_G=3,
+    n_frames_D=3, n_scales_temporal=2, n_frames_total=6, max_frames_per_gpu=2,
+    norm="batch", bf16=True, remat=True, isTrain=True, fineSize=512,
+)
+# a small training configuration for the card-vs-CPU reference (f32)
+SMALL_TRAIN = dict(
+    label_nc=4, use_instance=True, fg=True, fg_labels=(1,), ngf=16,
+    n_downsample_G=2, n_blocks=2, n_scales_spatial=1, n_frames_G=3,
+    n_frames_D=3, n_scales_temporal=1, ndf=16, num_D=2, n_layers_D=2,
+    n_frames_total=6, max_frames_per_gpu=3, norm="batch", bf16=False,
+    remat=False, isTrain=True, fineSize=128,
+)
+# every loss scalar the training reference compares, and the grad norms
+TRAIN_KEYS = [
+    "G_VGG", "G_GAN", "G_GAN_Feat", "G_Warp", "F_Flow", "F_Warp", "W",
+    "D_real", "D_fake", "G_T_GAN0", "G_T_GAN_Feat0", "D_T_real0", "D_T_fake0",
+    "loss_G_total", "loss_D_total",
+]
+GRAD_KEYS = ["G_grad_norm", "D_grad_norm", "D_T_grad_norm0"]
 
 
 def say(phase: str, **kv) -> None:
@@ -136,11 +207,28 @@ def warp_case(h, w, dtype, gen):
     return tuple(t.to(DEV, dtype) for t in (raw, prev, flow, weight))
 
 
-def flow_warp_case(dtype, gen):
-    b, c, h, w = FLOW_WARP_SHAPE
+def flow_warp_case(dtype, gen, shape=FLOW_WARP_SHAPE):
+    b, c, h, w = shape
     image = torch.randn((b, c, h, w), generator=gen)
     flow = 8.0 * torch.randn((b, 2, h, w), generator=gen)  # past the borders too
     return tuple(t.to(DEV, dtype) for t in (image, flow))
+
+
+def bwd_case(name, shape, dtype, gen):
+    """The backward's arguments: flows of several pixels with integer flows
+    (JAX's half-gradient tie rule) on the top eighth, and a cotangent."""
+    b, c, h, w = shape
+    image = torch.randn((b, c, h, w), generator=gen)
+    flow = 8.0 * torch.randn((b, 2, h, w), generator=gen)
+    flow[:, :, : h // 8] = torch.round(flow[:, :, : h // 8])
+    g = torch.randn((b, c, h, w), generator=gen)
+    if name == "flow_warp_bwd":
+        args = (image, flow, g)
+    else:
+        raw = torch.randn((b, c, h, w), generator=gen)
+        weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=gen))
+        args = (raw, image, flow, weight, g)
+    return tuple(t.to(DEV, dtype) for t in args)
 
 
 def corr_case(shape, gen):
@@ -161,20 +249,25 @@ def upcast(args):
             for a in args]
 
 
-def compare(name, kernel, plain, args, dtype):
-    got = kernel(*args).float()
+def compare(name, args, dtype):
+    """Max abs error of the kernel against its plain version (every output);
+    raises outside the tolerance."""
+    got = KERNELS[name](*args)
     torch.cuda.synchronize()
-    want = plain(*upcast(args))
-    err = (got - want).abs()
+    want = PLAIN[name](*upcast(args))
+    got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
     tol = TOL[(name, dtype)]
-    bound = tol["atol"] + tol["rtol"] * want.abs()
-    bad = int((err > bound).sum())
-    if bad or not torch.isfinite(got).all():
-        raise AssertionError(
-            f"{name} {tuple(args[0].shape)} {dtype}: {bad} elements outside "
-            f"{tol}, max abs err {float(err.max()):.3g}"
-        )
-    return float(err.max())
+    worst = 0.0
+    for g, w in zip(got, want):
+        err = (g.float() - w).abs()
+        bad = int((err > tol["atol"] + tol["rtol"] * w.abs()).sum())
+        if bad or not torch.isfinite(g).all() or g.dtype != dtype:
+            raise AssertionError(
+                f"{name} {tuple(args[0].shape)} {dtype}: {bad} elements outside "
+                f"{tol}, max abs err {float(err.max()):.3g}, out dtype {g.dtype}"
+            )
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def time_ms(fn, args) -> float:
@@ -193,6 +286,52 @@ def time_ms(fn, args) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# ------------------------------------------------ library calls and bounds
+
+
+def sampling_grid(flow: torch.Tensor) -> torch.Tensor:
+    """The normalized [-1, 1] grid of flow_warp for F.grid_sample
+    (align_corners=True): pixel (x + u, y + v) of (B, 2, H, W) flow."""
+    b, _, h, w = flow.shape
+    ys = torch.arange(h, device=flow.device, dtype=torch.float32).view(1, h, 1)
+    xs = torch.arange(w, device=flow.device, dtype=torch.float32).view(1, 1, w)
+    gx = (xs + flow[:, 0].float()) * (2.0 / (w - 1)) - 1.0
+    gy = (ys + flow[:, 1].float()) * (2.0 / (h - 1)) - 1.0
+    return torch.stack([gx, gy], -1).to(flow.dtype)
+
+
+def grid_sample(image, grid):
+    return F.grid_sample(image, grid, mode="bilinear", padding_mode="border",
+                         align_corners=True)
+
+
+def grid_sample_backward(image, flow, g):
+    """A function running F.grid_sample's autograd backward (the image's and
+    the grid's gradients) for the cotangent g, on a graph built once."""
+    img = image.detach().clone().requires_grad_()
+    grid = sampling_grid(flow).requires_grad_()
+    out = grid_sample(img, grid)
+    return lambda: torch.autograd.grad(out, (img, grid), g, retain_graph=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def warp_work(shape, dtype, n_read_ch, n_write_ch, flop_per_elem):
+    """(bytes, operations) of a warp-family call on (B, C, H, W): the
+    channel counts read and written per pixel, each once."""
+    b, c, h, w = shape
+    size = torch.tensor([], dtype=dtype).element_size()
+    return ((n_read_ch + n_write_ch) * b * h * w * size, flop_per_elem * b * c * h * w)
+
+
+# ----------------------------------------------------------------- phases
 
 
 def seeded_engine(opt: Options, device, seed: int) -> InferenceEngine:
@@ -223,7 +362,7 @@ def seeded_flow_estimator(device, seed: int, tf32_seen: list) -> FlowEstimator:
 @contextlib.contextmanager
 def torch_default_tf32():
     """PyTorch's default TF32 flags (cuDNN on, matmul off) for the block, so
-    a FlowEstimator phase measures the precision the module sets itself."""
+    a phase measures the precision the modules set themselves."""
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -263,55 +402,153 @@ def label_stream(opt: Options, frames: int, h: int, w: int):
     return labels, inst
 
 
-def main() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    card = smi()
+def stub_flow(cur, prev):
+    """A deterministic stand-in for FlowNet2 on (B, T, 3, H, W) frames (the
+    training reference's; tests/test_train_oracle.py uses it too)."""
+    d = cur - prev
+    flow = torch.stack([2.0 * torch.tanh(3.0 * d[:, :, 0]),
+                        2.0 * torch.tanh(3.0 * d[:, :, 1])], 2)
+    return flow, torch.sigmoid(d[:, :, 2:3])
 
-    # 1. device
-    say("device", kind=repr(kind), smi=repr(card), count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda,
-        python=sys.version.split()[0])
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = build.build(verbose=True)
-    build.library()
-    say("build", seconds=f"{time.perf_counter() - t0:.2f}", lib=lib_path.name)
+def train_reference(n_chunks: int) -> dict:
+    """n_chunks chunks of three frames of the small training configuration,
+    in step on the CPU and on the card from the same seeded weights: the
+    per-chunk loss dicts of each device. Before each later chunk the card
+    takes the CPU's weights and Adam moments, so every chunk starts from the
+    same weights: Adam's first steps move each weight by about lr whatever
+    the size of its gradient, so a gradient near zero that differs in sign
+    between the devices would otherwise set the weights apart by 2 lr."""
+    opt = Options(**SMALL_TRAIN)
+    trainers = {d: Trainer(opt, flow_fn=stub_flow, device=d) for d in ("cpu", DEV)}
+    states = {d: t.init_state() for d, t in trainers.items()}
+    carries = {d: t.start_clip() for d, t in trainers.items()}
+    n_load = opt.max_frames_per_gpu
+    t_len = n_load + opt.n_frames_G - 1
+    labels, frames = moving_square_clip(
+        np.random.default_rng(2), n_chunks * n_load + t_len - n_load, 64, 128, 4)
+    labels, frames = torch.from_numpy(labels), torch.from_numpy(frames)
+    # texture, so the VGG and warp losses see more than flat colours
+    frames = (frames + 0.3 * torch.sin(torch.arange(128.0) / 5.0)).clamp(-1, 1)
+    out = {d: [] for d in trainers}
+    for i in range(0, n_chunks * n_load, n_load):
+        for d, trainer in trainers.items():
+            states[d], carries[d], losses = trainer.train_chunk(
+                states[d], carries[d], labels[:, i : i + t_len],
+                frames[:, i : i + t_len], labels[:, i : i + t_len])
+            out[d].append(losses)
+        src, dst = states["cpu"], states[DEV]
+        for name in ("gen", "engine", "opt_g", "opt_d"):
+            getattr(dst, name).load_state_dict(getattr(src, name).state_dict())
+        for o_src, o_dst in zip(src.opt_dt, dst.opt_dt):
+            o_dst.load_state_dict(o_src.state_dict())
+    return out
 
-    # 3. kernels vs plain at the paths' shapes
-    gen = torch.Generator().manual_seed(0)
+
+def out_of_bounds(got: list[dict], want: list[dict]) -> list[str]:
+    """The keys outside tests/test_train_oracle.py's bounds: losses 2e-4
+    (rtol and atol) in chunk 1 and 2e-2 in chunk 2, grad norms rtol 5e-3
+    and 5e-2 with atol 5e-4."""
+    bad = []
+    for chunk, (g, w) in enumerate(zip(got, want)):
+        tol, gtol = (2e-4, 5e-3) if chunk == 0 else (2e-2, 5e-2)
+        bad += [f"chunk {chunk} {k}: {g[k]} vs {w[k]}" for k in TRAIN_KEYS
+                if not math.isclose(g[k], w[k], rel_tol=tol, abs_tol=tol)]
+        bad += [f"chunk {chunk} {k}: {g[k]} vs {w[k]}" for k in GRAD_KEYS
+                if not math.isclose(g[k], w[k], rel_tol=gtol, abs_tol=5e-4)]
+    return bad
+
+
+DEVICE_TIME = ("self_device_time_total", "self_cuda_time_total")
+FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("warp kernels (ours)", ("warp_kernel", "warp_bwd_kernel")),
+    ("correlation (ours)", ("corr",)),
+    ("conv / gemm (cuDNN, cuBLAS)", ("conv", "cudnn", "gemm", "xmma", "wgrad", "dgrad",
+                                      "fprop", "cutlass", "winograd", "implicit")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+    ("optimizer (Adam)", ("adam", "multi_tensor")),
+    ("reductions", ("reduce",)),
+    ("pool / resize", ("pool", "upsample", "grid_sampler", "interpolate")),
+    ("elementwise / copy / cat", ("elementwise", "vectorized", "copy", "cat", "fill",
+                                  "index", "gather", "scatter")),
+]
+
+
+def profile_by_family(fn) -> tuple[list, float, float]:
+    """Run fn once under torch.profiler: (families sorted by device time
+    [(family, ms, kernel count)], total kernel ms, wall ms). Only the
+    kernels' own rows count: an operator's row, and a user annotation's
+    (Optimizer.step), repeat their kernels' time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    fams: dict[str, list] = {}
+    rows = []
+    for evt in prof.key_averages():
+        us = next((getattr(evt, a) for a in DEVICE_TIME if hasattr(evt, a)), 0.0)
+        if (us <= 0 or evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)
+                or evt.key.startswith(("Command Buffer", "Memcpy", "Memset"))):
+            continue
+        name = evt.key.lower()
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        entry = fams.setdefault(fam, [0.0, 0])
+        entry[0] += us / 1e3
+        entry[1] += evt.count
+        rows.append((us / 1e3, evt.count, fam, evt.key[:120]))
+    rows.sort(reverse=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as fh:
+        fh.write(f"one training chunk, wall {wall:.3f} ms\n")
+        for ms, n, fam, key in rows:
+            fh.write(f"{ms:10.4f} ms {n:6d}x  {fam:28s} {key}\n")
+    table = sorted(((f, v[0], v[1]) for f, v in fams.items()), key=lambda r: -r[1])
+    return table, sum(v[0] for v in fams.values()), wall
+
+
+def check_kernels(gen: torch.Generator) -> dict:
+    """Phase 3: every kernel against its plain version at its paths' shapes;
+    returns the max abs errors by kernel and dtype."""
     errs = {name: {} for name in KERNELS}
+
+    def record(name, dtype, e, shape):
+        errs[name][dtype] = max(errs[name].get(dtype, 0.0), e)
+        tol = TOL[(name, dtype)]
+        say("check", kernel=name, shape="x".join(map(str, shape)),
+            dtype=str(dtype)[6:], max_abs_err=f"{e:.3g}",
+            bound=f"{tol['atol']}+{tol['rtol']}*|plain|", ok=True)
+
     for dtype in (torch.float32, torch.bfloat16):
         for c, h, w, _ in RESPAIR_SHAPES:
             args = respair_case(c, h, w, dtype, gen)
-            e = compare("respair", respair, respair_plain, args, dtype)
-            errs["respair"][dtype] = max(errs["respair"].get(dtype, 0.0), e)
-            say("check", kernel="respair", shape=f"{c}x{h}x{w}",
-                dtype=str(dtype)[6:], max_abs_err=f"{e:.3g}", ok=True)
+            record("respair", dtype, compare("respair", args, dtype), (c, h, w))
         for h, w in WARP_SHAPES:
             args = warp_case(h, w, dtype, gen)
-            e = compare("warp_blend", warp_blend, warp_blend_plain, args, dtype)
-            errs["warp_blend"][dtype] = max(errs["warp_blend"].get(dtype, 0.0), e)
-            say("check", kernel="warp_blend", shape=f"3x{h}x{w}",
-                dtype=str(dtype)[6:], max_abs_err=f"{e:.3g}", ok=True)
+            record("warp_blend", dtype, compare("warp_blend", args, dtype), (3, h, w))
         args = flow_warp_case(dtype, gen)
-        e = compare("flow_warp", flow_warp, flow_warp_plain, args, dtype)
-        errs["flow_warp"][dtype] = e
-        say("check", kernel="flow_warp", shape="x".join(map(str, FLOW_WARP_SHAPE)),
-            dtype=str(dtype)[6:], max_abs_err=f"{e:.3g}", ok=True)
+        record("flow_warp", dtype, compare("flow_warp", args, dtype), FLOW_WARP_SHAPE)
         del args
     for shape in CORR_SHAPES:
         args = corr_case(shape, gen)
-        e = compare("correlation", correlation, correlation_plain, args, torch.float32)
-        errs["correlation"][torch.float32] = max(
-            errs["correlation"].get(torch.float32, 0.0), e)
-        say("check", kernel="correlation", shape="x".join(map(str, shape)),
-            dtype="float32", max_abs_err=f"{e:.3g}", ok=True)
+        record("correlation", torch.float32,
+               compare("correlation", args, torch.float32), shape)
         del args
+    for name, shape, dtype in BWD_CHECKS:
+        args = bwd_case(name, shape, dtype, gen)
+        record(name, dtype, compare(name, args, dtype), shape)
+        del args
+    return errs
 
-    # 4. small-input reference: card (kernels) vs CPU (plain), f32
+
+def reference_generator() -> None:
+    """Phase 4: the small label2city generator, card (kernels) vs CPU
+    (plain), f32."""
     opt_s = Options(**SMALL)
     h_s, w_s = 64, 256
     labels, inst = label_stream(opt_s, 3, h_s, w_s)
@@ -329,12 +566,13 @@ def main() -> None:
         raise AssertionError(f"small reference: card vs CPU max abs err {small_err}")
     say("reference", config="small 64x256 f32", frames=3,
         max_abs_err=f"{small_err:.3g}", bound=2e-3, ok=True)
-    del engines, frames
 
-    # 4b. FlowEstimator on one (B=1, T=2) pair stack at 96x160 (the //64
-    # resize round trip): card vs CPU, same weights, f32; the bounds of
-    # tests/test_flownet2_oracle.py:406-410. PyTorch's default TF32 flags:
-    # the estimator turns cuDNN's TF32 off itself
+
+def reference_flow() -> None:
+    """Phase 4b: FlowEstimator on one (B=1, T=2) pair stack at 96x160 (the
+    //64 resize round trip): card vs CPU, same weights, f32; the bounds of
+    tests/test_flownet2_oracle.py:406-410. PyTorch's default TF32 flags:
+    the estimator turns cuDNN's TF32 off itself."""
     im1, im2 = frame_pairs(2, 96, 160, seed=1)
     outs, tf32_seen = {}, []
     for d in ("cpu", DEV):
@@ -353,9 +591,36 @@ def main() -> None:
         conf_share_within_1e3=f"{conf_ok:.5f}", conf_bound=0.99,
         flow_abs_max=f"{float(outs['cpu'][0].abs().max()):.3g}",
         conf_mean=f"{float(outs['cpu'][1].mean()):.4g}", ok=True)
-    del est, outs
 
-    # 5. the main path at full width
+
+def reference_training() -> None:
+    """Phase 4c: two training chunks of a small configuration at 128x64,
+    f32: the card (kernels, forward and backward) against the CPU (plain),
+    each chunk from the same weights (see train_reference) and the same
+    clip, PyTorch's default TF32 flags (the training steps turn cuDNN's
+    TF32 off themselves); the bounds of tests/test_train_oracle.py."""
+    reset_launches()
+    with torch_default_tf32():
+        ref_losses = train_reference(2)
+    ref_launches = read_launches()
+    bad = out_of_bounds(ref_losses[DEV], ref_losses["cpu"])
+    if bad:
+        raise AssertionError("training reference, card vs CPU: " + "; ".join(bad))
+    for name in ("warp_blend", "flow_warp", "warp_blend_bwd", "flow_warp_bwd"):
+        if ref_launches[name] == 0:
+            raise AssertionError(f"training reference: {name} never launched")
+    worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-3)
+                for g, w in zip(ref_losses[DEV], ref_losses["cpu"])
+                for k in TRAIN_KEYS + GRAD_KEYS)
+    say("reference", config="training 128x64 ngf16 f32, 2 chunks", ok=True,
+        max_rel_err=f"{worst:.3g}", bounds="losses 2e-4/2e-2 grad norms 5e-3/5e-2",
+        loss_G_total=",".join(f"{c['loss_G_total']:.6g}" for c in ref_losses["cpu"]),
+        launches=json.dumps({k: v for k, v in ref_launches.items() if v}))
+
+
+def label2city_path(card: str) -> dict:
+    """Phase 5: the label2city path at full width; returns the kernels'
+    launch counts on it."""
     opt = Options(**FLAGSHIP)
     h, w, n_frames, warm = 1024, 2048, 8, 2
     t0 = time.perf_counter()
@@ -383,8 +648,7 @@ def main() -> None:
             raise AssertionError("non-finite frame")
         if float(fake.abs().max()) > 1 + 1e-2:
             raise AssertionError(f"|fake| {float(fake.abs().max())} > 1 + 1e-2")
-    want = {"respair": 45 * n_frames, "warp_blend": 3 * n_frames,
-            "flow_warp": 0, "correlation": 0}
+    want = dict.fromkeys(KERNELS, 0) | {"respair": 45 * n_frames, "warp_blend": 3 * n_frames}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, want {want}")
     say("main_path", config="label2city 2048x1024 3-scale ngf128 fg bf16",
@@ -393,13 +657,14 @@ def main() -> None:
         ms_per_frame=",".join(f"{v:.1f}" for v in times),
         peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
         card=repr(card))
-    del eng, fakes, state
-    torch.cuda.empty_cache()
+    return launches
 
-    # 5b. the FlowNet2 path at full width: FlowEstimator in f32 on (1, 2)
-    # pairs of 1024x2048 frames, what Trainer.flow_fn gets per chunk at
-    # max_frames_per_gpu=2; PyTorch's default TF32 flags, as in 4b
-    h, w, n_calls, warm = 1024, 2048, 5, 1
+
+def flownet2_path(card: str) -> dict:
+    """Phase 5b: the FlowNet2 path at full width, FlowEstimator in f32 on
+    (1, 2) pairs of 1024x2048 frames under PyTorch's default TF32 flags, as
+    in 4b; returns the kernels' launch counts on it."""
+    h, w, n_calls, warm = 1024, 2048, 4, 1
     t0 = time.perf_counter()
     tf32_seen = []
     est = seeded_flow_estimator(DEV, seed=0, tf32_seen=tf32_seen)
@@ -419,7 +684,7 @@ def main() -> None:
         check_f32_convs(tf32_seen)
         caller_tf32 = (torch.backends.cudnn.allow_tf32,
                        torch.backends.cuda.matmul.allow_tf32)
-    flow_launches = read_launches()
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     for flow, conf in results:
         if flow.shape != (1, 2, 2, h, w) or conf.shape != (1, 2, 1, h, w):
@@ -428,90 +693,257 @@ def main() -> None:
             raise AssertionError("non-finite flow or confidence")
         if float(conf.min()) < 0.0 or float(conf.max()) > 1.0:
             raise AssertionError("confidence outside [0, 1]")
-    want = {"respair": 0, "warp_blend": 0, "flow_warp": 5 * n_calls,
-            "correlation": n_calls}
-    if flow_launches != want:
-        raise AssertionError(f"launch counts {flow_launches}, want {want}")
+    want = dict.fromkeys(KERNELS, 0) | {"flow_warp": 5 * n_calls, "correlation": n_calls}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, want {want}")
     med = statistics.median(times[warm:])
     flow = results[-1][0]
     say("flownet2_path", config="FlowEstimator FlowNet2 1024x2048 (B=1, T=2) f32",
         calls=n_calls, setup_s=f"{setup_s:.1f}",
         ms_per_call_median=f"{med:.2f}", ms_per_pair_median=f"{med / 2:.2f}",
         ms_per_call=",".join(f"{v:.1f}" for v in times),
-        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(flow_launches),
+        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
         flow_abs_max=f"{float(flow.abs().max()):.4g}",
         flow_abs_mean=f"{float(flow.abs().mean()):.4g}",
         conf_mean=f"{float(results[-1][1].mean()):.4g}",
         caller_cudnn_allow_tf32=caller_tf32[0], caller_matmul_allow_tf32=caller_tf32[1],
         net_cudnn_allow_tf32=tf32_seen[0], card=repr(card))
-    launches.update(flow_warp=flow_launches["flow_warp"],
-                    correlation=flow_launches["correlation"])
-    del est, results, flow, conf, im1, im2
-    torch.cuda.empty_cache()
+    return launches
 
-    # 6. kernel and plain times at the paths' shapes
-    ms = {name: [0.0, 0.0] for name in KERNELS}
+
+def training_path(card: str) -> dict:
+    """Phase 7: the training path at the 512x256 recipe's full width: one
+    warm-up clip, then timed clips of three chunks (two frames each), and
+    one chunk under the profiler; the reference flow is the ported
+    FlowEstimator with seeded weights. Returns the kernels' launch counts
+    over the timed clips."""
+    opt = Options(**TRAIN_RECIPE)
+    h, w, n_timed = 256, 512, 3
+    t0 = time.perf_counter()
+    est = seeded_flow_estimator(DEV, seed=3, tf32_seen=[])
+    trainer = Trainer(opt, flow_fn=est)  # the card: the default device
+    state = trainer.init_state()
+    labels, frames = moving_square_clip(np.random.default_rng(0), 8, h, w, 35)
+    labels, frames = torch.from_numpy(labels).to(DEV), torch.from_numpy(frames).to(DEV)
+    before = {k: v.detach().clone() for k, v in
+              list(trainer.gen.named_parameters()) + list(trainer.engine.netD.named_parameters())}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    chunk_ms = []
+    chunk_fn = trainer.train_chunk
+
+    def timed_chunk(*args, **kwargs):
+        t1 = time.perf_counter()
+        result = chunk_fn(*args, **kwargs)  # reads the losses back: a sync
+        chunk_ms.append((time.perf_counter() - t1) * 1e3)
+        return result
+
+    trainer.train_chunk = timed_chunk
+    with torch_default_tf32():
+        t1 = time.perf_counter()
+        state, losses = trainer.train_clip(state, labels, frames, labels)
+        warm_s = time.perf_counter() - t1
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        chunk_ms.clear()
+        t1 = time.perf_counter()
+        clip_losses = []
+        for _ in range(n_timed):
+            state, losses = trainer.train_clip(state, labels, frames, labels)
+            clip_losses.append(losses)
+        clip_s = (time.perf_counter() - t1) / n_timed
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # one more clip's middle chunk under the profiler
+        carry = trainer.start_clip()
+        state, carry, _ = chunk_fn(state, carry, labels[:, :4], frames[:, :4], labels[:, :4])
+        families, busy_ms, prof_wall = profile_by_family(
+            lambda: chunk_fn(state, carry, labels[:, 2:6], frames[:, 2:6], labels[:, 2:6]))
+    n_chunks = len(chunk_ms)
+    if n_chunks != 3 * n_timed:
+        raise AssertionError(f"{n_chunks} chunks in {n_timed} clips, want {3 * n_timed}")
+    for losses in clip_losses:
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite training loss {losses}")
+    moved = {k for k, v in list(trainer.gen.named_parameters())
+             + list(trainer.engine.netD.named_parameters()) if not torch.equal(v, before[k])}
+    if not any(k.startswith("G0.") for k in moved) or not any("scale" in k for k in moved):
+        raise AssertionError("the generator's or the discriminator's weights did not change")
+    for name in ("warp_blend", "warp_blend_bwd", "flow_warp", "flow_warp_bwd", "correlation"):
+        if launches[name] == 0:
+            raise AssertionError(f"training path: {name} never launched "
+                                 f"({launches})")
+    med = statistics.median(chunk_ms)
+    say("train_path", config="label2city 512x256 ngf128 fg bf16 remat, FlowNet2 f32",
+        clips=n_timed, chunks=n_chunks, setup_s=f"{setup_s:.1f}",
+        warmup_clip_s=f"{warm_s:.2f}", ms_per_chunk_median=f"{med:.2f}",
+        train_it_per_s=f"{1e3 / med:.3f}", clip_it_per_s=f"{3 / clip_s:.3f}",
+        ms_per_chunk=",".join(f"{v:.1f}" for v in chunk_ms),
+        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+        loss_G_total=",".join(f"{c['loss_G_total']:.5g}" for c in clip_losses),
+        loss_D_total=",".join(f"{c['loss_D_total']:.5g}" for c in clip_losses),
+        params_changed=len(moved), card=repr(card))
+    say("train_profile", profiled_chunk_wall_ms=f"{prof_wall:.2f}",
+        kernel_ms=f"{busy_ms:.2f}", busy_share_of_median_chunk=f"{busy_ms / med:.3f}",
+        families=json.dumps({f: [round(ms, 3), n] for f, ms, n in families}))
+    return launches
+
+
+def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
+    """Phase 6: kernel, plain and library-call times at the paths' shapes.
+    Returns {kernel: [ms, plain ms, library ms]} and {kernel: [bytes,
+    operations]} per frame (label2city), per FlowEstimator call (FlowNet2)
+    or per training chunk (the backward), as the JSON line states."""
+    ms = {name: [0.0, 0.0, 0.0] for name in KERNELS}  # kernel, plain, library
+    work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, operations
     for dtype in (torch.bfloat16, torch.float32):
         for c, h, w, n in RESPAIR_SHAPES:
-            args = respair_case(c, h, w, dtype, gen)
+            x, k0, ab0, k1, ab1 = args = respair_case(c, h, w, dtype, gen)
             k, p = time_ms(respair, args), time_ms(respair_plain, args)
+            lib = time_ms(lambda: F.conv2d(F.conv2d(x, k0, padding=1), k1, padding=1), ())
             if dtype == torch.bfloat16:
-                ms["respair"][0] += n * k
-                ms["respair"][1] += n * p
+                for i, v in enumerate((k, p, lib)):
+                    ms["respair"][i] += n * v
+                work["respair"][0] += n * (2 * c * h * w + 2 * 9 * c * c) * 2
+                work["respair"][1] += n * 2 * 2 * 9 * c * c * h * w
             say("time", kernel="respair", shape=f"{c}x{h}x{w}", dtype=str(dtype)[6:],
-                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", calls_per_frame=n)
+                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", conv_pair_ms=f"{lib:.4f}",
+                calls_per_frame=n)
         for h, w in WARP_SHAPES:
-            args = warp_case(h, w, dtype, gen)
+            raw, prev, flow, weight = args = warp_case(h, w, dtype, gen)
+            grid = sampling_grid(flow)
             k, p = time_ms(warp_blend, args), time_ms(warp_blend_plain, args)
+            lib = time_ms(grid_sample, (prev, grid))
             if dtype == torch.bfloat16:
-                ms["warp_blend"][0] += k
-                ms["warp_blend"][1] += p
+                for i, v in enumerate((k, p, lib)):
+                    ms["warp_blend"][i] += v
+                nb, nop = warp_work((1, 3, h, w), dtype, 9, 3, 12)
+                work["warp_blend"][0] += nb
+                work["warp_blend"][1] += nop
             say("time", kernel="warp_blend", shape=f"3x{h}x{w}", dtype=str(dtype)[6:],
-                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", calls_per_frame=1)
-        args = flow_warp_case(dtype, gen)
+                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", grid_sample_ms=f"{lib:.4f}",
+                calls_per_frame=1)
+        image, flow = args = flow_warp_case(dtype, gen)
         k, p = time_ms(flow_warp, args), time_ms(flow_warp_plain, args)
+        lib = time_ms(grid_sample, (image, sampling_grid(flow)))
         if dtype == torch.float32:
-            ms["flow_warp"] = [5 * k, 5 * p]
+            ms["flow_warp"] = [5 * k, 5 * p, 5 * lib]
+            nb, nop = warp_work(FLOW_WARP_SHAPE, dtype, 5, 3, 10)
+            work["flow_warp"] = [5 * nb, 5 * nop]
         say("time", kernel="flow_warp", shape="x".join(map(str, FLOW_WARP_SHAPE)),
             dtype=str(dtype)[6:], ms=f"{k:.4f}", plain_ms=f"{p:.4f}",
-            calls_per_flow_call=5)
-        del args
+            grid_sample_ms=f"{lib:.4f}", calls_per_flow_call=5)
+        del args, image, flow
     for i, shape in enumerate(CORR_SHAPES):
         args = corr_case(shape, gen)
         k, p = time_ms(correlation, args), time_ms(correlation_plain, args)
-        if i == 0:
-            ms["correlation"] = [k, p]
         flop = 2.0 * shape[0] * shape[2] * shape[3] * 441 * shape[1]
+        if i == 0:
+            ms["correlation"] = [k, p, None]
+            b, c, h, w = shape
+            work["correlation"] = [(2 * c + 441) * b * h * w * 4, flop]
         say("time", kernel="correlation", shape="x".join(map(str, shape)),
             dtype="float32", ms=f"{k:.4f}", plain_ms=f"{p:.4f}",
             tflops=f"{flop / k / 1e9:.2f}", calls_per_flow_call=int(i == 0))
         del args
+    for name, (shape, dtype, n) in BWD_PATH.items():
+        args = bwd_case(name, shape, dtype, gen)
+        image, flow, g = (args[0], args[1], args[2]) if name == "flow_warp_bwd" else (
+            args[1], args[2], args[4])
+        k, p = time_ms(KERNELS[name], args), time_ms(PLAIN[name], args)
+        lib = time_ms(grid_sample_backward(image, flow, g), ())
+        ms[name] = [n * k, n * p, n * lib]
+        # read g, image, flow [raw, w]; write dimage, dflow [d_raw, d_w]
+        rw = (8, 5, 30) if name == "flow_warp_bwd" else (12, 9, 40)
+        nb, nop = warp_work(shape, dtype, *rw)
+        work[name] = [n * nb, n * nop]
+        say("time", kernel=name, shape="x".join(map(str, shape)), dtype=str(dtype)[6:],
+            ms=f"{k:.4f}", plain_ms=f"{p:.4f}", grid_sample_backward_ms=f"{lib:.4f}",
+            calls_per_chunk=n)
+        del args, image, flow, g
+    for name, shape, dtype in BWD_CHECKS[2:]:  # the f32 backward at both sizes
+        args = bwd_case(name, shape, dtype, gen)
+        k, p = time_ms(KERNELS[name], args), time_ms(PLAIN[name], args)
+        lib = time_ms(grid_sample_backward(*args), ())
+        say("time", kernel=name, shape="x".join(map(str, shape)), dtype=str(dtype)[6:],
+            ms=f"{k:.4f}", plain_ms=f"{p:.4f}", grid_sample_backward_ms=f"{lib:.4f}")
+        del args
+    return ms, work
 
+
+def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
+    """The kernels' JSON entries."""
+    kernels = []
     sources = {
         "respair": ("vid2vid_tpu_torch/csrc/respair.cu",
-                    "vid2vid_tpu/ops/respair_pallas.py:79",
-                    "bf16, summed over one 2048x1024 label2city frame's 45 calls"),
+                    "vid2vid_tpu/ops/respair_pallas.py:79", "label2city", BF16_FLOPS,
+                    "bf16, summed over one 2048x1024 label2city frame's 45 calls; "
+                    "library: two cuDNN 3x3 convs (zero padding)"),
         "warp_blend": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
-                       "vid2vid_tpu/ops/warp.py:271",
-                       "bf16, summed over one 2048x1024 label2city frame's 3 calls"),
+                       "vid2vid_tpu/ops/warp.py:271", "label2city", F32_FLOPS,
+                       "bf16, summed over one 2048x1024 label2city frame's 3 calls; "
+                       "library: F.grid_sample alone, without the blend"),
         "flow_warp": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
-                      "vid2vid_tpu/ops/warp.py:271",
+                      "vid2vid_tpu/ops/warp.py:271", "flownet2", F32_FLOPS,
                       "f32, summed over one FlowEstimator call's 5 launches at "
-                      "(2, 3, 1024, 2048)"),
+                      "(2, 3, 1024, 2048); library: F.grid_sample"),
         "correlation": ("vid2vid_tpu_torch/csrc/correlation.cu",
-                        "vid2vid_tpu/ops/correlation_pallas.py:35",
+                        "vid2vid_tpu/ops/correlation_pallas.py:35", "flownet2", F32_FLOPS,
                         "f32, one FlowEstimator call's one launch at "
-                        "(2, 256, 128, 256)"),
+                        "(2, 256, 128, 256); no library call computes it"),
+        "warp_blend_bwd": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
+                           "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
+                           "bf16, summed over one 512x256 training chunk's 2 calls at "
+                           "(1, 3, 256, 512); library: F.grid_sample's backward alone"),
+        "flow_warp_bwd": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
+                          "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
+                          "f32, one 512x256 training chunk's F_Warp call at "
+                          "(2, 3, 256, 512); library: F.grid_sample's backward"),
     }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": errs[name][torch.float32],
-         "max_abs_err_bf16": errs[name].get(torch.bfloat16),
-         "ms": ms[name][0], "plain_ms": ms[name][1], "ms_is": ms_is}
-        for name, (src, rep, ms_is) in sources.items()
-    ]
-    print(json.dumps({"kernels": kernels}))
+    for name, (src, rep, path, peak_ops, ms_is) in sources.items():
+        b_ms, b_by = bound_ms(work[name][0], work[name][1], peak_ops)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[path][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": errs[name][torch.float32],
+            "max_abs_err_bf16": errs[name].get(torch.bfloat16),
+            "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": ms[name][2], "ms_is": ms_is,
+        })
+    return kernels
+
+
+def main() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    card = smi()
+
+    # 1. device
+    say("device", kind=repr(kind), smi=repr(card), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0])
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path = build.build(verbose=True)
+    build.library()
+    say("build", seconds=f"{time.perf_counter() - t0:.2f}", lib=lib_path.name)
+
+    gen = torch.Generator().manual_seed(0)
+    errs = check_kernels(gen)
+    torch.cuda.empty_cache()
+    reference_generator()
+    reference_flow()
+    reference_training()
+    launches = {}
+    for path, run in (("label2city", label2city_path), ("flownet2", flownet2_path),
+                      ("training", training_path)):
+        launches[path] = run(card)
+        torch.cuda.empty_cache()
+    ms, work = kernel_times(gen)
+    print(json.dumps({"kernels": kernels_json(errs, ms, work, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

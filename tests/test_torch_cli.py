@@ -44,6 +44,7 @@ def _flags(tmp_path, results):
         "--n_blocks", "3", "--n_blocks_local", "1", "--n_scales_spatial", "2",
         "--loadSize", str(W), "--name", "cli", "--checkpoints_dir",
         str(tmp_path / "ck"), "--results_dir", str(tmp_path / results),
+        "--gpu_ids", "-1",
     ]
 
 
@@ -87,7 +88,7 @@ def test_stream_resets_state_per_sequence():
 
     opt = Options(label_nc=3, ngf=4, n_downsample_G=1, n_blocks=1,
                   n_scales_spatial=1, isTrain=False, how_many=100)
-    eng = InferenceEngine(opt)
+    eng = InferenceEngine(opt, device="cpu")
     seeds = []
     orig = eng.initial_state
     eng.initial_state = lambda *a, **k: seeds.append(a) or orig(*a, **k)

@@ -17,8 +17,12 @@ from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
 from vid2vid_tpu_torch.ops.warp import (
     flow_warp,
+    flow_warp_backward_plain,
+    flow_warp_bwd,
     flow_warp_plain,
     warp_blend,
+    warp_blend_backward_plain,
+    warp_blend_bwd,
     warp_blend_plain,
 )
 
@@ -31,6 +35,11 @@ TOL = {
     ("warp", torch.float32): dict(atol=1e-5, rtol=0.0),
     ("warp", torch.bfloat16): dict(atol=1e-2, rtol=4e-3),
     ("correlation", torch.float32): dict(atol=1e-5, rtol=1e-5),
+    # the splat sums with atomics in an order that changes from run to run:
+    # f32 rounding of up to ~100 terms of O(1) where the border gathers
+    # many samples, hence atol 1e-4 + rtol 1e-5 in f32
+    ("warp_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
+    ("warp_bwd", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
 }
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -114,6 +123,78 @@ def test_flow_warp_kernel_any_shape(cuda, dtype, b, c, h, w, scale):
     assert flow_warp.launches == before + 1
     assert got.dtype == dtype and got.shape == image.shape
     _close("warp", got, flow_warp_plain(*(a.float() for a in args)), dtype)
+
+
+def _warp_bwd_case(b, c, h, w, scale, seed, device, dtype):
+    """(image, flow, g): flows of `scale` px, with integer flows (the tie
+    rule) on the first image and on a band of the others."""
+    g = torch.Generator().manual_seed(seed)
+    image = torch.randn((b, c, h, w), generator=g)
+    flow = scale * torch.randn((b, 2, h, w), generator=g)
+    flow[0] = torch.round(flow[0])
+    flow[:, :, : h // 3] = 0.0
+    cot = torch.randn((b, c, h, w), generator=g)
+    return [t.to(device, dtype) for t in (image, flow, cot)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,c,h,w,scale", [(2, 3, 5, 7, 4.0), (1, 17, 13, 33, 30.0), (2, 3, 2, 2, 1.5)]
+)
+def test_flow_warp_backward_kernel_any_shape(cuda, dtype, b, c, h, w, scale):
+    image, flow, cot = _warp_bwd_case(b, c, h, w, scale, c + h, cuda, dtype)
+    before = flow_warp_bwd.launches
+    got = flow_warp_bwd(image, flow, cot)
+    assert flow_warp_bwd.launches == before + 1
+    want = flow_warp_backward_plain(image.float(), flow.float(), cot.float())
+    for gt, wt, ref in zip(got, want, (image, flow)):
+        assert gt.dtype == dtype and gt.shape == ref.shape
+        _close("warp_bwd", gt, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w,scale", [(2, 3, 5, 7, 4.0), (1, 4, 17, 33, 30.0)])
+def test_warp_blend_backward_kernel_any_shape(cuda, dtype, b, c, h, w, scale):
+    prev, flow, cot = _warp_bwd_case(b, c, h, w, scale, h, cuda, dtype)
+    g = torch.Generator().manual_seed(w)
+    raw = torch.randn((b, c, h, w), generator=g).to(cuda, dtype)
+    weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=g)).to(cuda, dtype)
+    before = warp_blend_bwd.launches
+    got = warp_blend_bwd(raw, prev, flow, weight, cot)
+    assert warp_blend_bwd.launches == before + 1
+    want = warp_blend_backward_plain(
+        *(t.float() for t in (raw, prev, flow, weight, cot)))
+    for gt, wt, ref in zip(got, want, (raw, prev, flow, weight)):
+        assert gt.dtype == dtype and gt.shape == ref.shape
+        _close("warp_bwd", gt, wt, dtype)
+
+
+def test_warp_autograd_launches_the_backward_kernels(cuda):
+    """torch.autograd through flow_warp and warp_blend on the card runs the
+    backward kernels and gives the plain backward's gradients."""
+    image, flow, cot = _warp_bwd_case(2, 3, 9, 11, 3.0, 7, cuda, torch.float32)
+    raw, weight = torch.randn_like(image), torch.rand_like(image[:, :1])
+    leaves = [t.clone().requires_grad_() for t in (raw, image, flow, weight)]
+    before = (flow_warp_bwd.launches, warp_blend_bwd.launches)
+    out = warp_blend(*leaves) + flow_warp(leaves[1], leaves[2])
+    out.backward(cot)
+    assert (flow_warp_bwd.launches, warp_blend_bwd.launches) == (before[0] + 1,
+                                                                 before[1] + 1)
+    d_raw, d_prev, d_flow, d_w = warp_blend_backward_plain(raw, image, flow, weight, cot)
+    d_img2, d_flow2 = flow_warp_backward_plain(image, flow, cot)
+    for leaf, want in zip(leaves, (d_raw, d_prev + d_img2, d_flow + d_flow2, d_w)):
+        _close("warp_bwd", leaf.grad, want, torch.float32)
+
+
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
+    img = torch.zeros(1, 3, 6, 6, device=cuda)
+    flow = torch.zeros(1, 2, 6, 6, device=cuda)
+    with pytest.raises(ValueError, match="at least 2"):
+        flow_warp_bwd(img[:, :, :1], flow[:, :, :1], img[:, :, :1])
+    with pytest.raises(ValueError, match="dtype"):
+        flow_warp_bwd(img, flow, img.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_blend_bwd(img, img, flow, img[:, :1], img.transpose(2, 3))
 
 
 @pytest.mark.parametrize(

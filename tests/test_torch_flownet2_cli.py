@@ -59,7 +59,7 @@ def test_harness_matches_jax(tmp_path):
     variables = randomize(init_like(shapes, rng), rng)
     net = FlowNetC(train_outputs=True)
     net.load_state_dict(flownet_state_dict(variables, "FlowNetC"), strict=True)
-    port = FlowHarness(net, div_flow=DIV_FLOW)
+    port = FlowHarness(net, div_flow=DIV_FLOW, device="cpu")
     ref = JaxFlowHarness(JaxFlowNetC(train_outputs=True), div_flow=DIV_FLOW)
 
     port.infer_to_flo(_Pairs(), str(tmp_path / "port"))
@@ -105,6 +105,7 @@ def test_cli_inference_writes_finite_flo(tmp_path, capsys):
             "--inference_dataset", "ImagesFromFolder",
             "--inference_dataset_root", str(tmp_path / "frames"),
             "--save", str(tmp_path / "work"), "--name", name, "--seed", "3",
+            "--device", "cpu",
         ])
         assert rc == 0
         assert "wrote 2 .flo files" in capsys.readouterr().out
@@ -220,6 +221,6 @@ def test_flow_loss_matches_jax(rng, fn):
 def test_training_mode_is_not_ported(tmp_path, argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + ["--save", str(tmp_path / "work")])
-    harness = FlowHarness(FlowNetC())
+    harness = FlowHarness(FlowNetC(), device="cpu")
     with pytest.raises(NotImplementedError, match="training harness"):
         harness.fit(None, None, 1)

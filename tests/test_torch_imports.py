@@ -1,17 +1,26 @@
-"""Importing the port loads neither JAX nor PIL and builds no kernel, and a
-CUDA-only entry without a GPU raises instead of falling back."""
+"""Importing the port (and what chip_smoke.py imports) loads neither JAX,
+PIL nor the JAX package and builds no kernel; the port's copies of the JAX
+package's config and name mappings equal the originals; and a CUDA-only
+entry without a GPU raises instead of falling back."""
 
+import ast
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from vid2vid_tpu import config as jax_config
+from vid2vid_tpu.utils import torch_import
+from vid2vid_tpu_torch import config
 from vid2vid_tpu_torch.ops.correlation import correlation
 from vid2vid_tpu_torch.ops.respair import respair
-from vid2vid_tpu_torch.ops.warp import flow_warp, warp_blend
+from vid2vid_tpu_torch.ops.warp import flow_warp, flow_warp_bwd, warp_blend, warp_blend_bwd
+from vid2vid_tpu_torch.utils import mappings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,23 +37,40 @@ subprocess.Popen.__init__ = _recording_init
 import vid2vid_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(
     vid2vid_tpu_torch.__path__, "vid2vid_tpu_torch."))
-for m in mods:
+for m in mods + json.loads(sys.argv[1]):
     importlib.import_module(m)
 from vid2vid_tpu_torch.kernels import build
 loaded = sorted(set(sys.modules) - before)
 print(json.dumps({
     "modules": mods,
-    "loaded": [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL")],
+    "loaded": [m for m in loaded
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL", "vid2vid_tpu")],
     "subprocesses": started,
     "library_loaded": build.library.cache_info().currsize,
 }))
 """
 
 
+def _chip_smoke_imports() -> list[str]:
+    """The modules chip_smoke.py imports (it exits before importing them
+    on a machine without a card)."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return sorted(set(names))
+
+
 def test_import_loads_no_jax_pil_or_build():
+    smoke = _chip_smoke_imports()
+    assert "vid2vid_tpu_torch.train.loop" in smoke
     out = subprocess.run(
-        [sys.executable, "-c", _CHILD], cwd=REPO, capture_output=True,
-        text=True, timeout=300,
+        [sys.executable, "-c", _CHILD, json.dumps(smoke)], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
     info = json.loads(out.stdout.strip().splitlines()[-1])
@@ -61,6 +87,12 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.models.flownet2.datasets",
         "vid2vid_tpu_torch.models.flownet2.harness",
         "vid2vid_tpu_torch.models.flownet2.main_cli",
+        "vid2vid_tpu_torch.config", "vid2vid_tpu_torch.utils.mappings",
+        "vid2vid_tpu_torch.losses", "vid2vid_tpu_torch.nn.discriminator",
+        "vid2vid_tpu_torch.nn.vgg", "vid2vid_tpu_torch.models.temporal",
+        "vid2vid_tpu_torch.models.loss_engine", "vid2vid_tpu_torch.train.state",
+        "vid2vid_tpu_torch.train.steps", "vid2vid_tpu_torch.train.loop",
+        "vid2vid_tpu_torch.data.synthetic",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []
@@ -107,3 +139,114 @@ def test_flownet2_wrappers_never_take_the_plain_path_off_cpu():
     with pytest.raises(ValueError, match="not CUDA"):
         flow_warp(img, torch.zeros(1, 2, 6, 6, device=device))
     assert (correlation.launches, flow_warp.launches) == before
+
+
+def test_backward_wrappers_never_take_the_plain_path_off_cpu():
+    device = "meta"
+    img = torch.zeros(1, 3, 6, 6, device=device)
+    flow, w = torch.zeros(1, 2, 6, 6, device=device), torch.zeros(1, 1, 6, 6, device=device)
+    before = (flow_warp_bwd.launches, warp_blend_bwd.launches)
+    with pytest.raises(ValueError, match="not CUDA"):
+        flow_warp_bwd(img, flow, img)
+    with pytest.raises(ValueError, match="not CUDA"):
+        warp_blend_bwd(img, img, flow, w, img)
+    assert (flow_warp_bwd.launches, warp_blend_bwd.launches) == before
+
+
+# ------------------------------------------------------- the port's copies
+
+
+def test_options_copy_equals_the_jax_config():
+    port = {f.name: (f.type, f.default) for f in dataclasses.fields(config.Options)}
+    ref = {f.name: (f.type, f.default) for f in dataclasses.fields(jax_config.Options)}
+    assert port == ref
+    assert config._CSV_FIELDS == jax_config._CSV_FIELDS
+    for is_train in (True, False):
+        flags = sorted(a.dest for a in config.build_parser(is_train)._actions)
+        assert flags == sorted(a.dest for a in jax_config.build_parser(is_train)._actions)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--label_nc", "35", "--use_instance", "--fg", "--fg_labels", "26,27",
+     "--ngf", "128", "--n_scales_spatial", "3", "--gpu_ids", "-1"],
+    ["--n_frames_total", "12", "--max_frames_per_gpu", "2", "--TTUR", "--no_vgg",
+     "--lr", "0.0001", "--gpu_ids", "0,1", "--name", "x"],
+], ids=["defaults", "label2city", "train"])
+@pytest.mark.parametrize("is_train", [True, False], ids=["train", "test"])
+def test_parse_args_copy_equals_the_jax_parse_args(tmp_path, argv, is_train):
+    argv = argv + ["--checkpoints_dir", str(tmp_path)]
+    if not is_train:
+        argv = [a for a in argv if a not in ("--TTUR", "--no_vgg")]
+        argv = _drop_flag(_drop_flag(argv, "--lr"), "--n_frames_total")
+        argv = _drop_flag(argv, "--max_frames_per_gpu")
+    got = config.parse_args(argv, is_train=is_train, save=False)
+    want = jax_config.parse_args(argv, is_train=is_train, save=False)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def _drop_flag(argv, flag):
+    if flag not in argv:
+        return argv
+    i = argv.index(flag)
+    return argv[:i] + argv[i + 2:]
+
+
+MAPPINGS = [
+    ("composite_generator_mapping", (2, 2, "batch")),
+    ("composite_generator_mapping", (3, 9, "batch", True, False)),
+    ("composite_generator_mapping", (2, 3, "instance", False, True)),
+    ("composite_local_mapping", (1, "batch", True, False)),
+    ("composite_local_mapping", (3, "instance", False, True)),
+    ("nlayer_discriminator_mapping", (3, "batch")),
+    ("multiscale_discriminator_mapping", (2, 2, "batch")),
+    ("multiscale_discriminator_mapping", (3, 3, "instance")),
+    ("flownet_c_mapping", ("flownetc",)),
+    ("flownet_s_mapping", ("flownets_1",)),
+    ("flownet_sd_mapping", ("flownets_d",)),
+    ("flownet_fusion_mapping", ("flownetfusion",)),
+    ("flownet2_mapping", ()),
+    ("vgg19_mapping", ()),
+]
+
+
+@pytest.mark.parametrize("name,args", MAPPINGS, ids=[f"{n}{a}" for n, a in MAPPINGS])
+def test_mapping_copies_equal_the_jax_mappings(name, args):
+    assert getattr(mappings, name)(*args) == getattr(torch_import, name)(*args)
+
+
+def test_convert_tensor_copy_equals_the_jax_one(rng):
+    for kind, shape in (("conv", (5, 4, 3, 3)), ("convT", (4, 5, 3, 3)), ("bias", (5,))):
+        arr = rng.standard_normal(shape).astype(np.float32)
+        np.testing.assert_array_equal(
+            mappings.convert_tensor(arr, kind), torch_import.convert_tensor(arr, kind))
+
+
+# --------------------------------------------------------- the card by default
+
+
+def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
+    """Without a CUDA device and without the caller asking for the CPU,
+    InferenceEngine, FlowHarness, Trainer and both CLIs raise."""
+    from vid2vid_tpu_torch import test_cli
+    from vid2vid_tpu_torch.models.flownet2 import main_cli
+    from vid2vid_tpu_torch.models.flownet2.harness import FlowHarness
+    from vid2vid_tpu_torch.models.flownet2.nets import FlowNetC
+    from vid2vid_tpu_torch.models.inference import InferenceEngine
+    from vid2vid_tpu_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = config.Options(label_nc=3, ngf=4, n_downsample_G=1, n_blocks=1,
+                         n_scales_spatial=1, ndf=4, num_D=1, n_layers_D=1, no_vgg=True)
+    for build_entry in (
+        lambda: InferenceEngine(opt.replace(isTrain=False)),
+        lambda: Trainer(opt),
+        lambda: FlowHarness(FlowNetC()),
+        lambda: test_cli.main(["--checkpoints_dir", str(tmp_path)]),
+        lambda: main_cli.main(["--inference", "--model", "FlowNetC", "--save",
+                               str(tmp_path / "work")]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_entry()
+    assert InferenceEngine(opt.replace(isTrain=False), device="cpu").device.type == "cpu"
+    assert Trainer(opt, device="cpu").device.type == "cpu"

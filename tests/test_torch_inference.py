@@ -47,7 +47,7 @@ def engines():
     rng = np.random.default_rng(0)
     jeng = JaxEngine(OPT)
     params = {k: randomize(v, rng) for k, v in jeng.init(jax.random.key(0), 1, H, W).items()}
-    eng = InferenceEngine(OPT)
+    eng = InferenceEngine(OPT, device="cpu")
     eng.load_state_dict(generator_state_dict(params, OPT))
     yield jeng, params, eng, calls
     mp.undo()
@@ -107,7 +107,7 @@ def test_bf16_policy(engines):
     frames agree to 5e-3 (measured ~6e-4 here: bf16 keeps 8 bits, frames
     are ~5e-2 in size at these random weights)."""
     _, params, eng32, _ = engines
-    eng = InferenceEngine(OPT.replace(bf16=True))
+    eng = InferenceEngine(OPT.replace(bf16=True), device="cpu")
     eng.load_state_dict(generator_state_dict(params, OPT))
     labels, inst = (torch.from_numpy(a) for a in _stream(seed=4))
     state, state32 = eng.initial_state(1, H, W), eng32.initial_state(1, H, W)
@@ -122,7 +122,7 @@ def test_bf16_policy(engines):
 
 
 def test_unported_first_frame_strategies_raise():
-    eng = InferenceEngine(OPT)
+    eng = InferenceEngine(OPT, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.build_single_g()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

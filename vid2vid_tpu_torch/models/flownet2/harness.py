@@ -15,6 +15,7 @@ from torch import nn
 from vid2vid_tpu_torch.models.flownet2.flow_io import write_flo
 from vid2vid_tpu_torch.models.flownet2.losses import epe
 from vid2vid_tpu_torch.ops.resize import resize_bilinear
+from vid2vid_tpu_torch.utils.device import require_device
 
 TRAINING_NOT_PORTED = (
     "flow-net training and checkpoints are not ported yet (ROADMAP.md, "
@@ -25,15 +26,16 @@ TRAINING_NOT_PORTED = (
 class FlowHarness:
     """Validate one flow network (FlowNetC / S / SD) and write its flows.
 
-    `net` holds its weights; the harness runs it in eval mode on `device`.
+    `net` holds its weights; the harness runs it in eval mode on `device`,
+    the first CUDA device unless the caller passes device='cpu'.
     Datasets yield numpy (pair (2, H, W, 3), flow (H, W, 2)) samples.
     """
 
     def __init__(
         self, net: nn.Module, div_flow: float = 0.05,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.net = net.to(self.device).eval()
         self.div_flow = div_flow
 

@@ -13,7 +13,8 @@ parsed; the training flags come with the training mode.
 
 writes <save>/<name>_inference/NNNNNN.flo, one per consecutive frame pair,
 from the network's seeded initialisation (--seed). It runs on the first
-CUDA device, or on the CPU without one; the datasets read images with PIL.
+CUDA device (`--device cuda`, the default; it raises without one) or, with
+`--device cpu`, on the CPU; the datasets read images with PIL.
 Training (no --inference) and --resume raise NotImplementedError: the
 flow-net training harness is not ported yet.
 """
@@ -90,6 +91,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--inference", action="store_true")
     parser.add_argument("--resume", default="", choices=("", "latest", "best"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     add_arguments_for_module(parser, "model", MODELS[known.model])
     if "input_channels" in inspect.signature(MODELS[known.model].__init__).parameters:
         parser.set_defaults(model_input_channels=6)  # the stacked frame pair
@@ -105,8 +107,7 @@ def main(argv=None):
         mkw.setdefault("train_outputs", True)
     net = model_cls(**mkw)
     flow_nets.init_flownet_weights(net, torch.Generator().manual_seed(args.seed))
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    harness = FlowHarness(net, div_flow=args.div_flow, device=device)
+    harness = FlowHarness(net, div_flow=args.div_flow, device=args.device)
 
     ds_cls = DATASETS[args.inference_dataset]
     ds = ds_cls(**_kwargs_for(args, "inference_dataset", ds_cls))

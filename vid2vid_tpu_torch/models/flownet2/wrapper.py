@@ -15,26 +15,13 @@ cuDNN use TF32); the net has no matmul.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 from torch import nn
 
 from vid2vid_tpu_torch.models.flownet2.flownet2 import FlowNet2
 from vid2vid_tpu_torch.ops.resize import make_divisible, resize_bilinear
 from vid2vid_tpu_torch.ops.warp import flow_warp
-
-
-@contextlib.contextmanager
-def _cudnn_f32():
-    """cuDNN convolutions in full f32 (no TF32) for the block; the caller's
-    setting comes back afterwards."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
+from vid2vid_tpu_torch.utils.precision import cudnn_f32
 
 
 class FlowEstimator(nn.Module):
@@ -59,7 +46,7 @@ class FlowEstimator(nn.Module):
         lead = im1.shape[:-3]
         flat = [im.reshape((-1,) + im.shape[-3:]).to(torch.float32).contiguous()
                 for im in (im1, im2)]
-        with _cudnn_f32():
+        with cudnn_f32():
             flow, conf = self._compute(*flat)
         return flow.reshape(lead + flow.shape[1:]), conf.reshape(lead + conf.shape[1:])
 

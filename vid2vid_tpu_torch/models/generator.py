@@ -1,4 +1,4 @@
-"""The sequential, scale-stacked video generator (inference).
+"""The sequential, scale-stacked video generator (inference and training).
 
 A stack of `n_scales_spatial` generators: G0 = CompositeGenerator at the
 coarsest pyramid level, G1.. = CompositeLocalGenerator enhancers at finer
@@ -18,8 +18,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from vid2vid_tpu.config import Options
+from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.nn.composite import CompositeOut
 from vid2vid_tpu_torch.nn.factory import define_g
 from vid2vid_tpu_torch.ops.encode import (
@@ -114,10 +115,23 @@ class Vid2VidGenerator(nn.Module):
     # ------------------------------------------------------------------ clip
 
     def generate_clip(
-        self, enc_a: torch.Tensor, state: State, *, use_raw_only: bool = False
+        self, enc_a: torch.Tensor, state: State, *, use_raw_only: bool = False,
+        train: bool = False, n_frames_bp: int = 1, finetune_all: bool = True,
+        params: list[dict] | None = None,
     ) -> tuple[ClipOutputs, State]:
         """T frames, in order, from T+tG-1 encoded inputs (B, T+tG-1, C, H, W)
-        and the per-level ring buffers. Returns (ClipOutputs, new state)."""
+        and the per-level ring buffers. Returns (ClipOutputs, new state).
+
+        Training (`train`): truncated BPTT detaches the previous frames that
+        enter the frame pass every `n_frames_bp` frames (reference:
+        vid2vid_model_G.py:166-168) while the ring buffers keep the
+        gradient-connected frames; without `finetune_all` every scale but
+        the finest is detached (:181); under `opt.remat` each scale's
+        forward is recomputed in the backward (torch.utils.checkpoint).
+        `params`, one dict per scale, replaces the scales' parameters for
+        the call (the training steps' bf16 copies of the f32 masters). The
+        new state is detached: it crosses the chunk boundary.
+        """
         tG, n_scales = self.tG, self.n_scales
         n_frames = enc_a.shape[1] - (tG - 1)
         a_pyr = build_pyramid_video(enc_a, n_scales)
@@ -125,16 +139,29 @@ class Vid2VidGenerator(nn.Module):
         ys = []
         for t in range(n_frames):
             wins = [p[:, t : t + tG] for p in a_pyr]
-            bufs, y = self._frame_pass(wins, bufs, use_raw_only)
+            detach = train and n_frames_bp > 0 and t % n_frames_bp == 0
+            bufs, y = self._frame_pass(
+                wins, bufs, use_raw_only, detach_prev=detach,
+                detach_coarse=train and not finetune_all,
+                remat=train and self.opt.remat, params=params,
+            )
             ys.append(y)
         fake, raw, flow, weight = (
             None if ys[0][i] is None else torch.stack([y[i] for y in ys], 1)
             for i in range(4)
         )
-        new_state = tuple(unstack_time(b, tG - 1) for b in bufs)
+        new_state = tuple(unstack_time(b, tG - 1).detach() for b in bufs)
         return ClipOutputs(fake, raw, flow, weight), new_state
 
-    def _frame_pass(self, wins, bufs, use_raw_only):
+    def _apply_scale(self, s: int, params: dict | None, *args) -> CompositeOut:
+        if params is None:
+            return self.scale(s)(*args)
+        return torch.func.functional_call(self.scale(s), params, args)
+
+    def _frame_pass(
+        self, wins, bufs, use_raw_only, *, detach_prev=False,
+        detach_coarse=False, remat=False, params=None,
+    ):
         """One frame through the coarse-to-fine scale stack.
 
         wins: per-level (B, tG, C, H, W) encoded windows, finest first;
@@ -144,6 +171,7 @@ class Vid2VidGenerator(nn.Module):
         opt = self.opt
         tG, n_scales = self.tG, self.n_scales
         c_out = opt.output_nc
+        bufs_in = tuple(b.detach() for b in bufs) if detach_prev else bufs
         coarse: CompositeOut | None = None
         new_bufs = list(bufs)
         for s in range(n_scales):
@@ -153,11 +181,16 @@ class Vid2VidGenerator(nn.Module):
             # the fg mask comes from the POOLED one-hot of the window's last
             # frame at this level
             mask = fg_mask_from_onehot(win[:, tG - 1], opt.fg_labels) if opt.fg else None
-            if s == 0:
-                out = self.G0(lab, bufs[si], mask, use_raw_only)
+            args = (lab, bufs_in[si]) + ((coarse,) if s else ()) + (mask, use_raw_only)
+            p = None if params is None else params[s]
+            if remat:
+                out = checkpoint(self._apply_scale, s, p, *args, use_reentrant=False)
             else:
-                out = self.scale(s)(lab, bufs[si], coarse, mask, use_raw_only)
+                out = self._apply_scale(s, p, *args)
+            if detach_coarse and s != n_scales - 1:
+                out = CompositeOut(*(None if x is None else x.detach() for x in out))
             coarse = out
-            # ring buffer: drop the oldest frame, append this one
+            # ring buffer: drop the oldest frame, append this one (the
+            # stored, gradient-connected frames)
             new_bufs[si] = torch.cat([bufs[si][:, c_out:], out.img_final], 1)
         return tuple(new_bufs), (coarse.img_final, coarse.img_raw, coarse.flow, coarse.weight)

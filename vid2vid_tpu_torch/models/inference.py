@@ -19,21 +19,23 @@ import copy
 
 import torch
 
-from vid2vid_tpu.config import Options
+from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.models.generator import ClipOutputs, State, Vid2VidGenerator
+from vid2vid_tpu_torch.utils.device import require_device
 
 
 class InferenceEngine:
-    """Inference wrapper around a Vid2VidGenerator on one device."""
+    """Inference wrapper around a Vid2VidGenerator on one device: the first
+    CUDA device unless the caller passes device='cpu'."""
 
-    def __init__(self, opt: Options, device: torch.device | str = "cpu"):
+    def __init__(self, opt: Options, device: torch.device | str = "cuda"):
         if getattr(opt, "n_devices", 1) > 1:
             raise NotImplementedError(
                 "--n_devices > 1 (width-sharded serving) is not ported "
                 "(ROADMAP.md, queue 1: tools and multi-device)"
             )
         self.opt = opt
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.compute_dtype = (
             torch.bfloat16 if (opt.bf16 or opt.fp16) else torch.float32
         )

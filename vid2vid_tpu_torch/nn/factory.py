@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from vid2vid_tpu.config import Options
+from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.nn.composite import CompositeGenerator, CompositeLocalGenerator
 
 GENERATOR_KINDS = ("composite", "compositeLocal")

@@ -13,12 +13,54 @@ lists that callers splice into their Sequentials, padding layers included.
     track_running_stats=True); eval mode also uses the running stats (the
     behaviour the reference's single-image checkpoints depend on).
   - norm_layer('none'): Identity, which keeps the Sequential's indices.
+
+Train mode normalizes with the batch's (instance norm: each sample's)
+statistics and updates the running stats as torch.nn's norms do (momentum
+0.1, unbiased variance), as the JAX norms do under mutable batch_stats. The
+JAX package's training steps never update them (its loss engine and
+train_cli say why): `update_running_stats(module, False)` turns the update
+off on every norm of a module, which the port's Trainer does for the
+generator and the discriminators.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train mode leaves the running stats alone while
+    `update_stats` is False."""
+
+    update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.update_stats:
+            return super().forward(x)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """nn.InstanceNorm2d(track_running_stats=True) whose train mode leaves
+    the running stats alone while `update_stats` is False."""
+
+    update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.update_stats:
+            return super().forward(x)
+        return F.instance_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def update_running_stats(module: nn.Module, on: bool) -> list[nn.Module]:
+    """Turn the train-mode running-stat update of every norm in `module` on
+    or off; returns those norms."""
+    norms = [m for m in module.modules() if isinstance(m, (BatchNorm2d, InstanceNorm2d))]
+    for m in norms:
+        m.update_stats = on
+    return norms
 
 
 def reflect_conv(cin: int, cout: int, kernel: int) -> list[nn.Module]:
@@ -34,9 +76,9 @@ def conv_transpose(cin: int, cout: int) -> nn.ConvTranspose2d:
 def norm_layer(kind: str, channels: int) -> nn.Module:
     """The reference's get_norm_layer: batch, instance or none."""
     if kind == "batch":
-        return nn.BatchNorm2d(channels)
+        return BatchNorm2d(channels)
     if kind == "instance":
-        return nn.InstanceNorm2d(channels, affine=False, track_running_stats=True)
+        return InstanceNorm2d(channels, affine=False, track_running_stats=True)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm kind {kind!r}")

@@ -2,7 +2,8 @@
 
 The reference builds its spatial pyramids with
 `AvgPool2d(3, stride=2, padding=1, count_include_pad=False)`: border windows
-divide by the number of valid taps.
+divide by the number of valid taps. The discriminators pool between their
+scales with the same 3x3/s2 average.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ import torch.nn.functional as F
 def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
     """AvgPool2d(3, stride=2, padding=1, count_include_pad=False)."""
     return F.avg_pool2d(x, 3, 2, 1, count_include_pad=False)
+
+
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(2, stride=2): the VGG loss's downsampler for inputs wider
+    than its limit (vid2vid_tpu/losses.py)."""
+    return F.avg_pool2d(x, 2, 2)
 
 
 def build_pyramid(x: torch.Tensor, n_scales: int) -> list[torch.Tensor]:

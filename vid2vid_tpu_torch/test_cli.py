@@ -3,9 +3,10 @@
     python -m vid2vid_tpu_torch.test_cli --dataroot datasets/Cityscapes \\
         --label_nc 35 --use_instance --fg --n_scales_spatial 3 ...
 
-Takes the reference's test.py flags (vid2vid_tpu/config.py), streams the
-test set frame by frame through the generator on the first CUDA device
-(the CPU without one), resets the state at every sequence change, and
+Takes the reference's test.py flags (vid2vid_tpu_torch/config.py), streams
+the test set frame by frame through the generator on the first CUDA device
+(on the CPU with `--gpu_ids -1`; without a card and that flag it raises),
+resets the state at every sequence change, and
 writes each generated frame to results/<name>/<phase>_<epoch>/
 <frame>_fake_B.jpg. Weights: the reference's per-scale checkpoints
 `<checkpoints_dir>/<name>/<which_epoch>_net_G<s>.pth`, loaded with
@@ -21,7 +22,7 @@ from collections.abc import Iterable, Iterator
 import numpy as np
 import torch
 
-from vid2vid_tpu.config import Options, parse_args
+from vid2vid_tpu_torch.config import Options, parse_args
 from vid2vid_tpu_torch.models.inference import InferenceEngine
 from vid2vid_tpu_torch.nn.layers import init_weights
 
@@ -125,8 +126,7 @@ def main(argv=None) -> int:
             f"--dataset_mode {opt.dataset_mode} (face / pose) is not ported yet "
             "(ROADMAP.md, queue 1: data pipelines)"
         )
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    eng = InferenceEngine(opt, device=device)
+    eng = InferenceEngine(opt, device="cuda" if opt.gpu_ids else "cpu")
     load_weights(opt, eng)
     save_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.which_epoch}")
     os.makedirs(save_dir, exist_ok=True)

@@ -1,10 +1,12 @@
 """Carry weights from the JAX package into the port.
 
-The JAX package's checkpoint import (vid2vid_tpu/utils/torch_import.py)
-maps each reference state-dict key onto a path of its flax variable tree.
+The name mappings (`utils/mappings.py`, the port's copy of the JAX
+package's checkpoint-import mappings) pair each reference state-dict key
+with a path of the JAX package's flax variable tree.
 `jax_variables_to_state_dict` runs those mappings backwards: it takes a JAX
 `{params, batch_stats}` tree (numpy arrays) and returns the port's
-state_dict, which `load_state_dict(strict=True)` accepts.
+state_dict, which `load_state_dict(strict=True)` accepts. Nothing here
+imports the JAX package: the trees arrive as nested dicts of arrays.
 
 Inverse layout conversions:
   conv:  HWIO -> OIHW;
@@ -19,8 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vid2vid_tpu.config import Options
-from vid2vid_tpu.utils.torch_import import (
+from vid2vid_tpu_torch.config import Options
+from vid2vid_tpu_torch.utils.mappings import (
     composite_generator_mapping,
     composite_local_mapping,
     flownet2_mapping,
@@ -28,6 +30,8 @@ from vid2vid_tpu.utils.torch_import import (
     flownet_fusion_mapping,
     flownet_s_mapping,
     flownet_sd_mapping,
+    multiscale_discriminator_mapping,
+    vgg19_mapping,
 )
 
 _FLOWNET_MAPPINGS = {
@@ -121,3 +125,19 @@ def flownet_state_dict(variables: dict, name: str) -> dict:
 def flownet2_state_dict(variables: dict) -> dict:
     """JAX FlowNet2 variables -> the port's FlowNet2 state_dict."""
     return jax_variables_to_state_dict(variables, flownet2_mapping())
+
+
+def loss_engine_state_dict(dparams: dict, opt: Options) -> dict:
+    """JAX LossEngine params {'D', 'D_T{s}', 'vgg'} -> the port's LossEngine
+    state_dict (keys netD., netD_T.{s}. and vgg.)."""
+    d_map = multiscale_discriminator_mapping(opt.num_D, opt.n_layers_D, opt.norm)
+    out = {}
+    groups = [("D", "netD", d_map)] + [
+        (f"D_T{s}", f"netD_T.{s}", d_map) for s in range(opt.n_scales_temporal)
+    ]
+    if not opt.no_vgg:
+        groups.append(("vgg", "vgg", vgg19_mapping()))
+    for key, prefix, mapping in groups:
+        sd = jax_variables_to_state_dict(dparams[key], mapping)
+        out.update({f"{prefix}.{k}": v for k, v in sd.items()})
+    return out
