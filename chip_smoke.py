@@ -11,11 +11,16 @@ non-zero):
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
      bf16, correlation (FlowNetC, f32), flow_warp (FlowNet2, f32 and bf16),
-     and the warp backward (training): warp_blend's and flow_warp's;
+     the warp backward (training): warp_blend's and flow_warp's, conv7 at
+     the single-image nets' 7x7 stems and heads, and conv3 / conv3_fused
+     at the label2city path's 3x3 stride-1 convs, in f32 and bf16;
+  3b. after each path below: each kernel against its plain version again,
+     on seeded operands, at every (shapes, dtype) that path gave it and no
+     earlier check held (the paths' calls are logged by shape);
   4. small-input references: the port on the card (kernels) against the
      port on the CPU (plain versions), same weights, f32: the label2city
-     generator, the FlowNet2 FlowEstimator (4b) and two training chunks
-     (4c);
+     generator, the FlowNet2 FlowEstimator (4b), two training chunks
+     (4c) and the single-image seeding of both registries (4d);
   5. the label2city path: the flagship configuration at 2048x1024
      (3 scales, ngf 128, fg, instance edges, bf16) streaming frames through
      InferenceEngine.step, with every kernel's launch count checked;
@@ -27,11 +32,17 @@ non-zero):
      temporal scales) with the FlowEstimator reference flow, timed per
      chunk, with the kernels' launch counts and a torch.profiler breakdown
      of one chunk's device time by kernel family;
+  8a. the edge2face path at 512x512 with --use_single_G: the first two
+     frames from GlobalWithFeatures fed by the Encoder and the face-feature
+     lookup (f32), then the single-scale stream (ngf 128, bf16);
+  8b. the label2city 2048x1024 path seeded by the LocalEnhancer (f32),
+     then the flagship stream;
   6. kernel, plain and library-call times at the paths' shapes, and each
-     kernel's bound (the least time the card could take for its work).
+     kernel's bound (the least time the card could take for its work);
+     conv7 also against cuDNN at the flagship composite's 7x7 shapes.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
-Long tables go to build/chip_smoke_profile.txt.
+Long tables go to build/chip_smoke_profile*.txt.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -59,6 +71,19 @@ from vid2vid_tpu_torch.models.flownet2.nets import init_flownet_weights  # noqa:
 from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator  # noqa: E402
 from vid2vid_tpu_torch.models.inference import InferenceEngine  # noqa: E402
 from vid2vid_tpu_torch.nn.layers import init_weights  # noqa: E402
+from vid2vid_tpu_torch.nn.pix2pixhd import LocalEnhancer  # noqa: E402
+from vid2vid_tpu_torch.ops.conv3 import (  # noqa: E402
+    conv3_fused_padded,
+    conv3_fused_plain,
+    conv3_padded,
+    conv3_plain,
+)
+from vid2vid_tpu_torch.ops.conv7 import (  # noqa: E402
+    conv7_padded,
+    conv7_plain,
+    conv7_reflect,
+    conv7_reflect_plain,
+)
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain  # noqa: E402
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain  # noqa: E402
 from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
@@ -90,6 +115,25 @@ WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
 CORR_SHAPES = [(2, 256, 128, 256), (2, 256, 64, 128), (2, 256, 32, 64)]
 # (B, C, H, W) of FlowNet2's five unfused warps per FlowEstimator call
 FLOW_WARP_SHAPE = (2, 3, 1024, 2048)
+# (net, Ci, Co, H, W) of the 7x7 convs per single-image frame: edge2face
+# 512x512 (GlobalWithFeatures, 15 edge + 16 feature channels; the Encoder),
+# then label2city 2048x1024 (the LocalEnhancer's global stem at 1024x512,
+# its enhancer stem and head)
+CONV7_SHAPES = {
+    "edge2face_single": [("G stem", 31, 64, 512, 512), ("G head", 80, 3, 512, 512),
+                         ("E stem", 3, 16, 512, 512), ("E head", 16, 16, 512, 512)],
+    "label2city_single": [("global stem", 35, 64, 512, 1024),
+                          ("enhancer stem", 35, 32, 1024, 2048),
+                          ("head", 32, 3, 1024, 2048)],
+}
+# (Ci, Co, H, W) of the flagship composite's 7x7 stems and heads per
+# 2048x1024 frame (nn/composite.py; they stay on cuDNN): per scale the
+# label, previous-frame and fg stems, the img / flow / weight / fg heads
+COMPOSITE_CONV7 = [
+    shape for ngf, h, w in ((128, 256, 512), (64, 512, 1024), (32, 1024, 2048))
+    for shape in ((108, ngf, h, w), (6, ngf, h, w), (108, ngf // 2, h, w),
+                  (ngf, 3, h, w), (ngf, 2, h, w), (ngf, 1, h, w), (ngf // 2, 3, h, w))
+]
 # the warp backward's checks: (kernel, (B, C, H, W), dtype). The training
 # path's shapes at 512x256 (the generator's blend per frame, the F_Warp
 # loss over the chunk's two frames) and one 1024x2048 shape
@@ -128,14 +172,33 @@ TOL = {
     ("warp_blend_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
     ("warp_blend_bwd", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
     ("flow_warp_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
+    # one conv each, summed in f32 in another order than cuDNN's (up to
+    # 49 * 80 or 9 * 1024 products of O(1 / sqrt(n)) terms); in bf16 the
+    # only rounding is the final store, up to 2**-8 of the value
+    ("conv7", torch.float32): dict(atol=1e-4, rtol=1e-4),
+    ("conv7", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
+    ("conv3", torch.float32): dict(atol=1e-4, rtol=1e-4),
+    ("conv3", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
+    ("conv3_fused", torch.float32): dict(atol=1e-4, rtol=1e-4),
+    ("conv3_fused", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
 }
 KERNELS = {"respair": respair, "warp_blend": warp_blend,
            "flow_warp": flow_warp, "correlation": correlation,
-           "warp_blend_bwd": warp_blend_bwd, "flow_warp_bwd": flow_warp_bwd}
+           "warp_blend_bwd": warp_blend_bwd, "flow_warp_bwd": flow_warp_bwd,
+           "conv7": conv7_reflect, "conv3": conv3_padded,
+           "conv3_fused": conv3_fused_padded}
 PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
          "flow_warp": flow_warp_plain, "correlation": correlation_plain,
          "warp_blend_bwd": warp_blend_backward_plain,
-         "flow_warp_bwd": flow_warp_backward_plain}
+         "flow_warp_bwd": flow_warp_backward_plain,
+         "conv7": conv7_reflect_plain, "conv3": conv3_plain,
+         "conv3_fused": conv3_fused_plain}
+# the launch counters of each kernel: conv7 has two entries
+COUNTERS = {name: (fn,) for name, fn in KERNELS.items()} | {
+    "conv7": (conv7_reflect, conv7_padded)}
+PLAIN_OF = {conv7_padded: conv7_plain}  # the plain version of a second entry
+# call_key of every kernel call compare() has held against its plain version
+CHECKED: set = set()
 # the H100 SXM's published peaks (dense): HBM bytes/s; FLOP/s in bf16 on
 # the tensor cores and in f32 on the CUDA cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -149,6 +212,16 @@ SMALL = dict(
     n_downsample_G=2, n_blocks=3, n_blocks_local=1, n_scales_spatial=2,
     n_frames_G=3, norm="batch", isTrain=False,
 )
+# edge2face 512x512: bench.py's edge2face_512 (scripts/face/test_512.sh),
+# with the single-image first frames of the edge2face registry
+EDGE2FACE = dict(
+    label_nc=0, input_nc=15, use_instance=False, fg=False, ngf=128,
+    n_downsample_G=3, n_blocks=9, n_scales_spatial=1, n_frames_G=3,
+    norm="batch", bf16=True, pallas_resblocks=True, isTrain=False,
+    dataroot="datasets/face/", use_single_G=True,
+)
+# (H, W) of the two single-image paths
+FACE_HW, CITY_HW = (512, 512), (1024, 2048)
 # the 512x256 label2city training recipe at full width (bench.py's
 # bench_train; recipes/street/train_512.sh on one card: loadSize 512,
 # n_frames_total 6, max_frames_per_gpu 2, with bf16 and remat)
@@ -187,8 +260,8 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def respair_case(c, h, w, dtype, gen):
-    x = torch.randn((1, c, h, w), generator=gen)
+def respair_case(c, h, w, dtype, gen, b=1):
+    x = torch.randn((b, c, h, w), generator=gen)
     k0, k1 = (torch.randn((c, c, 3, 3), generator=gen) / math.sqrt(9 * c)
               for _ in range(2))
     ab = [(1.0 + 0.1 * torch.randn(c, generator=gen), 0.1 * torch.randn(c, generator=gen))
@@ -198,12 +271,12 @@ def respair_case(c, h, w, dtype, gen):
     return x, k0, ab0, k1, ab1
 
 
-def warp_case(h, w, dtype, gen):
-    raw = torch.randn((1, 3, h, w), generator=gen)
-    prev = torch.randn((1, 3, h, w), generator=gen)
+def warp_case(h, w, dtype, gen, b=1, c=3):
+    raw = torch.randn((b, c, h, w), generator=gen)
+    prev = torch.randn((b, c, h, w), generator=gen)
     # flows of several pixels, so the samples also run past the borders
-    flow = 8.0 * torch.randn((1, 2, h, w), generator=gen)
-    weight = torch.sigmoid(torch.randn((1, 1, h, w), generator=gen))
+    flow = 8.0 * torch.randn((b, 2, h, w), generator=gen)
+    weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=gen))
     return tuple(t.to(DEV, dtype) for t in (raw, prev, flow, weight))
 
 
@@ -235,26 +308,106 @@ def corr_case(shape, gen):
     return tuple(torch.randn(shape, generator=gen).to(DEV) for _ in range(2))
 
 
+def conv7_case(ci, co, h, w, dtype, gen, b=1):
+    """(x, w, bias) of a 7x7 conv: (B, Ci, H, W) input, weights of
+    1 / sqrt(49 Ci) so the output is O(1), an f32 bias."""
+    x = torch.randn((b, ci, h, w), generator=gen)
+    wt = torch.randn((co, ci, 7, 7), generator=gen) / math.sqrt(49 * ci)
+    bias = 0.1 * torch.randn(co, generator=gen)
+    return x.to(DEV, dtype), wt.to(DEV, dtype), bias.to(DEV)
+
+
+def conv3_cases(c, h, w, dtype, gen):
+    """The 3x3 convs of one respair call at (C, H, W) as conv3 and
+    conv3_fused take them: the reflect-padded input x -> h (conv3; fused:
+    the ReLU form) and h -> out (fused: the residual form, with x)."""
+    x, k0, (a0, c0), k1, (a1, c1) = respair_case(c, h, w, dtype, gen)
+    xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
+    return (xp, k0), (xp, k0, a0, c0, None, True), (xp, k1, a1, c1, x, False)
+
+
+def case_at(name, shapes, dtype, gen):
+    """Seeded operands of a kernel at the shapes a path gave it: `shapes`
+    are those of the call's tensor arguments, in order."""
+    b, c, h, w = shapes[0]
+    if name == "respair":
+        return respair_case(c, h, w, dtype, gen, b)
+    if name == "warp_blend":
+        return warp_case(h, w, dtype, gen, b, c)
+    if name == "flow_warp":
+        return flow_warp_case(dtype, gen, shapes[0])
+    if name == "correlation":
+        return corr_case(shapes[0], gen)
+    if name == "conv7":
+        return conv7_case(c, shapes[1][0], h, w, dtype, gen, b)
+    raise NotImplementedError(f"no seeded case for {name}: add one to case_at")
+
+
+def call_key(fn, args) -> tuple:
+    """(wrapper, shapes of the tensor arguments, dtype of the first)."""
+    tensors = [a for a in args if torch.is_tensor(a)]
+    return fn, tuple(tuple(t.shape) for t in tensors), tensors[0].dtype
+
+
+@contextlib.contextmanager
+def kernel_call_shapes():
+    """Within the block, every call that a module of the port makes to a
+    kernel wrapper is logged: yields {(name, wrapper, shapes, dtype): calls}.
+    The names the calling modules imported are swapped for a logging shim
+    and put back after; the wrapper and its launch count stay as they are."""
+    names = {id(fn): name for name, fns in COUNTERS.items() for fn in fns}
+    seen, swapped = {}, []
+
+    def shim(name, fn):
+        def call(*args, **kwargs):
+            key = (name, *call_key(fn, args))
+            seen[key] = seen.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith("vid2vid_tpu_torch."):
+            continue
+        for attr, val in list(vars(mod).items()):
+            name = names.get(id(val))
+            if name is not None and val.__module__ != mod.__name__:
+                swapped.append((mod, attr, val))
+                setattr(mod, attr, shim(name, val))
+    try:
+        yield seen
+    finally:
+        for mod, attr, val in swapped:
+            setattr(mod, attr, val)
+
+
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fns in COUNTERS.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: sum(fn.launches for fn in fns) for name, fns in COUNTERS.items()}
 
 
 def upcast(args):
-    return [tuple(v.float() for v in a) if isinstance(a, tuple) else a.float()
-            for a in args]
+    return [tuple(v.float() for v in a) if isinstance(a, tuple)
+            else a.float() if torch.is_tensor(a) else a for a in args]
 
 
-def compare(name, args, dtype):
+def compare(name, args, dtype, kernel=None, plain=None):
     """Max abs error of the kernel against its plain version (every output);
-    raises outside the tolerance."""
-    got = KERNELS[name](*args)
+    raises outside the tolerance, or if the kernel did not launch. `kernel`
+    / `plain` name another entry of the same kernel (conv7_padded). The
+    call's key goes into CHECKED."""
+    kernel = kernel or KERNELS[name]
+    CHECKED.add(call_key(kernel, args))
+    before = kernel.launches
+    got = kernel(*args)
     torch.cuda.synchronize()
-    want = PLAIN[name](*upcast(args))
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{name}: the kernel did not launch")
+    want = (plain or PLAIN[name])(*upcast(args))
     got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
     tol = TOL[(name, dtype)]
     worst = 0.0
@@ -334,18 +487,32 @@ def warp_work(shape, dtype, n_read_ch, n_write_ch, flop_per_elem):
 # ----------------------------------------------------------------- phases
 
 
-def seeded_engine(opt: Options, device, seed: int) -> InferenceEngine:
-    """An engine with weights from a seeded torch.Generator and seeded
-    running stats (mean N(0, 0.1), var U(0.5, 1.5))."""
-    eng = InferenceEngine(opt, device=device)
-    gen = torch.Generator().manual_seed(seed)  # on the CPU for every device
-    init_weights(eng.gen, gen)
+def seed_net(net: torch.nn.Module, seed: int) -> None:
+    """Weights from a seeded torch.Generator (on the CPU for every device)
+    and seeded running stats of the batch and instance norms (mean N(0,
+    0.1), var U(0.5, 1.5))."""
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(net, gen)
     with torch.no_grad():
-        for m in eng.gen.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
+        for m in net.modules():
+            if (isinstance(m, (torch.nn.BatchNorm2d, torch.nn.InstanceNorm2d))
+                    and m.running_mean is not None):
                 m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=gen))
                 m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=gen))
+
+
+def seeded_engine(opt: Options, device, seed: int) -> InferenceEngine:
+    """An engine whose generator is seeded by `seed_net`."""
+    eng = InferenceEngine(opt, device=device)
+    seed_net(eng.gen, seed)
     return eng
+
+
+def watch_tf32(tf32_seen: list, *nets: torch.nn.Module) -> None:
+    """Each forward of each net appends cuDNN's TF32 flag to `tf32_seen`."""
+    for net in nets:
+        net.register_forward_pre_hook(
+            lambda *_: tf32_seen.append(torch.backends.cudnn.allow_tf32))
 
 
 def seeded_flow_estimator(device, seed: int, tf32_seen: list) -> FlowEstimator:
@@ -354,8 +521,7 @@ def seeded_flow_estimator(device, seed: int, tf32_seen: list) -> FlowEstimator:
     forward of its FlowNet2 appends cuDNN's TF32 flag to `tf32_seen`."""
     est = FlowEstimator()
     init_flownet_weights(est, torch.Generator().manual_seed(seed))
-    est.net.register_forward_pre_hook(
-        lambda *_: tf32_seen.append(torch.backends.cudnn.allow_tf32))
+    watch_tf32(tf32_seen, est.net)
     return est.to(device).eval()
 
 
@@ -372,11 +538,12 @@ def torch_default_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def check_f32_convs(tf32_seen: list) -> None:
-    """FlowNet2 ran with TF32 off although the caller had cuDNN's on."""
+def check_f32_convs(tf32_seen: list, what: str = "FlowNet2") -> None:
+    """The watched nets ran with TF32 off although the caller had cuDNN's
+    on (inside torch_default_tf32)."""
     if not tf32_seen or any(tf32_seen) or not torch.backends.cudnn.allow_tf32:
         raise AssertionError(
-            f"cuDNN TF32 inside FlowNet2 {tf32_seen}, after the call "
+            f"cuDNN TF32 inside {what} {tf32_seen}, after the call "
             f"{torch.backends.cudnn.allow_tf32}: want False inside, True after")
 
 
@@ -460,56 +627,113 @@ def out_of_bounds(got: list[dict], want: list[dict]) -> list[str]:
 
 
 DEVICE_TIME = ("self_device_time_total", "self_cuda_time_total")
-FAMILIES = [  # (family, substrings of the kernel name), first match wins
-    ("warp kernels (ours)", ("warp_kernel", "warp_bwd_kernel")),
-    ("correlation (ours)", ("corr",)),
-    ("conv / gemm (cuDNN, cuBLAS)", ("conv", "cudnn", "gemm", "xmma", "wgrad", "dgrad",
-                                      "fprop", "cutlass", "winograd", "implicit")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
-    ("optimizer (Adam)", ("adam", "multi_tensor")),
-    ("reductions", ("reduce",)),
-    ("pool / resize", ("pool", "upsample", "grid_sampler", "interpolate")),
-    ("elementwise / copy / cat", ("elementwise", "vectorized", "copy", "cat", "fill",
-                                  "index", "gather", "scatter")),
+FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first match wins
+    # conv3x3_kernel<T, TCO, REFLECT, MIN_BLOCKS> (csrc/conv_kxk.cuh):
+    # respair's launches are the reflect ones
+    ("respair (ours)", r"conv3x3_kernel<[^,]+, \d+, true,"),
+    ("conv7 (ours)", r"conv7x7_kernel<"),
+    ("conv3 / conv3_fused (ours)", r"conv3x3_kernel<[^,]+, \d+, false,"),
+    ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel"),
+    ("correlation (ours)", r"corr"),
+    ("conv / gemm (cuDNN, cuBLAS)",
+     r"conv|cudnn|gemm|xmma|wgrad|dgrad|fprop|cutlass|winograd|implicit"),
+    ("batch norm", r"batch_norm|batchnorm|bn_"),
+    ("optimizer (Adam)", r"adam|multi_tensor"),
+    ("reductions", r"reduce"),
+    ("pool / resize", r"pool|upsample|grid_sampler|interpolate"),
+    ("elementwise / copy / cat", r"elementwise|vectorized|copy|cat|fill|index|gather|scatter"),
 ]
+# our families' launch counters, each with its kernels per counted launch
+# (respair's wrapper launches the conv twice): the profiled launches of a
+# family must equal their sum
+OUR_FAMILIES = {
+    "respair (ours)": {"respair": 2}, "conv7 (ours)": {"conv7": 1},
+    "conv3 / conv3_fused (ours)": {"conv3": 1, "conv3_fused": 1},
+    "warp kernels (ours)": dict.fromkeys(
+        ("warp_blend", "flow_warp", "warp_blend_bwd", "flow_warp_bwd"), 1),
+    "correlation (ours)": {"correlation": 1},
+}
 
 
-def profile_by_family(fn) -> tuple[list, float, float]:
-    """Run fn once under torch.profiler: (families sorted by device time
-    [(family, ms, kernel count)], total kernel ms, wall ms). Only the
-    kernels' own rows count: an operator's row, and a user annotation's
-    (Optimizer.step), repeat their kernels' time."""
+def profile_by_family(fn, what: str = "one training chunk",
+                      file_name: str = "chip_smoke_profile.txt") -> tuple[list, float, float]:
+    """Run fn twice under torch.profiler, a warm-up step and the recorded
+    one: (families sorted by device time [(family, ms, kernel count)],
+    total kernel ms, wall ms) of the second; the kernels' rows go to
+    build/<file_name>. Only the kernels' own rows count: an operator's
+    row, and a user annotation's (Optimizer.step), repeat their kernels'
+    time. Without the warm-up step the first kernels launched after the
+    profiler starts are missing from its table. Raises unless each of our
+    kernel families counts as many launches as their counters did."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = read_launches()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        counted = read_launches()
+        prof.step()
     fams: dict[str, list] = {}
     rows = []
-    for evt in prof.key_averages():
+    for evt in recorded[0]:
         us = next((getattr(evt, a) for a in DEVICE_TIME if hasattr(evt, a)), 0.0)
         if (us <= 0 or evt.device_type != DeviceType.CUDA
                 or getattr(evt, "is_user_annotation", False)
                 or evt.key.startswith(("Command Buffer", "Memcpy", "Memset"))):
             continue
         name = evt.key.lower()
-        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        fam = next((f for f, pattern in FAMILIES if re.search(pattern, name)), "other")
         entry = fams.setdefault(fam, [0.0, 0])
         entry[0] += us / 1e3
         entry[1] += evt.count
         rows.append((us / 1e3, evt.count, fam, evt.key[:120]))
     rows.sort(reverse=True)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as fh:
-        fh.write(f"one training chunk, wall {wall:.3f} ms\n")
+    with open(os.path.join(OUT_DIR, file_name), "w") as fh:
+        fh.write(f"{what}, wall {wall:.3f} ms\n")
         for ms, n, fam, key in rows:
             fh.write(f"{ms:10.4f} ms {n:6d}x  {fam:28s} {key}\n")
+    for fam, names in OUR_FAMILIES.items():
+        launched = sum(k * (counted[n] - before[n]) for n, k in names.items())
+        if fams.get(fam, [0.0, 0])[1] != launched:
+            raise AssertionError(f"{what}: the profiler lists {fams.get(fam, [0.0, 0])[1]} "
+                                 f"launches of {fam}, the counters {launched}")
     table = sorted(((f, v[0], v[1]) for f, v in fams.items()), key=lambda r: -r[1])
     return table, sum(v[0] for v in fams.values()), wall
+
+
+def record_err(errs: dict, name, dtype, e, shape, **where) -> None:
+    """Keep the largest error of a kernel in a dtype; one stdout line."""
+    errs[name][dtype] = max(errs[name].get(dtype, 0.0), e)
+    tol = TOL[(name, dtype)]
+    say("check", kernel=name, **where, shape="x".join(map(str, shape)),
+        dtype=str(dtype)[6:], max_abs_err=f"{e:.3g}",
+        bound=f"{tol['atol']}+{tol['rtol']}*|plain|", ok=True)
+
+
+def check_path_shapes(path: str, seen: dict, errs: dict, gen: torch.Generator) -> None:
+    """Phase 3b: each kernel against its plain version, on seeded operands,
+    at every (shapes, dtype) the path gave it (kernel_call_shapes) that no
+    earlier check held; fails if the path called a kernel at none."""
+    if not seen:
+        raise AssertionError(f"{path}: no kernel call was logged")
+    for (name, fn, shapes, dtype), calls in seen.items():
+        if (fn, shapes, dtype) in CHECKED:
+            continue
+        args = case_at(name, shapes, dtype, gen)
+        e = compare(name, args, dtype, fn, PLAIN_OF.get(fn))
+        record_err(errs, name, dtype, e, shapes[0], path=path, calls=calls)
+        del args
 
 
 def check_kernels(gen: torch.Generator) -> dict:
@@ -518,11 +742,7 @@ def check_kernels(gen: torch.Generator) -> dict:
     errs = {name: {} for name in KERNELS}
 
     def record(name, dtype, e, shape):
-        errs[name][dtype] = max(errs[name].get(dtype, 0.0), e)
-        tol = TOL[(name, dtype)]
-        say("check", kernel=name, shape="x".join(map(str, shape)),
-            dtype=str(dtype)[6:], max_abs_err=f"{e:.3g}",
-            bound=f"{tol['atol']}+{tol['rtol']}*|plain|", ok=True)
+        record_err(errs, name, dtype, e, shape)
 
     for dtype in (torch.float32, torch.bfloat16):
         for c, h, w, _ in RESPAIR_SHAPES:
@@ -543,6 +763,23 @@ def check_kernels(gen: torch.Generator) -> dict:
         args = bwd_case(name, shape, dtype, gen)
         record(name, dtype, compare(name, args, dtype), shape)
         del args
+    for dtype in (torch.float32, torch.bfloat16):
+        for shapes in CONV7_SHAPES.values():
+            for _, ci, co, h, w in shapes:
+                args = conv7_case(ci, co, h, w, dtype, gen)
+                record("conv7", dtype, compare("conv7", args, dtype), (ci, co, h, w))
+        # the VALID entry on a pre-padded input (the Pallas contract)
+        x, wt, bias = conv7_case(80, 3, 512, 512, dtype, gen)
+        xp = F.pad(x, (3, 3, 3, 3), mode="reflect")
+        record("conv7", dtype, compare("conv7", (xp, wt, bias), dtype, conv7_padded,
+                                       conv7_plain), ("padded", 80, 3, 512, 512))
+        for c, h, w, _ in RESPAIR_SHAPES:
+            plain_args, relu_args, res_args = conv3_cases(c, h, w, dtype, gen)
+            record("conv3", dtype, compare("conv3", plain_args, dtype), (c, h, w))
+            for form, args in (("relu", relu_args), ("residual", res_args)):
+                record("conv3_fused", dtype, compare("conv3_fused", args, dtype),
+                       (form, c, h, w))
+        del args, plain_args, relu_args, res_args, x, xp
     return errs
 
 
@@ -616,6 +853,74 @@ def reference_training() -> None:
         max_rel_err=f"{worst:.3g}", bounds="losses 2e-4/2e-2 grad norms 5e-3/5e-2",
         loss_G_total=",".join(f"{c['loss_G_total']:.6g}" for c in ref_losses["cpu"]),
         launches=json.dumps({k: v for k, v in ref_launches.items() if v}))
+
+
+def face_inputs(t: int, h: int, w: int, n_parts: int, n_images: int, seed: int):
+    """(edge maps (1, t, 15, H, W), real frames (1, 2, 3, H, W), part maps
+    (1, 2, H, W), training clusters) from numpy: blocky part maps of ids
+    0..n_parts-1 (0 has no clusters), n_images cluster rows of 16 features
+    + a count per part. The published features.npy is not in the repo."""
+    rng = np.random.default_rng(seed)
+    edges = rng.uniform(-1, 1, (1, t, 15, h, w)).astype(np.float32)
+    real = rng.uniform(-1, 1, (1, 2, 3, h, w)).astype(np.float32)
+    parts = rng.integers(0, n_parts, (1, 2, h // 16, w // 16))
+    parts = np.kron(parts, np.ones((16, 16), np.int64))
+    clusters = {p: rng.standard_normal((n_images, 17)).astype(np.float32)
+                for p in range(1, n_parts)}
+    return (*(torch.from_numpy(a) for a in (edges, real, parts)), clusters)
+
+
+def reference_single_g() -> None:
+    """Phase 4d: single-image seeding of both registries at small widths,
+    card (kernels) vs CPU (plain), f32: a small LocalEnhancer in place of
+    the label2city 2048 registry's on a 64x128 label stream, and the
+    edge2face registry's GlobalWithFeatures + Encoder at small dims
+    (sg_cfg) with the face-feature lookup over seeded clusters at 64x64.
+    PyTorch's default TF32 flags: the engine turns cuDNN's TF32 off for
+    the nets itself."""
+    city = Options(**SMALL, dataroot="datasets/Cityscapes/", loadSize=2048,
+                   use_single_G=True)
+    face = Options(**EDGE2FACE | dict(ngf=8, n_downsample_G=2, n_blocks=1, bf16=False))
+    face_cfg = {"feat_num": 4, "g": dict(ngf=8, nd=2, nb=2, norm="instance"),
+                "e": dict(out_nc=4, ngf=8, nd=2, norm="instance")}
+    labels, inst = label_stream(city, 1, 64, 128)
+    edges, real, parts, clusters = face_inputs(2, 64, 64, 5, 10, seed=1)
+    clusters = {p: c[:, :5] for p, c in clusters.items()}  # 4 features + 1
+    states, tf32_seen = {}, []
+    reset_launches()
+    with torch_default_tf32():
+        for d in ("cpu", DEV):
+            eng = InferenceEngine(city, device=d)
+            if not isinstance(eng.build_single_g(), LocalEnhancer):
+                raise AssertionError("label2city 2048 registry: not a LocalEnhancer")
+            eng.single_g = LocalEnhancer(4, ngf=8, n_downsample_global=2, n_blocks_global=2,
+                                         n_blocks_local=1).to(d).eval()
+            seed_net(eng.single_g, 11)
+            watch_tf32(tf32_seen, eng.single_g)
+            enc = eng.encode(labels[:, :2], inst[:, :2])
+            states[("city", d)] = [t.cpu() for t in eng.single_g_first_frames(enc)]
+            eng = InferenceEngine(face, device=d)
+            eng.build_single_g(face_cfg)
+            seed_net(eng.single_g, 12)
+            seed_net(eng.encoder, 13)
+            watch_tf32(tf32_seen, eng.single_g, eng.encoder)
+            states[("face", d)] = [t.cpu() for t in eng.single_g_first_frames(
+                edges, real, parts, clusters)]
+        check_f32_convs(tf32_seen, "the single-image nets")
+    launches = read_launches()
+    errs = {}
+    for reg in ("city", "face"):
+        got, want = states[(reg, DEV)], states[(reg, "cpu")]
+        errs[reg] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not errs[reg] <= 5e-4 or not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"single-image reference {reg}: card vs CPU {errs[reg]}")
+    if launches["conv7"] != 2 * (3 + 4) or launches["respair"] != 2 * (3 + 2):
+        raise AssertionError(f"single-image reference launches {launches}")
+    say("reference", config="single-image seeding f32: LocalEnhancer ngf8 64x128, "
+        "GlobalWithFeatures ngf8 + Encoder 64x64", city_max_abs_err=f"{errs['city']:.3g}",
+        face_max_abs_err=f"{errs['face']:.3g}", bound=5e-4,
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        net_cudnn_allow_tf32=sorted(set(tf32_seen)), ok=True)
 
 
 def label2city_path(card: str) -> dict:
@@ -789,6 +1094,167 @@ def training_path(card: str) -> dict:
     return launches
 
 
+def say_profile(phase: str, profile) -> None:
+    """One line: a profiled call's wall and kernel ms, and ms by family."""
+    families, busy_ms, wall = profile
+    say(phase, wall_ms=f"{wall:.2f}", kernel_ms=f"{busy_ms:.2f}",
+        families=json.dumps({f: [round(ms, 3), n] for f, ms, n in families}))
+
+
+def check_frames(frames, shape, what: str) -> None:
+    """Finite float32 frames of the shape, within the tanh range."""
+    for f in frames:
+        if tuple(f.shape) != shape or f.dtype != torch.float32:
+            raise AssertionError(f"{what}: frame {tuple(f.shape)} {f.dtype}")
+        if not torch.isfinite(f).all():
+            raise AssertionError(f"{what}: non-finite frame")
+        if float(f.abs().max()) > 1 + 1e-2:
+            raise AssertionError(f"{what}: |frame| {float(f.abs().max())} > 1 + 1e-2")
+
+
+def seed_stats(seed_ms: list) -> dict:
+    """The single-image first-frame metric: median ms per first frame over
+    the timed seeding calls, and their spread."""
+    return dict(ms_per_single_g_frame_median=f"{statistics.median(seed_ms):.2f}",
+                ms_per_single_g_frame_min=f"{min(seed_ms):.2f}",
+                ms_per_single_g_frame_max=f"{max(seed_ms):.2f}",
+                ms_per_single_g_frame_by_call=",".join(f"{v:.1f}" for v in seed_ms))
+
+
+def seeded_stream(eng, seed_fn, n_seed: int, windows, n_frames: int):
+    """Seed the state n_seed times (the single-image nets, two frames a
+    call; the caller has made a warm-up call), then stream n_frames frames
+    through eng.step from the last seed. Returns (ms per seeded frame per
+    call, ms per streamed frame, the seeded state, the frames); host clock
+    around torch.cuda.synchronize()."""
+    seed_ms, times, fakes = [], [], []
+    for _ in range(n_seed):
+        t1 = time.perf_counter()
+        state = seed_fn()
+        torch.cuda.synchronize()
+        seed_ms.append((time.perf_counter() - t1) * 1e3 / 2)
+    seeded = state
+    for t in range(n_frames):
+        t1 = time.perf_counter()
+        fake, state = eng.step(*windows(t), state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        fakes.append(fake)
+    return seed_ms, times, seeded, fakes
+
+
+def edge2face_single_path(card: str) -> dict:
+    """Phase 8a: edge2face 512x512 with --use_single_G: two first frames
+    from the registry's GlobalWithFeatures (f32), fed by the Encoder and
+    the face-feature lookup over seeded clusters, then the single-scale
+    stream (bf16), under PyTorch's default TF32 flags (the engine turns
+    cuDNN's TF32 off for the nets itself). Returns the kernels' launch
+    counts on it."""
+    opt = Options(**EDGE2FACE)
+    h, w = FACE_HW
+    n_frames, warm, n_seed = 10, 2, 5
+    t0 = time.perf_counter()
+    eng = seeded_engine(opt, DEV, seed=4)
+    eng.build_single_g()
+    seed_net(eng.single_g, 5)
+    seed_net(eng.encoder, 6)
+    tf32_seen = []
+    watch_tf32(tf32_seen, eng.single_g, eng.encoder)
+    edges, real, parts, clusters = face_inputs(n_frames + 2, h, w, 12, 50, seed=4)
+    edges, real, parts = edges.to(DEV), real.to(DEV), parts.to(DEV)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def seed_fn():
+        return eng.single_g_first_frames(edges[:, :2], real, parts, clusters)
+
+    with torch_default_tf32():
+        seed_fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        seed_ms, times, seeded, fakes = seeded_stream(
+            eng, seed_fn, n_seed, lambda t: (edges[:, t : t + 3], None), n_frames)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_by_family(seed_fn, "one edge2face seeding call (2 frames)",
+                                    "chip_smoke_profile_edge2face_single.txt")
+        check_f32_convs(tf32_seen, "the single-image nets")
+    check_frames(seeded[0][0].float(), (3, h, w), "edge2face single-image frame")
+    check_frames(fakes, (1, 3, h, w), "edge2face stream")
+    want = dict.fromkeys(KERNELS, 0) | {
+        "conv7": 4 * 2 * n_seed, "respair": 9 * 2 * n_seed + 18 * n_frames,
+        "warp_blend": n_frames}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, want {want}")
+    say("edge2face_single_path",
+        config="edge2face 512x512 --use_single_G: GlobalWithFeatures ngf64 + Encoder "
+        "f32, then 1-scale ngf128 bf16", seed_calls=n_seed, frames=n_frames,
+        setup_s=f"{setup_s:.1f}", **seed_stats(seed_ms),
+        net_cudnn_allow_tf32=sorted(set(tf32_seen)), ms_per_frame_median=f"{statistics.median(times[warm:]):.2f}",
+        ms_per_frame=",".join(f"{v:.1f}" for v in times),
+        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+        card=repr(card))
+    say_profile("edge2face_single_profile", profile)
+    return launches
+
+
+def label2city_single_path(card: str) -> dict:
+    """Phase 8b: label2city 2048x1024 seeded by the city-2048 registry's
+    LocalEnhancer (f32, the one-hot labels without the instance channel),
+    then the flagship stream, under PyTorch's default TF32 flags. Returns
+    the kernels' launch counts on it."""
+    opt = Options(**FLAGSHIP, dataroot="datasets/Cityscapes/", loadSize=2048,
+                  use_single_G=True)
+    h, w = CITY_HW
+    n_frames, warm, n_seed = 4, 2, 5
+    t0 = time.perf_counter()
+    eng = seeded_engine(opt, DEV, seed=6)
+    if not isinstance(eng.build_single_g(), LocalEnhancer):
+        raise AssertionError("label2city 2048 registry: not a LocalEnhancer")
+    seed_net(eng.single_g, 7)
+    tf32_seen = []
+    watch_tf32(tf32_seen, eng.single_g)
+    labels, inst = label_stream(opt, n_frames, h, w)
+    enc = eng.encode(labels[:, :2], inst[:, :2])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def seed_fn():
+        return eng.single_g_first_frames(enc)
+
+    with torch_default_tf32():
+        seed_fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        seed_ms, times, seeded, fakes = seeded_stream(
+            eng, seed_fn, n_seed, lambda t: (labels[:, t : t + 3], inst[:, t : t + 3]),
+            n_frames)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_by_family(seed_fn, "one label2city seeding call (2 frames)",
+                                    "chip_smoke_profile_label2city_single.txt")
+        check_f32_convs(tf32_seen, "the single-image nets")
+    check_frames(seeded[0][0].float(), (3, h, w), "label2city single-image frame")
+    check_frames(fakes, (1, 3, h, w), "label2city seeded stream")
+    want = dict.fromkeys(KERNELS, 0) | {
+        "conv7": 3 * 2 * n_seed, "respair": 12 * 2 * n_seed + 45 * n_frames,
+        "warp_blend": 3 * n_frames}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, want {want}")
+    say("label2city_single_path",
+        config="label2city 2048x1024 --use_single_G: LocalEnhancer ngf32 f32, then "
+        "3-scale ngf128 fg bf16", seed_calls=n_seed, frames=n_frames,
+        setup_s=f"{setup_s:.1f}", **seed_stats(seed_ms),
+        net_cudnn_allow_tf32=sorted(set(tf32_seen)), ms_per_frame_median=f"{statistics.median(times[warm:]):.2f}",
+        ms_per_frame=",".join(f"{v:.1f}" for v in times),
+        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+        card=repr(card))
+    say_profile("label2city_single_profile", profile)
+    return launches
+
+
 def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
     """Phase 6: kernel, plain and library-call times at the paths' shapes.
     Returns {kernel: [ms, plain ms, library ms]} and {kernel: [bytes,
@@ -868,7 +1334,83 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
         say("time", kernel=name, shape="x".join(map(str, shape)), dtype=str(dtype)[6:],
             ms=f"{k:.4f}", plain_ms=f"{p:.4f}", grid_sample_backward_ms=f"{lib:.4f}")
         del args
+    conv_times(gen, ms, work)
     return ms, work
+
+
+def conv7_work(ci, co, h, w, size):
+    """(bytes, operations) of a 7x7 conv: input, weights, bias, output."""
+    return (ci * h * w + co * h * w + 49 * ci * co) * size + 4 * co, 98.0 * ci * co * h * w
+
+
+def conv_times(gen: torch.Generator, ms: dict, work: dict) -> None:
+    """Phase 6, the conv kernels: conv7 at the single-image nets' shapes in
+    f32 (per edge2face seeded frame) and against cuDNN at the flagship
+    composite's 7x7 shapes in bf16; conv3 and conv3_fused at the label2city
+    path's 3x3 convs in bf16 (per 2048x1024 frame). Library: F.conv2d on
+    the pre-padded input."""
+    ms["conv7"], work["conv7"] = [0.0, 0.0, 0.0], [0.0, 0.0]
+    for path, shapes in CONV7_SHAPES.items():
+        for net, ci, co, h, w in shapes:
+            x, wt, bias = args = conv7_case(ci, co, h, w, torch.float32, gen)
+            xp = F.pad(x, (3, 3, 3, 3), mode="reflect")
+            k, p = time_ms(conv7_reflect, args), time_ms(conv7_reflect_plain, args)
+            lib = time_ms(F.conv2d, (xp, wt, bias))
+            nb, nop = conv7_work(ci, co, h, w, 4)
+            if path == "edge2face_single":
+                for i, v in enumerate((k, p, lib)):
+                    ms["conv7"][i] += v
+                work["conv7"][0] += nb
+                work["conv7"][1] += nop
+            say("time", kernel="conv7", path=path, net=repr(net),
+                shape=f"{ci}->{co}x{h}x{w}", dtype="float32", ms=f"{k:.4f}",
+                plain_ms=f"{p:.4f}", conv2d_ms=f"{lib:.4f}",
+                bound_ms=f"{bound_ms(nb, nop, F32_FLOPS)[0]:.4f}",
+                tflops=f"{nop / k / 1e9:.2f}")
+            del args, x, xp
+    totals = [0.0, 0.0, 0.0]  # kernel ms, cuDNN ms, bound ms
+    for ci, co, h, w in COMPOSITE_CONV7:
+        x, wt, bias = args = conv7_case(ci, co, h, w, torch.bfloat16, gen)
+        xp = F.pad(x, (3, 3, 3, 3), mode="reflect")
+        k, lib = time_ms(conv7_reflect, args), time_ms(F.conv2d, (xp, wt, bias.bfloat16()))
+        nb, nop = conv7_work(ci, co, h, w, 2)
+        for i, v in enumerate((k, lib, bound_ms(nb, nop, BF16_FLOPS)[0])):
+            totals[i] += v
+        say("time", kernel="conv7", path="flagship composite (cuDNN there)",
+            shape=f"{ci}->{co}x{h}x{w}", dtype="bfloat16", ms=f"{k:.4f}",
+            conv2d_ms=f"{lib:.4f}", tflops=f"{nop / k / 1e9:.2f}")
+        del args, x, xp
+    say("time", kernel="conv7", case="the flagship composite's 21 7x7 convs per "
+        "2048x1024 frame", dtype="bfloat16", ms=f"{totals[0]:.3f}",
+        conv2d_ms=f"{totals[1]:.3f}", bound_ms=f"{totals[2]:.4f}",
+        kernel_over_cudnn=f"{totals[0] / totals[1]:.2f}")
+    for name in ("conv3", "conv3_fused"):
+        ms[name], work[name] = [0.0, 0.0, 0.0], [0.0, 0.0]
+    for c, h, w, n in RESPAIR_SHAPES:
+        (xp, k0), relu_args, res_args = conv3_cases(c, h, w, torch.bfloat16, gen)
+        lib = time_ms(F.conv2d, (xp, k0))
+        conv_bytes = (c * (h + 2) * (w + 2) + c * h * w + 9 * c * c) * 2
+        conv_ops = 2.0 * 9 * c * c * h * w
+        k, p = time_ms(conv3_padded, (xp, k0)), time_ms(conv3_plain, (xp, k0))
+        for i, v in enumerate((k, p, lib)):
+            ms["conv3"][i] += 2 * n * v
+        work["conv3"][0] += 2 * n * conv_bytes
+        work["conv3"][1] += 2 * n * conv_ops
+        fused = [(time_ms(conv3_fused_padded, a), time_ms(conv3_fused_plain, a))
+                 for a in (relu_args, res_args)]
+        for i in range(2):
+            ms["conv3_fused"][i] += n * (fused[0][i] + fused[1][i])
+        ms["conv3_fused"][2] += 2 * n * lib
+        work["conv3_fused"][0] += n * (2 * conv_bytes + c * h * w * 2)  # + the residual
+        work["conv3_fused"][1] += 2 * n * conv_ops
+        say("time", kernel="conv3", shape=f"{c}x{h}x{w}", dtype="bfloat16", ms=f"{k:.4f}",
+            plain_ms=f"{p:.4f}", conv2d_ms=f"{lib:.4f}", tflops=f"{conv_ops / k / 1e9:.2f}",
+            calls_per_frame=2 * n)
+        say("time", kernel="conv3_fused", shape=f"{c}x{h}x{w}", dtype="bfloat16",
+            relu_ms=f"{fused[0][0]:.4f}", relu_plain_ms=f"{fused[0][1]:.4f}",
+            residual_ms=f"{fused[1][0]:.4f}", residual_plain_ms=f"{fused[1][1]:.4f}",
+            conv2d_ms=f"{lib:.4f}", calls_per_frame=f"{n}+{n}")
+        del xp, k0, relu_args, res_args
 
 
 def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
@@ -899,12 +1441,28 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                           "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
                           "f32, one 512x256 training chunk's F_Warp call at "
                           "(2, 3, 256, 512); library: F.grid_sample's backward"),
+        "conv7": ("vid2vid_tpu_torch/csrc/conv.cu", "vid2vid_tpu/ops/conv7_pallas.py:52",
+                  "edge2face_single", F32_FLOPS,
+                  "f32, summed over one 512x512 edge2face single-image frame's 4 "
+                  "calls (G stem 31->64, G head 80->3, E stem 3->16, E head 16->16); "
+                  "library: F.conv2d on the pre-padded input"),
+        "conv3": ("vid2vid_tpu_torch/csrc/conv.cu", "vid2vid_tpu/ops/conv3_pallas.py:65",
+                  None, BF16_FLOPS,
+                  "bf16, summed over the 90 3x3 stride-1 convs of one 2048x1024 "
+                  "label2city frame (2 per respair call), which the path runs through "
+                  "respair: no path calls conv3, as in the JAX package; library: "
+                  "F.conv2d on the pre-padded input"),
+        "conv3_fused": ("vid2vid_tpu_torch/csrc/conv.cu",
+                        "vid2vid_tpu/ops/conv3_pallas.py:146", None, BF16_FLOPS,
+                        "bf16, the same 90 convs with respair's epilogues (45 ReLU, 45 "
+                        "residual); no path calls it, as in the JAX package; library: "
+                        "F.conv2d alone"),
     }
     for name, (src, rep, path, peak_ops, ms_is) in sources.items():
         b_ms, b_by = bound_ms(work[name][0], work[name][1], peak_ops)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[path][name],
+            "launches": launches[path][name] if path else 0,
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": errs[name][torch.float32],
             "max_abs_err_bf16": errs[name].get(torch.bfloat16),
@@ -937,10 +1495,16 @@ def main() -> None:
     reference_generator()
     reference_flow()
     reference_training()
+    reference_single_g()
     launches = {}
     for path, run in (("label2city", label2city_path), ("flownet2", flownet2_path),
-                      ("training", training_path)):
-        launches[path] = run(card)
+                      ("training", training_path),
+                      ("edge2face_single", edge2face_single_path),
+                      ("label2city_single", label2city_single_path)):
+        with kernel_call_shapes() as seen:
+            launches[path] = run(card)
+        torch.cuda.empty_cache()
+        check_path_shapes(path, seen, errs, gen)
         torch.cuda.empty_cache()
     ms, work = kernel_times(gen)
     print(json.dumps({"kernels": kernels_json(errs, ms, work, launches)}))

@@ -81,6 +81,57 @@ def test_cli_matches_jax_cli(tmp_path):
         assert np.abs(got - want).mean() <= 0.5, name
 
 
+def test_cli_use_single_g(tmp_path, capsys, monkeypatch):
+    """--use_single_G --gpu_ids -1 on a tiny city test set: every sequence
+    is seeded by the label2city 512 registry's GlobalGenerator (ngf 64, 3
+    downsamples) with reference-named weights from
+    <checkpoints_dir>/label2city_single/G_512.pth; the CLI's frames are the
+    engine's, driven directly with the same weights (to f32 rounding: the
+    process's first convolutions may sum in another order), and the first
+    ones differ from a zero-seeded run's."""
+    from vid2vid_tpu_torch.data.test_stream import TestTemporalStream
+    from vid2vid_tpu_torch.models.inference import InferenceEngine
+    from vid2vid_tpu_torch.nn.layers import init_weights
+    from vid2vid_tpu_torch.nn.pix2pixhd import GlobalGenerator
+
+    _write_dataset(tmp_path / "city", np.random.default_rng(0))
+    flags = _flags(tmp_path, "res") + ["--use_single_G", "--resize_or_crop", "none"]
+    flags[flags.index("--dataroot") + 1] = str(tmp_path / "city")
+    flags[flags.index("--loadSize") + 1] = "512"  # the registry's key
+    net = GlobalGenerator(4, ngf=64, n_downsampling=3)
+    init_weights(net, torch.Generator().manual_seed(7))
+    os.makedirs(tmp_path / "ck" / "label2city_single")
+    torch.save(net.state_dict(), tmp_path / "ck" / "label2city_single" / "G_512.pth")
+
+    written = {}
+    save = test_cli.save_frame
+    monkeypatch.setattr(test_cli, "save_frame", lambda d, path, frame: written.setdefault(
+        path, frame) is not None and save(d, path, frame))
+    assert test_cli.main(flags) == 2 * (N_FRAMES - 2)
+    warned = capsys.readouterr().out
+    assert "net_G*.pth" in warned and "single-image checkpoint" not in warned
+    assert len(written) == 4  # two per sequence; both write f02 / f03_fake_B.jpg
+    assert {p.name for p in (tmp_path / "res" / "cli" / "test_latest").iterdir()} == {
+        "f02_fake_B.jpg", "f03_fake_B.jpg"}
+
+    opt = parse_args(flags, is_train=False, save=False)
+    eng = InferenceEngine(opt, device="cpu")
+    test_cli.load_weights(opt, eng)
+    test_cli.load_single_g(opt, eng)
+    torch.testing.assert_close(eng.single_g.state_dict(), net.state_dict())
+    frames = {item["path"]: f for item, f in
+              test_cli.stream_frames(opt, eng, TestTemporalStream(opt))}
+    zero = {item["path"]: f for item, f in test_cli.stream_frames(
+        opt.replace(use_single_G=False), eng, TestTemporalStream(opt))}
+    assert sorted(frames) == sorted(written)
+    for path, frame in frames.items():
+        torch.testing.assert_close(written[path], frame, atol=1e-5, rtol=0)
+    first = [p for p in frames if p.endswith("f02.png")]
+    assert len(first) == 2
+    for p in first:
+        assert float((frames[p] - zero[p]).abs().max()) > 1e-3
+
+
 def test_stream_resets_state_per_sequence():
     """Each sequence re-seeds the state and warms up tG-1 frames again."""
     from vid2vid_tpu.config import Options

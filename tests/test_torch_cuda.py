@@ -13,6 +13,18 @@ import math
 import pytest
 import torch
 
+from vid2vid_tpu_torch.ops.conv3 import (
+    conv3_fused_padded,
+    conv3_fused_plain,
+    conv3_padded,
+    conv3_plain,
+)
+from vid2vid_tpu_torch.ops.conv7 import (
+    conv7_padded,
+    conv7_plain,
+    conv7_reflect,
+    conv7_reflect_plain,
+)
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
 from vid2vid_tpu_torch.ops.warp import (
@@ -40,6 +52,10 @@ TOL = {
     # many samples, hence atol 1e-4 + rtol 1e-5 in f32
     ("warp_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
     ("warp_bwd", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
+    # f32: the sum order of up to 49*Ci products differs; bf16: the output's
+    # rounding to bf16 (2**-8 of the value) on top
+    ("conv", torch.float32): dict(atol=1e-4, rtol=1e-4),
+    ("conv", torch.bfloat16): dict(atol=2e-2, rtol=1e-2),
 }
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -63,7 +79,10 @@ def _close(name, got, want, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,c,h,w",
-    [(2, 3, 5, 7), (1, 17, 13, 37), (1, 40, 9, 33), (2, 96, 8, 32), (1, 33, 2, 2)],
+    # the last grid has 384 blocks, more than two per SM of an H100: it runs
+    # the template's three-blocks-per-SM instantiation (csrc/conv_kxk.cuh)
+    [(2, 3, 5, 7), (1, 17, 13, 37), (1, 40, 9, 33), (2, 96, 8, 32), (1, 33, 2, 2),
+     (2, 70, 61, 250)],
 )
 def test_respair_kernel_any_shape(cuda, dtype, b, c, h, w):
     g = torch.Generator().manual_seed(c * 1000 + h)
@@ -231,3 +250,98 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
         flow_warp(img.transpose(2, 3), flow)
     with pytest.raises(ValueError, match="cpu"):
         flow_warp(img, flow.cpu())
+
+
+def _conv_case(b, ci, co, h, w, k, seed, device, dtype):
+    """(x, w, bias): x of (B, Ci, H, W), weights ~ 1/sqrt(k*k*ci)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, ci, h, w), generator=g)
+    wt = torch.randn((co, ci, k, k), generator=g) / math.sqrt(k * k * ci)
+    bias = torch.randn(co, generator=g)
+    return x.to(device, dtype), wt.to(device, dtype), bias.to(device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(1, 3, 3, 4, 4), (2, 5, 7, 13, 37), (1, 31, 64, 9, 70), (1, 80, 3, 17, 33),
+     (2, 16, 16, 8, 32), (1, 35, 33, 11, 5)],
+)
+def test_conv7_kernel_any_shape(cuda, dtype, b, ci, co, h, w):
+    x, wt, bias = _conv_case(b, ci, co, h, w, 7, ci * 100 + co, cuda, dtype)
+    before = (conv7_reflect.launches, conv7_padded.launches)
+    got = conv7_reflect(x, wt, bias)
+    xp = torch.nn.functional.pad(x, (3, 3, 3, 3), mode="reflect")
+    got_padded = conv7_padded(xp.contiguous(), wt)
+    assert (conv7_reflect.launches, conv7_padded.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == (b, co, h, w)
+    _close("conv", got, conv7_reflect_plain(x.float(), wt.float(), bias), dtype)
+    _close("conv", got_padded, conv7_plain(xp.float(), wt.float()), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    # the last grid has 288 blocks: the three-blocks-per-SM instantiation
+    [(1, 3, 5, 1, 1), (2, 17, 40, 9, 35), (1, 128, 128, 8, 32), (1, 64, 3, 5, 70),
+     (2, 40, 36, 66, 250)],
+)
+def test_conv3_kernels_any_shape(cuda, dtype, b, ci, co, h, w):
+    xp, wt, offset = _conv_case(b, ci, co, h + 2, w + 2, 3, ci + co + h, cuda, dtype)
+    scale = 1.0 + 0.1 * offset.flip(0)
+    residual = torch.randn((b, co, h, w), generator=torch.Generator().manual_seed(w))
+    residual = residual.to(cuda, dtype)
+    before = (conv3_padded.launches, conv3_fused_padded.launches)
+    got = conv3_padded(xp, wt)
+    assert got.dtype == dtype and got.shape == (b, co, h, w)
+    _close("conv", got, conv3_plain(xp.float(), wt.float()), dtype)
+    for res, relu in ((None, False), (None, True), (residual, False), (residual, True)):
+        got = conv3_fused_padded(xp, wt, scale, offset, res, relu)
+        want = conv3_fused_plain(xp.float(), wt.float(), scale, offset,
+                                 None if res is None else res.float(), relu)
+        _close("conv", got, want, dtype)
+    assert (conv3_padded.launches, conv3_fused_padded.launches) == (before[0] + 1, before[1] + 4)
+
+
+def test_conv_autograd_runs_the_plain_vjp(cuda):
+    """The gradients of conv7_reflect / conv3_padded on the card are the
+    plain version's, with the forward on the kernel."""
+    x, wt, bias = _conv_case(2, 6, 5, 9, 12, 7, 3, cuda, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (x, wt, bias)]
+    before = conv7_reflect.launches
+    out = conv7_reflect(*leaves)
+    assert conv7_reflect.launches == before + 1
+    cot = torch.randn_like(out)
+    out.backward(cot)
+    ref =[t.clone().requires_grad_() for t in (x, wt, bias)]
+    conv7_reflect_plain(*ref).backward(cot)
+    for leaf, r in zip(leaves, ref):
+        _close("conv", leaf.grad, r.grad, torch.float32)
+    xp, w3, _ = _conv_case(1, 4, 6, 10, 11, 3, 4, cuda, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (xp, w3)]
+    conv3_padded(*leaves).sum().backward()
+    ref = [t.clone().requires_grad_() for t in (xp, w3)]
+    conv3_plain(*ref).sum().backward()
+    for leaf, r in zip(leaves, ref):
+        _close("conv", leaf.grad, r.grad, torch.float32)
+
+
+def test_conv_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 8, 8, device=cuda)
+    w7 = torch.zeros(2, 4, 7, 7, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv7_reflect(x.transpose(2, 3), w7)
+    with pytest.raises(ValueError, match="not supported"):
+        conv7_reflect(x.half(), w7.half())
+    with pytest.raises(ValueError, match="dtype"):
+        conv7_reflect(x, w7, torch.zeros(2, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="H, W >= 4"):
+        conv7_reflect(x[:, :, :3], w7)
+    w3 = torch.zeros(2, 4, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="cpu"):
+        conv3_padded(x, w3.cpu())
+    ab = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="residual"):
+        conv3_fused_padded(x, w3, ab, ab, torch.zeros(1, 2, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match="dtype"):
+        conv3_fused_padded(x, w3, ab.double(), ab)

@@ -17,6 +17,8 @@ import torch
 from vid2vid_tpu import config as jax_config
 from vid2vid_tpu.utils import torch_import
 from vid2vid_tpu_torch import config
+from vid2vid_tpu_torch.ops.conv3 import conv3_fused_padded, conv3_padded
+from vid2vid_tpu_torch.ops.conv7 import conv7_padded, conv7_reflect
 from vid2vid_tpu_torch.ops.correlation import correlation
 from vid2vid_tpu_torch.ops.respair import respair
 from vid2vid_tpu_torch.ops.warp import flow_warp, flow_warp_bwd, warp_blend, warp_blend_bwd
@@ -92,7 +94,8 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.nn.vgg", "vid2vid_tpu_torch.models.temporal",
         "vid2vid_tpu_torch.models.loss_engine", "vid2vid_tpu_torch.train.state",
         "vid2vid_tpu_torch.train.steps", "vid2vid_tpu_torch.train.loop",
-        "vid2vid_tpu_torch.data.synthetic",
+        "vid2vid_tpu_torch.data.synthetic", "vid2vid_tpu_torch.ops.conv7",
+        "vid2vid_tpu_torch.ops.conv3", "vid2vid_tpu_torch.nn.pix2pixhd",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []
@@ -153,6 +156,25 @@ def test_backward_wrappers_never_take_the_plain_path_off_cpu():
     assert (flow_warp_bwd.launches, warp_blend_bwd.launches) == before
 
 
+def test_conv_wrappers_never_take_the_plain_path_off_cpu():
+    """conv7 (both entries), conv3 and conv3_fused on a non-CPU tensor go to
+    the CUDA kernel's checks, which reject a non-CUDA device; no launch is
+    counted."""
+    device = "meta"
+    x = torch.zeros(1, 4, 8, 8, device=device)
+    w7, w3 = (torch.zeros(2, 4, k, k, device=device) for k in (7, 3))
+    ab = torch.ones(2, device=device)
+    counters = (conv7_reflect, conv7_padded, conv3_padded, conv3_fused_padded)
+    before = [fn.launches for fn in counters]
+    for call in (lambda: conv7_reflect(x, w7, ab), lambda: conv7_padded(x, w7),
+                 lambda: conv3_padded(x, w3), lambda: conv3_fused_padded(x, w3, ab, ab),
+                 lambda: conv3_fused_padded(x, w3, ab, ab, torch.zeros(1, 2, 6, 6,
+                                                                       device=device), True)):
+        with pytest.raises(ValueError, match="not CUDA"):
+            call()
+    assert [fn.launches for fn in counters] == before
+
+
 # ------------------------------------------------------- the port's copies
 
 
@@ -198,6 +220,10 @@ MAPPINGS = [
     ("composite_generator_mapping", (2, 3, "instance", False, True)),
     ("composite_local_mapping", (1, "batch", True, False)),
     ("composite_local_mapping", (3, "instance", False, True)),
+    ("global_generator_mapping", (3, 9, "instance")),
+    ("global_generator_mapping", (2, 1, "batch")),
+    ("global_with_features_mapping", (3, 9, "instance")),
+    ("encoder_mapping", (4, "instance")),
     ("nlayer_discriminator_mapping", (3, "batch")),
     ("multiscale_discriminator_mapping", (2, 2, "batch")),
     ("multiscale_discriminator_mapping", (3, 3, "instance")),

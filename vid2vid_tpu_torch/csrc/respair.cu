@@ -6,16 +6,14 @@
 //     out = x + conv3x3(reflect_pad(h, 1)) * a1 + c1
 // with the conv bias and the eval-mode norm folded into (a, c) per channel.
 //
-// Building block: conv3x3_reflect_epilogue<T>, for T = float and bf16,
-//     out[b,co,y,x] = epi( sum_{ci,ky,kx} in[b,ci,refl(y+ky-1),refl(x+kx-1)]
-//                                          * w[co,ci,ky,kx] )
-//     epi(v) = v * a[co] + c[co]  [+ residual[b,co,y,x]]  [ReLU]
-// accumulated in f32. Reflect padding is folded into the load addressing
-// (i < 0 -> -i, i >= N -> 2N-2-i), so no padded copy of x or h is made.
-// respair = two launches: x -> h (ReLU, no residual; h stored in T, as the
-// TPU kernel stores h_ref in the data type), then h -> out (residual x, no
-// ReLU). Reflecting h in the second launch's addressing reproduces the TPU
-// kernel's in-VMEM edge fix (respair_pallas.py:113-130) exactly.
+// respair = two launches of conv_kxk.cuh's conv3x3_kernel<T, TCO, true> (the
+// 3x3 conv with the reflect pad folded into the load addressing, so no
+// padded copy of x or h is made, and the scale/offset/residual/ReLU
+// epilogue on the f32 accumulator): x -> h (ReLU, no residual; h stored in
+// T, as the TPU kernel stores h_ref in the data type), then h -> out
+// (residual x, no ReLU). Reflecting h in the second launch's addressing
+// reproduces the TPU kernel's in-VMEM edge fix (respair_pallas.py:113-130)
+// exactly.
 //
 // What bounds it on the H100: at the main path's shapes (C = 32..1024,
 // 2048..524288 pixels) the block is compute-bound: 18 FLOP per multiply-add
@@ -23,12 +21,9 @@
 // 2048x1024 frame. This first version runs the products on the CUDA cores
 // (67 TFLOP/s f32 peak), not the tensor cores, so it sits far below the
 // card's bf16 peak; wgmma with TMA-fed tiles is later work (ROADMAP).
-// What the design does about it: each block stages a CI_CHUNK-deep slab of
-// the input halo tile and the matching weights in shared memory (as f32)
-// and every thread keeps an 8-channel x 4-pixel f32 accumulator in
-// registers, so each shared-memory load feeds 4-8 FMAs. The grid also
-// splits over output-channel blocks of 32: the coarsest scale has only
-// 2048 pixels per image, and without the split 132 SMs would sit idle.
+// What the design does about it: the template's shared-memory halo and
+// weight slabs with an 8-channel x 4-pixel f32 register accumulator per
+// thread, and the grid split over output-channel blocks of 32.
 //
 // The TPU kernel keeps h on chip. Here h makes one round trip through
 // device memory: at C = 1024 a halo tile of h over all channels does not
@@ -39,171 +34,7 @@
 // Unlike the TPU kernel, any C, H >= 2 and W >= 2 are taken: ragged tiles
 // are masked, so no C % 128 or block-divisibility rule carries over.
 
-#include "common.cuh"
-
-namespace v2v {
-namespace {
-
-constexpr int TW = 32;             // output tile width
-constexpr int TH = 8;              // output tile height
-constexpr int TCO = 32;            // output channels per block
-constexpr int CI_CHUNK = 16;       // input channels staged per step
-constexpr int IN_H = TH + 2;       // halo tile rows
-constexpr int IN_W = TW + 2;       // halo tile cols
-constexpr int IN_STRIDE = 37;      // row stride: 37 = 5 (mod 32) makes the
-                                   // 4-row x 8-group warp reads conflict-free
-constexpr int NTHREADS = 256;
-constexpr int R_CO = 8;            // output channels per thread
-constexpr int R_PX = 4;            // consecutive pixels per thread
-
-static_assert(NTHREADS == (TCO / R_CO) * (TH * TW / R_PX), "thread layout");
-
-__device__ __forceinline__ int reflect_clamp(int i, int n) {
-  i = i < 0 ? -i : i;
-  i = i >= n ? 2 * n - 2 - i : i;
-  // only ragged-tile lanes (whose outputs are masked) land outside
-  return min(max(i, 0), n - 1);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-conv3x3_reflect_epilogue(const T* __restrict__ in, const T* __restrict__ w,
-                         const float* __restrict__ a,
-                         const float* __restrict__ c,
-                         const T* __restrict__ residual, T* __restrict__ out,
-                         int Ci, int Co, int H, int W, int tiles_x, int relu) {
-  __shared__ float s_in[CI_CHUNK][IN_H][IN_STRIDE];
-  __shared__ __align__(16) float s_w[CI_CHUNK][9][TCO];
-
-  const int tid = threadIdx.x;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const int co0 = blockIdx.y * TCO;
-  const int b = blockIdx.z;
-
-  const int co_base = (tid / (NTHREADS * R_CO / TCO)) * R_CO;
-  const int pg = tid % (NTHREADS * R_CO / TCO);
-  const int row = pg / (TW / R_PX);
-  const int col0 = (pg % (TW / R_PX)) * R_PX;
-
-  const size_t hw = (size_t)H * W;
-  const T* in_b = in + (size_t)b * Ci * hw;
-
-  float acc[R_CO][R_PX];
-#pragma unroll
-  for (int o = 0; o < R_CO; ++o)
-#pragma unroll
-    for (int p = 0; p < R_PX; ++p) acc[o][p] = 0.f;
-
-  for (int ci0 = 0; ci0 < Ci; ci0 += CI_CHUNK) {
-    // ---- stage the input halo slab, reflect folded into the addressing
-    for (int idx = tid; idx < CI_CHUNK * IN_H * IN_W; idx += NTHREADS) {
-      const int cl = idx / (IN_H * IN_W);
-      const int rem = idx % (IN_H * IN_W);
-      const int r = rem / IN_W;
-      const int cc = rem % IN_W;
-      const int ci = ci0 + cl;
-      float v = 0.f;
-      if (ci < Ci) {
-        const int gy = reflect_clamp(ty0 + r - 1, H);
-        const int gx = reflect_clamp(tx0 + cc - 1, W);
-        v = to_f(in_b[(size_t)ci * hw + (size_t)gy * W + gx]);
-      }
-      s_in[cl][r][cc] = v;
-    }
-    // ---- stage the weights as [ci][tap][co]: consecutive threads take
-    // consecutive co, so the shared stores are conflict-free
-    for (int idx = tid; idx < TCO * CI_CHUNK * 9; idx += NTHREADS) {
-      const int col = idx % TCO;
-      const int rest = idx / TCO;
-      const int cl = rest / 9;
-      const int tap = rest % 9;
-      const int co = co0 + col;
-      const int ci = ci0 + cl;
-      float v = 0.f;
-      if (co < Co && ci < Ci) v = to_f(w[((size_t)co * Ci + ci) * 9 + tap]);
-      s_w[cl][tap][col] = v;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int cl = 0; cl < CI_CHUNK; ++cl) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float v[R_PX + 2];
-#pragma unroll
-        for (int j = 0; j < R_PX + 2; ++j) v[j] = s_in[cl][row + ky][col0 + j];
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4 w0 =
-              *reinterpret_cast<const float4*>(&s_w[cl][ky * 3 + kx][co_base]);
-          const float4 w1 = *reinterpret_cast<const float4*>(
-              &s_w[cl][ky * 3 + kx][co_base + 4]);
-          const float wv[R_CO] = {w0.x, w0.y, w0.z, w0.w,
-                                  w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int o = 0; o < R_CO; ++o)
-#pragma unroll
-            for (int p = 0; p < R_PX; ++p)
-              acc[o][p] = fmaf(wv[o], v[p + kx], acc[o][p]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- epilogue: affine, optional residual, optional ReLU, store in T
-  const int y = ty0 + row;
-  if (y >= H) return;
-#pragma unroll
-  for (int o = 0; o < R_CO; ++o) {
-    const int co = co0 + co_base + o;
-    if (co >= Co) continue;
-    const float ao = a[co];
-    const float oo = c[co];
-    const size_t base = ((size_t)b * Co + co) * hw + (size_t)y * W;
-#pragma unroll
-    for (int p = 0; p < R_PX; ++p) {
-      const int x = tx0 + col0 + p;
-      if (x >= W) continue;
-      float val = fmaf(acc[o][p], ao, oo);
-      if (residual != nullptr) val += to_f(residual[base + x]);
-      if (relu) val = fmaxf(val, 0.f);
-      out[base + x] = from_f<T>(val);
-    }
-  }
-}
-
-template <typename T>
-void launch_conv(const void* in, const void* w, const float* a, const float* c,
-                 const void* residual, void* out, int B, int Ci, int Co, int H,
-                 int W, int relu, cudaStream_t stream) {
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(tiles_x * tiles_y, (Co + TCO - 1) / TCO, B);
-  conv3x3_reflect_epilogue<T><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(in), static_cast<const T*>(w), a, c,
-      static_cast<const T*>(residual), static_cast<T*>(out), Ci, Co, H, W,
-      tiles_x, relu);
-}
-
-int conv(const void* in, const void* w, const float* a, const float* c,
-         const void* residual, void* out, int B, int Ci, int Co, int H, int W,
-         int relu, int dtype, cudaStream_t stream) {
-  if (dtype == kFloat32) {
-    launch_conv<float>(in, w, a, c, residual, out, B, Ci, Co, H, W, relu,
-                       stream);
-  } else if (dtype == kBFloat16) {
-    launch_conv<__nv_bfloat16>(in, w, a, c, residual, out, B, Ci, Co, H, W,
-                               relu, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace v2v
+#include "conv_kxk.cuh"
 
 // The residual block: x -> h -> out. h is caller-allocated scratch of x's
 // shape and dtype.
@@ -212,7 +43,8 @@ extern "C" int v2v_respair(const void* x, const void* k0, const float* a0,
                            const float* c1, void* h, void* out, int B, int C,
                            int H, int W, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = v2v::conv(x, k0, a0, c0, nullptr, h, B, C, C, H, W, 1, dtype, s);
+  int err = v2v::conv<3, true>(x, k0, a0, c0, nullptr, h, B, C, C, H, W, 1,
+                               dtype, s);
   if (err != 0) return err;
-  return v2v::conv(h, k1, a1, c1, x, out, B, C, C, H, W, 0, dtype, s);
+  return v2v::conv<3, true>(h, k1, a1, c1, x, out, B, C, C, H, W, 0, dtype, s);
 }

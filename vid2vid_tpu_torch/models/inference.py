@@ -2,26 +2,63 @@
 
 Frames are generated one at a time from a rolling window of tG label maps
 and the last tG-1 generated frames; the first tG-1 frames come from a
-first-frame strategy (zeros or real frames here; the single-image
-generator is not ported yet).
+first-frame strategy: zeros, real frames, or a single-image (pix2pixHD)
+generator (`--use_single_G`, with the face-feature lookup for edge2face).
 
 Entry points: `step` (one frame from a raw label window and the state —
 true streaming) and `generate_clip` (a whole encoded clip). Compute-dtype
 policy (--bf16 / --fp16): the engine keeps float32 master weights and
 casts a copy of the generator, the inputs and the state to bfloat16 at
 entry; the frames it returns are float32, the state stays in the compute
-dtype.
+dtype. The single-image nets run in float32 whatever the compute dtype,
+with cuDNN's TF32 off (`utils/precision.py::cudnn_f32`); only their
+frames, on entering the state, take the compute dtype.
 """
 
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
+from torch import nn
 
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.models.generator import ClipOutputs, State, Vid2VidGenerator
+from vid2vid_tpu_torch.nn.factory import single_input_nc
+from vid2vid_tpu_torch.nn.pix2pixhd import (
+    Encoder,
+    GlobalGenerator,
+    GlobalWithFeatures,
+    LocalEnhancer,
+)
 from vid2vid_tpu_torch.utils.device import require_device
+from vid2vid_tpu_torch.utils.precision import cudnn_f32
+
+
+def make_single_image_generator(opt: Options) -> tuple[nn.Module, bool]:
+    """The single-image generator of the first frames, by dataset and
+    loadSize as the reference hard-codes it (vid2vid_model_G.py:261-288):
+    (module, needs_features). Cityscapes: GlobalGenerator (ngf 64, 3 / 4
+    downsamples at loadSize 512 / 1024) or LocalEnhancer (ngf 32, 4) at
+    2048; face: GlobalWithFeatures (16 features, ngf 64, 3), fed by an
+    Encoder. Instance norm, 9 blocks (3 local). Raises ValueError for any
+    other dataroot or loadSize."""
+    root = opt.dataroot.lower()
+    n_in = single_input_nc(opt)
+    if "city" in root:
+        if opt.loadSize in (512, 1024):
+            nd = 3 if opt.loadSize == 512 else 4
+            return GlobalGenerator(n_in, ngf=64, n_downsampling=nd, norm="instance"), False
+        if opt.loadSize == 2048:
+            return LocalEnhancer(n_in, ngf=32, n_downsample_global=4, norm="instance"), False
+        raise ValueError(f"no single-image generator for loadSize {opt.loadSize}")
+    if "face" in root:
+        return (
+            GlobalWithFeatures(n_in, feat_num=16, ngf=64, n_downsampling=3, norm="instance"),
+            True,
+        )
+    raise ValueError(f"no single-image generator for dataroot {opt.dataroot!r}")
 
 
 class InferenceEngine:
@@ -41,6 +78,10 @@ class InferenceEngine:
         )
         self.gen = Vid2VidGenerator(opt).to(self.device).eval()
         self._compute_gen: Vid2VidGenerator | None = None
+        self.single_g: nn.Module | None = None  # build_single_g
+        self.single_needs_feat = False
+        self.encoder: Encoder | None = None
+        self.feature_clusters: dict | None = None  # faces: the training clusters
 
     # ---------------------------------------------------------------- weights
 
@@ -91,17 +132,110 @@ class InferenceEngine:
             frames.to(self.device, self.compute_dtype)
         )
 
-    def build_single_g(self, sg_cfg: dict | None = None):
-        raise NotImplementedError(
-            "--use_single_G first frames are not ported yet (ROADMAP.md, "
-            "queue 1: single-image generators)"
-        )
+    # ------------------------------------------------------ single-image G
 
-    def face_features(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the face-feature lookup is not ported yet (ROADMAP.md, queue 1: "
-            "single-image generators)"
-        )
+    def build_single_g(self, sg_cfg: dict | None = None) -> nn.Module:
+        """Build the single-image first-frame generator for this opt (and,
+        for faces, the feature Encoder) on the engine's device, in f32 and
+        eval mode, with PyTorch's initialisation: the caller loads weights.
+
+        sg_cfg overrides the registry's dims with {'feat_num', 'g': {ngf,
+        nd, nb, norm}, 'e': {out_nc, ngf, nd, norm}}: a GlobalWithFeatures
+        and an Encoder, as the JAX package's build_single_g takes it.
+        """
+        if sg_cfg is not None:
+            g, e = sg_cfg["g"], sg_cfg["e"]
+            self.single_g = GlobalWithFeatures(
+                single_input_nc(self.opt), feat_num=sg_cfg["feat_num"], ngf=g["ngf"],
+                n_downsampling=g["nd"], n_blocks=g.get("nb", 9), norm=g["norm"])
+            self.single_needs_feat = True
+            self.encoder = Encoder(output_nc=e["out_nc"], ngf=e["ngf"],
+                                   n_downsampling=e["nd"], norm=e["norm"])
+        else:
+            self.single_g, self.single_needs_feat = make_single_image_generator(self.opt)
+            self.encoder = (Encoder(output_nc=16, ngf=16, n_downsampling=4, norm="instance")
+                            if self.single_needs_feat else None)
+        if self.encoder is not None:
+            self.encoder = self.encoder.to(self.device).eval()
+        self.single_g = self.single_g.to(self.device).eval()
+        return self.single_g
+
+    @torch.no_grad()
+    def single_g_first_frames(
+        self,
+        enc_first: torch.Tensor,
+        real_first: torch.Tensor | None = None,
+        pool_map: torch.Tensor | None = None,
+        feature_clusters: dict | None = None,
+    ) -> State:
+        """The state seeded with tG-1 frames of the single-image generator.
+
+        enc_first: (B, tG-1, C, H, W) encoded label maps; the instance-edge
+        channel is dropped (reference: vid2vid_model_G.py:239-240). Faces
+        also take the first real frames (B, tG-1, 3, H, W), the part maps
+        (B, tG-1, H, W) and the training clusters (`face_features`). The
+        nets run in f32 with cuDNN's TF32 off; the state takes the compute
+        dtype.
+        """
+        opt = self.opt
+        frames = []
+        with cudnn_f32():
+            for i in range(opt.n_frames_G - 1):
+                x = enc_first[:, i].to(self.device, torch.float32)
+                if opt.label_nc > 0 and opt.use_instance:
+                    x = x[:, : opt.label_nc]
+                if self.single_needs_feat:
+                    feat = self.face_features(real_first[:, i], pool_map[:, i],
+                                              feature_clusters)
+                    frames.append(self.single_g(x, feat))
+                else:
+                    frames.append(self.single_g(x))
+        return self.seed_state(torch.stack(frames, 1))
+
+    @torch.no_grad()
+    def face_features(
+        self, real_image: torch.Tensor, inst: torch.Tensor, feature_clusters: dict
+    ) -> torch.Tensor:
+        """Instance features snapped to the nearest training image's clusters
+        (reference: vid2vid_model_G.py:290-320 and base_model.py:136-144).
+
+        real_image: (B, 3, H, W); inst: (B, H, W) part ids;
+        feature_clusters: {part id: (n_images, feat_num + 1) array}. Encode
+        the image, take the encoding at the first pixel (row-major) of each
+        part present in both inst and the clusters, pick ONE training image
+        by the squared distance summed over all those parts and features
+        (a joint argmin, not one per part), and fill each part's pixels of
+        the first image with that image's row (clamped per part). Returns
+        (B, feat_num, H, W) float32 on the engine's device, zero where no
+        part is; absent parts add nothing to the distance. The Encoder runs
+        in f32 with cuDNN's TF32 off. An empty dict
+        gives zeros of the Encoder's width (the JAX package raises
+        StopIteration there).
+        """
+        real = real_image.to(self.device, torch.float32)
+        inst_dev = inst.to(self.device)
+        clusters = {int(k): np.asarray(v) for k, v in feature_clusters.items()}
+        feat_num = (next(iter(clusters.values())).shape[1] - 1 if clusters
+                    else self.encoder.output_nc)
+        with cudnn_f32():
+            enc = self.encoder(real, inst_dev).cpu().numpy()
+        inst_np = inst_dev.cpu().numpy().astype(np.int64)
+        out = np.zeros((inst_np.shape[0], feat_num) + inst_np.shape[1:3], np.float32)
+        present = [int(p) for p in np.unique(inst_np) if int(p) in clusters]
+        if present:
+            num_images = min(clusters[p].shape[0] for p in present)
+            dists = np.zeros((num_images,), np.float64)
+            masks = {}
+            for part in present:
+                masks[part] = inst_np[0] == part
+                y, x = np.argwhere(masks[part])[0]  # first pixel, row-major
+                ref = clusters[part][:num_images, :feat_num]
+                dists += ((ref - enc[0, :feat_num, y, x]) ** 2).sum(-1)
+            best = int(np.argmin(dists))
+            for part in present:
+                row = clusters[part][min(best, len(clusters[part]) - 1), :feat_num]
+                out[0][:, masks[part]] = row[:, None]
+        return torch.from_numpy(out).to(self.device)
 
     # ------------------------------------------------------------------- clip
 

@@ -4,7 +4,9 @@
 flat layer lists (the JAX package's ConvStem, DownBlock, UpBlock, TanhHead
 and ConvHead modules): the reference splices them into one Sequential per
 trunk, and its indices are the checkpoint's names. `ResnetBlock` is a
-module, as in the reference, with its `conv_block` Sequential.
+module, as in the reference, with its `conv_block` Sequential. The
+composite generators keep their 7x7 stems and heads on cuDNN; the
+single-image nets (nn/pix2pixhd.py) pass `conv7=True`.
 """
 
 from __future__ import annotations
@@ -17,13 +19,19 @@ from vid2vid_tpu_torch.nn.layers import (
     eval_affine,
     norm_layer,
     reflect_conv,
+    reflect_conv7,
 )
 from vid2vid_tpu_torch.ops.respair import respair
 
 
-def conv_stem(cin: int, cout: int, norm: str) -> list[nn.Module]:
-    """ReflectionPad(3) + Conv7x7 + norm + ReLU (4 entries)."""
-    return [*reflect_conv(cin, cout, 7), norm_layer(norm, cout), nn.ReLU(True)]
+def _conv7(cin: int, cout: int, kernel: bool) -> list[nn.Module]:
+    return reflect_conv7(cin, cout) if kernel else reflect_conv(cin, cout, 7)
+
+
+def conv_stem(cin: int, cout: int, norm: str, conv7: bool = False) -> list[nn.Module]:
+    """ReflectionPad(3) + Conv7x7 + norm + ReLU (4 entries); `conv7` runs
+    the 7x7 conv through the conv7 kernel in eval mode (reflect_conv7)."""
+    return [*_conv7(cin, cout, conv7), norm_layer(norm, cout), nn.ReLU(True)]
 
 
 def down_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
@@ -37,9 +45,10 @@ def up_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
     return [conv_transpose(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
 
 
-def tanh_head(cin: int, cout: int) -> list[nn.Module]:
-    """ReflectionPad(3) + Conv7x7 + tanh (3 entries)."""
-    return [*reflect_conv(cin, cout, 7), nn.Tanh()]
+def tanh_head(cin: int, cout: int, conv7: bool = False) -> list[nn.Module]:
+    """ReflectionPad(3) + Conv7x7 + tanh (3 entries); `conv7` as in
+    conv_stem."""
+    return [*_conv7(cin, cout, conv7), nn.Tanh()]
 
 
 def conv_head(cin: int, cout: int, sigmoid: bool = False) -> list[nn.Module]:

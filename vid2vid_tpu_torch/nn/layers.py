@@ -5,7 +5,9 @@ are the state-dict names of the published checkpoints
 (`model_down_seg.1.weight`, ...), so the helpers here return flat layer
 lists that callers splice into their Sequentials, padding layers included.
 
-  - reflect_conv: ReflectionPad2d(k // 2) + Conv2d(k) — two list entries.
+  - reflect_conv: ReflectionPad2d(k // 2) + Conv2d(k) — two list entries;
+    reflect_conv7 the same 7x7 pair, run in eval mode as one conv7 op
+    (the hand-written kernel on the card) with the pad folded in.
   - conv_transpose: ConvTranspose2d(3, 2, padding=1, output_padding=1).
   - norm_layer('batch'): BatchNorm2d; eval mode normalizes with the
     running stats.
@@ -28,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vid2vid_tpu_torch.ops.conv7 import conv7_reflect
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -66,6 +70,39 @@ def update_running_stats(module: nn.Module, on: bool) -> list[nn.Module]:
 def reflect_conv(cin: int, cout: int, kernel: int) -> list[nn.Module]:
     """ReflectionPad2d(kernel // 2) + Conv2d(cin, cout, kernel)."""
     return [nn.ReflectionPad2d(kernel // 2), nn.Conv2d(cin, cout, kernel)]
+
+
+class FoldedReflectionPad2d(nn.ReflectionPad2d):
+    """ReflectionPad2d(3) ahead of a `ReflectConv7`: it pads in train mode
+    and passes its input through in eval mode, where the conv folds the
+    reflection into its kernel's load addressing."""
+
+    def __init__(self):
+        super().__init__(3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x) if self.training else x
+
+
+class ReflectConv7(nn.Conv2d):
+    """Conv2d(cin, cout, 7) behind a `FoldedReflectionPad2d`. Train mode is
+    the plain conv of the padded input; eval mode runs ops.conv7.
+    conv7_reflect on the unpadded input: the hand-written kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 7)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        return conv7_reflect(x.contiguous(), self.weight.to(x.dtype), self.bias.float())
+
+
+def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
+    """`reflect_conv(cin, cout, 7)` through the conv7 kernel in eval mode:
+    the same two Sequential entries, so the same state-dict names."""
+    return [FoldedReflectionPad2d(), ReflectConv7(cin, cout)]
 
 
 def conv_transpose(cin: int, cout: int) -> nn.ConvTranspose2d:

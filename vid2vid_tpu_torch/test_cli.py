@@ -11,7 +11,13 @@ writes each generated frame to results/<name>/<phase>_<epoch>/
 <frame>_fake_B.jpg. Weights: the reference's per-scale checkpoints
 `<checkpoints_dir>/<name>/<which_epoch>_net_G<s>.pth`, loaded with
 load_state_dict; without them the generator runs on its seeded random
-initialization (with a warning).
+initialization (with a warning). `--use_single_G` seeds each sequence with
+the single-image generator of the registry (models/inference.py::
+make_single_image_generator), whose reference-named weights are
+`<checkpoints_dir>/label2city_single/G_<loadSize>.pth`, or
+`edge2face_single/G.pth`, `E.pth` and the clusters `features.npy` for
+faces; missing files give a warning and a seeded initialization (empty
+clusters), as for the generator.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ def stream_frames(
     """The streaming loop: yields (item, (1, 3, H, W) float32 frame).
 
     Per sequence: the first tG-1 items only fill the window (the first
-    output frame is at index tG-1); the state is seeded from the real
-    frames under --use_real_img (when the stream has them), else with zeros;
-    under --no_first_img the first frame is the raw, unwarped output.
+    output frame is at index tG-1); the state is seeded by the single-image
+    generator under --use_single_G (`load_single_g` builds and loads it at
+    first use), from the real frames under --use_real_img (when
+    the stream has them), else with zeros; under --no_first_img the first
+    frame is the raw, unwarped output.
     """
     tG = opt.n_frames_G
     state = None
@@ -66,13 +74,14 @@ def stream_frames(
         use_raw_only = False
         if state is None:
             if opt.use_single_G:
-                eng.build_single_g()  # raises: not ported yet
-            h, w = item["A"].shape[:2]
-            if bwindow and opt.use_real_img:
+                if eng.single_g is None:
+                    load_single_g(opt, eng)
+                state = single_g_state(opt, eng, labels, inst, bwindow, iwindow)
+            elif bwindow and opt.use_real_img:
                 real = np.stack(bwindow[: tG - 1])[None]  # (1, tG-1, H, W, 3)
                 state = eng.seed_state(torch.from_numpy(real).permute(0, 1, 4, 2, 3))
             else:
-                state = eng.initial_state(1, h, w)
+                state = eng.initial_state(1, *item["A"].shape[:2])
             use_raw_only = opt.no_first_img
         frame, state = eng.step(labels, inst, state, use_raw_only=use_raw_only)
         count += 1
@@ -102,6 +111,53 @@ def load_weights(opt: Options, eng: InferenceEngine) -> bool:
     return True
 
 
+def _registry(opt: Options) -> tuple[str, str]:
+    """(directory, generator file) of the single-image registry."""
+    if "city" in opt.dataroot.lower():
+        return os.path.join(opt.checkpoints_dir, "label2city_single"), f"G_{opt.loadSize}.pth"
+    return os.path.join(opt.checkpoints_dir, "edge2face_single"), "G.pth"
+
+
+def load_single_g(opt: Options, eng: InferenceEngine) -> None:
+    """Build the single-image generator (and the face Encoder) and load
+    their registry weights, or seed them with a warning when a file is
+    missing; faces also load the clusters into eng.feature_clusters ({}
+    without features.npy)."""
+    root, g_name = _registry(opt)
+    eng.build_single_g()
+    nets = [(eng.single_g, os.path.join(root, g_name))]
+    if eng.encoder is not None:
+        nets.append((eng.encoder, os.path.join(root, "E.pth")))
+    for i, (net, path) in enumerate(nets):
+        if os.path.exists(path):
+            net.load_state_dict(torch.load(path, map_location=eng.device, weights_only=True))
+        else:
+            print(f"WARNING: no single-image checkpoint {path} — using a randomly "
+                  "initialized network.")
+            init_weights(net, torch.Generator().manual_seed(opt.seed + 1 + i))
+    if eng.encoder is not None:
+        fpath = os.path.join(root, "features.npy")
+        eng.feature_clusters = (np.load(fpath, allow_pickle=True).item()
+                                if os.path.exists(fpath) else {})
+
+
+def single_g_state(opt: Options, eng: InferenceEngine, labels: torch.Tensor,
+                   inst: torch.Tensor | None, bwindow: list, iwindow: list):
+    """The --use_single_G seed: the single-image generator on the window's
+    first tG-1 encoded label maps; faces also take the sequence's first
+    real frames and part maps (zeros when the stream has none)."""
+    tg1 = opt.n_frames_G - 1
+    enc = eng.encode(labels, inst)[:, :tg1]
+    real_first = pool_map = None
+    if eng.single_needs_feat:
+        hw = enc.shape[-2:]
+        reals = bwindow[:tg1] if bwindow else [np.zeros(hw + (3,), np.float32)] * tg1
+        parts = iwindow[:tg1] if iwindow else [np.zeros(hw, np.int32)] * tg1
+        real_first = torch.from_numpy(np.stack(reals)[None]).permute(0, 1, 4, 2, 3)
+        pool_map = torch.from_numpy(np.stack(parts)[None])
+    return eng.single_g_first_frames(enc, real_first, pool_map, eng.feature_clusters)
+
+
 def save_frame(save_dir: str, path: str, frame: torch.Tensor) -> str:
     """(1, 3, H, W) frame in [-1, 1] -> <save_dir>/<frame>_fake_B.jpg, with
     the reference's tensor2im conversion ((x + 1) / 2 * 255, truncated)."""
@@ -128,6 +184,8 @@ def main(argv=None) -> int:
         )
     eng = InferenceEngine(opt, device="cuda" if opt.gpu_ids else "cpu")
     load_weights(opt, eng)
+    if opt.use_single_G:
+        load_single_g(opt, eng)
     save_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.which_epoch}")
     os.makedirs(save_dir, exist_ok=True)
     from vid2vid_tpu_torch.data.test_stream import TestTemporalStream

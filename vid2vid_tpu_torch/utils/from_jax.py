@@ -14,6 +14,11 @@ Inverse layout conversions:
   concat_conv / concat_copy: the JAX flow+weight head `final_fw` (3 output
   channels) splits into model_final_flow (2) and model_final_w (1).
 Every norm with running stats also gets `num_batches_tracked = 0`.
+
+The JAX package has no checkpoint mapping for LocalEnhancer and
+LocalWithFeatures (no published single-image checkpoint uses them in its
+registry); `local_enhancer_mapping` and `local_with_features_mapping` pair
+the port's names (nn/pix2pixhd.py) with the JAX modules' paths.
 """
 
 from __future__ import annotations
@@ -23,13 +28,22 @@ import torch
 
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.utils.mappings import (
+    Triple,
+    _conv,
+    _convT,
+    _norm,
+    _resblock,
+    _stem,
     composite_generator_mapping,
     composite_local_mapping,
+    encoder_mapping,
     flownet2_mapping,
     flownet_c_mapping,
     flownet_fusion_mapping,
     flownet_s_mapping,
     flownet_sd_mapping,
+    global_generator_mapping,
+    global_with_features_mapping,
     multiscale_discriminator_mapping,
     vgg19_mapping,
 )
@@ -141,3 +155,90 @@ def loss_engine_state_dict(dparams: dict, opt: Options) -> dict:
         sd = jax_variables_to_state_dict(dparams[key], mapping)
         out.update({f"{prefix}.{k}": v for k, v in sd.items()})
     return out
+
+
+# ------------------------------------------------------------- pix2pixHD
+
+
+def _enhancer_mapping(n: int, n_blocks_local: int, norm: str) -> list[Triple]:
+    """`model{n}_1` (stem + down) and `model{n}_2`'s resblocks and up block
+    -> the JAX enh{n}_* modules."""
+    out: list[Triple] = list(_stem(f"model{n}_1", 0, (f"enh{n}_stem",), norm))
+    out += _conv(f"model{n}_1.4", (f"enh{n}_down", "Conv_0"))
+    out += _norm(f"model{n}_1.5", (f"enh{n}_down", "Norm_0"), norm)
+    for i in range(n_blocks_local):
+        out += _resblock(f"model{n}_2.{i}", (f"enh{n}_res{i}",), norm)
+    out += _convT(f"model{n}_2.{n_blocks_local}", (f"enh{n}_up", "ConvTranspose_0"))
+    out += _norm(f"model{n}_2.{n_blocks_local + 1}", (f"enh{n}_up", "Norm_0"), norm)
+    return out
+
+
+def local_enhancer_mapping(
+    n_downsample_global: int = 3, n_blocks_global: int = 9,
+    n_local_enhancers: int = 1, n_blocks_local: int = 3, norm: str = "instance",
+) -> list[Triple]:
+    """pix2pixHD's LocalEnhancer names -> the JAX LocalEnhancer: `model`
+    (GlobalGenerator's without the head) -> global, `model{n}_1` /
+    `model{n}_2` -> enh{n}_*, the head at the end of the last `model{n}_2`
+    -> final."""
+    out: list[Triple] = [
+        (key, (path[0], "global", *path[1:]), kind)
+        for key, path, kind in global_generator_mapping(n_downsample_global, n_blocks_global, norm)
+        if "TanhHead_0" not in path
+    ]
+    for n in range(1, n_local_enhancers + 1):
+        out += _enhancer_mapping(n, n_blocks_local, norm)
+    out += _conv(f"model{n_local_enhancers}_2.{n_blocks_local + 4}", ("final", "Conv_0"))
+    return out
+
+
+def local_with_features_mapping(
+    n_downsample_global: int = 3, n_blocks_global: int = 9,
+    n_local_enhancers: int = 1, n_blocks_local: int = 3, norm: str = "instance",
+) -> list[Triple]:
+    """The port's LocalWithFeatures names -> the JAX LocalWithFeatures:
+    model_downsample -> g_stem, g_down*; model_resnet -> g_res*;
+    model_upsample -> g_up*; model{n}_1 / model{n}_2 -> enh{n}_*;
+    model_final -> final."""
+    out: list[Triple] = list(_stem("model_downsample", 0, ("g_stem",), norm))
+    for i in range(n_downsample_global):
+        out += _conv(f"model_downsample.{4 + 3 * i}", (f"g_down{i}", "Conv_0"))
+        out += _norm(f"model_downsample.{5 + 3 * i}", (f"g_down{i}", "Norm_0"), norm)
+    for k in range(n_blocks_global):
+        out += _resblock(f"model_resnet.{k}", (f"g_res{k}",), norm)
+    for i in range(n_downsample_global):
+        out += _convT(f"model_upsample.{3 * i}", (f"g_up{i}", "ConvTranspose_0"))
+        out += _norm(f"model_upsample.{3 * i + 1}", (f"g_up{i}", "Norm_0"), norm)
+    for n in range(1, n_local_enhancers + 1):
+        out += _enhancer_mapping(n, n_blocks_local, norm)
+    out += _conv("model_final.1", ("final", "Conv_0"))
+    return out
+
+
+def single_g_mapping(
+    kind: str, n_downsampling: int, n_blocks: int, norm: str = "instance",
+    n_local_enhancers: int = 1, n_blocks_local: int = 3,
+) -> list[Triple]:
+    """The mapping of one single-image generator kind ('global', 'local',
+    'global_with_features' or 'local_with_features'); n_downsampling and
+    n_blocks are the global trunk's."""
+    if kind == "global":
+        return global_generator_mapping(n_downsampling, n_blocks, norm)
+    if kind == "global_with_features":
+        return global_with_features_mapping(n_downsampling, n_blocks, norm)
+    local = {"local": local_enhancer_mapping,
+             "local_with_features": local_with_features_mapping}
+    if kind not in local:
+        raise ValueError(f"no single-image generator kind {kind!r}")
+    return local[kind](n_downsampling, n_blocks, n_local_enhancers, n_blocks_local, norm)
+
+
+def single_g_state_dict(params: dict, kind: str, **dims) -> dict:
+    """JAX single-image generator variables -> the port's state_dict
+    (`dims` as single_g_mapping takes them)."""
+    return jax_variables_to_state_dict(params, single_g_mapping(kind, **dims))
+
+
+def encoder_state_dict(params: dict, n_downsampling: int = 4, norm: str = "instance") -> dict:
+    """JAX Encoder variables -> the port's Encoder state_dict."""
+    return jax_variables_to_state_dict(params, encoder_mapping(n_downsampling, norm))

@@ -2,8 +2,9 @@
 
 The port's own copy of the name mappings of
 vid2vid_tpu/utils/torch_import.py (tests/test_torch_imports.py holds the
-two equal): the composite generators, the multiscale PatchGAN, the flow
-nets and torchvision's VGG19. Each mapping yields
+two equal): the composite generators, the pix2pixHD single-image
+generators and encoder, the multiscale PatchGAN, the flow nets and
+torchvision's VGG19. Each mapping yields
 (torch_key, (collection, flax_path...), kind) triples; `convert_tensor`
 turns a reference tensor into the JAX package's layout:
 
@@ -59,6 +60,12 @@ def _resblock(tkey: str, fpath: tuple, norm: str) -> Iterator[Triple]:
     yield from _norm(f"{tkey}.conv_block.2", (*fpath, "Norm_0"), norm)
     yield from _conv(f"{tkey}.conv_block.5", (*fpath, "Conv_1"))
     yield from _norm(f"{tkey}.conv_block.6", (*fpath, "Norm_1"), norm)
+
+
+def _stem(tkey: str, idx: int, fpath: tuple, norm: str) -> Iterator[Triple]:
+    """[ReflectionPad, Conv7, norm, ReLU] at sequential offset idx."""
+    yield from _conv(f"{tkey}.{idx + 1}", (*fpath, "Conv_0"))
+    yield from _norm(f"{tkey}.{idx + 2}", (*fpath, "Norm_0"), norm)
 
 
 def _upstack_res(
@@ -216,6 +223,76 @@ def composite_local_mapping(
         out += _trunk_tail("indv_down", ("fg_down",), 1, 0, norm)
         out += _upstack_res("indv_up", ("fg_up",), n_blocks_local, 1, norm)
     out += _fused_heads(use_fg, no_flow)
+    return out
+
+
+# ------------------------------------------------------------- pix2pixHD
+
+
+def global_generator_mapping(
+    n_downsampling: int = 3, n_blocks: int = 9, norm: str = "instance"
+) -> list[Triple]:
+    """GlobalGenerator's single `model` Sequential -> the JAX module list."""
+    out: list[Triple] = []
+    out += _stem("model", 0, ("ConvStem_0",), norm)
+    idx = 4
+    for i in range(n_downsampling):
+        out += _conv(f"model.{idx}", (f"DownBlock_{i}", "Conv_0"))
+        out += _norm(f"model.{idx + 1}", (f"DownBlock_{i}", "Norm_0"), norm)
+        idx += 3
+    for k in range(n_blocks):
+        out += _resblock(f"model.{idx}", (f"ResnetBlock_{k}",), norm)
+        idx += 1
+    for i in range(n_downsampling):
+        out += _convT(f"model.{idx}", (f"UpBlock_{i}", "ConvTranspose_0"))
+        out += _norm(f"model.{idx + 1}", (f"UpBlock_{i}", "Norm_0"), norm)
+        idx += 3
+    out += _conv(f"model.{idx + 1}", ("TanhHead_0", "Conv_0"))
+    return out
+
+
+def global_with_features_mapping(
+    n_downsampling: int = 3, n_blocks: int = 9, norm: str = "instance"
+) -> list[Triple]:
+    """Global_with_z (the edge2face single-image G, reference:
+    models/networks.py:421-468): model_downsample, model_resnet,
+    model_upsample, model_upsample_conv -> the JAX GlobalWithFeatures."""
+    out: list[Triple] = list(_stem("model_downsample", 0, ("ConvStem_0",), norm))
+    for i in range(n_downsampling):
+        idx = 4 + 3 * i
+        out += _conv(f"model_downsample.{idx}", (f"DownBlock_{i}", "Conv_0"))
+        out += _norm(
+            f"model_downsample.{idx + 1}", (f"DownBlock_{i}", "Norm_0"), norm
+        )
+    for k in range(n_blocks):
+        out += _resblock(f"model_resnet.{k}", (f"ResnetBlock_{k}",), norm)
+    for i in range(n_downsampling):
+        out += _convT(
+            f"model_upsample.{3 * i}", (f"UpBlock_{i}", "ConvTranspose_0")
+        )
+        out += _norm(
+            f"model_upsample.{3 * i + 1}", (f"UpBlock_{i}", "Norm_0"), norm
+        )
+    out += _conv("model_upsample_conv.1", ("TanhHead_0", "Conv_0"))
+    return out
+
+
+def encoder_mapping(
+    n_downsampling: int = 4, norm: str = "instance"
+) -> list[Triple]:
+    """Encoder netE (reference: models/networks.py:595-615): one `model`
+    Sequential — stem, nd downs, nd ups, tanh head — -> the JAX Encoder."""
+    out: list[Triple] = list(_stem("model", 0, ("ConvStem_0",), norm))
+    idx = 4
+    for i in range(n_downsampling):
+        out += _conv(f"model.{idx}", (f"DownBlock_{i}", "Conv_0"))
+        out += _norm(f"model.{idx + 1}", (f"DownBlock_{i}", "Norm_0"), norm)
+        idx += 3
+    for i in range(n_downsampling):
+        out += _convT(f"model.{idx}", (f"UpBlock_{i}", "ConvTranspose_0"))
+        out += _norm(f"model.{idx + 1}", (f"UpBlock_{i}", "Norm_0"), norm)
+        idx += 3
+    out += _conv(f"model.{idx + 1}", ("TanhHead_0", "Conv_0"))
     return out
 
 

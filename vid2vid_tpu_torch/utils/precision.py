@@ -2,8 +2,10 @@
 
 PyTorch's default lets cuDNN run float32 convolutions in TF32 (about three
 decimal digits). The modules that the port keeps in float32 — FlowNet2
-(`FlowEstimator`), the discriminators, VGG19, and the training steps, whose
-backward runs the same convolutions' gradients — turn it off for their own
+(`FlowEstimator`), the discriminators, VGG19, the single-image first-frame
+nets and their Encoder (`InferenceEngine.single_g_first_frames`,
+`face_features`), and the training steps, whose backward runs the same
+convolutions' gradients — turn it off for their own
 calls with `cudnn_f32`, whatever the caller's setting, and give the
 caller's setting back afterwards. bfloat16 convolutions are unaffected.
 """
