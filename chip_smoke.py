@@ -8,6 +8,9 @@ Phases (one stdout line each, or a few; any failure raises and exits
 non-zero):
   1. device: name, power limit, torch / CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds, ptxas report);
+     one line per kernel of the bf16 3x3 body (csrc/conv3_wgmma.cuh) with
+     its registers, spills, shared memory and HGMMA count (cuobjdump
+     -sass); fails without HGMMA there or with a bf16 CUDA-core 3x3 left;
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
      bf16, correlation (FlowNetC, f32), flow_warp (FlowNet2, f32 and bf16),
@@ -39,7 +42,10 @@ non-zero):
      then the flagship stream;
   6. kernel, plain and library-call times at the paths' shapes, and each
      kernel's bound (the least time the card could take for its work);
-     conv7 also against cuDNN at the flagship composite's 7x7 shapes.
+     respair, conv3 and conv3_fused per shape with TFLOP/s, the share of
+     the bound and the ratio to cuDNN; respair also in f32 at the
+     single-image paths' shapes; conv7 also against cuDNN at the flagship
+     composite's 7x7 shapes.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -48,10 +54,12 @@ Long tables go to build/chip_smoke_profile*.txt.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -77,6 +85,7 @@ from vid2vid_tpu_torch.ops.conv3 import (  # noqa: E402
     conv3_fused_plain,
     conv3_padded,
     conv3_plain,
+    pack_conv3_weight,
 )
 from vid2vid_tpu_torch.ops.conv7 import (  # noqa: E402
     conv7_padded,
@@ -106,6 +115,14 @@ RESPAIR_SHAPES = [
     (1024, 32, 64, 18), (512, 32, 64, 9),
     (128, 256, 512, 6), (64, 256, 512, 3),
     (64, 512, 1024, 6), (32, 512, 1024, 3),
+]
+# (C, H, W, calls per seeding call, path) of every f32 respair on the
+# single-image paths: GlobalWithFeatures' trunk (512 + 16 features at
+# 64x64) on edge2face 512x512; the LocalEnhancer's global trunk (C = 1024 at
+# 64x32) and enhancer blocks (C = 64 at 1024x512) on label2city 2048x1024
+RESPAIR_F32_SHAPES = [
+    (528, 64, 64, 18, "edge2face_single"),
+    (1024, 64, 32, 18, "label2city_single"), (64, 1024, 512, 6, "label2city_single"),
 ]
 # (H, W) of the three warp + blend calls per frame
 WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
@@ -199,6 +216,8 @@ COUNTERS = {name: (fn,) for name, fn in KERNELS.items()} | {
 PLAIN_OF = {conv7_padded: conv7_plain}  # the plain version of a second entry
 # call_key of every kernel call compare() has held against its plain version
 CHECKED: set = set()
+# the launch counts of each single-image path's timed seeding calls alone
+SEED_LAUNCHES: dict = {}
 # the H100 SXM's published peaks (dense): HBM bytes/s; FLOP/s in bf16 on
 # the tensor cores and in f32 on the CUDA cores
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -628,11 +647,13 @@ def out_of_bounds(got: list[dict], want: list[dict]) -> list[str]:
 
 DEVICE_TIME = ("self_device_time_total", "self_cuda_time_total")
 FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first match wins
-    # conv3x3_kernel<T, TCO, REFLECT, MIN_BLOCKS> (csrc/conv_kxk.cuh):
-    # respair's launches are the reflect ones
-    ("respair (ours)", r"conv3x3_kernel<[^,]+, \d+, true,"),
+    # conv3x3_kernel<float, TCO, REFLECT, MIN_BLOCKS> (csrc/conv_kxk.cuh)
+    # and conv3_wgmma_kernel<BN, RW, REFLECT, CL> (csrc/conv3_wgmma.cuh,
+    # bf16): respair's launches are the reflect ones
+    ("respair (ours)", r"conv3x3_kernel<[^,]+, \d+, true,|conv3_wgmma_kernel<\d+, \d+, true,"),
     ("conv7 (ours)", r"conv7x7_kernel<"),
-    ("conv3 / conv3_fused (ours)", r"conv3x3_kernel<[^,]+, \d+, false,"),
+    ("conv3 / conv3_fused (ours)",
+     r"conv3x3_kernel<[^,]+, \d+, false,|conv3_wgmma_kernel<\d+, \d+, false,"),
     ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel"),
     ("correlation (ours)", r"corr"),
     ("conv / gemm (cuDNN, cuBLAS)",
@@ -781,6 +802,96 @@ def check_kernels(gen: torch.Generator) -> dict:
                        (form, c, h, w))
         del args, plain_args, relu_args, res_args, x, xp
     return errs
+
+
+def wgmma_smem(bn: int, rw: int) -> int:
+    """The dynamic shared memory of a bf16 3x3 launch of tile (BN, RW)
+    with four or more 16-channel chunks, as csrc/conv3_wgmma.cuh::
+    launch_tile sizes it: the barriers, the operand ring (or the epilogue
+    tile, if larger) and the staging ring, with the staging and then the
+    operand ring shortened to fit 227 KB."""
+    th = 2 * rw
+    stage = 2 * (th + 2) * 80 * 16 + 2 * 9 * bn * 16
+    stg, out = (th + 2) * 16 * 88 * 2, bn * (th * 64 + 4) * 4
+    n_stages = n_stg = 4
+
+    def total():
+        return 128 + max(n_stages * stage, out) + n_stg * stg
+    while total() > 232448 and n_stages > 1:
+        if n_stg > 2:
+            n_stg -= 1
+        else:
+            n_stages -= 1
+    return total()
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output."""
+    report, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return report
+
+
+def sass_counts(lib_path, opcode: str) -> dict:
+    """{mangled kernel name: count of the opcode in its SASS}, from
+    cuobjdump -sass of the built library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
+
+
+def build_phase() -> None:
+    """Phase 2: build the kernels; one line per kernel of the bf16 3x3 body
+    (csrc/conv3_wgmma.cuh) with its registers, spills, shared memory and
+    HGMMA count. Raises unless every one holds HGMMA, or if a bf16
+    instantiation of the CUDA-core 3x3 body (conv_kxk.cuh) is left."""
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib_path = build.build(verbose=True)
+    build.library()
+    seconds = time.perf_counter() - t0
+    print(log.getvalue(), end="")
+    regs = ptxas_report(log.getvalue())
+    hgmma = sass_counts(lib_path, "HGMMA")
+    wgmma = sorted(n for n in hgmma if "conv3_wgmma_kernel" in n)
+    if not wgmma:
+        raise AssertionError("build: no conv3_wgmma_kernel in the library")
+    for name in wgmma:
+        m = re.search(r"conv3_wgmma_kernelILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E", name)
+        bn, rw, reflect, cl = (int(v) for v in m.groups())
+        r, st, ld = regs.get(name, (None, None, None))
+        say("build_kernel", kernel=f"conv3_wgmma_kernel<{bn}, {rw}, {bool(reflect)}, {cl}>",
+            registers=r, spill_store_bytes=st, spill_load_bytes=ld,
+            dyn_smem_bytes=wgmma_smem(bn, rw), hgmma=hgmma[name])
+        if hgmma[name] == 0:
+            raise AssertionError(f"build: {name} holds no HGMMA")
+    old = [n for n in hgmma if re.search(r"conv3x3_kernelI13__nv_bfloat16", n)]
+    if old:
+        raise AssertionError(f"build: bf16 CUDA-core 3x3 kernels remain: {old}")
+    say("build", seconds=f"{seconds:.2f}", lib=lib_path.name, wgmma_kernels=len(wgmma),
+        hgmma_total=sum(hgmma[n] for n in wgmma))
 
 
 def reference_generator() -> None:
@@ -956,12 +1067,17 @@ def label2city_path(card: str) -> dict:
     want = dict.fromkeys(KERNELS, 0) | {"respair": 45 * n_frames, "warp_blend": 3 * n_frames}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, want {want}")
+    t = n_frames - 1
+    profile = profile_by_family(
+        lambda: eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state, use_raw_only=False),
+        "one label2city 2048x1024 frame", "chip_smoke_profile_label2city.txt")
     say("main_path", config="label2city 2048x1024 3-scale ngf128 fg bf16",
         frames=n_frames, setup_s=f"{setup_s:.1f}",
         ms_per_frame_median=f"{statistics.median(times[warm:]):.2f}",
         ms_per_frame=",".join(f"{v:.1f}" for v in times),
         peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
         card=repr(card))
+    say_profile("main_path_profile", profile)
     return launches
 
 
@@ -1121,18 +1237,20 @@ def seed_stats(seed_ms: list) -> dict:
                 ms_per_single_g_frame_by_call=",".join(f"{v:.1f}" for v in seed_ms))
 
 
-def seeded_stream(eng, seed_fn, n_seed: int, windows, n_frames: int):
+def seeded_stream(path: str, eng, seed_fn, n_seed: int, windows, n_frames: int):
     """Seed the state n_seed times (the single-image nets, two frames a
-    call; the caller has made a warm-up call), then stream n_frames frames
-    through eng.step from the last seed. Returns (ms per seeded frame per
-    call, ms per streamed frame, the seeded state, the frames); host clock
-    around torch.cuda.synchronize()."""
+    call; the caller has made a warm-up call and reset the launch counts),
+    then stream n_frames frames through eng.step from the last seed. Returns
+    (ms per seeded frame per call, ms per streamed frame, the seeded state,
+    the frames); host clock around torch.cuda.synchronize(). The launch
+    counts of the seeding calls alone go into SEED_LAUNCHES[path]."""
     seed_ms, times, fakes = [], [], []
     for _ in range(n_seed):
         t1 = time.perf_counter()
         state = seed_fn()
         torch.cuda.synchronize()
         seed_ms.append((time.perf_counter() - t1) * 1e3 / 2)
+    SEED_LAUNCHES[path] = read_launches()
     seeded = state
     for t in range(n_frames):
         t1 = time.perf_counter()
@@ -1174,12 +1292,16 @@ def edge2face_single_path(card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         seed_ms, times, seeded, fakes = seeded_stream(
-            eng, seed_fn, n_seed, lambda t: (edges[:, t : t + 3], None), n_frames)
+            "edge2face_single", eng, seed_fn, n_seed, lambda t: (edges[:, t : t + 3], None),
+            n_frames)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         profile = profile_by_family(seed_fn, "one edge2face seeding call (2 frames)",
                                     "chip_smoke_profile_edge2face_single.txt")
         check_f32_convs(tf32_seen, "the single-image nets")
+    stream_profile = profile_by_family(
+        lambda: eng.step(edges[:, n_frames - 1 : n_frames + 2], None, seeded),
+        "one edge2face 512x512 streamed frame", "chip_smoke_profile_edge2face.txt")
     check_frames(seeded[0][0].float(), (3, h, w), "edge2face single-image frame")
     check_frames(fakes, (1, 3, h, w), "edge2face stream")
     want = dict.fromkeys(KERNELS, 0) | {
@@ -1196,6 +1318,7 @@ def edge2face_single_path(card: str) -> dict:
         peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
         card=repr(card))
     say_profile("edge2face_single_profile", profile)
+    say_profile("edge2face_stream_profile", stream_profile)
     return launches
 
 
@@ -1229,8 +1352,8 @@ def label2city_single_path(card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         seed_ms, times, seeded, fakes = seeded_stream(
-            eng, seed_fn, n_seed, lambda t: (labels[:, t : t + 3], inst[:, t : t + 3]),
-            n_frames)
+            "label2city_single", eng, seed_fn, n_seed,
+            lambda t: (labels[:, t : t + 3], inst[:, t : t + 3]), n_frames)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         profile = profile_by_family(seed_fn, "one label2city seeding call (2 frames)",
@@ -1262,19 +1385,8 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
     or per training chunk (the backward), as the JSON line states."""
     ms = {name: [0.0, 0.0, 0.0] for name in KERNELS}  # kernel, plain, library
     work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, operations
+    respair_times(gen, ms, work)
     for dtype in (torch.bfloat16, torch.float32):
-        for c, h, w, n in RESPAIR_SHAPES:
-            x, k0, ab0, k1, ab1 = args = respair_case(c, h, w, dtype, gen)
-            k, p = time_ms(respair, args), time_ms(respair_plain, args)
-            lib = time_ms(lambda: F.conv2d(F.conv2d(x, k0, padding=1), k1, padding=1), ())
-            if dtype == torch.bfloat16:
-                for i, v in enumerate((k, p, lib)):
-                    ms["respair"][i] += n * v
-                work["respair"][0] += n * (2 * c * h * w + 2 * 9 * c * c) * 2
-                work["respair"][1] += n * 2 * 2 * 9 * c * c * h * w
-            say("time", kernel="respair", shape=f"{c}x{h}x{w}", dtype=str(dtype)[6:],
-                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", conv_pair_ms=f"{lib:.4f}",
-                calls_per_frame=n)
         for h, w in WARP_SHAPES:
             raw, prev, flow, weight = args = warp_case(h, w, dtype, gen)
             grid = sampling_grid(flow)
@@ -1336,6 +1448,52 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
         del args
     conv_times(gen, ms, work)
     return ms, work
+
+
+def respair_work(c, h, w, size):
+    """(bytes, operations) of one respair call: x read, out written, both
+    weights read once; two 3x3 convs."""
+    return (2 * c * h * w + 2 * 9 * c * c) * size, 2 * 2 * 9 * c * c * h * w
+
+
+def respair_times(gen: torch.Generator, ms: dict, work: dict) -> None:
+    """Phase 6, respair: bf16 at the flagship frame's shapes (per 2048x1024
+    frame, the kernel with the weights packed once, as ResnetBlock keeps
+    them) and f32 at the single-image paths' shapes (per seeding call);
+    for each shape ms, TFLOP/s, the share of the bound and the ratio to two
+    cuDNN 3x3 convs (TF32 off). Adds ms["respair_f32"], work["respair_f32"]
+    per path."""
+    for dtype, shapes, peak in ((torch.bfloat16, RESPAIR_SHAPES, BF16_FLOPS),
+                                (torch.float32, RESPAIR_F32_SHAPES, F32_FLOPS)):
+        totals = {}
+        for c, h, w, n, *path in shapes:
+            x, k0, ab0, k1, ab1 = args = respair_case(c, h, w, dtype, gen)
+            packed = None
+            if dtype == torch.bfloat16:
+                packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
+            k = time_ms(lambda: respair(*args, packed=packed), ())
+            p = time_ms(respair_plain, args)
+            lib = time_ms(lambda: F.conv2d(F.conv2d(x, k0, padding=1), k1, padding=1), ())
+            nb, nop = respair_work(c, h, w, x.element_size())
+            b_ms = bound_ms(nb, nop, peak)[0]
+            key = "respair" if dtype == torch.bfloat16 else f"respair_f32 {path[0]}"
+            tot = totals.setdefault(key, [0.0] * 6)  # ms, plain, lib, bytes, ops, bound
+            for i, v in enumerate((k, p, lib, nb, nop, b_ms)):
+                tot[i] += n * v
+            say("time", kernel="respair", shape=f"{c}x{h}x{w}", dtype=str(dtype)[6:],
+                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", conv_pair_ms=f"{lib:.4f}",
+                tflops=f"{nop / k / 1e9:.2f}", bound_ms=f"{b_ms:.4f}",
+                share_of_bound=f"{b_ms / k:.4f}", over_conv_pair=f"{k / lib:.3f}",
+                calls=n, per="2048x1024 frame" if not path else f"{path[0]} seeding call")
+            del args, x, k0, k1, packed
+        for key, (k, p, lib, nb, nop, b_ms) in totals.items():
+            ms[key], work[key] = [k, p, lib], [nb, nop]
+            say("time", kernel=key, case="summed per " + (
+                "2048x1024 frame" if key == "respair" else "seeding call"),
+                dtype=str(dtype)[6:], ms=f"{k:.3f}", plain_ms=f"{p:.3f}",
+                conv_pair_ms=f"{lib:.3f}", bound_ms=f"{b_ms:.4f}",
+                tflops=f"{nop / k / 1e9:.2f}", share_of_bound=f"{b_ms / k:.4f}",
+                over_conv_pair=f"{k / lib:.3f}")
 
 
 def conv7_work(ci, co, h, w, size):
@@ -1403,14 +1561,29 @@ def conv_times(gen: torch.Generator, ms: dict, work: dict) -> None:
         ms["conv3_fused"][2] += 2 * n * lib
         work["conv3_fused"][0] += n * (2 * conv_bytes + c * h * w * 2)  # + the residual
         work["conv3_fused"][1] += 2 * n * conv_ops
+        b_ms = bound_ms(conv_bytes, conv_ops, BF16_FLOPS)[0]
+        b_res = bound_ms(conv_bytes + c * h * w * 2, conv_ops, BF16_FLOPS)[0]
         say("time", kernel="conv3", shape=f"{c}x{h}x{w}", dtype="bfloat16", ms=f"{k:.4f}",
             plain_ms=f"{p:.4f}", conv2d_ms=f"{lib:.4f}", tflops=f"{conv_ops / k / 1e9:.2f}",
+            share_of_bound=f"{b_ms / k:.4f}", over_conv2d=f"{k / lib:.3f}",
             calls_per_frame=2 * n)
         say("time", kernel="conv3_fused", shape=f"{c}x{h}x{w}", dtype="bfloat16",
             relu_ms=f"{fused[0][0]:.4f}", relu_plain_ms=f"{fused[0][1]:.4f}",
             residual_ms=f"{fused[1][0]:.4f}", residual_plain_ms=f"{fused[1][1]:.4f}",
-            conv2d_ms=f"{lib:.4f}", calls_per_frame=f"{n}+{n}")
+            conv2d_ms=f"{lib:.4f}", relu_tflops=f"{conv_ops / fused[0][0] / 1e9:.2f}",
+            residual_tflops=f"{conv_ops / fused[1][0] / 1e9:.2f}",
+            relu_share_of_bound=f"{b_ms / fused[0][0]:.4f}",
+            residual_share_of_bound=f"{b_res / fused[1][0]:.4f}",
+            relu_over_conv2d=f"{fused[0][0] / lib:.3f}",
+            residual_over_conv2d=f"{fused[1][0] / lib:.3f}", calls_per_frame=f"{n}+{n}")
         del xp, k0, relu_args, res_args
+    for name in ("conv3", "conv3_fused"):
+        k, _, lib = ms[name]
+        b_ms = bound_ms(*work[name], BF16_FLOPS)[0]
+        say("time", kernel=name, case="summed over the 90 3x3 convs of one 2048x1024 frame",
+            dtype="bfloat16", ms=f"{k:.3f}", conv2d_ms=f"{lib:.3f}", bound_ms=f"{b_ms:.4f}",
+            tflops=f"{work[name][1] / k / 1e9:.2f}", share_of_bound=f"{b_ms / k:.4f}",
+            over_conv2d=f"{k / lib:.3f}")
 
 
 def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
@@ -1460,6 +1633,15 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
     }
     for name, (src, rep, path, peak_ops, ms_is) in sources.items():
         b_ms, b_by = bound_ms(work[name][0], work[name][1], peak_ops)
+        extra = {}
+        if name == "respair":  # the f32 body's row: per seeding call
+            extra["f32"] = {p: dict(
+                zip(("ms", "plain_ms", "library_ms"), ms[f"respair_f32 {p}"]),
+                bound_ms=bound_ms(*work[f"respair_f32 {p}"], F32_FLOPS)[0],
+                bound_by=bound_ms(*work[f"respair_f32 {p}"], F32_FLOPS)[1],
+                launches_in_seeding=SEED_LAUNCHES[p]["respair"],
+                ms_is="f32, summed per seeding call (2 frames); library: two cuDNN f32 "
+                      "3x3 convs, TF32 off") for p in ("edge2face_single", "label2city_single")}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[path][name] if path else 0,
@@ -1467,7 +1649,7 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
             "max_abs_err": errs[name][torch.float32],
             "max_abs_err_bf16": errs[name].get(torch.bfloat16),
             "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": ms[name][2], "ms_is": ms_is,
+            "bound_by": b_by, "library_ms": ms[name][2], "ms_is": ms_is, **extra,
         })
     return kernels
 
@@ -1484,10 +1666,7 @@ def main() -> None:
         python=sys.version.split()[0])
 
     # 2. build
-    t0 = time.perf_counter()
-    lib_path = build.build(verbose=True)
-    build.library()
-    say("build", seconds=f"{time.perf_counter() - t0:.2f}", lib=lib_path.name)
+    build_phase()
 
     gen = torch.Generator().manual_seed(0)
     errs = check_kernels(gen)

@@ -13,11 +13,14 @@ import math
 import pytest
 import torch
 
+from vid2vid_tpu_torch.nn.blocks import ResnetBlock
+from vid2vid_tpu_torch.nn.layers import eval_affine
 from vid2vid_tpu_torch.ops.conv3 import (
     conv3_fused_padded,
     conv3_fused_plain,
     conv3_padded,
     conv3_plain,
+    pack_conv3_weight,
 )
 from vid2vid_tpu_torch.ops.conv7 import (
     conv7_padded,
@@ -79,8 +82,8 @@ def _close(name, got, want, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,c,h,w",
-    # the last grid has 384 blocks, more than two per SM of an H100: it runs
-    # the template's three-blocks-per-SM instantiation (csrc/conv_kxk.cuh)
+    # in f32 the last grid has 384 blocks, more than two per SM of an H100:
+    # it runs the three-blocks-per-SM instantiation of csrc/conv_kxk.cuh
     [(2, 3, 5, 7), (1, 17, 13, 37), (1, 40, 9, 33), (2, 96, 8, 32), (1, 33, 2, 2),
      (2, 70, 61, 250)],
 )
@@ -282,7 +285,7 @@ def test_conv7_kernel_any_shape(cuda, dtype, b, ci, co, h, w):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,ci,co,h,w",
-    # the last grid has 288 blocks: the three-blocks-per-SM instantiation
+    # in f32 the last grid has 288 blocks: the three-blocks-per-SM instantiation
     [(1, 3, 5, 1, 1), (2, 17, 40, 9, 35), (1, 128, 128, 8, 32), (1, 64, 3, 5, 70),
      (2, 40, 36, 66, 250)],
 )
@@ -345,3 +348,74 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
         conv3_fused_padded(x, w3, ab, ab, torch.zeros(1, 2, 8, 8, device=cuda))
     with pytest.raises(ValueError, match="dtype"):
         conv3_fused_padded(x, w3, ab.double(), ab)
+
+
+# The bf16 3x3 body (csrc/conv3_wgmma.cuh) tiles 64 columns x 2 or 4 rows x
+# 16..128 output channels and steps K by 16 input channels: channel counts
+# that fill no step or tile, widths that are not a multiple of 64 (or of 8:
+# the epilogue's element-by-element stores), H = 2 with reflect, B > 1,
+# Co < 8, a second output-channel block of 8, and the two 2048-pixel
+# shapes of the flagship frame (C = 512, 1024 at 32x64).
+@pytest.mark.parametrize(
+    "b,c,h,w",
+    [(3, 20, 2, 70), (1, 5, 9, 130), (2, 136, 17, 64), (1, 24, 2, 2), (2, 40, 6, 13),
+     (1, 512, 32, 64), (1, 1024, 32, 64)],
+)
+def test_respair_tensor_core_tiles(cuda, b, c, h, w):
+    test_respair_kernel_any_shape(cuda, torch.bfloat16, b, c, h, w)
+
+
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(2, 20, 5, 2, 70), (1, 9, 130, 7, 129), (3, 24, 12, 3, 10), (1, 7, 3, 1, 1),
+     (1, 512, 512, 32, 64), (1, 1024, 1024, 32, 64)],
+)
+def test_conv3_tensor_core_tiles(cuda, b, ci, co, h, w):
+    test_conv3_kernels_any_shape(cuda, torch.bfloat16, b, ci, co, h, w)
+
+
+def test_respair_takes_packed_weights(cuda):
+    """The packed weights a caller made once give the same bf16 block as
+    the wrapper's own packing; a packed weight of another shape, or packed
+    weights with f32, are refused."""
+    g = torch.Generator().manual_seed(5)
+    c = 24
+    x = torch.randn((2, c, 9, 70), generator=g).to(cuda, torch.bfloat16)
+    k0, k1 = ((torch.randn((c, c, 3, 3), generator=g) / math.sqrt(9 * c)).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    ab = [tuple(torch.randn(c, generator=g).to(cuda) for _ in range(2)) for _ in range(2)]
+    packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
+    got = respair(x, k0, ab[0], k1, ab[1], packed=packed)
+    assert torch.equal(got, respair(x, k0, ab[0], k1, ab[1]))
+    with pytest.raises(ValueError, match="packed k1"):
+        respair(x, k0, ab[0], k1, ab[1], packed=(packed[0], packed[1][:, :1].contiguous()))
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        respair(x.float(), k0.float(), ab[0], k1.float(), ab[1], packed=packed)
+
+
+def test_resnet_block_cache_on_the_card(cuda):
+    """The eval bf16 ResnetBlock packs its weights once, and packs anew
+    after load_state_dict; its output is the kernel's on freshly folded
+    weights."""
+    block = ResnetBlock(40).to(cuda).eval().to(torch.bfloat16)
+    x = torch.randn((1, 40, 12, 66), generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda, torch.bfloat16)
+
+    def fresh():
+        blk = block.conv_block
+        args = []
+        for conv, norm in ((blk[1], blk[2]), (blk[5], blk[6])):
+            a, c = eval_affine(norm, 40, x.device)
+            args += [conv.weight, (a, c + conv.bias.float() * a)]
+        return respair(x, *args)
+
+    with torch.no_grad():
+        got = block(x)
+        packed = block._eval_cache[1][4]
+        assert packed is not None and torch.equal(got, fresh())
+        block(x)
+        assert block._eval_cache[1][4] is packed
+        sd = {k: v * 2 if v.is_floating_point() else v for k, v in block.state_dict().items()}
+        block.load_state_dict(sd)
+        got = block(x)
+        assert block._eval_cache[1][4] is not packed and torch.equal(got, fresh())

@@ -1,5 +1,6 @@
 // Shared helpers for the port's CUDA kernels: float <-> storage-type
-// conversion and the dtype codes the C entry points take.
+// conversion, the dtype codes the C entry points take, and the reflect
+// index of the conv bodies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,6 +27,14 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
+}
+
+// The reflect pad's source index (i < 0 -> -i, i >= n -> 2n-2-i); only
+// ragged-tile lanes, whose outputs are masked, land outside and are clamped.
+__device__ __forceinline__ int reflect_clamp(int i, int n) {
+  i = i < 0 ? -i : i;
+  i = i >= n ? 2 * n - 2 - i : i;
+  return min(max(i, 0), n - 1);
 }
 
 }  // namespace v2v

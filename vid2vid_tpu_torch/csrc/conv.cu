@@ -1,6 +1,8 @@
 // Stride-1 7x7 and 3x3 convolutions with a fused epilogue, for Hopper
-// (sm_90a): the entries of conv_kxk.cuh's conv body, conv_kxk<T, K, TCO,
-// REFLECT>, that the Pallas conv kernels map to.
+// (sm_90a): the entries of the port's two conv bodies that the Pallas conv
+// kernels map to: conv_kxk.cuh (CUDA cores; conv7 in f32 and bf16, conv3
+// and conv3_fused in f32) and conv3_wgmma.cuh (tensor cores; conv3 and
+// conv3_fused in bf16).
 //
 // Replaces three TPU kernels:
 //   - vid2vid_tpu/ops/conv7_pallas.py::_conv_kernel (reached via
@@ -9,7 +11,7 @@
 //     a bias epilogue (v2v_conv7);
 //   - vid2vid_tpu/ops/conv3_pallas.py::_conv3_kernel (conv3_pallas_padded /
 //     conv3_padded): a VALID 3x3 conv of a pre-padded input (v2v_conv3, the
-//     no-epilogue entry of the K = 3 template);
+//     no-epilogue entry of the 3x3 bodies);
 //   - vid2vid_tpu/ops/conv3_pallas.py::_conv3_fused_kernel
 //     (conv3_fused_padded): the same conv, then
 //     `* scale + offset [+ residual] [ReLU]` on the f32 accumulator
@@ -19,16 +21,22 @@
 // nets are compute-bound: 98*Ci*Co FLOP per output pixel against one read
 // of each input and output element (a 31->64 stem at 512x512 is 51 GFLOP
 // for 40 MB), and so are the 3x3 convs of the residual blocks at
-// 18*Ci*Co FLOP per pixel. This first version runs the products on the
-// CUDA cores (67 TFLOP/s f32 peak), not the tensor cores, so it sits far
-// below the bf16 peak; wgmma with TMA-fed tiles is later work (ROADMAP).
-// What the design does about it: the register-blocked shared-memory tiles
-// of conv_kxk.cuh, with an output-channel tile sized to Co so the Co = 3
-// and 16 heads do not idle most lanes.
+// 18*Ci*Co FLOP per pixel. What the design does about it: in bf16 the 3x3
+// convs are an implicit GEMM on wgmma, fed through a ring of shared-memory
+// stages by a producer warpgroup (conv3_wgmma.cuh: 9 taps as 9 descriptors
+// into one channel-interleaved halo tile, weights packed by the caller and
+// fetched by tensor-map loads; the pre-padded rows of W + 2 columns are
+// staged by 4- or 8-byte cp.asyncs, since a tensor map needs 16-byte
+// aligned rows). The 7x7 convs and every f32 conv stay on the CUDA cores
+// (67 TFLOP/s f32 peak) in the register-blocked shared-memory tiles of
+// conv_kxk.cuh, with an output-channel tile sized to Co so the Co = 3 and
+// 16 heads do not idle most lanes; a tensor-core 7x7 body is later work
+// (ROADMAP).
 //
 // Unlike the Pallas kernels, any Ci, Co, H and W are taken, so no Ci % 128,
 // Co % 128 or block-divisibility rule carries over.
 
+#include "conv3_wgmma.cuh"
 #include "conv_kxk.cuh"
 
 // 7x7 conv with an optional bias (f32, nullable) -> (B, Co, H, W). reflect:
@@ -45,21 +53,27 @@ extern "C" int v2v_conv7(const void* x, const void* w, const float* bias,
                              W, 0, dtype, s);
 }
 
-// VALID 3x3 conv of a pre-padded (B, Ci, H+2, W+2) input -> (B, Co, H, W).
-extern "C" int v2v_conv3(const void* xp, const void* w, void* out, int B,
-                         int Ci, int Co, int H, int W, int dtype,
-                         void* stream) {
-  return v2v::conv<3, false>(xp, w, nullptr, nullptr, nullptr, out, B, Ci, Co,
-                             H, W, 0, dtype, static_cast<cudaStream_t>(stream));
-}
-
-// The same conv, then * scale + offset (f32, (Co,)) [+ residual (B, Co, H,
-// W), nullable] [ReLU].
+// VALID 3x3 conv of a pre-padded (B, Ci, H+2, W+2) input -> (B, Co, H, W),
+// then * scale + offset (f32, (Co,), nullable) [+ residual (B, Co, H, W),
+// nullable] [ReLU]. w: OIHW in f32; in bf16 the packed layout of
+// ops/conv3.py::pack_conv3_weight.
 extern "C" int v2v_conv3_fused(const void* xp, const void* w,
                                const float* scale, const float* offset,
                                const void* residual, void* out, int B, int Ci,
                                int Co, int H, int W, int relu, int dtype,
                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == v2v::kBFloat16)
+    return v2v::c3::conv3<false>(xp, w, scale, offset, residual, out, B, Ci,
+                                 Co, H, W, relu, s);
   return v2v::conv<3, false>(xp, w, scale, offset, residual, out, B, Ci, Co, H,
-                             W, relu, dtype, static_cast<cudaStream_t>(stream));
+                             W, relu, dtype, s);
+}
+
+// The no-epilogue entry.
+extern "C" int v2v_conv3(const void* xp, const void* w, void* out, int B,
+                         int Ci, int Co, int H, int W, int dtype,
+                         void* stream) {
+  return v2v_conv3_fused(xp, w, nullptr, nullptr, nullptr, out, B, Ci, Co, H,
+                         W, 0, dtype, stream);
 }

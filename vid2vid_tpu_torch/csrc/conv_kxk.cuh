@@ -1,10 +1,12 @@
-// The stride-1 KxK convolution with a fused epilogue that the port's conv
-// kernels share: respair.cu makes its two launches through it (K = 3,
-// reflect), conv.cu its conv7 / conv3 / conv3_fused entries.
+// The stride-1 KxK convolution with a fused epilogue on the CUDA cores:
+// respair.cu and conv.cu run their f32 launches through it (K = 3 respair,
+// conv3, conv3_fused; K = 7 conv7) and conv7's bf16 ones. The bf16 3x3
+// convs run on the tensor cores instead (conv3_wgmma.cuh): this body keeps
+// the f32 products of the f32 single-image paths and conv7.
 //
-// One body, conv_kxk<T, K, TCO, REFLECT>, for T = float and bf16, launched
-// through conv3x3_kernel<T, TCO, REFLECT, MIN_BLOCKS> or
-// conv7x7_kernel<T, TCO, REFLECT>:
+// One body, conv_kxk<T, K, TCO, REFLECT>, launched through
+// conv3x3_kernel<float, TCO, REFLECT, MIN_BLOCKS> or
+// conv7x7_kernel<T, TCO, REFLECT> (T = float or bf16):
 //     out[b,co,y,x] = epi( sum_{ci,ky,kx} in[b,ci,y',x'] * w[co,ci,ky,kx] )
 //     epi(v) = v * scale[co] + offset[co]  [+ residual[b,co,y,x]]  [ReLU]
 // accumulated in f32 (scale, offset optional: 1 and 0). REFLECT reads
@@ -31,11 +33,10 @@
 // At K = 3 a grid of more blocks than two per SM launches the instantiation
 // built for three resident blocks per SM (MIN_BLOCKS = 3: 80 registers,
 // against 125 at MIN_BLOCKS = 1, which fits two): the third block hides
-// more latency at the residual blocks' 256x512 and 512x1024 shapes. A
-// smaller grid (the 2048-pixel coarsest scale: 128-256 blocks on 132 SMs)
-// cannot fill a third and runs faster without the cap. The 7x7 entry
-// states no block count: with MIN_BLOCKS = 1 the Co <= 4 heads compile to
-// twice the registers and run a third slower.
+// more latency at large images. A smaller grid (C = 1024 at 64x32 on the
+// LocalEnhancer's trunk) cannot fill a third and runs faster without the
+// cap. The 7x7 entry states no block count: with MIN_BLOCKS = 1 the Co <= 4
+// heads compile to twice the registers and run a third slower.
 //
 // Any Ci, Co, H and W are taken: ragged tiles are masked. Reflect padding
 // needs H, W > K / 2 (the wrappers check).
@@ -64,13 +65,6 @@ struct Tile {
   // an odd row stride makes the 4-row x 8-group warp reads conflict-free
   static constexpr int IN_STRIDE = IN_W | 1;
 };
-
-__device__ __forceinline__ int reflect_clamp(int i, int n) {
-  i = i < 0 ? -i : i;
-  i = i >= n ? 2 * n - 2 - i : i;
-  // only ragged-tile lanes (whose outputs are masked) land outside
-  return min(max(i, 0), n - 1);
-}
 
 template <typename T, int K, int TCO, bool REFLECT>
 __device__ __forceinline__ void conv_kxk(
@@ -281,7 +275,8 @@ void launch(const void* in, const void* w, const float* scale,
   }
 }
 
-// One launch in the storage type named by dtype; returns cudaGetLastError().
+// One launch in the storage type named by dtype: f32, or bf16 at K = 7
+// (bf16 3x3 convs go to conv3_wgmma.cuh); returns cudaGetLastError().
 template <int K, bool REFLECT>
 int conv(const void* in, const void* w, const float* scale,
          const float* offset, const void* residual, void* out, int B, int Ci,
@@ -289,9 +284,10 @@ int conv(const void* in, const void* w, const float* scale,
   if (dtype == kFloat32) {
     launch<float, K, REFLECT>(in, w, scale, offset, residual, out, B, Ci, Co,
                               H, W, relu, stream);
-  } else if (dtype == kBFloat16) {
-    launch<__nv_bfloat16, K, REFLECT>(in, w, scale, offset, residual, out, B,
-                                      Ci, Co, H, W, relu, stream);
+  } else if (K == 7 && dtype == kBFloat16) {
+    if constexpr (K == 7)
+      launch<__nv_bfloat16, K, REFLECT>(in, w, scale, offset, residual, out,
+                                        B, Ci, Co, H, W, relu, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }

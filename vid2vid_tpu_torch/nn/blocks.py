@@ -21,6 +21,7 @@ from vid2vid_tpu_torch.nn.layers import (
     reflect_conv,
     reflect_conv7,
 )
+from vid2vid_tpu_torch.ops.conv3 import pack_conv3_weight
 from vid2vid_tpu_torch.ops.respair import respair
 
 
@@ -61,7 +62,12 @@ class ResnetBlock(nn.Module):
 
     Training runs the plain layers. Eval folds each conv bias and eval-mode
     norm into one affine (a, c + bias * a) and runs the whole block as one
-    `ops.respair` — the CUDA kernel on a CUDA tensor, for any width.
+    `ops.respair` — the CUDA kernel on a CUDA tensor, for any width. Under
+    `torch.no_grad()` the folded affines, the weights in x's dtype and, for
+    the bf16 kernel, their packed layout are kept, and rebuilt only when a
+    parameter or buffer of the block changes (its version counter, storage,
+    dtype or device) or x's dtype or device does; with gradients on they
+    are rebuilt on each call, so the weights keep their gradient.
     """
 
     def __init__(self, dim: int, norm: str = "batch"):
@@ -71,15 +77,35 @@ class ResnetBlock(nn.Module):
             *reflect_conv(dim, dim, 3), norm_layer(norm, dim), nn.ReLU(True),
             *reflect_conv(dim, dim, 3), norm_layer(norm, dim),
         )
+        self._eval_cache: tuple | None = None  # (key, respair's weight args)
 
     def _folded(self, conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor):
         a, c = eval_affine(norm, self.dim, x.device)
         return conv.weight.to(x.dtype), (a, c + conv.bias.float() * a)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return x + self.conv_block(x)
+    def _respair_args(self, x: torch.Tensor) -> tuple:
+        """(k0, ab0, k1, ab1, packed) of `respair` for x."""
         blk = self.conv_block
         k0, ab0 = self._folded(blk[1], blk[2], x)
         k1, ab1 = self._folded(blk[5], blk[6], x)
-        return respair(x.contiguous(), k0, ab0, k1, ab1)
+        packed = None
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
+        return k0, ab0, k1, ab1, packed
+
+    def _cache_key(self, x: torch.Tensor) -> tuple:
+        return (x.dtype, x.device, *(
+            (t._version, t.data_ptr(), t.dtype, t.device)
+            for t in (*self.conv_block.parameters(), *self.conv_block.buffers())))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return x + self.conv_block(x)
+        if torch.is_grad_enabled():
+            k0, ab0, k1, ab1, packed = self._respair_args(x)
+        else:
+            key = self._cache_key(x)
+            if self._eval_cache is None or self._eval_cache[0] != key:
+                self._eval_cache = (key, self._respair_args(x))
+            k0, ab0, k1, ab1, packed = self._eval_cache[1]
+        return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)

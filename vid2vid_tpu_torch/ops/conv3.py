@@ -5,12 +5,15 @@
                                = conv2d(xp, w) * scale + offset [+ residual] [ReLU]
 
 NCHW inputs, OIHW weights; xp is (B, Ci, H+2, W+2), padded by the caller
-(reflect or zero). On a CUDA tensor both launch the K = 3 entries of the
-hand-written conv kernel (csrc/conv.cu: `v2v_conv3`, no epilogue, and
-`v2v_conv3_fused`, the epilogue on the f32 accumulator; f32 or bf16, any
-Ci, Co, H, W) or raise; on a CPU tensor they run their plain versions, which
-are also the kernel's oracles. The Pallas kernels' Ci % 128, Co % 128 and
-block-divisibility rules do not carry over.
+(reflect or zero). On a CUDA tensor both launch the 3x3 entries of the
+hand-written conv kernels (csrc/conv.cu: `v2v_conv3`, no epilogue, and
+`v2v_conv3_fused`, the epilogue on the f32 accumulator; any Ci, Co, H, W)
+or raise: in bf16 the tensor-core body (csrc/conv3_wgmma.cuh), which takes
+the weights in the layout of `pack_conv3_weight`, packed here on each call;
+in f32 the CUDA-core body (csrc/conv_kxk.cuh) on OIHW weights. On a CPU
+tensor they run their plain versions, which are also the kernels' oracles.
+The Pallas kernels' Ci % 128, Co % 128 and block-divisibility rules do not
+carry over.
 
 Neither has a caller in the JAX package (its residual blocks run the whole
 block as one op, ops/respair_pallas.py), so none is added here: the tests
@@ -33,6 +36,32 @@ from vid2vid_tpu_torch.ops.conv7 import plain_vjp
 def conv3_plain(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID 3x3 conv in plain PyTorch, in xp's dtype."""
     return F.conv2d(xp, w.to(xp.dtype))
+
+
+def pack_conv3_weight(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 3x3 body's weight layout: (Co, Ci, 3, 3) OIHW ->
+    (Ci_pad / 8, 9, Co_pad, 8), entry [g, t, o, e] = w[o, 8g + e, t // 3,
+    t % 3], zero where o >= Co or 8g + e >= Ci; Ci_pad is Ci rounded up to
+    16 (one wgmma K step), Co_pad Co rounded up to 8. The kernel loads BN
+    output channels of one 8-channel group for all taps as one box of a
+    tensor map over this layout, two groups per stage."""
+    co, ci = w.shape[:2]
+    co_pad, ci_pad = -(-co // 8) * 8, -(-ci // 16) * 16
+    if (co_pad, ci_pad) != (co, ci):
+        w = F.pad(w, (0, 0, 0, 0, 0, ci_pad - ci, 0, co_pad - co))
+    # (Ci_pad, 3, 3, Co_pad) -> (G, 8, 9, Co_pad) -> (G, 9, Co_pad, 8)
+    return w.permute(1, 2, 3, 0).reshape(ci_pad // 8, 8, 9, co_pad).permute(0, 2, 3, 1).contiguous()
+
+
+def packed_shape(co: int, ci: int) -> tuple[int, int, int, int]:
+    """The shape `pack_conv3_weight` gives an (co, ci, 3, 3) weight."""
+    return (-(-ci // 16) * 2, 9, -(-co // 8) * 8, 8)
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """The weight a 3x3 conv kernel takes for w's dtype: packed in bf16
+    (the tensor-core body), OIHW in f32."""
+    return pack_conv3_weight(w) if w.dtype == torch.bfloat16 else w
 
 
 def conv3_fused_plain(
@@ -77,8 +106,9 @@ def _conv3_forward(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fn = build.function("v2v_conv3", [_VOID] * 3 + [_INT] * 6 + [_VOID])
     b, ci = xp.shape[:2]
     out = torch.empty((b, w.shape[0], h, wd), dtype=xp.dtype, device=xp.device)
+    wk = kernel_weight(w)
     with torch.cuda.device(xp.device):  # launch on the operands' card
-        err = fn(xp.data_ptr(), w.data_ptr(), out.data_ptr(), b, ci, w.shape[0],
+        err = fn(xp.data_ptr(), wk.data_ptr(), out.data_ptr(), b, ci, w.shape[0],
                  h, wd, code, _stream(xp))
     build.check(err, "conv3 kernel launch")
     conv3_padded.launches += 1
@@ -131,8 +161,9 @@ def conv3_fused_padded(
                                 scale=scale, offset=offset)
     fn = build.function("v2v_conv3_fused", [_VOID] * 6 + [_INT] * 7 + [_VOID])
     out = torch.empty((b, co, h, wd), dtype=xp.dtype, device=xp.device)
+    wk = kernel_weight(w)
     with torch.cuda.device(xp.device):
-        err = fn(xp.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+        err = fn(xp.data_ptr(), wk.data_ptr(), scale.data_ptr(), offset.data_ptr(),
                  None if residual is None else residual.data_ptr(), out.data_ptr(),
                  b, xp.shape[1], co, h, wd, int(relu), code, _stream(xp))
     build.check(err, "conv3_fused kernel launch")

@@ -7,7 +7,11 @@
 affine (nn/layers.py::eval_affine). `respair` runs the hand-written CUDA
 kernel (csrc/respair.cu) on a CUDA tensor and `respair_plain` on a CPU
 tensor; `respair_plain` is also the kernel's oracle. Unlike the TPU kernel
-it takes any channel count and any H, W >= 2.
+it takes any channel count and any H, W >= 2. In bf16 the kernel runs on
+the tensor cores and takes its weights packed (ops/conv3.py::
+pack_conv3_weight): a caller that runs the block often packs them once and
+passes them as `packed` (nn/blocks.py::ResnetBlock); otherwise they are
+packed on each call.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
+from vid2vid_tpu_torch.ops.conv3 import kernel_weight, packed_shape
 
 Affine = tuple[torch.Tensor, torch.Tensor]
 
@@ -51,19 +56,32 @@ def _check_shapes(x, k0, ab0, k1, ab1) -> None:
         raise ValueError(f"respair: reflect padding needs H, W >= 2, got {h}x{w}")
 
 
+def _check_packed(x, k0, packed) -> None:
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"respair: packed weights are the bf16 kernel's, x is {x.dtype}")
+    want = packed_shape(*k0.shape[:2])
+    for name, p in zip(("packed k0", "packed k1"), packed):
+        if tuple(p.shape) != want:
+            raise ValueError(f"respair: {name} {tuple(p.shape)} != {want}")
+    build.require_cuda_operands("respair", x.device, x.dtype,
+                                packed_k0=packed[0], packed_k1=packed[1])
+
+
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
 def respair(
-    x: torch.Tensor, k0: torch.Tensor, ab0: Affine, k1: torch.Tensor, ab1: Affine
+    x: torch.Tensor, k0: torch.Tensor, ab0: Affine, k1: torch.Tensor, ab1: Affine,
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """One eval-mode residual block.
 
     x: (B, C, H, W); k0, k1: (C, C, 3, 3) OIHW in x's dtype; ab0, ab1:
-    (scale, offset) pairs of (C,) float32. Returns (B, C, H, W) in x's dtype.
-    A CPU tensor takes `respair_plain`; a CUDA tensor launches the kernel
-    (f32 or bf16, contiguous) or raises.
+    (scale, offset) pairs of (C,) float32; packed: in bf16 optionally
+    (pack_conv3_weight(k0), pack_conv3_weight(k1)), made once by the caller.
+    Returns (B, C, H, W) in x's dtype. A CPU tensor takes `respair_plain`; a
+    CUDA tensor launches the kernel (f32 or bf16, contiguous) or raises.
     """
     _check_shapes(x, k0, ab0, k1, ab1)
     if x.device.type == "cpu":
@@ -75,6 +93,9 @@ def respair(
     build.require_cuda_operands(
         "respair", x.device, torch.float32, a0=a0, c0=c0, a1=a1, c1=c1
     )
+    if packed is not None:
+        _check_packed(x, k0, packed)
+    wk = packed or (kernel_weight(k0), kernel_weight(k1))
     fn = build.function(
         "v2v_respair", [_VOID] * 9 + [_INT] * 5 + [_VOID]
     )
@@ -83,8 +104,8 @@ def respair(
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # launch on the operands' card
         err = fn(
-            x.data_ptr(), k0.data_ptr(), a0.data_ptr(), c0.data_ptr(),
-            k1.data_ptr(), a1.data_ptr(), c1.data_ptr(),
+            x.data_ptr(), wk[0].data_ptr(), a0.data_ptr(), c0.data_ptr(),
+            wk[1].data_ptr(), a1.data_ptr(), c1.data_ptr(),
             hbuf.data_ptr(), out.data_ptr(), b, c, h, w, code,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
