@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from vid2vid_tpu_torch.nn.blocks import ResnetBlock
-from vid2vid_tpu_torch.nn.layers import eval_affine
+from vid2vid_tpu_torch.nn.layers import ReflectConv7, eval_affine
 from vid2vid_tpu_torch.ops.conv3 import (
     conv3_fused_padded,
     conv3_fused_plain,
@@ -27,6 +27,7 @@ from vid2vid_tpu_torch.ops.conv7 import (
     conv7_plain,
     conv7_reflect,
     conv7_reflect_plain,
+    pack_conv7_weight,
 )
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
@@ -329,6 +330,44 @@ def test_conv_autograd_runs_the_plain_vjp(cuda):
         _close("conv", leaf.grad, r.grad, torch.float32)
 
 
+@pytest.mark.parametrize("op", ["respair", "conv3_fused", "correlation"])
+def test_kernels_without_a_backward_carry_the_plain_gradient(cuda, op):
+    """A CUDA input with requires_grad gets, with the forward on the
+    kernel, the gradients of the plain version's autograd (these three ops
+    once returned results without a grad_fn on the card)."""
+    g = torch.Generator().manual_seed(11)
+    if op == "respair":
+        c = 12
+        x = torch.randn((2, c, 9, 13), generator=g)
+        k0, k1 = (torch.randn((c, c, 3, 3), generator=g) / math.sqrt(9 * c) for _ in range(2))
+        aff = [torch.randn(c, generator=g) for _ in range(4)]
+        args = [t.to(cuda) for t in (x, k0, *aff[:2], k1, *aff[2:])]
+        fn = lambda x, k0, a0, c0, k1, a1, c1: respair(x, k0, (a0, c0), k1, (a1, c1))  # noqa: E731
+        plain = lambda x, k0, a0, c0, k1, a1, c1: respair_plain(  # noqa: E731
+            x, k0, (a0, c0), k1, (a1, c1))
+        kernel, tol = respair, "respair"
+    elif op == "conv3_fused":
+        xp, wt, offset = _conv_case(2, 5, 6, 10, 11, 3, 12, cuda, torch.float32)
+        res = torch.randn((2, 6, 8, 9), generator=g).to(cuda)
+        args = [xp, wt, 1.0 + 0.1 * offset.flip(0), offset, res]
+        fn = lambda *a: conv3_fused_padded(*a, relu=True)  # noqa: E731
+        plain = lambda *a: conv3_fused_plain(*a, relu=True)  # noqa: E731
+        kernel, tol = conv3_fused_padded, "conv"
+    else:
+        args = [torch.randn((2, 7, 9, 13), generator=g).to(cuda) for _ in range(2)]
+        fn, plain, kernel, tol = correlation, correlation_plain, correlation, "correlation"
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = kernel.launches
+    out = fn(*leaves)
+    assert kernel.launches == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=g).to(cuda)
+    out.backward(cot)
+    ref = [t.clone().requires_grad_() for t in args]
+    plain(*ref).backward(cot)
+    for leaf, r in zip(leaves, ref):
+        _close(tol, leaf.grad, r.grad, torch.float32)
+
+
 def test_conv_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 4, 8, 8, device=cuda)
     w7 = torch.zeros(2, 4, 7, 7, device=cuda)
@@ -350,7 +389,7 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
         conv3_fused_padded(x, w3, ab.double(), ab)
 
 
-# The bf16 3x3 body (csrc/conv3_wgmma.cuh) tiles 64 columns x 2 or 4 rows x
+# The bf16 3x3 body (csrc/conv_wgmma.cuh at K = 3) tiles 64 columns x 2 or 4 rows x
 # 16..128 output channels and steps K by 16 input channels: channel counts
 # that fill no step or tile, widths that are not a multiple of 64 (or of 8:
 # the epilogue's element-by-element stores), H = 2 with reflect, B > 1,
@@ -419,3 +458,81 @@ def test_resnet_block_cache_on_the_card(cuda):
         block.load_state_dict(sd)
         got = block(x)
         assert block._eval_cache[1][4] is not packed and torch.equal(got, fresh())
+
+
+# The bf16 7x7 body (csrc/conv_wgmma.cuh at K = 7) tiles 64 columns x 4 or 8
+# rows x 8, 16 or 32 output channels and steps K by 16 input channels: the
+# composite's ragged channel counts (Ci = 6 frame stems, 108 label stems,
+# Co = 1, 2, 3 heads), a Co past one tile of 32 (33, 128), widths that are
+# not a multiple of 64 or 8 (a last tile of 1 or 2 columns, whose left
+# neighbour reflects its right edge), H and W down to 4, B > 1; both the
+# reflect and the pre-padded entry.
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(1, 3, 1, 4, 4), (2, 6, 2, 5, 7), (1, 17, 3, 9, 70), (1, 108, 16, 12, 130),
+     (2, 17, 33, 8, 66), (1, 6, 128, 17, 129), (1, 108, 128, 4, 200), (2, 3, 3, 33, 13)],
+)
+def test_conv7_tensor_core_tiles(cuda, b, ci, co, h, w):
+    test_conv7_kernel_any_shape(cuda, torch.bfloat16, b, ci, co, h, w)
+
+
+def test_conv7_takes_packed_weights(cuda):
+    """Weights packed once by the caller give the wrapper's own result; a
+    packed weight of another shape, or packed weights with f32, are
+    refused."""
+    x, wt, bias = _conv_case(2, 20, 12, 9, 70, 7, 5, cuda, torch.bfloat16)
+    packed = pack_conv7_weight(wt)
+    assert torch.equal(conv7_reflect(x, wt, bias, packed=packed), conv7_reflect(x, wt, bias))
+    with pytest.raises(ValueError, match="packed"):
+        conv7_reflect(x, wt, bias, packed=packed[:, :1].contiguous())
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        conv7_reflect(x.float(), wt.float(), bias, packed=packed)
+
+
+def test_reflect_conv7_cache_on_the_card(cuda):
+    """The eval bf16 ReflectConv7 packs its weights once, and packs anew
+    after load_state_dict; its output is the kernel's on fresh weights."""
+    conv = ReflectConv7(24, 5).to(cuda).eval().to(torch.bfloat16)
+    x = torch.randn((1, 24, 12, 66), generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        got = conv(x)
+        packed = conv._eval_cache[1][2]
+        assert packed is not None
+        assert torch.equal(got, conv7_reflect(x, conv.weight, conv.bias.float()))
+        conv(x)
+        assert conv._eval_cache[1][2] is packed
+        conv.load_state_dict({k: v * 2 for k, v in conv.state_dict().items()})
+        got = conv(x)
+        assert conv._eval_cache[1][2] is not packed
+        assert torch.equal(got, conv7_reflect(x, conv.weight, conv.bias.float()))
+
+
+# The warp forward takes two adjacent pixels of a row per thread, with one
+# vector load or store per stream where W is even and the operands are
+# aligned, element by element otherwise: even and odd W, rows over several
+# blocks, B = 2, and operands that start one element past an aligned
+# address.
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w", [(2, 3, 7, 514), (2, 3, 7, 515), (1, 3, 5, 1026),
+                                     (2, 1, 3, 2)])
+def test_warp_kernels_vector_and_scalar_rows(cuda, dtype, b, c, h, w):
+    test_warp_blend_kernel_any_shape(cuda, dtype, b, c, h, w, 6.0)
+    test_flow_warp_kernel_any_shape(cuda, dtype, b, c, h, w, 6.0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_warp_kernels_on_misaligned_operands(cuda, dtype):
+    g = torch.Generator().manual_seed(3)
+    b, c, h, w = 2, 3, 6, 70
+
+    def shifted(shape, scale=1.0):
+        """A contiguous tensor one element past the start of its storage."""
+        flat = torch.empty(math.prod(shape) + 1, device=cuda, dtype=dtype)[1:]
+        return flat.view(shape).copy_(scale * torch.randn(shape, generator=g))
+
+    raw, prev = shifted((b, c, h, w)), shifted((b, c, h, w))
+    flow, weight = shifted((b, 2, h, w), 5.0), shifted((b, 1, h, w)).sigmoid_()
+    _close("warp", warp_blend(raw, prev, flow, weight),
+           warp_blend_plain(*(t.float() for t in (raw, prev, flow, weight))), dtype)
+    _close("warp", flow_warp(prev, flow), flow_warp_plain(prev.float(), flow.float()), dtype)

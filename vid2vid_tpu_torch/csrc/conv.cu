@@ -1,8 +1,7 @@
 // Stride-1 7x7 and 3x3 convolutions with a fused epilogue, for Hopper
 // (sm_90a): the entries of the port's two conv bodies that the Pallas conv
-// kernels map to: conv_kxk.cuh (CUDA cores; conv7 in f32 and bf16, conv3
-// and conv3_fused in f32) and conv3_wgmma.cuh (tensor cores; conv3 and
-// conv3_fused in bf16).
+// kernels map to: conv_wgmma.cuh (tensor cores; every bf16 entry: conv7,
+// conv3, conv3_fused) and conv_kxk.cuh (CUDA cores; every f32 entry).
 //
 // Replaces three TPU kernels:
 //   - vid2vid_tpu/ops/conv7_pallas.py::_conv_kernel (reached via
@@ -17,35 +16,40 @@
 //     `* scale + offset [+ residual] [ReLU]` on the f32 accumulator
 //     (v2v_conv3_fused).
 //
-// What bounds it on the H100: the 7x7 stems and heads of the single-image
-// nets are compute-bound: 98*Ci*Co FLOP per output pixel against one read
-// of each input and output element (a 31->64 stem at 512x512 is 51 GFLOP
-// for 40 MB), and so are the 3x3 convs of the residual blocks at
-// 18*Ci*Co FLOP per pixel. What the design does about it: in bf16 the 3x3
-// convs are an implicit GEMM on wgmma, fed through a ring of shared-memory
-// stages by a producer warpgroup (conv3_wgmma.cuh: 9 taps as 9 descriptors
-// into one channel-interleaved halo tile, weights packed by the caller and
-// fetched by tensor-map loads; the pre-padded rows of W + 2 columns are
-// staged by 4- or 8-byte cp.asyncs, since a tensor map needs 16-byte
-// aligned rows). The 7x7 convs and every f32 conv stay on the CUDA cores
-// (67 TFLOP/s f32 peak) in the register-blocked shared-memory tiles of
-// conv_kxk.cuh, with an output-channel tile sized to Co so the Co = 3 and
-// 16 heads do not idle most lanes; a tensor-core 7x7 body is later work
-// (ROADMAP).
+// What bounds it on the H100: the 7x7 stems and heads are compute-bound:
+// 98*Ci*Co FLOP per output pixel against one read of each input and output
+// element (the composite's 108 -> 32 label stem at 2048x1024 is 710 GFLOP
+// for 470 MB), and so are the 3x3 convs of the residual blocks at
+// 18*Ci*Co FLOP per pixel. What the design does about it: in bf16 every
+// conv is an implicit GEMM on wgmma, fed through a ring of shared-memory
+// stages by a producer warpgroup (conv_wgmma.cuh: K*K taps as K*K
+// descriptors into one channel-interleaved halo tile, weights packed by
+// the caller and fetched by tensor-map loads). The f32 convs stay on the
+// CUDA cores (67 TFLOP/s f32 peak: the single-image paths keep full f32
+// products) in the register-blocked shared-memory tiles of conv_kxk.cuh,
+// with an output-channel tile sized to Co so the Co = 3 and 16 heads do not
+// idle most lanes.
 //
 // Unlike the Pallas kernels, any Ci, Co, H and W are taken, so no Ci % 128,
 // Co % 128 or block-divisibility rule carries over.
 
-#include "conv3_wgmma.cuh"
 #include "conv_kxk.cuh"
+#include "conv_wgmma.cuh"
 
 // 7x7 conv with an optional bias (f32, nullable) -> (B, Co, H, W). reflect:
 // x is (B, Ci, H, W) and reflect-padded by 3 in the addressing; else x is
-// pre-padded, (B, Ci, H+6, W+6).
-extern "C" int v2v_conv7(const void* x, const void* w, const float* bias,
-                         void* out, int B, int Ci, int Co, int H, int W,
-                         int reflect, int dtype, void* stream) {
+// pre-padded, (B, Ci, H+6, W+6). f32 runs on the CUDA cores with w (OIHW);
+// bf16 on the tensor cores with wpk, the packed layout of ops/conv7.py::
+// pack_conv7_weight (w is not read).
+extern "C" int v2v_conv7(const void* x, const void* w, const void* wpk,
+                         const float* bias, void* out, int B, int Ci, int Co,
+                         int H, int W, int reflect, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == v2v::kBFloat16) {
+    if (wpk == nullptr) return (int)cudaErrorInvalidValue;
+    return reflect ? v2v::cw::conv7<true>(x, wpk, bias, out, B, Ci, Co, H, W, s)
+                   : v2v::cw::conv7<false>(x, wpk, bias, out, B, Ci, Co, H, W, s);
+  }
   if (reflect)
     return v2v::conv<7, true>(x, w, nullptr, bias, nullptr, out, B, Ci, Co, H,
                               W, 0, dtype, s);
@@ -64,7 +68,7 @@ extern "C" int v2v_conv3_fused(const void* xp, const void* w,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == v2v::kBFloat16)
-    return v2v::c3::conv3<false>(xp, w, scale, offset, residual, out, B, Ci,
+    return v2v::cw::conv3<false>(xp, w, scale, offset, residual, out, B, Ci,
                                  Co, H, W, relu, s);
   return v2v::conv<3, false>(xp, w, scale, offset, residual, out, B, Ci, Co, H,
                              W, relu, dtype, s);

@@ -1,12 +1,14 @@
 // The stride-1 KxK convolution with a fused epilogue on the CUDA cores:
 // respair.cu and conv.cu run their f32 launches through it (K = 3 respair,
-// conv3, conv3_fused; K = 7 conv7) and conv7's bf16 ones. The bf16 3x3
-// convs run on the tensor cores instead (conv3_wgmma.cuh): this body keeps
-// the f32 products of the f32 single-image paths and conv7.
+// conv3, conv3_fused; K = 7 conv7). Every bf16 conv runs on the tensor
+// cores (conv_wgmma.cuh): this body keeps the f32 products of the f32
+// single-image paths. (Its bf16 7x7 instantiation, which conv7 ran until
+// the tensor-core 7x7 body replaced it, lost to that body at every 7x7
+// shape of the composite: PERF.md.)
 //
-// One body, conv_kxk<T, K, TCO, REFLECT>, launched through
-// conv3x3_kernel<float, TCO, REFLECT, MIN_BLOCKS> or
-// conv7x7_kernel<T, TCO, REFLECT> (T = float or bf16):
+// One body, conv_kxk<T, K, TCO, REFLECT> (T = float), launched through
+// conv3x3_kernel<T, TCO, REFLECT, MIN_BLOCKS> or
+// conv7x7_kernel<T, TCO, REFLECT>:
 //     out[b,co,y,x] = epi( sum_{ci,ky,kx} in[b,ci,y',x'] * w[co,ci,ky,kx] )
 //     epi(v) = v * scale[co] + offset[co]  [+ residual[b,co,y,x]]  [ReLU]
 // accumulated in f32 (scale, offset optional: 1 and 0). REFLECT reads
@@ -275,22 +277,15 @@ void launch(const void* in, const void* w, const float* scale,
   }
 }
 
-// One launch in the storage type named by dtype: f32, or bf16 at K = 7
-// (bf16 3x3 convs go to conv3_wgmma.cuh); returns cudaGetLastError().
+// One f32 launch (every bf16 conv goes to conv_wgmma.cuh); returns
+// cudaGetLastError().
 template <int K, bool REFLECT>
 int conv(const void* in, const void* w, const float* scale,
          const float* offset, const void* residual, void* out, int B, int Ci,
          int Co, int H, int W, int relu, int dtype, cudaStream_t stream) {
-  if (dtype == kFloat32) {
-    launch<float, K, REFLECT>(in, w, scale, offset, residual, out, B, Ci, Co,
-                              H, W, relu, stream);
-  } else if (K == 7 && dtype == kBFloat16) {
-    if constexpr (K == 7)
-      launch<__nv_bfloat16, K, REFLECT>(in, w, scale, offset, residual, out,
-                                        B, Ci, Co, H, W, relu, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
+  launch<float, K, REFLECT>(in, w, scale, offset, residual, out, B, Ci, Co, H,
+                            W, relu, stream);
   return (int)cudaGetLastError();
 }
 

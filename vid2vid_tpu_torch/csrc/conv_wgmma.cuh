@@ -1,64 +1,82 @@
-// The bf16 stride-1 3x3 convolution with a fused epilogue on Hopper's tensor
-// cores: respair.cu makes its two bf16 launches through it (reflect),
-// conv.cu its bf16 conv3 / conv3_fused entries (pre-padded input).
+// The bf16 stride-1 KxK convolution (K = 3, 7) with a fused epilogue on
+// Hopper's tensor cores: respair.cu makes its two bf16 launches through it
+// (K = 3, reflect), conv.cu its bf16 conv3 / conv3_fused entries (K = 3,
+// pre-padded input) and its bf16 conv7 entries (K = 7, both).
 //
 //     out[b,co,y,x] = epi( sum_{ci,ky,kx} in[b,ci,y',x'] * w[co,ci,ky,kx] )
 //     epi(v) = v * scale[co] + offset[co]  [+ residual[b,co,y,x]]  [ReLU]
 //
-// on the f32 accumulator (scale, offset optional: 1 and 0), stored in bf16.
-// REFLECT reads in[refl(y+ky-1), refl(x+kx-1)] from an unpadded (H, W)
-// input (i < 0 -> -i, i >= N -> 2N-2-i); otherwise in is pre-padded,
-// (H+2, W+2), and read at (y+ky, x+kx).
+// on the f32 accumulator (scale, offset optional: 1 and 0; conv7's bias is
+// the offset), stored in bf16. With P = K / 2, REFLECT reads
+// in[refl(y+ky-P), refl(x+kx-P)] from an unpadded (H, W) input (i < 0 ->
+// -i, i >= N -> 2N-2-i); otherwise in is pre-padded, (H+K-1, W+K-1), and
+// read at (y+ky, x+kx).
 //
-// An implicit GEMM, M = output pixels, N = Co, K = 9 * Ci, on `wgmma`
+// An implicit GEMM, M = output pixels, N = Co, K*K * Ci deep, on `wgmma`
 // (bf16 operands from shared memory, f32 accumulators in registers). A
 // block owns TH = 2 * RW output rows x 64 columns x BN output channels and
 // runs three warpgroups:
 //   - two consumers, each owning RW rows of 64 pixels (one m64nBNk16
-//     accumulator per row), which run 9 * RW wgmmas per 16 input channels;
+//     accumulator per row), which run K*K * RW wgmmas per 16 input
+//     channels;
 //   - one producer, which fills a ring of operand stages, one per 16 input
-//     channels: the input halo tile (TH + 2 rows) and the weights of those
-//     channels for all 9 taps.
+//     channels: the input halo tile (TH + K - 1 rows) and the weights of
+//     those channels for all K*K taps.
 // Stages are handed over with mbarriers, `full` (the producer's 128 threads
 // after their stores, plus the weights' bytes) and `empty` (one arrival
 // per consumer warpgroup, once the wgmmas reading the stage completed).
 //
-// The layout that lets the nine taps read one staged tile: the halo is
-// K-major and channel-interleaved, [ci / 8][halo row][column][8 channels],
-// so 8 consecutive pixels of a row are one 128-byte core matrix of the
+// The layout that lets the taps read one staged tile: the halo is K-major
+// and channel-interleaved, [ci / 8][halo row][column][8 channels], so 8
+// consecutive pixels of a row are one 128-byte core matrix of the
 // no-swizzle wgmma layout, a one-pixel shift is +16 bytes and a row
 // +AW * 16: tap (ky, kx) of tile row r is a descriptor at (r + ky, first
 // column + kx), with SBO = 128 bytes between 8-pixel blocks and LBO = one
-// channel group's plane between the two 8-channel halves of K. NCHW
-// cannot be copied into it, so the producer stages the input first, as in
-// memory: [halo row][16 channels][SW columns from x0 - 8]. Where the rows
-// are 16-byte aligned (W % 8 == 0 with the reflect pad: the main path),
-// one tensor-map load per halo row fetches them (the reflect of the row in
-// its coordinate, zeros outside the image), else cp.asyncs of 8 or 4
-// bytes, else 2-byte loads; a second ring holds MAX_STG staged chunks in
-// flight, so their latency overlaps the products. Each 8-channel x
+// channel group's plane between the two 8-channel halves of K. The halo's
+// columns x0 - P .. x0 + 63 + P fit the AW = 80 columns of the tile for
+// both K. NCHW cannot be copied into it, so the producer stages the input
+// first, as in memory: [halo row][16 channels][SW columns from x0 - 8].
+// Where the rows are 16-byte aligned (W % 8 == 0 with the reflect pad: the
+// main path), one tensor-map load per halo row fetches them (the reflect of
+// the row in its coordinate, zeros outside the image), else cp.asyncs of 8
+// or 4 bytes, else 2-byte loads; a second ring holds MAX_STG staged chunks
+// in flight, so their latency overlaps the products. Each 8-channel x
 // 8-pixel block then goes from the staging slot into the tile through one
 // transposed ldmatrix read (the staging rows of 176 bytes keep its 8 rows
 // on distinct banks) and 4-byte stores, with offsets computed once per
-// block; the reflect of columns -1 and W is then copied in at the image's
-// left and right tiles. The weights are packed once by the caller
-// (ops/conv3.py::pack_conv3_weight) into [Ci_pad / 8][tap][Co_pad][8]
+// block; the reflect of columns -P .. -1 and W .. W + P - 1 is then copied
+// in at the image's left and right tiles. The weights are packed once by
+// the caller (ops/conv7.py::pack_taps) into [Ci_pad / 8][tap][Co_pad][8]
 // (Ci_pad a multiple of 16, Co_pad of 8, zero-filled); a stage takes one
-// tensor-map box [9 taps][BN][8] per 8-channel group, zero past Co_pad:
-// the same no-swizzle K-major layout (SBO 128, LBO 9 * BN * 16). From
-// Ci = 128 up, the blocks of a cluster of two (adjacent pixel tiles, the
-// same output channels) each load one of the two groups and multicast it
-// to both, halving the weights' L2 reads; each block's stages are then
-// released by the consumers of both (`empty` counts both blocks).
+// tensor-map box [K*K taps][BN][8] per 8-channel group, zero past Co_pad:
+// the same no-swizzle K-major layout (SBO 128, LBO K*K * BN * 16).
 // Every core matrix is 128 contiguous bytes, so the wgmma reads are free of
 // bank conflicts; so are the 4-byte transposed stores and the epilogue's
 // tile writes (row stride BM + 4 words).
 //
+// K = 3. From Ci = 128 up, the blocks of a cluster of two (adjacent pixel
+// tiles, the same output channels) each load one of the two groups and
+// multicast it to both, halving the weights' L2 reads; each block's stages
+// are then released by the consumers of both (`empty` counts both blocks).
 // What bounds it: at the 2048-pixel scale and C = 1024 at 64x64 the blocks
 // re-read the weights of their BN channels and the input rows of their
-// pixels through the L2, so the tile is chosen for the L2 traffic it causes
-// (`conv3`); at the large images with few input channels, the fixed cost
-// of a block (the first loads, the epilogue) at one block per SM.
+// pixels through the L2, so the tile is chosen for the L2 traffic it
+// causes (`conv3`); at the large images with few input channels, the fixed
+// cost of a block (the first loads, the epilogue) at one block per SM.
+//
+// K = 7. The 49 taps of 16 channels are 49 * BN * 32 bytes of weights per
+// stage: at BN = 128 that is 200 KB of the 227 KB a block has. The weights
+// stay whole in each stage (one tensor-map box, as at K = 3) and BN stays
+// at 32 or below (50 KB, two stages beside a 14-row halo), more blocks
+// along N covering a wider Co; the alternative, a second ring staging the
+// weights by kernel row against a halo that stays for seven rows, would
+// allow BN = 128 but hands a stage over seven times per chunk. Each stage
+// then carries 49 * RW wgmmas per consumer against one halo transpose, 5x
+// the 3x3's work per stage. What bounds it: at the composite's shapes
+// (Ci = 108 or 6 label and frame stems, Co = 1..128) the MMAs at N <= 32,
+// whose A operand (64 x 16 per instruction) is read from shared memory
+// for every 8 to 32 columns of N; the Co = 1, 2, 3 heads fill 1/8 to 3/8
+// of an n8 wgmma, and Ci = 6 is 6/16 of a K step.
 //
 // The epilogue: both consumers stop reading the stages (a named barrier),
 // write the f32 accumulators into the freed ring as a [co][pixel] tile,
@@ -66,7 +84,7 @@
 // residual and storing the output 16 bytes (8 pixels) at a time where W %
 // 8 == 0, element by element otherwise.
 //
-// Any B, Ci, Co and H, W (>= 2 with reflect, >= 1 pre-padded) are taken:
+// Any B, Ci, Co and H, W (> P with reflect, >= 1 pre-padded) are taken:
 // channels past Ci are zero in the tile and the packed weights, columns
 // past Co and pixels past H, W are computed on clamped inputs and never
 // stored.
@@ -82,7 +100,7 @@
 #include "common.cuh"
 
 namespace v2v {
-namespace c3 {
+namespace cw {
 
 constexpr int TW = 64;                // output columns per tile: one wgmma M
 constexpr int N_CONSUMERS = 2;        // consumer warpgroups
@@ -95,18 +113,22 @@ constexpr int AW = 80;  // columns of the wgmma halo tile: staged 0 .. 79
 constexpr int BARRIER_BYTES = 128;    // the mbarriers, before the stages
 constexpr int SMEM_MAX = 232448;      // dynamic shared memory of one block
 
-template <int BN, int RW>
+template <int K, int BN, int RW>
 struct Cfg {
+  static constexpr int P = K / 2;                     // the pad
+  static constexpr int TAPS = K * K;
   static constexpr int TH = N_CONSUMERS * RW;         // output rows per tile
+  static constexpr int HR = TH + K - 1;               // halo rows
   static constexpr int BM = TH * TW;                  // output pixels
-  static constexpr int HALO_PIX = (TH + 2) * AW;      // per 8-channel group
+  static constexpr int HALO_PIX = HR * AW;            // per 8-channel group
   static constexpr int A_BYTES = 2 * HALO_PIX * 16;   // 16 channels
-  static constexpr int B_BYTES = 2 * 9 * BN * 16;     // 2 groups x 9 taps
+  static constexpr int B_BYTES = 2 * TAPS * BN * 16;  // 2 groups x K*K taps
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int OUT_STRIDE = BM + 4;           // f32 words per co
   static constexpr int OUT_BYTES = BN * OUT_STRIDE * 4;
-  static constexpr int STG_ELEMS = (TH + 2) * 16 * SW;  // one staging slot
+  static constexpr int STG_ELEMS = HR * 16 * SW;      // one staging slot
   static_assert(A_BYTES % 128 == 0 && B_BYTES % 128 == 0, "stage alignment");
+  static_assert(TW + K - 1 + 8 - P <= AW, "the halo's columns fit the tile");
 };
 
 // ---------------------------------------------------------------- PTX
@@ -276,6 +298,16 @@ template <int N>
 __device__ __forceinline__ void wgmma(float* d, uint64_t a, uint64_t b);
 
 template <>
+__device__ __forceinline__ void wgmma<8>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma<16>(float* d, uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
@@ -355,7 +387,7 @@ __device__ __forceinline__ void wgmma<128>(float* d, uint64_t a, uint64_t b) {
 // `produce`). Channels past Ci and columns outside the input are left as
 // they are: the transpose writes zeros for the first and never reads the
 // second for a stored output.
-template <int TH, int V, bool REFLECT>
+template <int K, int HR, int V, bool REFLECT>
 __device__ __forceinline__ void fill(const uint16_t* __restrict__ in_b,
                                      uint16_t* stg, int c, int Ci, int H,
                                      int h_in, int w_in, size_t plane, int y0,
@@ -367,12 +399,11 @@ __device__ __forceinline__ void fill(const uint16_t* __restrict__ in_b,
   constexpr int PASSES = (NC + LPR - 1) / LPR;
   const int lane = pt % 32;
   // staged row rr = (halo row) * 16 + channel: the warps take them in turn
-  for (int rr = pt / 32 * RPW + lane / LPR; rr < (TH + 2) * 16;
-       rr += 4 * RPW) {
+  for (int rr = pt / 32 * RPW + lane / LPR; rr < HR * 16; rr += 4 * RPW) {
     const int r = rr / 16, ci = c * 16 + rr % 16;
     if (ci >= Ci) continue;
     const int gy =
-        REFLECT ? reflect_clamp(y0 - 1 + r, H) : min(y0 + r, h_in - 1);
+        REFLECT ? reflect_clamp(y0 - K / 2 + r, H) : min(y0 + r, h_in - 1);
     const uint16_t* src = in_b + (size_t)ci * plane + (size_t)gy * w_in;
 #pragma unroll
     for (int k = 0; k < PASSES; ++k) {
@@ -394,12 +425,12 @@ __device__ __forceinline__ void fill(const uint16_t* __restrict__ in_b,
 // read each, after which lane l holds pixel l / 4 of channels 2 (l % 4) and
 // 2 (l % 4) + 1 of every block and stores them as 4 bytes (zero past Ci).
 // A warp takes the groups warp, warp + 4, ...: their offsets are the
-// same for every chunk and are computed once (`Transpose`).
-template <int TH>
+// same for every chunk and are computed once (`Transpose`). HR: halo rows.
+template <int HR>
 struct Transpose {
-  static constexpr int GROUPS = (TH + 2) * AW / 16;
+  static constexpr int GROUPS = HR * AW / 16;
   static constexpr int ITER = (GROUPS + 3) / 4;  // groups per warp, at most
-  static constexpr int PLANE = (TH + 2) * AW * 16;  // bytes per channel group
+  static constexpr int PLANE = HR * AW * 16;     // bytes per channel group
   uint32_t src[ITER], dst[ITER];  // staged element offset, tile byte offset
   int n;                          // this warp's groups
 
@@ -434,20 +465,25 @@ struct Transpose {
   }
 };
 
-// With the reflect pad, the halo's x = -1 and x = W (zeros or stale where
-// they were staged) take x = 1 and x = W - 2: one 16-byte entry per
-// (channel group, halo row, side), after every transposed store.
-template <int TH>
+// With the reflect pad, the halo's x = -k and x = W - 1 + k, k = 1 .. P
+// (zeros or stale where they were staged; staged column 8 is x0) take
+// x = k and x = W - 1 - k: P 16-byte entries per (channel group, halo row,
+// side), after every transposed store. A tile reads columns up to
+// x0 + TW - 1 + P, so the right side is reflected where W - x0 <= TW - 1 + P.
+template <int K, int HR>
 __device__ __forceinline__ void reflect_columns(uint8_t* sa, int W, int x0,
                                                 int pt) {
-  if (x0 != 0 && W - x0 > TW) return;  // an interior tile
+  constexpr int P = K / 2;
+  const bool left = x0 == 0, right = W - x0 <= TW - 1 + P;
+  if (!left && !right) return;  // an interior tile
   producers_sync();
-  if (pt < 2 * (TH + 2) * 2) {
-    int dst = -1;
-    if (pt % 2 == 0 && x0 == 0) dst = 7;                // x = -1
-    if (pt % 2 == 1 && W - x0 <= TW) dst = W - x0 + 8;  // x = W
+  if (pt < 2 * HR * 2) {
     uint4* a = reinterpret_cast<uint4*>(sa) + (pt / 2) * AW;
-    if (dst >= 0) a[dst] = a[dst == 7 ? 9 : dst - 2];
+#pragma unroll
+    for (int k = 1; k <= P; ++k) {
+      if (pt % 2 == 0 && left) a[8 - k] = a[8 + k];
+      if (pt % 2 == 1 && right) a[W - x0 + 7 + k] = a[W - x0 + 7 - k];
+    }
   }
 }
 
@@ -456,19 +492,19 @@ __device__ __forceinline__ void reflect_columns(uint8_t* sa, int W, int x0,
 // cp.asyncs, landing on `landed`, so its latency overlaps the products; per
 // chunk it waits for a free operand stage, starts the weights' tensor-map
 // load into it, transposes the staged halo into it and arrives on `full`.
-template <int BN, int RW, bool REFLECT, int CL>
+template <int K, int BN, int RW, bool REFLECT, int CL>
 __device__ __forceinline__ void produce(
     const uint16_t* __restrict__ in, const CUtensorMap* imap,
     const CUtensorMap* wmap,
     uint8_t* stages, uint16_t* staging, uint64_t* full, uint64_t* empty,
     uint64_t* landed, int n_stages, int n_stg, int vbytes, int Ci, int H,
     int W, int y0, int x0, int co0, int b, uint32_t rank) {
-  using C = Cfg<BN, RW>;
-  constexpr int TH = C::TH;
+  using C = Cfg<K, BN, RW>;
+  constexpr int HR = C::HR;
   const int pt = threadIdx.x - 128 * N_CONSUMERS;
   const int n_chunks = (Ci + 15) / 16;
-  const int h_in = REFLECT ? H : H + 2;
-  const int w_in = REFLECT ? W : W + 2;
+  const int h_in = REFLECT ? H : H + K - 1;
+  const int w_in = REFLECT ? W : W + K - 1;
   const size_t plane = (size_t)h_in * w_in;
   const uint16_t* in_b = in + (size_t)b * Ci * plane;
 
@@ -477,9 +513,9 @@ __device__ __forceinline__ void produce(
     if (vbytes == 0) {
       if (pt == 0) {
         mbar_arrive_expect_tx(&landed[d], C::STG_ELEMS * 2);
-        for (int r = 0; r < TH + 2; ++r) {
-          const int gy =
-              REFLECT ? reflect_clamp(y0 - 1 + r, H) : min(y0 + r, h_in - 1);
+        for (int r = 0; r < HR; ++r) {
+          const int gy = REFLECT ? reflect_clamp(y0 - C::P + r, H)
+                                 : min(y0 + r, h_in - 1);
           tma_load_4d(stg + r * 16 * SW, imap, x0 - 8, gy, c * 16, b,
                       &landed[d]);
         }
@@ -488,13 +524,16 @@ __device__ __forceinline__ void produce(
     }
     switch (vbytes) {
       case 8:
-        fill<TH, 8, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane, y0, x0, pt);
+        fill<K, HR, 8, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane, y0, x0,
+                                pt);
         break;
       case 4:
-        fill<TH, 4, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane, y0, x0, pt);
+        fill<K, HR, 4, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane, y0, x0,
+                                pt);
         break;
       default:
-        fill<TH, 2, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane, y0, x0, pt);
+        fill<K, HR, 2, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane, y0, x0,
+                                pt);
     }
     if (vbytes >= 4)
       mbar_arrive_cp_async(&landed[d]);
@@ -502,7 +541,7 @@ __device__ __forceinline__ void produce(
       mbar_arrive(&landed[d]);
   };
 
-  const Transpose<TH> transpose(pt);
+  const Transpose<HR> transpose(pt);
   for (int c = 0; c < min(n_stg, n_chunks); ++c) stage_input(c, c);
   for (int c = 0; c < n_chunks; ++c) {
     const int s = c % n_stages;
@@ -513,7 +552,7 @@ __device__ __forceinline__ void produce(
     if (pt == 0) {  // the weights of channel groups 2c, 2c + 1, all taps
       mbar_arrive_expect_tx(&full[s], C::B_BYTES);
       if constexpr (CL == 2) {  // group 2c + rank, into both blocks
-        tma_load_4d_multicast(sb + rank * 9 * BN * 16, wmap, 0, co0, 0,
+        tma_load_4d_multicast(sb + rank * C::TAPS * BN * 16, wmap, 0, co0, 0,
                               2 * c + rank, &full[s], 0b11);
       } else {  // both groups: the map's box is two groups deep
         tma_load_4d(sb, wmap, 0, co0, 0, 2 * c, &full[s]);
@@ -522,7 +561,7 @@ __device__ __forceinline__ void produce(
     const int d = c % n_stg;
     mbar_wait(&landed[d], (c / n_stg) & 1);
     transpose(staging + d * C::STG_ELEMS, sa, c, Ci, pt % 32);
-    if (REFLECT) reflect_columns<TH>(sa, W, x0, pt);
+    if (REFLECT) reflect_columns<K, HR>(sa, W, x0, pt);
     fence_proxy_async();
     mbar_arrive(&full[s]);
     producers_sync();  // every producer thread is done with slot d
@@ -534,14 +573,14 @@ __device__ __forceinline__ void produce(
 // by chunk, then the epilogue. Each warpgroup releases a stage to the
 // producer of every block of the cluster (the weights of a stage arrive
 // in all of them).
-template <int BN, int RW, bool REFLECT, int CL>
+template <int K, int BN, int RW, bool REFLECT, int CL>
 __device__ __forceinline__ void consume(
     uint8_t* stages, uint64_t* full, uint64_t* empty, int n_stages,
     const float* __restrict__ scale, const float* __restrict__ offset,
     const __nv_bfloat16* __restrict__ residual,
     __nv_bfloat16* __restrict__ out, int Ci, int Co, int H, int W, int y0,
     int x0, int co0, int b, int relu, int vec, uint32_t rank) {
-  using C = Cfg<BN, RW>;
+  using C = Cfg<K, BN, RW>;
   const int wg = threadIdx.x / 128;
   const int n_chunks = (Ci + 15) / 16;
   float acc[RW][BN / 2];
@@ -560,14 +599,15 @@ __device__ __forceinline__ void consume(
     for (int r = 0; r < RW; ++r) fence_regs<BN / 2>(acc[r]);
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const uint64_t db = desc(b_base + t * BN * 16, 9 * BN * 16, 128);
+    for (int t = 0; t < C::TAPS; ++t) {
+      const uint64_t db =
+          desc(b_base + t * BN * 16, C::TAPS * BN * 16, 128);
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
         // halo row and column of tap t: staged column 8 is x0 (reflect: of
-        // the input; pre-padded: of the padded input, x0 - 1 of the image)
-        const int row = wg * RW + r + t / 3;
-        const int col = (REFLECT ? 7 : 8) + t % 3;
+        // the input; pre-padded: of the padded input, x0 - P of the image)
+        const int row = wg * RW + r + t / K;
+        const int col = (REFLECT ? 8 - C::P : 8) + t % K;
         const uint64_t da =
             desc(a_base + (row * AW + col) * 16, C::HALO_PIX * 16, 128);
         wgmma<BN>(acc[r], da, db);
@@ -675,9 +715,9 @@ __device__ __forceinline__ void consume(
 // CL blocks per cluster (1 or 2): with 2, the blocks of a pair (adjacent
 // pixel tiles, the same output channels) load half of each stage's weights
 // each and multicast it to both.
-template <int BN, int RW, bool REFLECT, int CL>
+template <int K, int BN, int RW, bool REFLECT, int CL>
 __global__ void __launch_bounds__(NTHREADS, 1)
-conv3_wgmma_kernel(const __nv_bfloat16* __restrict__ in,
+conv_wgmma_kernel(const __nv_bfloat16* __restrict__ in,
                    const __grid_constant__ CUtensorMap imap,
                    const __grid_constant__ CUtensorMap wmap,
                    const float* __restrict__ scale,
@@ -686,7 +726,7 @@ conv3_wgmma_kernel(const __nv_bfloat16* __restrict__ in,
                    __nv_bfloat16* __restrict__ out, int Ci, int Co, int H,
                    int W, int tiles_x, int n_stages, int n_stg, int vbytes,
                    int relu, int vec) {
-  using C = Cfg<BN, RW>;
+  using C = Cfg<K, BN, RW>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + MAX_STAGES;
@@ -717,13 +757,14 @@ conv3_wgmma_kernel(const __nv_bfloat16* __restrict__ in,
     __syncthreads();
 
   if (wg == N_CONSUMERS)
-    produce<BN, RW, REFLECT, CL>(reinterpret_cast<const uint16_t*>(in), &imap, &wmap,
-                             stages, staging, full, empty, landed, n_stages,
-                             n_stg, vbytes, Ci, H, W, y0, x0, co0, b, rank);
+    produce<K, BN, RW, REFLECT, CL>(reinterpret_cast<const uint16_t*>(in),
+                                    &imap, &wmap, stages, staging, full, empty,
+                                    landed, n_stages, n_stg, vbytes, Ci, H, W,
+                                    y0, x0, co0, b, rank);
   else
-    consume<BN, RW, REFLECT, CL>(stages, full, empty, n_stages, scale, offset,
-                             residual, out, Ci, Co, H, W, y0, x0, co0, b, relu,
-                             vec, rank);
+    consume<K, BN, RW, REFLECT, CL>(stages, full, empty, n_stages, scale,
+                                    offset, residual, out, Ci, Co, H, W, y0,
+                                    x0, co0, b, relu, vec, rank);
   if constexpr (CL == 2)
     cluster_sync();  // the other block arrives on our barriers until here
 }
@@ -773,41 +814,59 @@ inline bool input_map(CUtensorMap* map, const void* in, int B, int Ci,
   return encode_map(map, in, dims, strides, box);
 }
 
-// The packed weights, [Ci_pad / 8][9 taps][Co_pad][8] bf16, as a 4-D tensor
-// map whose box, [groups][9][BN][8], is the weights of 8 * groups input
+// The packed weights, [Ci_pad / 8][taps][Co_pad][8] bf16, as a 4-D tensor
+// map whose box, [groups][taps][BN][8], is the weights of 8 * groups input
 // channels of all taps for BN output channels (zero-filled past Co_pad):
 // a stage's with groups = 2, its half with 1.
 inline bool weight_map(CUtensorMap* map, const void* wpk, int Ci, int Co,
-                       int bn, int groups) {
+                       int taps, int bn, int groups) {
   const cuuint64_t n_g = (Ci + 15) / 16 * 2, co_pad = (Co + 7) / 8 * 8;
-  const cuuint64_t dims[4] = {8, co_pad, 9, n_g};
-  const cuuint64_t strides[3] = {16, co_pad * 16, 9 * co_pad * 16};
-  const cuuint32_t box[4] = {8, (cuuint32_t)bn, 9, (cuuint32_t)groups};
+  const cuuint64_t dims[4] = {8, co_pad, (cuuint64_t)taps, n_g};
+  const cuuint64_t strides[3] = {16, co_pad * 16, taps * co_pad * 16};
+  const cuuint32_t box[4] = {8, (cuuint32_t)bn, (cuuint32_t)taps,
+                             (cuuint32_t)groups};
   return encode_map(map, wpk, dims, strides, box);
 }
 
-template <int BN, int RW, bool REFLECT, int CL>
+// The ring sizes of a launch: the operand and staging rings shrink, the
+// staging ring first down to two, to fit SMEM_MAX, keeping two operand
+// stages where it can (one staging slot then), and one at the least.
+template <int K, int BN, int RW>
+void rings(int n_chunks, int* n_stages, int* n_stg, int* smem) {
+  using C = Cfg<K, BN, RW>;
+  *n_stg = std::min(MAX_STG, n_chunks);
+  *n_stages = std::min(MAX_STAGES, n_chunks);
+  auto bytes = [&] {
+    return BARRIER_BYTES + std::max(*n_stages * C::STAGE_BYTES, C::OUT_BYTES) +
+           *n_stg * C::STG_ELEMS * 2;
+  };
+  while (bytes() > SMEM_MAX && *n_stages > 1) {
+    if (*n_stg > 2)
+      --*n_stg;
+    else if (*n_stages > 2)
+      --*n_stages;
+    else if (*n_stg > 1)
+      --*n_stg;
+    else
+      --*n_stages;
+  }
+  *smem = bytes();
+}
+
+template <int K, int BN, int RW, bool REFLECT, int CL>
 int launch_tile(const void* in, const void* wpk, const float* scale,
                  const float* offset, const void* residual, void* out, int B,
                  int Ci, int Co, int H, int W, int relu, int vbytes, int vec,
                  cudaStream_t stream) {
-  using C = Cfg<BN, RW>;
-  const int n_chunks = (Ci + 15) / 16;
-  int n_stg = std::min(MAX_STG, n_chunks);
-  int n_stages = std::min(MAX_STAGES, n_chunks);
-  auto smem_bytes = [&] {
-    return BARRIER_BYTES + std::max(n_stages * C::STAGE_BYTES, C::OUT_BYTES) +
-           n_stg * C::STG_ELEMS * 2;
-  };
-  while (smem_bytes() > SMEM_MAX && n_stages > 1)
-    (n_stg > 2 ? n_stg : n_stages) -= 1;
-  const int smem = smem_bytes();
+  using C = Cfg<K, BN, RW>;
+  int n_stages, n_stg, smem;
+  rings<K, BN, RW>((Ci + 15) / 16, &n_stages, &n_stg, &smem);
   CUtensorMap imap{}, wmap;
-  if (!weight_map(&wmap, wpk, Ci, Co, BN, CL == 2 ? 1 : 2) ||
-      (vbytes == 0 && !input_map(&imap, in, B, Ci, REFLECT ? H : H + 2,
-                                 REFLECT ? W : W + 2)))
+  if (!weight_map(&wmap, wpk, Ci, Co, C::TAPS, BN, CL == 2 ? 1 : 2) ||
+      (vbytes == 0 && !input_map(&imap, in, B, Ci, REFLECT ? H : H + K - 1,
+                                 REFLECT ? W : W + K - 1)))
     return (int)cudaErrorNotSupported;
-  const auto kernel = conv3_wgmma_kernel<BN, RW, REFLECT, CL>;
+  const auto kernel = conv_wgmma_kernel<K, BN, RW, REFLECT, CL>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   const int tiles_x = (W + TW - 1) / TW;
@@ -838,7 +897,31 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// One bf16 launch; wpk is the packed weight (ops/conv3.py::
+// How the input of a launch is staged: by the tensor map (0) where every
+// row (w_in elements) is 16-byte aligned, else by cp.asyncs of 8 or 4
+// bytes, else element by element (2).
+inline int staging_bytes(const void* in, int w_in) {
+  int vbytes = 16;
+  while (vbytes > 2 && ((2 * w_in) % vbytes != 0 || !aligned(in, vbytes)))
+    vbytes /= 2;
+  return vbytes == 16 ? 0 : vbytes;
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// The blocks of a grid of tiles (BN channels x 2 * rw rows x TW columns).
+inline long long grid_blocks(int B, int Co, int H, int W, int bn, int rw) {
+  const long long th = N_CONSUMERS * rw;
+  return (long long)((W + TW - 1) / TW) * ((H + th - 1) / th) *
+         ((Co + bn - 1) / bn) * B;
+}
+
+// One bf16 3x3 launch; wpk is the packed weight (ops/conv3.py::
 // pack_conv3_weight). The tile: what the L2 must deliver decides it, since
 // every block re-reads the weights of its BN channels and the input rows
 // of its pixels. BN is the smallest of 16..128 that covers Co; two rows per
@@ -858,22 +941,9 @@ int conv3(const void* in, const void* wpk, const float* scale,
   if (!aligned(wpk, 16)) return (int)cudaErrorMisalignedAddress;
   const int vec = W % 8 == 0 && aligned(out, 16) &&
                   (residual == nullptr || aligned(residual, 16));
-  // how the input is staged: by the tensor map (0) where every row is
-  // 16-byte aligned, else by cp.asyncs of 8 or 4 bytes, else element by
-  // element (2)
-  const int row_bytes = 2 * (REFLECT ? W : W + 2);
-  int vbytes = 16;
-  while (vbytes > 2 && (row_bytes % vbytes != 0 || !aligned(in, vbytes)))
-    vbytes /= 2;
-  if (vbytes == 16) vbytes = 0;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles_x = (W + TW - 1) / TW;
-  auto blocks = [&](int bn, int rw) {
-    const long long th = N_CONSUMERS * rw;
-    return tiles_x * ((H + th - 1) / th) * ((Co + bn - 1) / bn) * B;
-  };
+  const int vbytes = staging_bytes(in, REFLECT ? W : W + 2);
+  const int sms = sm_count();
+  auto blocks = [&](int bn, int rw) { return grid_blocks(B, Co, H, W, bn, rw); };
   const long long fill = sms * 9LL / 10;
   int bn = Co <= 16 ? 16 : Co <= 32 ? 32 : Co <= 64 ? 64 : 128;
   bool rw2 = blocks(bn, 2) >= fill;
@@ -882,10 +952,10 @@ int conv3(const void* in, const void* wpk, const float* scale,
     rw2 = true;
   }
   while (!rw2 && bn > 16 && blocks(bn, 1) < sms / 2) bn /= 2;
-#define V2V_C3_LAUNCH(BN_, RW_, CL_)                                \
-  launch_tile<BN_, RW_, REFLECT, CL_>(in, wpk, scale, offset, residual, \
-                                      out, B, Ci, Co, H, W, relu, vbytes, \
-                                      vec, stream)
+#define V2V_C3_LAUNCH(BN_, RW_, CL_)                                     \
+  launch_tile<3, BN_, RW_, REFLECT, CL_>(in, wpk, scale, offset, residual, \
+                                         out, B, Ci, Co, H, W, relu, vbytes, \
+                                         vec, stream)
   const bool pairs = Ci >= 128;
   switch (bn) {
     case 16: return rw2 ? V2V_C3_LAUNCH(16, 2, 1) : V2V_C3_LAUNCH(16, 1, 1);
@@ -902,5 +972,33 @@ int conv3(const void* in, const void* wpk, const float* scale,
 #undef V2V_C3_LAUNCH
 }
 
-}  // namespace c3
+// One bf16 7x7 launch with an optional f32 bias (the epilogue's offset);
+// wpk is the packed weight (ops/conv7.py::pack_conv7_weight). A stage
+// holds all 49 taps of 16 input channels for BN output channels (49 * BN *
+// 32 bytes), so BN is at most 32 (50 KB; BN = 64 would leave room for one
+// stage): the smallest of 8, 16, 32 that covers Co, more blocks along N
+// beyond. Four rows per consumer (RW = 4: 8 output rows, whose 14-row halo
+// is re-read 1.75x through the L2 against 2.5x at 4 rows, and 4 * 49
+// wgmmas per stage) wherever that grid fills nine tenths of the SMs, else
+// two. Returns the launch's error.
+template <bool REFLECT>
+int conv7(const void* in, const void* wpk, const float* bias, void* out,
+          int B, int Ci, int Co, int H, int W, cudaStream_t stream) {
+  if (!aligned(wpk, 16)) return (int)cudaErrorMisalignedAddress;
+  const int vec = W % 8 == 0 && aligned(out, 16);
+  const int vbytes = staging_bytes(in, REFLECT ? W : W + 6);
+  const int bn = Co <= 8 ? 8 : Co <= 16 ? 16 : 32;
+  const bool rw4 = grid_blocks(B, Co, H, W, bn, 4) >= sm_count() * 9LL / 10;
+#define V2V_C7_LAUNCH(BN_, RW_)                                                \
+  launch_tile<7, BN_, RW_, REFLECT, 1>(in, wpk, nullptr, bias, nullptr, out, B, \
+                                       Ci, Co, H, W, 0, vbytes, vec, stream)
+  switch (bn) {
+    case 8: return rw4 ? V2V_C7_LAUNCH(8, 4) : V2V_C7_LAUNCH(8, 2);
+    case 16: return rw4 ? V2V_C7_LAUNCH(16, 4) : V2V_C7_LAUNCH(16, 2);
+    default: return rw4 ? V2V_C7_LAUNCH(32, 4) : V2V_C7_LAUNCH(32, 2);
+  }
+#undef V2V_C7_LAUNCH
+}
+
+}  // namespace cw
 }  // namespace v2v

@@ -13,7 +13,7 @@
 // then h -> out (residual x, no ReLU). Reflecting h in the second launch's
 // addressing reproduces the TPU kernel's in-VMEM edge fix
 // (respair_pallas.py:113-130) exactly. In bf16 both launches run
-// conv3_wgmma.cuh on the tensor cores, with k0 and k1 packed by the caller
+// conv_wgmma.cuh on the tensor cores, with k0 and k1 packed by the caller
 // (ops/conv3.py::pack_conv3_weight); in f32 they run conv_kxk.cuh's
 // conv3x3_kernel<float, TCO, true> on the CUDA cores with OIHW weights, so
 // the f32 single-image paths keep full f32 products.
@@ -25,7 +25,7 @@
 // weights of its output channels and the input rows of its pixels), and
 // the fixed cost of each block bounds the large images with few channels.
 // What the design does about it: the bf16 body is an implicit GEMM on
-// wgmma (conv3_wgmma.cuh) fed by a producer warpgroup: the input staged
+// wgmma (conv_wgmma.cuh) fed by a producer warpgroup: the input staged
 // chunks ahead by tensor-map loads, transposed into a channel-interleaved
 // tile so the nine taps are nine descriptors into one stage, the packed
 // weights one tensor-map load per stage, and tiles chosen for the L2
@@ -40,7 +40,7 @@
 // Unlike the TPU kernel, any C, H >= 2 and W >= 2 are taken: ragged tiles
 // are masked, so no C % 128 or block-divisibility rule carries over.
 
-#include "conv3_wgmma.cuh"
+#include "conv_wgmma.cuh"
 #include "conv_kxk.cuh"
 
 // The residual block: x -> h -> out. h is caller-allocated scratch of x's
@@ -52,10 +52,10 @@ extern "C" int v2v_respair(const void* x, const void* k0, const float* a0,
                            int H, int W, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == v2v::kBFloat16) {
-    const int err = v2v::c3::conv3<true>(x, k0, a0, c0, nullptr, h, B, C, C,
+    const int err = v2v::cw::conv3<true>(x, k0, a0, c0, nullptr, h, B, C, C,
                                          H, W, 1, s);
     if (err != 0) return err;
-    return v2v::c3::conv3<true>(h, k1, a1, c1, x, out, B, C, C, H, W, 0, s);
+    return v2v::cw::conv3<true>(h, k1, a1, c1, x, out, B, C, C, H, W, 0, s);
   }
   const int err = v2v::conv<3, true>(x, k0, a0, c0, nullptr, h, B, C, C, H, W,
                                      1, dtype, s);

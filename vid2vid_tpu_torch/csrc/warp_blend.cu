@@ -19,10 +19,18 @@
 // of raw and four gathered taps of prev per channel (mostly L1/L2 hits for
 // small flows) and writes C values, for ~10 flops per channel. At
 // 2048x1024 with C = 3 in bf16 that is 12 values a pixel, ~50 MB of
-// compulsory traffic, ~15 us at 3.35 TB/s. What the design does about it: one thread per pixel, so the
-// flow and weight are read once and reused across channels, the unfused
-// warped frame never reaches device memory, and neighbouring threads read
-// neighbouring addresses on every stream except the gather.
+// compulsory traffic, ~15 us at 3.35 TB/s; in practice the gathers of
+// prev through L1 / L2, which for flows of several pixels touch two
+// sectors per pixel and channel. What the design does about it: a thread
+// takes two adjacent pixels of one row (`PIX`), so the flow, w, raw and
+// out streams move as one 4- (bf16) or 8-byte (f32) load or store per
+// thread and channel where W and the pointers allow (a scalar loop
+// otherwise) while the registers leave room for the warps that hide the
+// gathers; the flow and weight are read once and reused across channels,
+// and the unfused warped frame never reaches device memory. The grid is
+// columns x rows x batch, so a thread's pixel offsets need no division,
+// and they are 32-bit within a channel plane. The gather from prev stays
+// four scalar loads per pixel and channel.
 //
 // The backward (v2v_flow_warp_bwd, v2v_warp_blend_bwd; one template
 // warp_bwd_kernel<T, BLEND>) replaces the JAX package's hand-written VJP,
@@ -44,6 +52,9 @@
 // thread per pixel, looping over C, keeps the flow, weight and the per-pixel
 // sums in registers. H and W must be at least 2.
 
+#include <algorithm>
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace v2v {
@@ -53,9 +64,10 @@ constexpr int NTHREADS = 256;
 
 // Sample one channel plane at the bilinear taps of (sx, sy), the
 // flow_warp_ref arithmetic: corner indices clamped to the image, fractional
-// weights from the unclamped coordinate, all in f32.
+// weights from the unclamped coordinate, all in f32. The indices are
+// offsets in one channel plane (H * W < 2**31).
 struct Taps {
-  size_t i00, i01, i10, i11;
+  int i00, i01, i10, i11;
   float wx, wy;
 };
 
@@ -69,8 +81,8 @@ __device__ __forceinline__ Taps bilinear_taps(float sx, float sy, int H, int W) 
   const int x1c = min(max(x0 + 1, 0), W - 1);
   const int y0c = min(max(y0, 0), H - 1);
   const int y1c = min(max(y0 + 1, 0), H - 1);
-  return {(size_t)y0c * W + x0c, (size_t)y0c * W + x1c,
-          (size_t)y1c * W + x0c, (size_t)y1c * W + x1c, sx - fx, sy - fy};
+  return {y0c * W + x0c, y0c * W + x1c, y1c * W + x0c, y1c * W + x1c, sx - fx,
+          sy - fy};
 }
 
 template <typename T>
@@ -80,31 +92,86 @@ __device__ __forceinline__ float sample(const T* p, const Taps& t) {
   return top * (1.f - t.wy) + bot * t.wy;
 }
 
+// The adjacent pixels a forward thread takes. Two, not more: the gathers
+// from prev bound the kernel, and more pixels per thread hold more taps in
+// registers (a bf16 thread of 8 pixels used 128 of them), so fewer warps
+// are resident to hide the gathers' latency. chip_smoke.py phase 6 times
+// the kernel against grid_sample.
+constexpr int PIX = 2;
+
+// n <= PIX values of a row from p as floats: one load of PIX values where
+// VEC (p aligned to PIX * sizeof(T), n == PIX), else element by element
+// (the values past n are 0).
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_row(const T* p, int n, float* v) {
+  if constexpr (VEC && sizeof(T) == 4) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else if constexpr (VEC) {  // a bf16 is the high half of its float
+    const uint32_t q = __ldg(reinterpret_cast<const unsigned int*>(p));
+    v[0] = __uint_as_float(q << 16);
+    v[1] = __uint_as_float(q & 0xFFFF0000u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < PIX; ++e) v[e] = e < n ? to_f(p[e]) : 0.f;
+  }
+}
+
+// n <= PIX floats into a row at p in T: one store where VEC, else element
+// by element. Rounds as from_f (to nearest even).
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_row(T* p, int n, const float* v) {
+  if constexpr (VEC && sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else if constexpr (VEC) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < PIX; ++e)
+      if (e < n) p[e] = from_f<T>(v[e]);
+  }
+}
+
 // BLEND: out = raw * w + warp(prev) * (1 - w); otherwise out = warp(prev)
-// and raw / weight are not read.
-template <typename T, bool BLEND>
+// and raw / weight are not read. Thread (blockIdx.x, threadIdx.x) of block
+// row (y = blockIdx.y, b = blockIdx.z) takes the PIX pixels from
+// x0 = PIX * (blockIdx.x * blockDim.x + threadIdx.x) of row y.
+template <typename T, bool BLEND, bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
 warp_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
             const T* __restrict__ flow, const T* __restrict__ weight,
-            T* __restrict__ out, int B, int C, int H, int W) {
-  const size_t hw = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
-  if (i >= (size_t)B * hw) return;
-  const int b = (int)(i / hw);
-  const size_t pix = i % hw;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix % W);
-
-  const float sx = (float)x + to_f(flow[((size_t)b * 2 + 0) * hw + pix]);
-  const float sy = (float)y + to_f(flow[((size_t)b * 2 + 1) * hw + pix]);
-  const Taps taps = bilinear_taps(sx, sy, H, W);
-  const float wb = BLEND ? to_f(weight[(size_t)b * hw + pix]) : 0.f;
+            T* __restrict__ out, int C, int H, int W) {
+  constexpr int N = PIX;
+  const int y = blockIdx.y, b = blockIdx.z;
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * N;
+  if (x0 >= W) return;
+  const int n = min(N, W - x0);
+  const int plane = H * W;
+  const int pix = y * W + x0;  // in a channel plane
+  const T* fl = flow + (size_t)b * 2 * plane + pix;
+  float fx[N], fy[N], wb[N];
+  load_row<T, VEC>(fl, n, fx);
+  load_row<T, VEC>(fl + plane, n, fy);
+  if constexpr (BLEND) load_row<T, VEC>(weight + (size_t)b * plane + pix, n, wb);
+  Taps taps[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    taps[e] = bilinear_taps((float)(x0 + e) + fx[e], (float)y + fy[e], H, W);
 
   for (int ch = 0; ch < C; ++ch) {
-    const size_t base = ((size_t)b * C + ch) * hw;
-    const float warped = sample(prev + base, taps);
-    out[base + pix] = from_f<T>(
-        BLEND ? to_f(raw[base + pix]) * wb + warped * (1.f - wb) : warped);
+    const size_t base = ((size_t)b * C + ch) * plane;
+    float v[N];
+    if constexpr (BLEND) load_row<T, VEC>(raw + base + pix, n, v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const float warped = sample(prev + base, taps[e]);
+      if constexpr (BLEND)
+        v[e] = v[e] * wb[e] + warped * (1.f - wb[e]);
+      else
+        v[e] = warped;
+    }
+    store_row<T, VEC>(out + base + pix, n, v);
   }
 }
 
@@ -117,7 +184,7 @@ __device__ __forceinline__ Taps patch_taps(float sx, float sy, int H, int W,
   const float fy = fminf(fmaxf(floorf(sy), 0.f), (float)(H - 2));
   *ux = sx - fx;
   *uy = sy - fy;
-  const size_t i00 = (size_t)(int)fy * W + (size_t)(int)fx;
+  const int i00 = (int)fy * W + (int)fx;
   return {i00, i00 + 1, i00 + W, i00 + W + 1, fminf(fmaxf(*ux, 0.f), 1.f),
           fminf(fmaxf(*uy, 0.f), 1.f)};
 }
@@ -218,16 +285,27 @@ int dispatch_bwd(const void* raw, const void* prev, const void* flow,
   return (int)cudaGetLastError();
 }
 
+// Blocks of up to NTHREADS threads along a row (a warp at least), one grid
+// row per image row and batch entry. The vector path where every thread's
+// pixels are aligned: W a multiple of PIX and aligned pointers.
 template <typename T, bool BLEND>
 void launch(const void* raw, const void* prev, const void* flow,
             const void* weight, void* out, int B, int C, int H, int W,
             cudaStream_t stream) {
-  const size_t n = (size_t)B * H * W;
-  const unsigned blocks = (unsigned)((n + NTHREADS - 1) / NTHREADS);
-  warp_kernel<T, BLEND><<<blocks, NTHREADS, 0, stream>>>(
+  constexpr int N = PIX;
+  const int per_row = (W + N - 1) / N;
+  const int threads = std::min(NTHREADS, (per_row + 31) / 32 * 32);
+  const dim3 grid((per_row + threads - 1) / threads, H, B);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % (N * sizeof(T)) == 0;
+  };
+  const bool vec = W % N == 0 && aligned(prev) && aligned(flow) && aligned(out) &&
+                   (!BLEND || (aligned(raw) && aligned(weight)));
+  const auto kernel = vec ? warp_kernel<T, BLEND, true> : warp_kernel<T, BLEND, false>;
+  kernel<<<grid, threads, 0, stream>>>(
       static_cast<const T*>(raw), static_cast<const T*>(prev),
       static_cast<const T*>(flow), static_cast<const T*>(weight),
-      static_cast<T*>(out), B, C, H, W);
+      static_cast<T*>(out), C, H, W);
 }
 
 template <bool BLEND>
@@ -236,6 +314,7 @@ int dispatch(const void* raw, const void* prev, const void* flow,
              int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H * W == 0) return (int)cudaSuccess;  // nothing to launch
+  if (H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;  // grid y, z
   if (dtype == kFloat32) {
     launch<float, BLEND>(raw, prev, flow, weight, out, B, C, H, W, s);
   } else if (dtype == kBFloat16) {

@@ -102,14 +102,33 @@ def library() -> ctypes.CDLL:
 
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """A C entry point of the library with its signature declared.
+    """A C entry point of the library with its signature declared (once
+    per process and signature).
 
     Every entry returns cudaGetLastError() as an int.
     """
+    return _function(name, tuple(argtypes))
+
+
+@functools.cache
+def _function(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
     fn = getattr(library(), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> int:
+    """Call a C entry point on `device`: its arguments, then the device's
+    current stream. The current card is switched for the call only when it
+    is another (the CUDA runtime launches on the current card); returns the
+    entry's error code."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)  # the cudaStream_t, as an int
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def check(err: int, what: str) -> None:

@@ -26,6 +26,7 @@ from torch import nn
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.models.generator import ClipOutputs, State, Vid2VidGenerator
 from vid2vid_tpu_torch.nn.factory import single_input_nc
+from vid2vid_tpu_torch.nn.layers import state_tensors, version_key
 from vid2vid_tpu_torch.nn.pix2pixhd import (
     Encoder,
     GlobalGenerator,
@@ -77,7 +78,7 @@ class InferenceEngine:
             torch.bfloat16 if (opt.bf16 or opt.fp16) else torch.float32
         )
         self.gen = Vid2VidGenerator(opt).to(self.device).eval()
-        self._compute_gen: Vid2VidGenerator | None = None
+        self._compute_gen: tuple | None = None  # (version_key, the cast copy)
         self.single_g: nn.Module | None = None  # build_single_g
         self.single_needs_feat = False
         self.encoder: Encoder | None = None
@@ -87,17 +88,20 @@ class InferenceEngine:
 
     def load_state_dict(self, state_dict: dict, strict: bool = True):
         """Load master weights (reference names with a G{s}. prefix)."""
-        self._compute_gen = None
         return self.gen.load_state_dict(state_dict, strict=strict)
 
     def compute_generator(self) -> Vid2VidGenerator:
-        """The generator in the compute dtype (a cached cast of the master
-        weights; `load_state_dict` drops the cache)."""
+        """The generator in the compute dtype: a cast copy of the master
+        weights, made anew whenever a parameter or buffer of `gen` has
+        changed since (its version, storage, dtype or device:
+        `nn.layers.version_key`), however it was changed."""
         if self.compute_dtype == torch.float32:
             return self.gen
-        if self._compute_gen is None:
-            self._compute_gen = copy.deepcopy(self.gen).to(self.compute_dtype).eval()
-        return self._compute_gen
+        key = version_key(state_tensors(self.gen))
+        if self._compute_gen is None or self._compute_gen[0] != key:
+            self._compute_gen = (
+                key, copy.deepcopy(self.gen).to(self.compute_dtype).eval())
+        return self._compute_gen[1]
 
     # ----------------------------------------------------------------- encode
 

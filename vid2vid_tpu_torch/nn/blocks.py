@@ -4,9 +4,10 @@
 flat layer lists (the JAX package's ConvStem, DownBlock, UpBlock, TanhHead
 and ConvHead modules): the reference splices them into one Sequential per
 trunk, and its indices are the checkpoint's names. `ResnetBlock` is a
-module, as in the reference, with its `conv_block` Sequential. The
-composite generators keep their 7x7 stems and heads on cuDNN; the
-single-image nets (nn/pix2pixhd.py) pass `conv7=True`.
+module, as in the reference, with its `conv_block` Sequential. Every 7x7
+stem and head is a `reflect_conv7`: in eval mode it runs the conv7 kernel
+(the composite generators of nn/composite.py and the single-image nets of
+nn/pix2pixhd.py alike).
 """
 
 from __future__ import annotations
@@ -20,19 +21,17 @@ from vid2vid_tpu_torch.nn.layers import (
     norm_layer,
     reflect_conv,
     reflect_conv7,
+    state_tensors,
+    version_key,
 )
 from vid2vid_tpu_torch.ops.conv3 import pack_conv3_weight
 from vid2vid_tpu_torch.ops.respair import respair
 
 
-def _conv7(cin: int, cout: int, kernel: bool) -> list[nn.Module]:
-    return reflect_conv7(cin, cout) if kernel else reflect_conv(cin, cout, 7)
-
-
-def conv_stem(cin: int, cout: int, norm: str, conv7: bool = False) -> list[nn.Module]:
-    """ReflectionPad(3) + Conv7x7 + norm + ReLU (4 entries); `conv7` runs
-    the 7x7 conv through the conv7 kernel in eval mode (reflect_conv7)."""
-    return [*_conv7(cin, cout, conv7), norm_layer(norm, cout), nn.ReLU(True)]
+def conv_stem(cin: int, cout: int, norm: str) -> list[nn.Module]:
+    """ReflectionPad(3) + Conv7x7 + norm + ReLU (4 entries); the 7x7 conv
+    runs the conv7 kernel in eval mode (reflect_conv7)."""
+    return [*reflect_conv7(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
 
 
 def down_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
@@ -46,15 +45,16 @@ def up_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
     return [conv_transpose(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
 
 
-def tanh_head(cin: int, cout: int, conv7: bool = False) -> list[nn.Module]:
-    """ReflectionPad(3) + Conv7x7 + tanh (3 entries); `conv7` as in
+def tanh_head(cin: int, cout: int) -> list[nn.Module]:
+    """ReflectionPad(3) + Conv7x7 + tanh (3 entries), the conv as in
     conv_stem."""
-    return [*_conv7(cin, cout, conv7), nn.Tanh()]
+    return [*reflect_conv7(cin, cout), nn.Tanh()]
 
 
 def conv_head(cin: int, cout: int, sigmoid: bool = False) -> list[nn.Module]:
-    """ReflectionPad(3) + Conv7x7 [+ sigmoid] (the flow and weight heads)."""
-    return [*reflect_conv(cin, cout, 7)] + ([nn.Sigmoid()] if sigmoid else [])
+    """ReflectionPad(3) + Conv7x7 [+ sigmoid] (the flow and weight heads),
+    the conv as in conv_stem."""
+    return [*reflect_conv7(cin, cout)] + ([nn.Sigmoid()] if sigmoid else [])
 
 
 class ResnetBlock(nn.Module):
@@ -93,10 +93,8 @@ class ResnetBlock(nn.Module):
             packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
         return k0, ab0, k1, ab1, packed
 
-    def _cache_key(self, x: torch.Tensor) -> tuple:
-        return (x.dtype, x.device, *(
-            (t._version, t.data_ptr(), t.dtype, t.device)
-            for t in (*self.conv_block.parameters(), *self.conv_block.buffers())))
+    def _cache_key(self, x: torch.Tensor) -> list:
+        return [x.dtype, x.device, *version_key(state_tensors(self.conv_block))]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:

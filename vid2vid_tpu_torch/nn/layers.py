@@ -7,7 +7,8 @@ lists that callers splice into their Sequentials, padding layers included.
 
   - reflect_conv: ReflectionPad2d(k // 2) + Conv2d(k) — two list entries;
     reflect_conv7 the same 7x7 pair, run in eval mode as one conv7 op
-    (the hand-written kernel on the card) with the pad folded in.
+    (the hand-written kernel on the card) with the pad folded in, its
+    kernel arguments kept between calls (`version_key`).
   - conv_transpose: ConvTranspose2d(3, 2, padding=1, output_padding=1).
   - norm_layer('batch'): BatchNorm2d; eval mode normalizes with the
     running stats.
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vid2vid_tpu_torch.ops.conv7 import conv7_reflect
+from vid2vid_tpu_torch.ops.conv7 import conv7_reflect, pack_conv7_weight
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -84,19 +85,63 @@ class FoldedReflectionPad2d(nn.ReflectionPad2d):
         return super().forward(x) if self.training else x
 
 
+def version_key(tensors) -> list:
+    """The key of a cache of values derived from `tensors`: each one's
+    version counter (bumped by every in-place change: `copy_`,
+    `load_state_dict`, an optimizer step), storage, dtype and device (a
+    `.to()` gives new storage), flat."""
+    key = []
+    for t in tensors:
+        key += (t._version, t.data_ptr(), t.dtype, t.device)
+    return key
+
+
+def state_tensors(module: nn.Module, out: list | None = None) -> list:
+    """Every parameter and buffer of `module` and its submodules, as they
+    are now: a walk of the module tree, several times cheaper than
+    `parameters()` + `buffers()`, which also build and deduplicate names."""
+    out = [] if out is None else out
+    for group in (module._parameters, module._buffers):
+        for t in group.values():
+            if t is not None:
+                out.append(t)
+    for child in module._modules.values():
+        if child is not None:
+            state_tensors(child, out)
+    return out
+
+
 class ReflectConv7(nn.Conv2d):
     """Conv2d(cin, cout, 7) behind a `FoldedReflectionPad2d`. Train mode is
     the plain conv of the padded input; eval mode runs ops.conv7.
     conv7_reflect on the unpadded input: the hand-written kernel on a CUDA
-    tensor, the plain version on a CPU one."""
+    tensor, the plain version on a CPU one. Under `torch.no_grad()` its
+    kernel arguments (the weight in x's dtype, the f32 bias and, for the
+    bf16 kernel, the packed weight) are kept and rebuilt only when the
+    weight or bias changes (`version_key`) or x's dtype or device does;
+    with gradients on they are made on each call, so the weights keep
+    their gradient."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 7)
+        self._eval_cache: tuple | None = None  # (key, conv7_reflect's weight args)
+
+    def _kernel_args(self, x: torch.Tensor) -> tuple:
+        w = self.weight.to(x.dtype)
+        packed = pack_conv7_weight(w) if x.is_cuda and x.dtype == torch.bfloat16 else None
+        return w, self.bias.float(), packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return super().forward(x)
-        return conv7_reflect(x.contiguous(), self.weight.to(x.dtype), self.bias.float())
+        if torch.is_grad_enabled():
+            w, bias, packed = self._kernel_args(x)
+        else:
+            key = [x.dtype, x.device, *version_key((self.weight, self.bias))]
+            if self._eval_cache is None or self._eval_cache[0] != key:
+                self._eval_cache = (key, self._kernel_args(x))
+            w, bias, packed = self._eval_cache[1]
+        return conv7_reflect(x.contiguous(), w, bias, packed=packed)
 
 
 def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:

@@ -71,7 +71,7 @@ def _enhancer(
     cin: int, ngf_n: int, n_blocks: int, norm: str, res_extra: int = 0
 ) -> tuple[nn.Sequential, list[nn.Module]]:
     """One enhancer level: (`model{n}_1`, the layers of `model{n}_2`)."""
-    down = nn.Sequential(*conv_stem(cin, ngf_n, norm, conv7=True),
+    down = nn.Sequential(*conv_stem(cin, ngf_n, norm),
                          *down_block(ngf_n, ngf_n * 2, norm))
     width = ngf_n * 2 + res_extra
     up = [ResnetBlock(width, norm) for _ in range(n_blocks)] + up_block(width, ngf_n, norm)
@@ -90,11 +90,11 @@ class GlobalGenerator(nn.Module):
     ):
         super().__init__()
         nd = n_downsampling
-        layers = conv_stem(input_nc, ngf, norm, conv7=True) + _downs(ngf, nd, norm)
+        layers = conv_stem(input_nc, ngf, norm) + _downs(ngf, nd, norm)
         layers += [ResnetBlock(_width(ngf, nd), norm) for _ in range(n_blocks)]
         layers += _ups(ngf, nd, norm)
         if final_head:
-            layers += tanh_head(ngf, output_nc, conv7=True)
+            layers += tanh_head(ngf, output_nc)
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor, feat: torch.Tensor | None = None) -> torch.Tensor:
@@ -120,7 +120,7 @@ class LocalEnhancer(nn.Module):
             down, up = _enhancer(input_nc, ngf * 2 ** (n_local_enhancers - n),
                                  n_blocks_local, norm)
             if n == n_local_enhancers:
-                up += tanh_head(ngf, output_nc, conv7=True)
+                up += tanh_head(ngf, output_nc)
             setattr(self, f"model{n}_1", down)
             setattr(self, f"model{n}_2", nn.Sequential(*up))
 
@@ -149,12 +149,12 @@ class GlobalWithFeatures(nn.Module):
         nd, ch = n_downsampling, _width(ngf, n_downsampling)
         self.nd = nd
         self.model_downsample = nn.Sequential(
-            *conv_stem(input_nc + feat_num, ngf, norm, conv7=True), *_downs(ngf, nd, norm))
+            *conv_stem(input_nc + feat_num, ngf, norm), *_downs(ngf, nd, norm))
         self.model_resnet = nn.Sequential(
             *[ResnetBlock(ch + feat_num, norm) for _ in range(n_blocks)])
         self.model_upsample = nn.Sequential(*_ups(ngf, nd, norm, extra_in=2 * feat_num))
         self.model_upsample_conv = nn.Sequential(
-            *tanh_head(ngf + feat_num, output_nc, conv7=True))
+            *tanh_head(ngf + feat_num, output_nc))
 
     def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         z_down = _pool(z, self.nd)
@@ -179,7 +179,7 @@ class LocalWithFeatures(nn.Module):
         ngf_g = ngf * 2**n_local
         ch = _width(ngf_g, nd)
         self.model_downsample = nn.Sequential(
-            *conv_stem(input_nc + feat_num, ngf_g, norm, conv7=True), *_downs(ngf_g, nd, norm))
+            *conv_stem(input_nc + feat_num, ngf_g, norm), *_downs(ngf_g, nd, norm))
         self.model_resnet = nn.Sequential(
             *[ResnetBlock(ch + feat_num, norm) for _ in range(n_blocks_global)])
         self.model_upsample = nn.Sequential(*_ups(ngf_g, nd, norm, extra_in=2 * feat_num))
@@ -189,7 +189,7 @@ class LocalWithFeatures(nn.Module):
                 n_blocks_local, norm, res_extra=feat_num if n == 1 else 0)
             setattr(self, f"model{n}_1", down)
             setattr(self, f"model{n}_2", nn.Sequential(*up))
-        self.model_final = nn.Sequential(*tanh_head(ngf + feat_num, output_nc, conv7=True))
+        self.model_final = nn.Sequential(*tanh_head(ngf + feat_num, output_nc))
 
     def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         pyramid = [x]
@@ -218,12 +218,12 @@ class Encoder(nn.Module):
         super().__init__()
         nd = n_downsampling
         self.output_nc = output_nc
-        layers = conv_stem(input_nc, ngf, norm, conv7=True)
+        layers = conv_stem(input_nc, ngf, norm)
         for i in range(nd):
             layers += down_block(ngf * 2**i, ngf * 2 ** (i + 1), norm)
         for i in range(nd):
             layers += up_block(ngf * 2 ** (nd - i), ngf * 2 ** (nd - 1 - i), norm)
-        layers += tanh_head(ngf, output_nc, conv7=True)
+        layers += tanh_head(ngf, output_nc)
         self.model = nn.Sequential(*layers)
 
     def forward(

@@ -8,7 +8,7 @@ NCHW inputs, OIHW weights; xp is (B, Ci, H+2, W+2), padded by the caller
 (reflect or zero). On a CUDA tensor both launch the 3x3 entries of the
 hand-written conv kernels (csrc/conv.cu: `v2v_conv3`, no epilogue, and
 `v2v_conv3_fused`, the epilogue on the f32 accumulator; any Ci, Co, H, W)
-or raise: in bf16 the tensor-core body (csrc/conv3_wgmma.cuh), which takes
+or raise: in bf16 the tensor-core body (csrc/conv_wgmma.cuh), which takes
 the weights in the layout of `pack_conv3_weight`, packed here on each call;
 in f32 the CUDA-core body (csrc/conv_kxk.cuh) on OIHW weights. On a CPU
 tensor they run their plain versions, which are also the kernels' oracles.
@@ -17,9 +17,8 @@ carry over.
 
 Neither has a caller in the JAX package (its residual blocks run the whole
 block as one op, ops/respair_pallas.py), so none is added here: the tests
-and chip_smoke.py drive them. `conv3_padded`'s gradient is the plain
-version's autograd, as the JAX backward is the XLA conv's VJP;
-`conv3_fused_padded` has no gradient, as in the JAX package.
+and chip_smoke.py drive them. Their gradient is the plain version's
+autograd, as the JAX backward is the XLA conv's VJP.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
-from vid2vid_tpu_torch.ops.conv7 import plain_vjp
+from vid2vid_tpu_torch.ops.conv7 import pack_taps, plain_vjp, taps_shape, wants_grad
 
 
 def conv3_plain(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -41,21 +40,15 @@ def conv3_plain(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def pack_conv3_weight(w: torch.Tensor) -> torch.Tensor:
     """The bf16 3x3 body's weight layout: (Co, Ci, 3, 3) OIHW ->
     (Ci_pad / 8, 9, Co_pad, 8), entry [g, t, o, e] = w[o, 8g + e, t // 3,
-    t % 3], zero where o >= Co or 8g + e >= Ci; Ci_pad is Ci rounded up to
-    16 (one wgmma K step), Co_pad Co rounded up to 8. The kernel loads BN
-    output channels of one 8-channel group for all taps as one box of a
-    tensor map over this layout, two groups per stage."""
-    co, ci = w.shape[:2]
-    co_pad, ci_pad = -(-co // 8) * 8, -(-ci // 16) * 16
-    if (co_pad, ci_pad) != (co, ci):
-        w = F.pad(w, (0, 0, 0, 0, 0, ci_pad - ci, 0, co_pad - co))
-    # (Ci_pad, 3, 3, Co_pad) -> (G, 8, 9, Co_pad) -> (G, 9, Co_pad, 8)
-    return w.permute(1, 2, 3, 0).reshape(ci_pad // 8, 8, 9, co_pad).permute(0, 2, 3, 1).contiguous()
+    t % 3], zero where o >= Co or 8g + e >= Ci (ops/conv7.py::pack_taps).
+    The kernel loads BN output channels of one 8-channel group for all taps
+    as one box of a tensor map over this layout, two groups per stage."""
+    return pack_taps(w)
 
 
 def packed_shape(co: int, ci: int) -> tuple[int, int, int, int]:
     """The shape `pack_conv3_weight` gives an (co, ci, 3, 3) weight."""
-    return (-(-ci // 16) * 2, 9, -(-co // 8) * 8, 8)
+    return taps_shape(co, ci, 3)
 
 
 def kernel_weight(w: torch.Tensor) -> torch.Tensor:
@@ -94,10 +87,6 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _conv3_forward(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     h, wd = _check(xp, w)
     if xp.device.type == "cpu":
@@ -107,9 +96,8 @@ def _conv3_forward(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, ci = xp.shape[:2]
     out = torch.empty((b, w.shape[0], h, wd), dtype=xp.dtype, device=xp.device)
     wk = kernel_weight(w)
-    with torch.cuda.device(xp.device):  # launch on the operands' card
-        err = fn(xp.data_ptr(), wk.data_ptr(), out.data_ptr(), b, ci, w.shape[0],
-                 h, wd, code, _stream(xp))
+    err = build.launch(fn, xp.device, xp.data_ptr(), wk.data_ptr(), out.data_ptr(), b, ci,
+                       w.shape[0], h, wd, code)
     build.check(err, "conv3 kernel launch")
     conv3_padded.launches += 1
     return out
@@ -132,19 +120,12 @@ def conv3_padded(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w: (Co, Ci, 3, 3) in xp's dtype. A CPU tensor takes `conv3_plain`; a
     CUDA tensor launches the kernel (f32 or bf16, contiguous) or raises.
     """
-    return _Conv3.apply(xp, w)
+    if wants_grad(xp, w):
+        return _Conv3.apply(xp, w)
+    return _conv3_forward(xp, w)
 
 
-def conv3_fused_padded(
-    xp: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
-    residual: torch.Tensor | None = None, relu: bool = False,
-) -> torch.Tensor:
-    """conv3_padded, then `* scale + offset [+ residual] [ReLU]` on the f32
-    accumulator: the eval-mode conv + norm (+ skip) step.
-
-    scale, offset: (Co,) float32; residual: (B, Co, H, W) in xp's dtype or
-    None. Same device rule as `conv3_padded`; no gradient.
-    """
+def _conv3_fused_forward(xp, w, scale, offset, residual, relu) -> torch.Tensor:
     h, wd = _check(xp, w)
     co = w.shape[0]
     for name, v in (("scale", scale), ("offset", offset)):
@@ -162,13 +143,42 @@ def conv3_fused_padded(
     fn = build.function("v2v_conv3_fused", [_VOID] * 6 + [_INT] * 7 + [_VOID])
     out = torch.empty((b, co, h, wd), dtype=xp.dtype, device=xp.device)
     wk = kernel_weight(w)
-    with torch.cuda.device(xp.device):
-        err = fn(xp.data_ptr(), wk.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-                 None if residual is None else residual.data_ptr(), out.data_ptr(),
-                 b, xp.shape[1], co, h, wd, int(relu), code, _stream(xp))
+    err = build.launch(fn, xp.device, xp.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+                       offset.data_ptr(), None if residual is None else residual.data_ptr(),
+                       out.data_ptr(), b, xp.shape[1], co, h, wd, int(relu), code)
     build.check(err, "conv3_fused kernel launch")
     conv3_fused_padded.launches += 1
     return out
+
+
+class _Conv3Fused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp, w, scale, offset, residual, relu):
+        ctx.save_for_backward(xp, w, scale, offset, residual)
+        ctx.relu = relu
+        return _conv3_fused_forward(xp, w, scale, offset, residual, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(xp, w, scale, offset, residual):
+            return conv3_fused_plain(xp, w, scale, offset, residual, ctx.relu)
+        return (*plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:5], g), None)
+
+
+def conv3_fused_padded(
+    xp: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+    residual: torch.Tensor | None = None, relu: bool = False,
+) -> torch.Tensor:
+    """conv3_padded, then `* scale + offset [+ residual] [ReLU]` on the f32
+    accumulator: the eval-mode conv + norm (+ skip) step.
+
+    scale, offset: (Co,) float32; residual: (B, Co, H, W) in xp's dtype or
+    None. Same device rule as `conv3_padded`; the gradient is the plain
+    version's autograd.
+    """
+    if wants_grad(xp, w, scale, offset, residual):
+        return _Conv3Fused.apply(xp, w, scale, offset, residual, relu)
+    return _conv3_fused_forward(xp, w, scale, offset, residual, relu)
 
 
 conv3_padded.launches = 0

@@ -11,7 +11,9 @@ it; that stays in the network.
 `correlation` runs `correlation_plain` on a CPU tensor and the hand-written
 CUDA kernel csrc/correlation.cu on a CUDA tensor. The kernel is fixed to
 FlowNetC's configuration (max displacement 20, stride2 2) and f32, as the
-TPU kernel is; for anything else on a CUDA tensor the wrapper raises.
+TPU kernel is; for anything else on a CUDA tensor the wrapper raises. The
+gradient is `correlation_plain`'s autograd, as the JAX package
+differentiates `correlation_ref`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
+from vid2vid_tpu_torch.ops.conv7 import plain_vjp, wants_grad
 
 # the configuration the CUDA kernel is built for (FlowNetC's)
 KERNEL_MAX_DISPLACEMENT = 20
@@ -58,15 +61,7 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def correlation(
-    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride2: int = 2
-) -> torch.Tensor:
-    """(B, C, H, W) x 2 -> (B, D*D, H, W) cost volume.
-
-    A CPU tensor takes `correlation_plain`; a CUDA tensor launches the
-    kernel (f32, contiguous, max_displacement 20, stride2 2) or raises.
-    """
-    _check(f1, f2)
+def _correlation_forward(f1, f2, max_displacement, stride2) -> torch.Tensor:
     if f1.device.type == "cpu":
         return correlation_plain(f1, f2, max_displacement, stride2)
     if (max_displacement, stride2) != (KERNEL_MAX_DISPLACEMENT, KERNEL_STRIDE2):
@@ -86,14 +81,40 @@ def correlation(
     d = 2 * (max_displacement // stride2) + 1
     fn = build.function("v2v_correlation", [_VOID] * 3 + [_INT] * 5 + [_VOID])
     out = torch.empty((b, d * d, h, w), dtype=torch.float32, device=f1.device)
-    with torch.cuda.device(f1.device):  # launch on the operands' card
-        err = fn(
-            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w, code,
-            torch.cuda.current_stream(f1.device).cuda_stream,
-        )
+    err = build.launch(fn, f1.device, f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
+                       b, c, h, w, code)
     build.check(err, "correlation kernel launch")
     correlation.launches += 1
     return out
+
+
+class _Correlation(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride2):
+        ctx.save_for_backward(f1, f2)
+        ctx.config = (max_displacement, stride2)
+        return _correlation_forward(f1, f2, max_displacement, stride2)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(f1, f2):
+            return correlation_plain(f1, f2, *ctx.config)
+        return (*plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], g), None, None)
+
+
+def correlation(
+    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride2: int = 2
+) -> torch.Tensor:
+    """(B, C, H, W) x 2 -> (B, D*D, H, W) cost volume.
+
+    A CPU tensor takes `correlation_plain`; a CUDA tensor launches the
+    kernel (f32, contiguous, max_displacement 20, stride2 2) or raises. The
+    gradient is `correlation_plain`'s.
+    """
+    _check(f1, f2)
+    if wants_grad(f1, f2):
+        return _Correlation.apply(f1, f2, max_displacement, stride2)
+    return _correlation_forward(f1, f2, max_displacement, stride2)
 
 
 correlation.launches = 0

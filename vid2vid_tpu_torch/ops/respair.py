@@ -11,7 +11,8 @@ it takes any channel count and any H, W >= 2. In bf16 the kernel runs on
 the tensor cores and takes its weights packed (ops/conv3.py::
 pack_conv3_weight): a caller that runs the block often packs them once and
 passes them as `packed` (nn/blocks.py::ResnetBlock); otherwise they are
-packed on each call.
+packed on each call. The gradient is the plain version's autograd (on the
+unpacked weights), as the JAX package differentiates its plain block.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
 from vid2vid_tpu_torch.ops.conv3 import kernel_weight, packed_shape
+from vid2vid_tpu_torch.ops.conv7 import plain_vjp, wants_grad
 
 Affine = tuple[torch.Tensor, torch.Tensor]
 
@@ -71,19 +73,7 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def respair(
-    x: torch.Tensor, k0: torch.Tensor, ab0: Affine, k1: torch.Tensor, ab1: Affine,
-    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> torch.Tensor:
-    """One eval-mode residual block.
-
-    x: (B, C, H, W); k0, k1: (C, C, 3, 3) OIHW in x's dtype; ab0, ab1:
-    (scale, offset) pairs of (C,) float32; packed: in bf16 optionally
-    (pack_conv3_weight(k0), pack_conv3_weight(k1)), made once by the caller.
-    Returns (B, C, H, W) in x's dtype. A CPU tensor takes `respair_plain`; a
-    CUDA tensor launches the kernel (f32 or bf16, contiguous) or raises.
-    """
-    _check_shapes(x, k0, ab0, k1, ab1)
+def _respair_forward(x, k0, ab0, k1, ab1, packed) -> torch.Tensor:
     if x.device.type == "cpu":
         return respair_plain(x, k0, ab0, k1, ab1)
     (a0, c0), (a1, c1) = ab0, ab1
@@ -102,16 +92,50 @@ def respair(
     b, c, h, w = x.shape
     hbuf = torch.empty_like(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):  # launch on the operands' card
-        err = fn(
-            x.data_ptr(), wk[0].data_ptr(), a0.data_ptr(), c0.data_ptr(),
-            wk[1].data_ptr(), a1.data_ptr(), c1.data_ptr(),
-            hbuf.data_ptr(), out.data_ptr(), b, c, h, w, code,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    err = build.launch(
+        fn, x.device, x.data_ptr(), wk[0].data_ptr(), a0.data_ptr(), c0.data_ptr(),
+        wk[1].data_ptr(), a1.data_ptr(), c1.data_ptr(),
+        hbuf.data_ptr(), out.data_ptr(), b, c, h, w, code,
+    )
     build.check(err, "respair kernel launch")
     respair.launches += 1
     return out
+
+
+def _respair_plain_flat(x, k0, a0, c0, k1, a1, c1):
+    return respair_plain(x, k0, (a0, c0), k1, (a1, c1))
+
+
+class _Respair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k0, a0, c0, k1, a1, c1, packed):
+        ctx.save_for_backward(x, k0, a0, c0, k1, a1, c1)
+        return _respair_forward(x, k0, (a0, c0), k1, (a1, c1), packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(_respair_plain_flat, ctx.saved_tensors, ctx.needs_input_grad[:7],
+                           g), None)
+
+
+def respair(
+    x: torch.Tensor, k0: torch.Tensor, ab0: Affine, k1: torch.Tensor, ab1: Affine,
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One eval-mode residual block.
+
+    x: (B, C, H, W); k0, k1: (C, C, 3, 3) OIHW in x's dtype; ab0, ab1:
+    (scale, offset) pairs of (C,) float32; packed: in bf16 optionally
+    (pack_conv3_weight(k0), pack_conv3_weight(k1)), made once by the caller.
+    Returns (B, C, H, W) in x's dtype. A CPU tensor takes `respair_plain`; a
+    CUDA tensor launches the kernel (f32 or bf16, contiguous) or raises.
+    The gradient, for every tensor but `packed`, is `respair_plain`'s.
+    """
+    _check_shapes(x, k0, ab0, k1, ab1)
+    (a0, c0), (a1, c1) = ab0, ab1
+    if wants_grad(x, k0, a0, c0, k1, a1, c1):
+        return _Respair.apply(x, k0, a0, c0, k1, a1, c1, packed)
+    return _respair_forward(x, k0, ab0, k1, ab1, packed)
 
 
 respair.launches = 0

@@ -39,16 +39,12 @@ import ctypes
 import torch
 
 from vid2vid_tpu_torch.kernels import build
+from vid2vid_tpu_torch.ops.conv7 import wants_grad
 
 
 def _check_flow(image: torch.Tensor, flow: torch.Tensor) -> None:
-    if (
-        image.dim() != 4
-        or flow.dim() != 4
-        or flow.shape[1] != 2
-        or image.shape[0] != flow.shape[0]
-        or image.shape[2:] != flow.shape[2:]
-    ):
+    s = image.shape
+    if len(s) != 4 or flow.shape != (s[0], 2, s[2], s[3]):
         raise ValueError(
             f"flow_warp: image {tuple(image.shape)} and flow "
             f"{tuple(flow.shape)} must share (B, H, W) and flow must have "
@@ -58,8 +54,8 @@ def _check_flow(image: torch.Tensor, flow: torch.Tensor) -> None:
 
 def _check_blend(raw, prev, flow, weight) -> None:
     _check_flow(prev, flow)
-    b, _, h, w = prev.shape
-    if raw.shape != prev.shape or weight.shape != (b, 1, h, w):
+    s = prev.shape
+    if raw.shape != s or weight.shape != (s[0], 1, s[2], s[3]):
         raise ValueError(
             f"warp_blend: raw {tuple(raw.shape)}, prev {tuple(prev.shape)} "
             f"and weight {tuple(weight.shape)} disagree"
@@ -206,10 +202,6 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _flow_warp_forward(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if image.device.type == "cpu":
         return flow_warp_plain(image, flow)
@@ -219,9 +211,8 @@ def _flow_warp_forward(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     fn = build.function("v2v_flow_warp", [_VOID] * 3 + [_INT] * 5 + [_VOID])
     b, c, h, w = image.shape
     out = torch.empty_like(image)
-    with torch.cuda.device(image.device):  # launch on the operands' card
-        err = fn(image.data_ptr(), flow.data_ptr(), out.data_ptr(), b, c, h, w,
-                 code, _stream(image))
+    err = build.launch(fn, image.device, image.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                       b, c, h, w, code)
     build.check(err, "flow_warp kernel launch")
     flow_warp.launches += 1
     return out
@@ -245,10 +236,8 @@ def flow_warp_bwd(
     # the splat accumulates with f32 atomics into zeroed scratch
     dimage = torch.zeros(image.shape, dtype=torch.float32, device=image.device)
     dflow = torch.empty_like(flow)
-    with torch.cuda.device(image.device):
-        err = fn(image.data_ptr(), flow.data_ptr(), g.data_ptr(),
-                 dimage.data_ptr(), dflow.data_ptr(), b, c, h, w, code,
-                 _stream(image))
+    err = build.launch(fn, image.device, image.data_ptr(), flow.data_ptr(), g.data_ptr(),
+                       dimage.data_ptr(), dflow.data_ptr(), b, c, h, w, code)
     build.check(err, "flow_warp backward kernel launch")
     flow_warp_bwd.launches += 1
     return dimage.to(image.dtype), dflow
@@ -277,7 +266,9 @@ def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     gradient is `flow_warp_bwd`.
     """
     _check_flow(image, flow)
-    return _FlowWarp.apply(image, flow)
+    if wants_grad(image, flow):
+        return _FlowWarp.apply(image, flow)
+    return _flow_warp_forward(image, flow)
 
 
 flow_warp.launches = 0
@@ -293,9 +284,8 @@ def _warp_blend_forward(raw, prev, flow, weight) -> torch.Tensor:
     fn = build.function("v2v_warp_blend", [_VOID] * 5 + [_INT] * 5 + [_VOID])
     b, c, h, w = prev.shape
     out = torch.empty_like(prev)
-    with torch.cuda.device(prev.device):  # launch on the operands' card
-        err = fn(raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
-                 weight.data_ptr(), out.data_ptr(), b, c, h, w, code, _stream(prev))
+    err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
+                       weight.data_ptr(), out.data_ptr(), b, c, h, w, code)
     build.check(err, "warp_blend kernel launch")
     warp_blend.launches += 1
     return out
@@ -320,11 +310,9 @@ def warp_blend_bwd(
     b, c, h, w = prev.shape
     dprev = torch.zeros(prev.shape, dtype=torch.float32, device=prev.device)
     draw, dflow, dweight = (torch.empty_like(t) for t in (raw, flow, weight))
-    with torch.cuda.device(prev.device):
-        err = fn(raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
-                 weight.data_ptr(), g.data_ptr(), draw.data_ptr(),
-                 dprev.data_ptr(), dflow.data_ptr(), dweight.data_ptr(),
-                 b, c, h, w, code, _stream(prev))
+    err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
+                       weight.data_ptr(), g.data_ptr(), draw.data_ptr(), dprev.data_ptr(),
+                       dflow.data_ptr(), dweight.data_ptr(), b, c, h, w, code)
     build.check(err, "warp_blend backward kernel launch")
     warp_blend_bwd.launches += 1
     return draw, dprev.to(prev.dtype), dflow, dweight
@@ -355,7 +343,9 @@ def warp_blend(
     gradient is `warp_blend_bwd`.
     """
     _check_blend(raw, prev, flow, weight)
-    return _WarpBlend.apply(raw, prev, flow, weight)
+    if wants_grad(raw, prev, flow, weight):
+        return _WarpBlend.apply(raw, prev, flow, weight)
+    return _warp_blend_forward(raw, prev, flow, weight)
 
 
 warp_blend.launches = 0
