@@ -8,16 +8,19 @@ Phases (one stdout line each, or a few; any failure raises and exits
 non-zero):
   1. device: name, power limit, torch / CUDA versions;
   2. build: nvcc compiles csrc/*.cu for sm_90a (seconds, ptxas report);
-     one line per kernel of the bf16 tensor-core body (csrc/conv_wgmma.cuh,
-     K = 3 and 7) with its registers, spills, shared memory and HGMMA count
-     (cuobjdump -sass); fails without HGMMA or with spills there, or with a
-     bf16 CUDA-core 3x3 left;
+     one line per kernel of the tensor-core body (csrc/conv_wgmma.cuh, bf16
+     and f32 as 3xTF32, K = 3 and 7) with its registers, spills, shared
+     memory and HGMMA count (cuobjdump -sass); fails without HGMMA or with
+     spills there, or with a bf16 CUDA-core 3x3 left;
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
      bf16, correlation (FlowNetC, f32), flow_warp (FlowNet2, f32 and bf16),
      the warp backward (training): warp_blend's and flow_warp's, conv7 at
      the single-image nets' 7x7 stems and heads, and conv3 / conv3_fused
-     at the label2city path's 3x3 stride-1 convs, in f32 and bf16;
+     at the label2city path's 3x3 stride-1 convs, in f32 and bf16; and
+     every f32 respair and conv7 shape of the single-image paths on each
+     f32 body (tensor cores, CUDA cores) forced in turn, both max abs errs
+     printed;
   3b. after each path below: each kernel against its plain version again,
      on seeded operands, at every (shapes, dtype) that path gave it and no
      earlier check held (the paths' calls are logged by shape);
@@ -44,13 +47,19 @@ non-zero):
      frames from GlobalWithFeatures fed by the Encoder and the face-feature
      lookup (f32), then the single-scale stream (ngf 128, bf16);
   8b. the label2city 2048x1024 path seeded by the LocalEnhancer (f32),
-     then the flagship stream;
+     then the flagship stream; the peak memory and the largest cuDNN
+     workspace of a seeding call and a frame, under PyTorch's default TF32
+     flags and with TF32 off;
   6. kernel, plain and library-call times at the paths' shapes, and each
      kernel's bound (the least time the card could take for its work);
      respair, conv3 and conv3_fused per shape with TFLOP/s, the share of
-     the bound and the ratio to cuDNN; respair also in f32 at the
-     single-image paths' shapes; conv7 in bf16 at the flagship composite's
-     21 7x7 shapes against cuDNN, with TFLOP/s and the share of the bound;
+     the bound and the ratio to cuDNN; respair (3xTF32 on the tensor
+     cores) and conv7 in f32 at the single-image paths' shapes, conv7 with
+     both f32 bodies forced in turns (the same-run A/B that sets
+     ops/conv7.py::conv7_body's rule), beside cuDNN (TF32 off), the FFMA
+     and the 3xTF32 bounds; conv7 in bf16 at the
+     flagship composite's 21 7x7 shapes against cuDNN, with TFLOP/s and the
+     share of the bound;
      the warps' device time (profiler) and per-call time (events over 200
      back-to-back calls) beside grid_sample's, alone and with the blend.
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -95,11 +104,16 @@ from vid2vid_tpu_torch.ops.conv3 import (  # noqa: E402
     pack_conv3_weight,
 )
 from vid2vid_tpu_torch.ops.conv7 import (  # noqa: E402
+    CUDA_CORES,
+    TENSOR_CORES,
     conv7_padded,
     conv7_plain,
     conv7_reflect,
     conv7_reflect_plain,
+    conv7_body,
+    forced_conv7_body,
     pack_conv7_weight,
+    pack_for_kernel,
 )
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain  # noqa: E402
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain  # noqa: E402
@@ -127,10 +141,11 @@ RESPAIR_SHAPES = [
 # (C, H, W, calls per seeding call, path) of every f32 respair on the
 # single-image paths: GlobalWithFeatures' trunk (512 + 16 features at
 # 64x64) on edge2face 512x512; the LocalEnhancer's global trunk (C = 1024 at
-# 64x32) and enhancer blocks (C = 64 at 1024x512) on label2city 2048x1024
+# H x W = 32x64) and enhancer blocks (C = 64 at 512x1024) on label2city
+# 2048x1024 (H = 1024, W = 2048)
 RESPAIR_F32_SHAPES = [
     (528, 64, 64, 18, "edge2face_single"),
-    (1024, 64, 32, 18, "label2city_single"), (64, 1024, 512, 6, "label2city_single"),
+    (1024, 32, 64, 18, "label2city_single"), (64, 512, 1024, 6, "label2city_single"),
 ]
 # (H, W) of the three warp + blend calls per frame
 WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
@@ -227,8 +242,21 @@ CHECKED: set = set()
 # the launch counts of each single-image path's timed seeding calls alone
 SEED_LAUNCHES: dict = {}
 # the H100 SXM's published peaks (dense): HBM bytes/s; FLOP/s in bf16 on
-# the tensor cores and in f32 on the CUDA cores
+# the tensor cores and in f32 on the CUDA cores; f32-class products on the
+# tensor cores as 3xTF32: three tf32 products (495 TFLOP/s) per product
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+TF32X3_FLOPS = 495e12 / 3
+BODIES = {"tensor_cores": TENSOR_CORES, "cuda_cores": CUDA_CORES}  # the f32 7x7 bodies
+# the max abs err of the f32 7x7 convs at the single-image paths' shapes on
+# the body the rule does not pick (phase 3)
+OTHER_BODY_ERRS: dict = {}
+# The f32 tensor-core body's own bound, held in phase 3 beside TOL (which is
+# looser): 3xTF32 keeps each product to ~2**-21 of its value, and at the
+# single-image paths' shapes it reads <= 2.2e-5 against the plain version
+# on the H100. A body that drops accumulation bits (the per-chunk f32
+# register set added to the accumulator once the chunk is done) read 2.8e-4
+# at C = 528 and 4.7e-4 at C = 1024; a single TF32 pass misses by ~1e-3.
+F32_TENSOR_CORE_ERR = 1e-4
 FLAGSHIP = dict(
     label_nc=35, use_instance=True, fg=True, fg_labels=(26,), ngf=128,
     n_downsample_G=3, n_blocks=9, n_blocks_local=3, n_scales_spatial=3,
@@ -714,14 +742,11 @@ def close_window() -> None:
 
 
 FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first match wins
-    # conv3x3_kernel<float, TCO, REFLECT, MIN_BLOCKS> (csrc/conv_kxk.cuh)
-    # and conv_wgmma_kernel<3, BN, RW, REFLECT, CL> (csrc/conv_wgmma.cuh,
-    # bf16): respair's launches are the reflect ones
-    ("respair (ours)",
-     r"conv3x3_kernel<[^,]+, \d+, true,|conv_wgmma_kernel<3, \d+, \d+, true,"),
-    ("conv7 (ours)", r"conv7x7_kernel<|conv_wgmma_kernel<7,"),
-    ("conv3 / conv3_fused (ours)",
-     r"conv3x3_kernel<[^,]+, \d+, false,|conv_wgmma_kernel<3, \d+, \d+, false,"),
+    # conv_wgmma_kernel<F32, 3, BN, RW, REFLECT, CL> (csrc/conv_wgmma.cuh,
+    # bf16 and f32): respair's launches are the reflect ones
+    ("respair (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, true,"),
+    ("conv7 (ours)", r"conv7x7_kernel<|conv_wgmma_kernel<\w+, 7,"),
+    ("conv3 / conv3_fused (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, false,"),
     ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel"),
     ("correlation (ours)", r"corr"),
     ("conv / gemm (cuDNN, cuBLAS)",
@@ -895,18 +920,59 @@ def check_kernels(gen: torch.Generator) -> dict:
                 record("conv3_fused", dtype, compare("conv3_fused", args, dtype),
                        (form, c, h, w))
         del args, plain_args, relu_args, res_args, x, xp
+    check_f32_bodies(gen, errs)
     return errs
 
 
-def wgmma_smem(k: int, bn: int, rw: int) -> int:
-    """The dynamic shared memory of a bf16 KxK launch of tile (BN, RW) with
-    four or more 16-channel chunks, as csrc/conv_wgmma.cuh::rings sizes it:
-    the barriers, the operand ring (or the epilogue tile, if larger) and the
-    staging ring, shortened to fit 227 KB (the staging ring to two slots,
-    the operand ring to two stages, the staging ring to one, the operand
-    ring to one)."""
+def check_f32_bodies(gen: torch.Generator, errs: dict) -> None:
+    """Phase 3, the f32 convs of the single-image paths against the plain
+    version in f32 with TF32 off, under TOL: respair at RESPAIR_F32_SHAPES
+    (the tensor cores, its only body) and conv7 at CONV7_SHAPES on each body
+    forced in turn, one line per shape. Every tensor-core result must also
+    be within F32_TENSOR_CORE_ERR. The err of the body the rule picks goes
+    into errs, the other's into OTHER_BODY_ERRS."""
+    cases = [("respair", (c, h, w), path) for c, h, w, _, path in RESPAIR_F32_SHAPES]
+    cases += [("conv7", (ci, co, h, w), path)
+              for path, shapes in CONV7_SHAPES.items() for _, ci, co, h, w in shapes]
+    for name, shape, path in cases:
+        if name == "respair":
+            args = respair_case(*shape, torch.float32, gen)
+            got = {"tensor_cores": compare(name, args, torch.float32)}
+            picked = "tensor_cores"
+        else:
+            args = conv7_case(*shape, torch.float32, gen)
+            got = {}
+            for body, code in BODIES.items():
+                with forced_conv7_body(code):
+                    got[body] = compare(name, args, torch.float32)
+            picked = rule_name(conv7_body(torch.float32, *shape[:2]))
+            other = next(b for b in BODIES if b != picked)
+            OTHER_BODY_ERRS[name] = max(OTHER_BODY_ERRS.get(name, 0.0), got[other])
+        errs[name][torch.float32] = max(errs[name].get(torch.float32, 0.0), got[picked])
+        tol = TOL[(name, torch.float32)]
+        say("check_f32_bodies", kernel=name, path=path, shape="x".join(map(str, shape)),
+            **{f"{body}_max_abs_err": f"{e:.3g}" for body, e in got.items()}, rule=picked,
+            bound=f"{tol['atol']}+{tol['rtol']}*|plain|",
+            tensor_cores_bound=F32_TENSOR_CORE_ERR, ok=True)
+        if got["tensor_cores"] >= F32_TENSOR_CORE_ERR:
+            raise AssertionError(
+                f"{name} f32 {shape}: the 3xTF32 body is off the plain version by "
+                f"{got['tensor_cores']:.3g} >= {F32_TENSOR_CORE_ERR} (f32-class products "
+                "keep it near 2e-5)")
+        del args
+
+
+def wgmma_smem(f32: bool, k: int, bn: int, rw: int) -> int:
+    """The dynamic shared memory of a KxK launch of the tensor-core body at
+    tile (BN, RW) with four or more chunks, as csrc/conv_wgmma.cuh::rings
+    sizes it: the barriers, the operand ring (or the epilogue tile, if
+    larger) and the staging ring, shortened to fit 227 KB (the staging ring
+    to two slots, the operand ring to two stages, the staging ring to one,
+    the operand ring to one, with two staging slots again where they fit).
+    A chunk is 16 bf16 channels, or 8 f32 channels in two tf32 parts."""
+    parts = 2 if f32 else 1
     th, hr = 2 * rw, 2 * rw + k - 1
-    stage = 2 * hr * 80 * 16 + 2 * k * k * bn * 16
+    stage = parts * (2 * hr * 80 * 16 + 2 * k * k * bn * 16)
     stg, out = hr * 16 * 88 * 2, bn * (th * 64 + 4) * 4
     n_stages = n_stg = 4
 
@@ -921,6 +987,10 @@ def wgmma_smem(k: int, bn: int, rw: int) -> int:
             n_stg -= 1
         else:
             n_stages -= 1
+    if n_stages == 1 and n_stg == 1:
+        n_stg = 2
+        if total() > 232448:
+            n_stg = 1
     return total()
 
 
@@ -961,11 +1031,11 @@ def sass_counts(lib_path, opcode: str) -> dict:
 
 
 def build_phase() -> None:
-    """Phase 2: build the kernels; one line per kernel of the bf16
-    tensor-core body (csrc/conv_wgmma.cuh, K = 3 and 7) with its registers,
-    spills, shared memory and HGMMA count. Raises unless every one holds
-    HGMMA and spills nothing, or if a bf16 instantiation of the CUDA-core
-    3x3 body (conv_kxk.cuh) is left."""
+    """Phase 2: build the kernels; one line per kernel of the tensor-core
+    body (csrc/conv_wgmma.cuh: bf16 and f32 as 3xTF32, K = 3 and 7) with its
+    registers, spills, shared memory and HGMMA count. Raises unless every
+    one, in both element types, holds HGMMA and spills nothing, or if a 3x3
+    instantiation of the CUDA-core body (conv_kxk.cuh) is left."""
     t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
@@ -976,22 +1046,28 @@ def build_phase() -> None:
     regs = ptxas_report(log.getvalue())
     hgmma = sass_counts(lib_path, "HGMMA")
     wgmma = sorted(n for n in hgmma if "conv_wgmma_kernel" in n)
-    if not any("conv_wgmma_kernelILi7E" in n for n in wgmma):
-        raise AssertionError("build: no 7x7 conv_wgmma_kernel in the library")
+    pattern = r"conv_wgmma_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E"
+    kinds = {}
     for name in wgmma:
-        m = re.search(r"conv_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E", name)
-        k, bn, rw, reflect, cl = (int(v) for v in m.groups())
+        f32, k, bn, rw, reflect, cl = (int(v) for v in re.search(pattern, name).groups())
+        kinds[(f32, k)] = kinds.get((f32, k), 0) + 1
         r, st, ld = regs.get(name, (None, None, None))
-        say("build_kernel", kernel=f"conv_wgmma_kernel<{k}, {bn}, {rw}, {bool(reflect)}, {cl}>",
+        say("build_kernel", kernel=f"conv_wgmma_kernel<{bool(f32)}, {k}, {bn}, {rw}, "
+            f"{bool(reflect)}, {cl}>", dtype="float32 (3xTF32)" if f32 else "bfloat16",
             registers=r, spill_store_bytes=st, spill_load_bytes=ld,
-            dyn_smem_bytes=wgmma_smem(k, bn, rw), hgmma=hgmma[name])
+            dyn_smem_bytes=wgmma_smem(bool(f32), k, bn, rw), hgmma=hgmma[name])
         if hgmma[name] == 0 or st or ld:
             raise AssertionError(f"build: {name} holds no HGMMA or spills ({st}, {ld})")
-    old = [n for n in hgmma if re.search(r"conv3x3_kernelI13__nv_bfloat16", n)]
+    for f32, k in ((0, 3), (0, 7), (1, 3), (1, 7)):
+        if not kinds.get((f32, k)):
+            raise AssertionError(f"build: no {'f32' if f32 else 'bf16'} {k}x{k} "
+                                 "conv_wgmma_kernel in the library")
+    old = [n for n in hgmma if "conv3x3_kernel" in n]
     if old:
-        raise AssertionError(f"build: bf16 CUDA-core 3x3 kernels remain: {old}")
+        raise AssertionError(f"build: CUDA-core 3x3 kernels remain: {old}")
     say("build", seconds=f"{seconds:.2f}", lib=lib_path.name, wgmma_kernels=len(wgmma),
-        wgmma_7x7_kernels=sum("ILi7E" in n for n in wgmma),
+        wgmma_7x7_kernels=kinds[(0, 7)] + kinds[(1, 7)],
+        f32_wgmma_kernels=kinds[(1, 3)] + kinds[(1, 7)],
         hgmma_total=sum(hgmma[n] for n in wgmma))
 
 
@@ -1527,6 +1603,7 @@ def label2city_single_path(card: str) -> dict:
         profile = profile_by_family(seed_fn, "one label2city seeding call (2 frames)",
                                     "chip_smoke_profile_label2city_single.txt")
         check_f32_convs(tf32_seen, "the single-image nets")
+    memory = seeding_memory(eng, seed_fn, lambda: eng.step(labels[:, :3], inst[:, :3], seeded))
     check_frames(seeded[0][0].float(), (3, h, w), "label2city single-image frame")
     check_frames(fakes, (1, 3, h, w), "label2city seeded stream")
     want = dict.fromkeys(KERNELS, 0) | {
@@ -1543,7 +1620,62 @@ def label2city_single_path(card: str) -> dict:
         peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
         card=repr(card))
     say_profile("label2city_single_profile", profile)
+    say("label2city_single_memory", **memory)
     return launches
+
+
+def conv_workspace(nets, fn) -> int:
+    """The largest transient allocation of any one cuDNN conv call (every
+    nn.Conv2d and nn.ConvTranspose2d of the nets but the conv7 kernel's
+    ReflectConv7) during fn(): the peak allocated inside the call beyond
+    what was allocated before it and its output, which is cuDNN's
+    workspace. Resets the peak counter."""
+    worst = [0]
+
+    def pre(mod, _):
+        mod._v2v_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def post(mod, _, out):
+        extra = torch.cuda.max_memory_allocated() - mod._v2v_before
+        worst[0] = max(worst[0], extra - out.numel() * out.element_size())
+
+    handles = []
+    for net in nets:
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) and not isinstance(
+                    m, ReflectConv7):
+                handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for handle in handles:
+            handle.remove()
+    return worst[0]
+
+
+def seeding_memory(eng, seed_fn, frame_fn) -> dict:
+    """Phase 8b's memory: the peak allocated over one seeding call and one
+    streamed frame, and the largest cuDNN workspace of one conv call in
+    them, under PyTorch's default TF32 flags (cuDNN's on: what the path
+    runs under) and with TF32 off (the flags main() sets); GiB."""
+    out = {}
+    nets = (eng.single_g, eng.compute_generator())
+    for flags, ctx in (("default_tf32", torch_default_tf32), ("tf32_off", contextlib.nullcontext)):
+        with ctx():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            seed_fn()
+            frame_fn()
+            torch.cuda.synchronize()
+            out[f"peak_gib_{flags}"] = f"{torch.cuda.max_memory_allocated() / 2**30:.3f}"
+            out[f"resident_gib_{flags}"] = f"{base / 2**30:.3f}"
+            ws = conv_workspace(nets, lambda: (seed_fn(), frame_fn()))
+            out[f"cudnn_workspace_gib_{flags}"] = f"{ws / 2**30:.3f}"
+    return out
 
 
 def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
@@ -1637,44 +1769,111 @@ def respair_work(c, h, w, size):
     return (2 * c * h * w + 2 * 9 * c * c) * size, 2 * 2 * 9 * c * c * h * w
 
 
+def f32_ab_ms(fn) -> dict:
+    """The same-run A/B of the two f32 7x7 conv bodies on one call: each
+    forced in turns (tensor cores, CUDA cores, CUDA cores, tensor cores),
+    time_ms each time; {body: mean ms}."""
+    got = {body: [] for body in BODIES}
+    for body in ("tensor_cores", "cuda_cores", "cuda_cores", "tensor_cores"):
+        with forced_conv7_body(BODIES[body]):
+            got[body].append(time_ms(fn, ()))
+    return {body: sum(v) / len(v) for body, v in got.items()}
+
+
+def rule_name(code: int) -> str:
+    return next(name for name, c in BODIES.items() if c == code)
+
+
+def say_f32_ab(kernel: str, shape: str, path: str, n: int, ab: dict, rule: int,
+               p: float, lib: float, nb: float, nop: float) -> float:
+    """One phase-6 line of an f32 conv call: each body timed (both for a
+    7x7, the tensor cores for a 3x3), the rule's pick, plain, cuDNN (TF32
+    off), the FFMA and 3xTF32 bounds, TFLOP/s; returns the ms of the body
+    the rule picks."""
+    k = ab[rule_name(rule)]
+    b_ffma, b_tc = bound_ms(nb, nop, F32_FLOPS)[0], bound_ms(nb, nop, TF32X3_FLOPS)[0]
+    faster = min(ab, key=ab.get)
+    bodies = {}
+    for body, v in ab.items():
+        bodies[f"{body}_ms"] = f"{v:.4f}"
+        bodies[f"{body}_tflops"] = f"{nop / v / 1e9:.2f}"
+    say("time", kernel=kernel, path=path, shape=shape, dtype="float32", **bodies,
+        faster=faster, rule=rule_name(rule), rule_picks_faster=faster == rule_name(rule),
+        ms=f"{k:.4f}", plain_ms=f"{p:.4f}", cudnn_ms=f"{lib:.4f}",
+        bound_ms_3xtf32=f"{b_tc:.4f}", bound_ms_ffma=f"{b_ffma:.4f}",
+        share_of_3xtf32_bound=f"{b_tc / k:.4f}", over_cudnn=f"{k / lib:.3f}", calls=n)
+    return k
+
+
+def add_f32(tot: dict, n: int, ab: dict, k, p, lib, nb, nop) -> None:
+    for key, v in (("ms", k), ("plain", p), ("cudnn", lib), ("bytes", nb), ("ops", nop),
+                   *ab.items()):
+        tot[key] = tot.get(key, 0.0) + n * v
+
+
+def say_f32_total(kernel: str, key: str, tot: dict, ms: dict, work: dict) -> None:
+    """The summed line of an f32 conv over one seeding call of a path; the
+    sums go into ms[key] ([ms, plain, library], then each timed body's:
+    None where a body was not timed) and work[key]."""
+    ms[key] = [tot["ms"], tot["plain"], tot["cudnn"], *(tot.get(b) for b in BODIES)]
+    work[key] = [tot["bytes"], tot["ops"]]
+    b_ffma = bound_ms(tot["bytes"], tot["ops"], F32_FLOPS)[0]
+    b_tc = bound_ms(tot["bytes"], tot["ops"], TF32X3_FLOPS)[0]
+    say("time", kernel=kernel, case=f"summed per {key.split()[-1]} seeding call",
+        dtype="float32", ms=f"{tot['ms']:.3f}",
+        **{f"{b}_ms": f"{tot[b]:.3f}" for b in BODIES if b in tot},
+        plain_ms=f"{tot['plain']:.3f}",
+        cudnn_ms=f"{tot['cudnn']:.3f}", bound_ms_3xtf32=f"{b_tc:.4f}",
+        bound_ms_ffma=f"{b_ffma:.4f}", tflops=f"{tot['ops'] / tot['ms'] / 1e9:.2f}",
+        share_of_3xtf32_bound=f"{b_tc / tot['ms']:.4f}",
+        over_cudnn=f"{tot['ms'] / tot['cudnn']:.3f}")
+
+
 def respair_times(gen: torch.Generator, ms: dict, work: dict) -> None:
     """Phase 6, respair: bf16 at the flagship frame's shapes (per 2048x1024
     frame, the kernel with the weights packed once, as ResnetBlock keeps
-    them) and f32 at the single-image paths' shapes (per seeding call);
-    for each shape ms, TFLOP/s, the share of the bound and the ratio to two
-    cuDNN 3x3 convs (TF32 off). Adds ms["respair_f32"], work["respair_f32"]
-    per path."""
-    for dtype, shapes, peak in ((torch.bfloat16, RESPAIR_SHAPES, BF16_FLOPS),
-                                (torch.float32, RESPAIR_F32_SHAPES, F32_FLOPS)):
-        totals = {}
-        for c, h, w, n, *path in shapes:
-            x, k0, ab0, k1, ab1 = args = respair_case(c, h, w, dtype, gen)
-            packed = None
-            if dtype == torch.bfloat16:
-                packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
-            k = time_ms(lambda: respair(*args, packed=packed), ())
-            p = time_ms(respair_plain, args)
-            lib = time_ms(lambda: F.conv2d(F.conv2d(x, k0, padding=1), k1, padding=1), ())
-            nb, nop = respair_work(c, h, w, x.element_size())
-            b_ms = bound_ms(nb, nop, peak)[0]
-            key = "respair" if dtype == torch.bfloat16 else f"respair_f32 {path[0]}"
-            tot = totals.setdefault(key, [0.0] * 6)  # ms, plain, lib, bytes, ops, bound
-            for i, v in enumerate((k, p, lib, nb, nop, b_ms)):
-                tot[i] += n * v
-            say("time", kernel="respair", shape=f"{c}x{h}x{w}", dtype=str(dtype)[6:],
-                ms=f"{k:.4f}", plain_ms=f"{p:.4f}", conv_pair_ms=f"{lib:.4f}",
-                tflops=f"{nop / k / 1e9:.2f}", bound_ms=f"{b_ms:.4f}",
-                share_of_bound=f"{b_ms / k:.4f}", over_conv_pair=f"{k / lib:.3f}",
-                calls=n, per="2048x1024 frame" if not path else f"{path[0]} seeding call")
-            del args, x, k0, k1, packed
-        for key, (k, p, lib, nb, nop, b_ms) in totals.items():
-            ms[key], work[key] = [k, p, lib], [nb, nop]
-            say("time", kernel=key, case="summed per " + (
-                "2048x1024 frame" if key == "respair" else "seeding call"),
-                dtype=str(dtype)[6:], ms=f"{k:.3f}", plain_ms=f"{p:.3f}",
-                conv_pair_ms=f"{lib:.3f}", bound_ms=f"{b_ms:.4f}",
-                tflops=f"{nop / k / 1e9:.2f}", share_of_bound=f"{b_ms / k:.4f}",
-                over_conv_pair=f"{k / lib:.3f}")
+    them), for each shape ms, TFLOP/s, the share of the bound and the ratio
+    to two cuDNN 3x3 convs (TF32 off); f32 at the single-image paths'
+    shapes (per seeding call, weights packed once; 3xTF32 on the tensor
+    cores, its only body) beside cuDNN, the FFMA and the 3xTF32 bound. Adds
+    ms["respair_f32 <path>"], work["respair_f32 <path>"]."""
+    tot = [0.0] * 6  # ms, plain, lib, bytes, ops, bound
+    for c, h, w, n in RESPAIR_SHAPES:
+        x, k0, ab0, k1, ab1 = args = respair_case(c, h, w, torch.bfloat16, gen)
+        packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
+        k = time_ms(lambda: respair(*args, packed=packed), ())
+        p = time_ms(respair_plain, args)
+        lib = time_ms(lambda: F.conv2d(F.conv2d(x, k0, padding=1), k1, padding=1), ())
+        nb, nop = respair_work(c, h, w, x.element_size())
+        b_ms = bound_ms(nb, nop, BF16_FLOPS)[0]
+        for i, v in enumerate((k, p, lib, nb, nop, b_ms)):
+            tot[i] += n * v
+        say("time", kernel="respair", shape=f"{c}x{h}x{w}", dtype="bfloat16",
+            ms=f"{k:.4f}", plain_ms=f"{p:.4f}", conv_pair_ms=f"{lib:.4f}",
+            tflops=f"{nop / k / 1e9:.2f}", bound_ms=f"{b_ms:.4f}",
+            share_of_bound=f"{b_ms / k:.4f}", over_conv_pair=f"{k / lib:.3f}",
+            calls=n, per="2048x1024 frame")
+        del args, x, k0, k1, packed
+    k, p, lib, nb, nop, b_ms = tot
+    ms["respair"], work["respair"] = [k, p, lib], [nb, nop]
+    say("time", kernel="respair", case="summed per 2048x1024 frame", dtype="bfloat16",
+        ms=f"{k:.3f}", plain_ms=f"{p:.3f}", conv_pair_ms=f"{lib:.3f}",
+        bound_ms=f"{b_ms:.4f}", tflops=f"{nop / k / 1e9:.2f}",
+        share_of_bound=f"{b_ms / k:.4f}", over_conv_pair=f"{k / lib:.3f}")
+    totals = {}
+    for c, h, w, n, path in RESPAIR_F32_SHAPES:
+        x, k0, ab0, k1, ab1 = args = respair_case(c, h, w, torch.float32, gen)
+        packed = (pack_for_kernel(k0), pack_for_kernel(k1))
+        ab = {"tensor_cores": time_ms(lambda: respair(*args, packed=packed), ())}
+        p = time_ms(respair_plain, args)
+        lib = time_ms(lambda: F.conv2d(F.conv2d(x, k0, padding=1), k1, padding=1), ())
+        nb, nop = respair_work(c, h, w, 4)
+        k = say_f32_ab("respair", f"{c}x{h}x{w}", path, n, ab, TENSOR_CORES, p, lib, nb,
+                       nop)
+        add_f32(totals.setdefault(path, {}), n, ab, k, p, lib, nb, nop)
+        del args, x, k0, k1, packed
+    for path, tot_f32 in totals.items():
+        say_f32_total("respair", f"respair_f32 {path}", tot_f32, ms, work)
 
 
 def conv7_work(ci, co, h, w, size):
@@ -1720,29 +1919,29 @@ def composite_conv7_times(gen: torch.Generator, ms: dict, work: dict) -> None:
 
 def conv_times(gen: torch.Generator, ms: dict, work: dict) -> None:
     """Phase 6, the conv kernels: conv7 at the single-image nets' shapes in
-    f32 (per edge2face seeded frame) and at the flagship composite's 7x7
-    shapes in bf16 (composite_conv7_times); conv3 and conv3_fused at the
-    label2city path's 3x3 convs in bf16 (per 2048x1024 frame). Library:
-    F.conv2d on the pre-padded input."""
-    ms["conv7"], work["conv7"] = [0.0, 0.0, 0.0], [0.0, 0.0]
+    f32, both bodies in turns (f32_ab_ms), per seeding call of each path
+    (ms["conv7_f32 <path>"]; ms["conv7"]: per edge2face first frame, as the
+    kernels' JSON states) and at the flagship composite's 7x7 shapes in
+    bf16 (composite_conv7_times); conv3 and conv3_fused at the label2city
+    path's 3x3 convs in bf16 (per 2048x1024 frame). Library: F.conv2d on
+    the pre-padded input."""
     for path, shapes in CONV7_SHAPES.items():
+        tot = {}
         for net, ci, co, h, w in shapes:
             x, wt, bias = args = conv7_case(ci, co, h, w, torch.float32, gen)
             xp = F.pad(x, (3, 3, 3, 3), mode="reflect")
-            k, p = time_ms(conv7_reflect, args), time_ms(conv7_reflect_plain, args)
+            packed = pack_for_kernel(wt)
+            ab = f32_ab_ms(lambda: conv7_reflect(x, wt, bias, packed=packed))
+            p = time_ms(conv7_reflect_plain, args)
             lib = time_ms(F.conv2d, (xp, wt, bias))
             nb, nop = conv7_work(ci, co, h, w, 4)
-            if path == "edge2face_single":
-                for i, v in enumerate((k, p, lib)):
-                    ms["conv7"][i] += v
-                work["conv7"][0] += nb
-                work["conv7"][1] += nop
-            say("time", kernel="conv7", path=path, net=repr(net),
-                shape=f"{ci}->{co}x{h}x{w}", dtype="float32", ms=f"{k:.4f}",
-                plain_ms=f"{p:.4f}", conv2d_ms=f"{lib:.4f}",
-                bound_ms=f"{bound_ms(nb, nop, F32_FLOPS)[0]:.4f}",
-                tflops=f"{nop / k / 1e9:.2f}")
-            del args, x, xp
+            k = say_f32_ab("conv7", f"{net}: {ci}->{co}x{h}x{w}", path, 2, ab,
+                           conv7_body(torch.float32, ci, co), p, lib, nb, nop)
+            add_f32(tot, 2, ab, k, p, lib, nb, nop)  # two frames a seeding call
+            del args, x, xp, wt, packed
+        say_f32_total("conv7", f"conv7_f32 {path}", tot, ms, work)
+    ms["conv7"] = [v / 2 for v in ms["conv7_f32 edge2face_single"][:3]]
+    work["conv7"] = [v / 2 for v in work["conv7_f32 edge2face_single"]]
     composite_conv7_times(gen, ms, work)
     for name in ("conv3", "conv3_fused"):
         ms[name], work[name] = [0.0, 0.0, 0.0], [0.0, 0.0]
@@ -1788,6 +1987,21 @@ def conv_times(gen: torch.Generator, ms: dict, work: dict) -> None:
             over_conv2d=f"{k / lib:.3f}")
 
 
+def f32_block(name: str, path: str, ms: dict, work: dict) -> dict:
+    """The kernels' JSON block of an f32 conv on a single-image path, per
+    seeding call (2 frames): the body the rule picks (ms) and each timed
+    body (null where not timed: respair's CUDA cores), plain, cuDNN (TF32
+    off), the 3xTF32 bound and the FFMA bound."""
+    key = f"{name}_f32 {path}"
+    b_ms, b_by = bound_ms(*work[key], TF32X3_FLOPS)
+    return dict(
+        zip(("ms", "plain_ms", "library_ms", "ms_tensor_cores", "ms_cuda_cores"), ms[key]),
+        bound_ms=b_ms, bound_by=b_by, bound_ms_ffma=bound_ms(*work[key], F32_FLOPS)[0],
+        tflops=work[key][1] / ms[key][0] / 1e9, launches_in_seeding=SEED_LAUNCHES[path][name],
+        ms_is="f32, summed per seeding call (2 frames), each call on the body its rule "
+              "picks; bound: 3xTF32 on the tensor cores; library: cuDNN f32, TF32 off")
+
+
 def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
     """The kernels' JSON entries."""
     kernels = []
@@ -1820,11 +2034,13 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                           "f32, one 512x256 training chunk's F_Warp call at "
                           "(2, 3, 256, 512); library: F.grid_sample's backward"),
         "conv7": ("vid2vid_tpu_torch/csrc/conv.cu", "vid2vid_tpu/ops/conv7_pallas.py:52",
-                  "edge2face_single", F32_FLOPS,
+                  "edge2face_single", TF32X3_FLOPS,
                   "f32, summed over one 512x512 edge2face single-image frame's 4 "
-                  "calls (G stem 31->64, G head 80->3, E stem 3->16, E head 16->16); "
-                  "library: F.conv2d on the pre-padded input; launches: the path's "
-                  "in both dtypes (its stream's composite runs bf16 conv7)"),
+                  "calls (G stem 31->64, G head 80->3, E stem 3->16, E head 16->16), "
+                  "each on the body conv7_body picks; bound: 3xTF32 on the tensor "
+                  "cores (bound_ms_ffma: FFMA); library: F.conv2d on the pre-padded "
+                  "input; launches: the path's in both dtypes (its stream's "
+                  "composite runs bf16 conv7); f32: per seeding call of each path"),
         "conv7_bf16": ("vid2vid_tpu_torch/csrc/conv_wgmma.cuh",
                        "vid2vid_tpu/ops/conv7_pallas.py:52", "label2city", BF16_FLOPS,
                        "bf16, summed over the 21 7x7 stems and heads of one 2048x1024 "
@@ -1852,14 +2068,12 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
             extra.update(zip(("device_ms", "library_ms_per_call", "library_device_ms",
                               "library_with_blend_ms_per_call",
                               "library_with_blend_device_ms"), ms["warp_device"][name]))
-        if name == "respair":  # the f32 body's row: per seeding call
-            extra["f32"] = {p: dict(
-                zip(("ms", "plain_ms", "library_ms"), ms[f"respair_f32 {p}"]),
-                bound_ms=bound_ms(*work[f"respair_f32 {p}"], F32_FLOPS)[0],
-                bound_by=bound_ms(*work[f"respair_f32 {p}"], F32_FLOPS)[1],
-                launches_in_seeding=SEED_LAUNCHES[p]["respair"],
-                ms_is="f32, summed per seeding call (2 frames); library: two cuDNN f32 "
-                      "3x3 convs, TF32 off") for p in ("edge2face_single", "label2city_single")}
+        if name in ("respair", "conv7"):  # the f32 calls: per seeding call
+            extra["f32"] = {p: f32_block(name, p, ms, work)
+                            for p in ("edge2face_single", "label2city_single")}
+        if name == "conv7":
+            extra["max_abs_err_f32_other_body"] = OTHER_BODY_ERRS.get(name)
+            extra["bound_ms_ffma"] = bound_ms(*work[name], F32_FLOPS)[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[path][counter] if path else 0,

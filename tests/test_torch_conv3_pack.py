@@ -20,7 +20,8 @@ from torch_parity import nchw, nhwc
 from vid2vid_tpu.ops import conv3_pallas as jc3
 from vid2vid_tpu_torch.nn.blocks import ResnetBlock
 from vid2vid_tpu_torch.nn.layers import eval_affine
-from vid2vid_tpu_torch.ops.conv3 import kernel_weight, pack_conv3_weight, packed_shape
+from vid2vid_tpu_torch.ops.conv3 import pack_conv3_weight, packed_shape
+from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel, pack_taps_3xtf32
 from vid2vid_tpu_torch.ops.respair import respair_plain
 
 
@@ -47,10 +48,11 @@ def test_pack_keeps_dtype_and_is_contiguous():
     got = pack_conv3_weight(w)
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     assert torch.equal(got[1, 4, 7], w[7, 8:16, 1, 1])
-    # the kernel's weight: packed in bf16, OIHW as it is in f32
-    assert torch.equal(kernel_weight(w), got)
+    # the kernel's weight in either dtype: packed for the tensor cores
+    # (bf16; f32 as 3xTF32), the only body of a 3x3 conv
+    assert torch.equal(pack_for_kernel(w), got)
     wf = w.float()
-    assert kernel_weight(wf) is wf
+    assert torch.equal(pack_for_kernel(wf), pack_taps_3xtf32(wf))
 
 
 def gemm_from_packed(xp: torch.Tensor, packed: torch.Tensor, co: int) -> torch.Tensor:

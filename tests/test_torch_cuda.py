@@ -23,11 +23,15 @@ from vid2vid_tpu_torch.ops.conv3 import (
     pack_conv3_weight,
 )
 from vid2vid_tpu_torch.ops.conv7 import (
+    CUDA_CORES,
+    TENSOR_CORES,
     conv7_padded,
     conv7_plain,
     conv7_reflect,
     conv7_reflect_plain,
+    forced_conv7_body,
     pack_conv7_weight,
+    pack_taps_3xtf32,
 )
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
@@ -83,8 +87,8 @@ def _close(name, got, want, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,c,h,w",
-    # in f32 the last grid has 384 blocks, more than two per SM of an H100:
-    # it runs the three-blocks-per-SM instantiation of csrc/conv_kxk.cuh
+    # both dtypes on the tensor-core body (f32 as 3xTF32); the last grid has
+    # more blocks than two per SM of an H100
     [(2, 3, 5, 7), (1, 17, 13, 37), (1, 40, 9, 33), (2, 96, 8, 32), (1, 33, 2, 2),
      (2, 70, 61, 250)],
 )
@@ -286,7 +290,8 @@ def test_conv7_kernel_any_shape(cuda, dtype, b, ci, co, h, w):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,ci,co,h,w",
-    # in f32 the last grid has 288 blocks: the three-blocks-per-SM instantiation
+    # both dtypes on the tensor-core body (f32 as 3xTF32); the last grid has
+    # more blocks than two per SM of an H100
     [(1, 3, 5, 1, 1), (2, 17, 40, 9, 35), (1, 128, 128, 8, 32), (1, 64, 3, 5, 70),
      (2, 40, 36, 66, 250)],
 )
@@ -536,3 +541,174 @@ def test_warp_kernels_on_misaligned_operands(cuda, dtype):
     _close("warp", warp_blend(raw, prev, flow, weight),
            warp_blend_plain(*(t.float() for t in (raw, prev, flow, weight))), dtype)
     _close("warp", flow_warp(prev, flow), flow_warp_plain(prev.float(), flow.float()), dtype)
+
+
+# The f32 body on the tensor cores (csrc/conv_wgmma.cuh as 3xTF32: 8-channel
+# K steps of two 4-channel groups, each operand in two tf32 parts; 3x3
+# tiles of 64 columns x 2 or 4 rows x 16..128 channels, 7x7 tiles of 64 x 4
+# x 8..32): Ci not a multiple of 4 or 8, Co < 8 and past one tile, H = 2
+# with reflect, widths that are not a multiple of 64, 8 or 4 (the input
+# staged by cp.asyncs of 8 or 4 bytes, the epilogue's element-by-element
+# stores), B > 1, and the single-image paths' shapes (respair: C = 528 at
+# 64x64 on edge2face, C = 1024 at 32x64 and C = 64 at 512x1024 on the
+# LocalEnhancer; conv7: the stems and heads of both paths).
+@pytest.mark.parametrize(
+    "b,c,h,w",
+    [(3, 20, 2, 70), (1, 5, 9, 130), (2, 13, 17, 64), (1, 6, 2, 2), (2, 40, 6, 13),
+     (1, 136, 9, 66), (1, 528, 64, 64), (1, 1024, 32, 64), (1, 64, 512, 1024)],
+)
+def test_respair_f32_tensor_core_tiles(cuda, b, c, h, w):
+    test_respair_kernel_any_shape(cuda, torch.float32, b, c, h, w)
+
+
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(2, 20, 5, 2, 70), (1, 9, 130, 7, 129), (3, 6, 12, 3, 10), (1, 7, 3, 1, 1),
+     (1, 528, 528, 64, 64)],
+)
+def test_conv3_f32_tensor_core_tiles(cuda, b, ci, co, h, w):
+    test_conv3_kernels_any_shape(cuda, torch.float32, b, ci, co, h, w)
+
+
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(1, 3, 1, 4, 4), (2, 6, 2, 5, 7), (1, 17, 3, 9, 70), (1, 13, 16, 12, 130),
+     (2, 17, 33, 8, 66), (1, 6, 40, 17, 129), (2, 3, 3, 33, 13), (1, 31, 64, 512, 512),
+     (1, 80, 3, 512, 512), (1, 3, 16, 512, 512), (1, 16, 16, 512, 512),
+     (1, 35, 64, 512, 1024), (1, 35, 32, 1024, 2048), (1, 32, 3, 1024, 2048)],
+)
+def test_conv7_f32_tensor_core_tiles(cuda, b, ci, co, h, w):
+    with forced_conv7_body(TENSOR_CORES):
+        test_conv7_kernel_any_shape(cuda, torch.float32, b, ci, co, h, w)
+
+
+@pytest.mark.parametrize(
+    "b,ci,co,h,w",
+    [(1, 3, 3, 4, 4), (2, 5, 7, 13, 37), (1, 80, 3, 17, 33), (1, 31, 64, 9, 70)],
+)
+def test_f32_cuda_core_body_any_shape(cuda, b, ci, co, h, w):
+    """The f32 7x7 on the CUDA-core body (csrc/conv_kxk.cuh), forced, at
+    the any-shape cases, as the tensor-core body takes them above."""
+    with forced_conv7_body(CUDA_CORES):
+        test_conv7_kernel_any_shape(cuda, torch.float32, b, ci, co, h, w)
+
+
+def test_f32_bodies_agree(cuda):
+    """The f32 respair (3xTF32 on the tensor cores) and the f32 7x7 on
+    both bodies, forced in turn, give results within the f32 tolerance of
+    the plain version, and the tensor cores' within 1e-4 (no single TF32
+    pass: that would miss the plain version by ~1e-3 here)."""
+    x, k0, ab0, k1, ab1 = _respair_case(2, 96, 20, 70, cuda)
+    xc, wc, bias = _conv_case(2, 31, 16, 20, 70, 7, 9, cuda, torch.float32)
+    want = respair_plain(x, k0, ab0, k1, ab1), conv7_reflect_plain(xc, wc, bias)
+    got = respair(x, k0, ab0, k1, ab1)
+    _close("respair", got, want[0], torch.float32)
+    errs = [float((got - want[0]).abs().max())]
+    for body in (TENSOR_CORES, CUDA_CORES):
+        with forced_conv7_body(body):
+            got = conv7_reflect(xc, wc, bias)
+        _close("conv", got, want[1], torch.float32)
+        if body == TENSOR_CORES:
+            errs.append(float((got - want[1]).abs().max()))
+    assert max(errs) < 1e-4, errs
+
+
+def test_f32_tensor_core_conv7_carries_the_plain_gradient(cuda):
+    """An f32 conv7 on the tensor-core body (16 -> 16: the rule's pick)
+    with inputs requiring grad: the forward on the kernel, the gradients
+    of the plain version's autograd."""
+    x, wt, bias = _conv_case(2, 16, 16, 9, 70, 7, 21, cuda, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (x, wt, bias)]
+    before = conv7_reflect.launches
+    out = conv7_reflect(*leaves)
+    assert conv7_reflect.launches == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    out.backward(cot)
+    ref = [t.clone().requires_grad_() for t in (x, wt, bias)]
+    conv7_reflect_plain(*ref).backward(cot)
+    for leaf, r in zip(leaves, ref):
+        _close("conv", leaf.grad, r.grad, torch.float32)
+
+
+def _respair_case(b, c, h, w, device):
+    g = torch.Generator().manual_seed(c + h)
+    x = torch.randn((b, c, h, w), generator=g)
+    k0, k1 = (torch.randn((c, c, 3, 3), generator=g) / math.sqrt(9 * c) for _ in range(2))
+    ab = [tuple(torch.randn(c, generator=g).to(device) for _ in range(2)) for _ in range(2)]
+    return x.to(device), k0.to(device), ab[0], k1.to(device), ab[1]
+
+
+def test_f32_kernels_take_3xtf32_packed_weights(cuda):
+    """Weights packed once by the caller (pack_taps_3xtf32) give the
+    wrapper's own result; packed weights of another shape, or of the bf16
+    body, are refused."""
+    x, k0, ab0, k1, ab1 = _respair_case(2, 24, 9, 70, cuda)
+    packed = (pack_taps_3xtf32(k0), pack_taps_3xtf32(k1))
+    got = respair(x, k0, ab0, k1, ab1, packed=packed)
+    assert torch.equal(got, respair(x, k0, ab0, k1, ab1))
+    with pytest.raises(ValueError, match="packed k1"):
+        respair(x, k0, ab0, k1, ab1, packed=(packed[0], packed[1][:, :, :1].contiguous()))
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        respair(x, k0, ab0, k1, ab1, packed=(pack_conv3_weight(k0.bfloat16()),) * 2)
+    with pytest.raises(ValueError, match="3xTF32"):
+        respair(x.bfloat16(), k0.bfloat16(), ab0, k1.bfloat16(), ab1, packed=packed)
+    xc, wc, bias = _conv_case(2, 20, 12, 9, 70, 7, 5, cuda, torch.float32)
+    packed7 = pack_taps_3xtf32(wc)
+    assert torch.equal(conv7_reflect(xc, wc, bias, packed=packed7), conv7_reflect(xc, wc, bias))
+    with pytest.raises(ValueError, match="packed"):
+        conv7_reflect(xc, wc, bias, packed=packed7[:, :, :1].contiguous())
+
+
+def test_f32_tensor_cores_raise_rather_than_fall_back(cuda):
+    """A case the tensor-core body cannot take (packed weights that are not
+    16-byte aligned: its tensor map needs them so) raises on the card; no
+    other body runs in its place."""
+    x, k0, ab0, k1, ab1 = _respair_case(1, 24, 9, 70, cuda)
+    packed = pack_taps_3xtf32(k0)
+    flat = torch.empty(packed.numel() + 1, device=cuda)[1:]
+    shifted = flat.view(packed.shape).copy_(packed)
+    before = respair.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        respair(x, k0, ab0, k1, ab1, packed=(shifted, shifted))
+    assert respair.launches == before
+
+
+def test_f32_caches_on_the_card(cuda):
+    """The eval f32 ResnetBlock and ReflectConv7 pack their weights for the
+    3xTF32 body once, and anew after load_state_dict; their output is the
+    kernel's on freshly made weights. A ReflectConv7 that the rule sends to
+    the CUDA cores (Co <= 8) caches no packing."""
+    block = ResnetBlock(40).to(cuda).eval()
+    conv = ReflectConv7(24, 12).to(cuda).eval()
+    x = torch.randn((1, 40, 12, 66), generator=torch.Generator().manual_seed(1)).to(cuda)
+    xc = x[:, :24].contiguous()
+
+    def fresh():
+        blk = block.conv_block
+        args = []
+        for cv, norm in ((blk[1], blk[2]), (blk[5], blk[6])):
+            a, c = eval_affine(norm, 40, x.device)
+            args += [cv.weight, (a, c + cv.bias.float() * a)]
+        return respair(x, *args), conv7_reflect(xc, conv.weight, conv.bias)
+
+    with torch.no_grad():
+        got = block(x), conv(xc)
+        packed = block._eval_cache[1][4], conv._eval_cache[1][2]
+        assert packed[0][0].dtype == torch.float32
+        assert torch.equal(packed[0][0], pack_taps_3xtf32(block.conv_block[1].weight))
+        assert torch.equal(packed[1], pack_taps_3xtf32(conv.weight))
+        want = fresh()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        head = ReflectConv7(24, 5).to(cuda).eval()
+        assert torch.equal(head(xc), conv7_reflect(xc, head.weight, head.bias))
+        assert head._eval_cache[1][2] is None
+        block(x), conv(xc)
+        assert block._eval_cache[1][4] is packed[0] and conv._eval_cache[1][2] is packed[1]
+        for mod in (block, conv):
+            mod.load_state_dict({k: v * 2 if v.is_floating_point() else v
+                                 for k, v in mod.state_dict().items()})
+        got = block(x), conv(xc)
+        assert block._eval_cache[1][4] is not packed[0]
+        assert conv._eval_cache[1][2] is not packed[1]
+        want = fresh()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

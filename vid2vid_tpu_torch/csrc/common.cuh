@@ -11,6 +11,11 @@ namespace v2v {
 // dtype codes passed by the Python wrappers (kernels/build.py::DTYPE_CODES)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
+// the body a 7x7 conv launch runs (ops/conv7.py::TENSOR_CORES,
+// CUDA_CORES): bf16 always on the tensor cores; f32 on either, as
+// ops/conv7.py::conv7_body picks
+enum Body : int { kTensorCores = 1, kCudaCores = 2 };
+
 template <typename T>
 __device__ __forceinline__ float to_f(T v);
 template <>

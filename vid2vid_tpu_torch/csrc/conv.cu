@@ -1,7 +1,8 @@
 // Stride-1 7x7 and 3x3 convolutions with a fused epilogue, for Hopper
 // (sm_90a): the entries of the port's two conv bodies that the Pallas conv
-// kernels map to: conv_wgmma.cuh (tensor cores; every bf16 entry: conv7,
-// conv3, conv3_fused) and conv_kxk.cuh (CUDA cores; every f32 entry).
+// kernels map to: conv_wgmma.cuh (tensor cores; every entry in bf16, in
+// f32 as 3xTF32) and conv_kxk.cuh (CUDA cores; the f32 7x7 convs where
+// ops/conv7.py::conv7_body picks them).
 //
 // Replaces three TPU kernels:
 //   - vid2vid_tpu/ops/conv7_pallas.py::_conv_kernel (reached via
@@ -24,11 +25,18 @@
 // conv is an implicit GEMM on wgmma, fed through a ring of shared-memory
 // stages by a producer warpgroup (conv_wgmma.cuh: K*K taps as K*K
 // descriptors into one channel-interleaved halo tile, weights packed by
-// the caller and fetched by tensor-map loads). The f32 convs stay on the
-// CUDA cores (67 TFLOP/s f32 peak: the single-image paths keep full f32
-// products) in the register-blocked shared-memory tiles of conv_kxk.cuh,
-// with an output-channel tile sized to Co so the Co = 3 and 16 heads do not
-// idle most lanes.
+// the caller and fetched by tensor-map loads). In f32 the same body runs
+// 3xTF32: the producer splits each staged input value into two tf32 parts
+// (big = tf32(x), small = tf32(x - big)), the weights come split by the
+// caller (ops/conv7.py::pack_taps_3xtf32), and each tap runs three tf32
+// products (small terms first, small x small dropped): f32-class products
+// at up to 494 / 3 TFLOP/s, against 67 for FFMA on the CUDA cores. At N <=
+// 32 (the 7x7 stems and heads) each k8 product reads its 2 KB A operand
+// from shared memory for 4 to 16 tensor-core cycles, so there the shared
+// memory bounds it, and the CUDA-core tiles of conv_kxk.cuh (an
+// output-channel tile sized to Co, so the Co = 3 heads do not idle most
+// lanes) remain for the f32 7x7 convs where ops/conv7.py::conv7_body picks
+// them (Co <= 8 or Ci <= 4). The 3x3 convs run on the tensor cores only.
 //
 // Unlike the Pallas kernels, any Ci, Co, H and W are taken, so no Ci % 128,
 // Co % 128 or block-divisibility rule carries over.
@@ -38,18 +46,26 @@
 
 // 7x7 conv with an optional bias (f32, nullable) -> (B, Co, H, W). reflect:
 // x is (B, Ci, H, W) and reflect-padded by 3 in the addressing; else x is
-// pre-padded, (B, Ci, H+6, W+6). f32 runs on the CUDA cores with w (OIHW);
-// bf16 on the tensor cores with wpk, the packed layout of ops/conv7.py::
-// pack_conv7_weight (w is not read).
+// pre-padded, (B, Ci, H+6, W+6). On the tensor cores (every bf16 call; f32
+// with body = kTensorCores) it takes wpk, the packed layout of ops/conv7.py::
+// pack_conv7_weight (bf16) or pack_taps_3xtf32 (f32), and does not read w;
+// on the CUDA cores (f32, body = kCudaCores) w (OIHW).
 extern "C" int v2v_conv7(const void* x, const void* w, const void* wpk,
                          const float* bias, void* out, int B, int Ci, int Co,
-                         int H, int W, int reflect, int dtype, void* stream) {
+                         int H, int W, int reflect, int dtype, int body,
+                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == v2v::kBFloat16) {
+  if (body == v2v::kTensorCores) {
     if (wpk == nullptr) return (int)cudaErrorInvalidValue;
-    return reflect ? v2v::cw::conv7<true>(x, wpk, bias, out, B, Ci, Co, H, W, s)
-                   : v2v::cw::conv7<false>(x, wpk, bias, out, B, Ci, Co, H, W, s);
+    if (dtype == v2v::kFloat32)
+      return v2v::cw::conv7_tf32x3(reflect, x, wpk, bias, out, B, Ci, Co, H, W,
+                                   s);
+    return reflect
+               ? v2v::cw::conv7<false, true>(x, wpk, bias, out, B, Ci, Co, H, W, s)
+               : v2v::cw::conv7<false, false>(x, wpk, bias, out, B, Ci, Co, H, W, s);
   }
+  if (body != v2v::kCudaCores || dtype != v2v::kFloat32)
+    return (int)cudaErrorInvalidValue;
   if (reflect)
     return v2v::conv<7, true>(x, w, nullptr, bias, nullptr, out, B, Ci, Co, H,
                               W, 0, dtype, s);
@@ -59,19 +75,20 @@ extern "C" int v2v_conv7(const void* x, const void* w, const void* wpk,
 
 // VALID 3x3 conv of a pre-padded (B, Ci, H+2, W+2) input -> (B, Co, H, W),
 // then * scale + offset (f32, (Co,), nullable) [+ residual (B, Co, H, W),
-// nullable] [ReLU]. w: OIHW in f32; in bf16 the packed layout of
-// ops/conv3.py::pack_conv3_weight.
+// nullable] [ReLU]. w: the packed layout of ops/conv3.py::pack_conv3_weight
+// (bf16) or ops/conv7.py::pack_taps_3xtf32 (f32).
 extern "C" int v2v_conv3_fused(const void* xp, const void* w,
                                const float* scale, const float* offset,
                                const void* residual, void* out, int B, int Ci,
                                int Co, int H, int W, int relu, int dtype,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == v2v::kBFloat16)
-    return v2v::cw::conv3<false>(xp, w, scale, offset, residual, out, B, Ci,
-                                 Co, H, W, relu, s);
-  return v2v::conv<3, false>(xp, w, scale, offset, residual, out, B, Ci, Co, H,
-                             W, relu, dtype, s);
+  if (dtype == v2v::kFloat32)
+    return v2v::cw::conv3_tf32x3(false, xp, w, scale, offset, residual, out, B,
+                                 Ci, Co, H, W, relu, s);
+  if (dtype != v2v::kBFloat16) return (int)cudaErrorInvalidValue;
+  return v2v::cw::conv3<false, false>(xp, w, scale, offset, residual, out, B,
+                                      Ci, Co, H, W, relu, s);
 }
 
 // The no-epilogue entry.

@@ -1,44 +1,36 @@
-// The stride-1 KxK convolution with a fused epilogue on the CUDA cores:
-// respair.cu and conv.cu run their f32 launches through it (K = 3 respair,
-// conv3, conv3_fused; K = 7 conv7). Every bf16 conv runs on the tensor
-// cores (conv_wgmma.cuh): this body keeps the f32 products of the f32
-// single-image paths. (Its bf16 7x7 instantiation, which conv7 ran until
-// the tensor-core 7x7 body replaced it, lost to that body at every 7x7
-// shape of the composite: PERF.md.)
+// The stride-1 7x7 convolution with a fused epilogue on the CUDA cores, in
+// f32: conv.cu runs the f32 7x7 convs through it where ops/conv7.py::
+// conv7_body picks it (Co <= 8 or Ci <= 4: the Co = 3 heads and the Ci = 3
+// Encoder stem of the single-image paths, where it beat the 3xTF32
+// tensor-core body in a same-run A/B; PERF.md); every other conv runs on
+// the tensor cores (conv_wgmma.cuh: bf16, and f32 as 3xTF32). (Its 3x3
+// instantiations, which respair, conv3 and conv3_fused ran in f32, lost to
+// the 3xTF32 body at every respair shape; its bf16 7x7, which conv7 ran
+// until the tensor-core 7x7 body replaced it, lost to that body at every
+// 7x7 shape of the composite.)
 //
-// One body, conv_kxk<T, K, TCO, REFLECT> (T = float), launched through
-// conv3x3_kernel<T, TCO, REFLECT, MIN_BLOCKS> or
-// conv7x7_kernel<T, TCO, REFLECT>:
+// One body, conv_kxk<T, K, TCO, REFLECT> (T = float, K = 7), launched
+// through conv7x7_kernel<T, TCO, REFLECT>:
 //     out[b,co,y,x] = epi( sum_{ci,ky,kx} in[b,ci,y',x'] * w[co,ci,ky,kx] )
 //     epi(v) = v * scale[co] + offset[co]  [+ residual[b,co,y,x]]  [ReLU]
 // accumulated in f32 (scale, offset optional: 1 and 0). REFLECT reads
 // in[refl(y+ky-K/2), refl(x+kx-K/2)] from an unpadded (H, W) input, the
 // reflect pad folded into the load addressing (i < 0 -> -i, i >= N ->
 // 2N-2-i) so no padded copy is made; otherwise in is pre-padded,
-// (H+K-1, W+K-1), and read at (y+ky, x+kx) (VALID).
+// (H+K-1, W+K-1), and read at (y+ky, x+kx).
 //
 // Each block stages a CI_CHUNK-deep slab of the input halo tile and the
 // matching weights in shared memory (as f32), and every thread keeps a
 // (TCO / 4)-channel x 4-pixel f32 accumulator in registers, so each shared
 // load of an input row feeds K * TCO / 4 FMAs per pixel. The weights are
 // staged as [ci * K*K + tap][co] and read as float4 (two per tap at TCO =
-// 32): the inner loop issues few shared loads per FMA, which decides the
-// speed where few blocks per SM hide latency (the 2048-pixel coarsest
-// scale of the residual blocks). The output-channel tile TCO (4, 8, 16 or
-// 32) is the smallest that covers Co (up to 32), so a Co = 3 head leaves 1
-// of 4 lanes idle instead of 29 of 32; wider convs split over
-// output-channel blocks of 32 in the grid (the coarsest scale has only
-// 2048 pixels per image: without the split most of the 132 SMs would sit
-// idle). K = 7 stages 4 input channels per step (the 49-tap weight slab of
-// 32 channels is 25 KB), K = 3 stages 16 and unrolls them by 2.
-//
-// At K = 3 a grid of more blocks than two per SM launches the instantiation
-// built for three resident blocks per SM (MIN_BLOCKS = 3: 80 registers,
-// against 125 at MIN_BLOCKS = 1, which fits two): the third block hides
-// more latency at large images. A smaller grid (C = 1024 at 64x32 on the
-// LocalEnhancer's trunk) cannot fill a third and runs faster without the
-// cap. The 7x7 entry states no block count: with MIN_BLOCKS = 1 the Co <= 4
-// heads compile to twice the registers and run a third slower.
+// 32): the inner loop issues few shared loads per FMA. The output-channel
+// tile TCO (4, 8, 16 or 32) is the smallest that covers Co (up to 32), so
+// a Co = 3 head leaves 1 of 4 lanes idle instead of 29 of 32; wider convs
+// split over output-channel blocks of 32 in the grid. It stages 4 input
+// channels per step (the 49-tap weight slab of 32 channels is 25 KB). The
+// kernel states no block count: with MIN_BLOCKS = 1 the Co <= 4 heads
+// compile to twice the registers and run a third slower.
 //
 // Any Ci, Co, H and W are taken: ragged tiles are masked. Reflect padding
 // needs H, W > K / 2 (the wrappers check).
@@ -60,7 +52,7 @@ static_assert(CO_GROUPS * PX_GROUPS == NTHREADS, "thread layout");
 
 template <int K>
 struct Tile {
-  static constexpr int CI_CHUNK = K == 3 ? 16 : 4;  // input channels per step
+  static constexpr int CI_CHUNK = 4;                // input channels per step
   static constexpr int KK = K * K;
   static constexpr int IN_H = TH + K - 1;           // halo tile rows
   static constexpr int IN_W = TW + K - 1;           // halo tile cols
@@ -174,12 +166,8 @@ __device__ __forceinline__ void conv_kxk(
         }
       }
     };
-    if constexpr (K == 3) {
-#pragma unroll 2
-      for (int cl = 0; cl < TL::CI_CHUNK; ++cl) accumulate(cl);
-    } else {  // the compiler's own unrolling of the 4 channels
-      for (int cl = 0; cl < TL::CI_CHUNK; ++cl) accumulate(cl);
-    }
+    // the compiler's own unrolling of the 4 channels
+    for (int cl = 0; cl < TL::CI_CHUNK; ++cl) accumulate(cl);
     __syncthreads();
   }
 
@@ -205,15 +193,6 @@ __device__ __forceinline__ void conv_kxk(
   }
 }
 
-template <typename T, int TCO, bool REFLECT, int MIN_BLOCKS>
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-conv3x3_kernel(const T* in, const T* w, const float* scale,
-               const float* offset, const T* residual, T* out, int Ci, int Co,
-               int H, int W, int tiles_x, int relu) {
-  conv_kxk<T, 3, TCO, REFLECT>(in, w, scale, offset, residual, out, Ci, Co, H,
-                               W, tiles_x, relu);
-}
-
 template <typename T, int TCO, bool REFLECT>
 __global__ void __launch_bounds__(NTHREADS)
 conv7x7_kernel(const T* in, const T* w, const float* scale,
@@ -223,35 +202,15 @@ conv7x7_kernel(const T* in, const T* w, const float* scale,
                                W, tiles_x, relu);
 }
 
-// more blocks than two per SM of the current device
-inline bool over_two_per_sm(const dim3& grid) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (long long)grid.x * grid.y * grid.z > 2LL * sms;
-}
-
-// the entry that launches a grid (only the K asked for is instantiated)
-template <typename T, int K, int TCO, bool REFLECT>
-auto pick_kernel(const dim3& grid) {
-  static_assert(K == 3 || K == 7, "the entries are 3x3 and 7x7");
-  if constexpr (K == 3) {
-    return over_two_per_sm(grid) ? conv3x3_kernel<T, TCO, REFLECT, 3>
-                                 : conv3x3_kernel<T, TCO, REFLECT, 1>;
-  } else {
-    return conv7x7_kernel<T, TCO, REFLECT>;
-  }
-}
-
 template <typename T, int K, int TCO, bool REFLECT>
 void launch_tile(const void* in, const void* w, const float* scale,
                  const float* offset, const void* residual, void* out, int B,
                  int Ci, int Co, int H, int W, int relu, cudaStream_t stream) {
+  static_assert(K == 7, "the CUDA-core body's entry is the 7x7");
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
   const dim3 grid(tiles_x * tiles_y, (Co + TCO - 1) / TCO, B);
-  const auto kernel = pick_kernel<T, K, TCO, REFLECT>(grid);
-  kernel<<<grid, NTHREADS, 0, stream>>>(
+  conv7x7_kernel<T, TCO, REFLECT><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const T*>(in), static_cast<const T*>(w), scale, offset,
       static_cast<const T*>(residual), static_cast<T*>(out), Ci, Co, H, W,
       tiles_x, relu);
@@ -277,7 +236,7 @@ void launch(const void* in, const void* w, const float* scale,
   }
 }
 
-// One f32 launch (every bf16 conv goes to conv_wgmma.cuh); returns
+// One f32 7x7 launch (every bf16 conv goes to conv_wgmma.cuh); returns
 // cudaGetLastError().
 template <int K, bool REFLECT>
 int conv(const void* in, const void* w, const float* scale,

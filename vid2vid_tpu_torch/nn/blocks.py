@@ -19,12 +19,13 @@ from vid2vid_tpu_torch.nn.layers import (
     conv_transpose,
     eval_affine,
     norm_layer,
+    packs_on,
     reflect_conv,
     reflect_conv7,
     state_tensors,
     version_key,
 )
-from vid2vid_tpu_torch.ops.conv3 import pack_conv3_weight
+from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel
 from vid2vid_tpu_torch.ops.respair import respair
 
 
@@ -63,8 +64,9 @@ class ResnetBlock(nn.Module):
     Training runs the plain layers. Eval folds each conv bias and eval-mode
     norm into one affine (a, c + bias * a) and runs the whole block as one
     `ops.respair` — the CUDA kernel on a CUDA tensor, for any width. Under
-    `torch.no_grad()` the folded affines, the weights in x's dtype and, for
-    the bf16 kernel, their packed layout are kept, and rebuilt only when a
+    `torch.no_grad()` the folded affines, the weights in x's dtype and, on
+    the card, their packed layout for the tensor-core body (bf16, or f32 as
+    3xTF32: twice the f32 weight's bytes) are kept, and rebuilt only when a
     parameter or buffer of the block changes (its version counter, storage,
     dtype or device) or x's dtype or device does; with gradients on they
     are rebuilt on each call, so the weights keep their gradient.
@@ -89,8 +91,8 @@ class ResnetBlock(nn.Module):
         k0, ab0 = self._folded(blk[1], blk[2], x)
         k1, ab1 = self._folded(blk[5], blk[6], x)
         packed = None
-        if x.is_cuda and x.dtype == torch.bfloat16:
-            packed = (pack_conv3_weight(k0), pack_conv3_weight(k1))
+        if packs_on(x):  # the tensor-core body's (bf16; f32 as 3xTF32)
+            packed = (pack_for_kernel(k0), pack_for_kernel(k1))
         return k0, ab0, k1, ab1, packed
 
     def _cache_key(self, x: torch.Tensor) -> list:

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vid2vid_tpu_torch.ops.conv7 import conv7_reflect, pack_conv7_weight
+from vid2vid_tpu_torch.ops.conv7 import TENSOR_CORES, conv7_body, conv7_reflect, pack_for_kernel
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -111,14 +111,23 @@ def state_tensors(module: nn.Module, out: list | None = None) -> list:
     return out
 
 
+def packs_on(x: torch.Tensor) -> bool:
+    """Whether an eval cache may keep, for input x, the packed weights of
+    the tensor-core conv body (ops/conv7.py::pack_for_kernel): on the card,
+    where the kernels take them (the 7x7 where ops/conv7.py::conv7_body
+    picks that body); the plain versions on the CPU do not."""
+    return x.is_cuda
+
+
 class ReflectConv7(nn.Conv2d):
     """Conv2d(cin, cout, 7) behind a `FoldedReflectionPad2d`. Train mode is
     the plain conv of the padded input; eval mode runs ops.conv7.
     conv7_reflect on the unpadded input: the hand-written kernel on a CUDA
     tensor, the plain version on a CPU one. Under `torch.no_grad()` its
-    kernel arguments (the weight in x's dtype, the f32 bias and, for the
-    bf16 kernel, the packed weight) are kept and rebuilt only when the
-    weight or bias changes (`version_key`) or x's dtype or device does;
+    kernel arguments (the weight in x's dtype, the f32 bias and, on the
+    card where `conv7_body` picks the tensor cores, their packed weight:
+    bf16, or f32 as 3xTF32) are kept and rebuilt only when the weight or
+    bias changes (`version_key`) or x's dtype or device does;
     with gradients on they are made on each call, so the weights keep
     their gradient."""
 
@@ -128,7 +137,10 @@ class ReflectConv7(nn.Conv2d):
 
     def _kernel_args(self, x: torch.Tensor) -> tuple:
         w = self.weight.to(x.dtype)
-        packed = pack_conv7_weight(w) if x.is_cuda and x.dtype == torch.bfloat16 else None
+        packed = None
+        body = conv7_body(x.dtype, self.in_channels, self.out_channels)
+        if packs_on(x) and body == TENSOR_CORES:
+            packed = pack_for_kernel(w)
         return w, self.bias.float(), packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

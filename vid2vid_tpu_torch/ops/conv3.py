@@ -8,10 +8,11 @@ NCHW inputs, OIHW weights; xp is (B, Ci, H+2, W+2), padded by the caller
 (reflect or zero). On a CUDA tensor both launch the 3x3 entries of the
 hand-written conv kernels (csrc/conv.cu: `v2v_conv3`, no epilogue, and
 `v2v_conv3_fused`, the epilogue on the f32 accumulator; any Ci, Co, H, W)
-or raise: in bf16 the tensor-core body (csrc/conv_wgmma.cuh), which takes
-the weights in the layout of `pack_conv3_weight`, packed here on each call;
-in f32 the CUDA-core body (csrc/conv_kxk.cuh) on OIHW weights. On a CPU
-tensor they run their plain versions, which are also the kernels' oracles.
+or raise: on the tensor-core body (csrc/conv_wgmma.cuh; bf16, and f32 as
+3xTF32), which takes the weights packed (ops/conv7.py::pack_for_kernel:
+`pack_conv3_weight` in bf16, ops/conv7.py::pack_taps_3xtf32 in f32) here
+on each call. On a CPU tensor they run their plain versions, which are
+also the kernels' oracles.
 The Pallas kernels' Ci % 128, Co % 128 and block-divisibility rules do not
 carry over.
 
@@ -29,7 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
-from vid2vid_tpu_torch.ops.conv7 import pack_taps, plain_vjp, taps_shape, wants_grad
+from vid2vid_tpu_torch.ops.conv7 import (
+    pack_for_kernel,
+    pack_taps,
+    plain_vjp,
+    taps_shape,
+    wants_grad,
+)
 
 
 def conv3_plain(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -49,12 +56,6 @@ def pack_conv3_weight(w: torch.Tensor) -> torch.Tensor:
 def packed_shape(co: int, ci: int) -> tuple[int, int, int, int]:
     """The shape `pack_conv3_weight` gives an (co, ci, 3, 3) weight."""
     return taps_shape(co, ci, 3)
-
-
-def kernel_weight(w: torch.Tensor) -> torch.Tensor:
-    """The weight a 3x3 conv kernel takes for w's dtype: packed in bf16
-    (the tensor-core body), OIHW in f32."""
-    return pack_conv3_weight(w) if w.dtype == torch.bfloat16 else w
 
 
 def conv3_fused_plain(
@@ -95,7 +96,7 @@ def _conv3_forward(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fn = build.function("v2v_conv3", [_VOID] * 3 + [_INT] * 6 + [_VOID])
     b, ci = xp.shape[:2]
     out = torch.empty((b, w.shape[0], h, wd), dtype=xp.dtype, device=xp.device)
-    wk = kernel_weight(w)
+    wk = pack_for_kernel(w)
     err = build.launch(fn, xp.device, xp.data_ptr(), wk.data_ptr(), out.data_ptr(), b, ci,
                        w.shape[0], h, wd, code)
     build.check(err, "conv3 kernel launch")
@@ -142,7 +143,7 @@ def _conv3_fused_forward(xp, w, scale, offset, residual, relu) -> torch.Tensor:
                                 scale=scale, offset=offset)
     fn = build.function("v2v_conv3_fused", [_VOID] * 6 + [_INT] * 7 + [_VOID])
     out = torch.empty((b, co, h, wd), dtype=xp.dtype, device=xp.device)
-    wk = kernel_weight(w)
+    wk = pack_for_kernel(w)
     err = build.launch(fn, xp.device, xp.data_ptr(), wk.data_ptr(), scale.data_ptr(),
                        offset.data_ptr(), None if residual is None else residual.data_ptr(),
                        out.data_ptr(), b, xp.shape[1], co, h, wd, int(relu), code)

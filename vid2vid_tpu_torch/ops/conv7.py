@@ -17,12 +17,18 @@ dispatch (`on_tpu`, h*w >= 256**2, `_pick_blocks`) is a Mosaic tiling
 constraint. The gradient is the plain version's autograd, as the JAX
 backward is the XLA conv's VJP.
 
-`plain_vjp`, `wants_grad` and `pack_taps` serve the other kernel wrappers
-too.
+In f32 the kernel runs on the tensor cores as 3xTF32 (`pack_taps_3xtf32`
+is that body's weight layout, two tf32 parts of each weight) or, for the
+narrow shapes where `conv7_body`'s fixed rule picks them, on the CUDA cores
+(OIHW weights).
+
+`plain_vjp`, `wants_grad`, `pack_taps` and `pack_taps_3xtf32` serve the
+other conv wrappers too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -69,6 +75,106 @@ def pack_taps(w: torch.Tensor) -> torch.Tensor:
 def taps_shape(co: int, ci: int, k: int) -> tuple[int, int, int, int]:
     """The shape `pack_taps` gives a (co, ci, k, k) weight."""
     return (-(-ci // 16) * 2, k * k, -(-co // 8) * 8, 8)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of an f32 tensor: big = tf32(x), small = tf32(x -
+    big), each an f32 tensor whose low 13 mantissa bits are zero. tf32()
+    rounds to the nearest value with 10 explicit mantissa bits, ties away
+    from zero, as the kernel's `cvt.rna.tf32.f32` does: on the int32 view,
+    add half of the dropped range to the magnitude's bits, then clear them
+    (subnormals included; x - big is exact in f32). big + small is x to
+    within 2**-21 of |x|."""
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+        return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+    x = x.float()
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def pack_taps_3xtf32(w: torch.Tensor) -> torch.Tensor:
+    """The f32 tensor-core body's weight layout: (Co, Ci, K, K) OIHW ->
+    (Ci_pad / 4, 2, K * K, Co_pad, 4) f32, entry [g, p, t, o, e] = part p
+    (0: big, 1: small; `split_tf32`) of w[o, 4g + e, t // K, t % K], zero
+    where o >= Co or 4g + e >= Ci; Ci_pad is Ci rounded up to 8 (one tf32
+    wgmma K step), Co_pad Co rounded up to 8. The kernel loads BN output
+    channels of one 4-channel group, both parts, all taps, as one box of a
+    tensor map over this layout. Twice the bytes of the f32 weight."""
+    co, ci, k = w.shape[:3]
+    co_pad, ci_pad = -(-co // 8) * 8, -(-ci // 8) * 8
+    if (co_pad, ci_pad) != (co, ci):
+        w = F.pad(w, (0, 0, 0, 0, 0, ci_pad - ci, 0, co_pad - co))
+    # (Ci_pad, K, K, Co_pad) -> (G, 4, K*K, Co_pad) -> (G, K*K, Co_pad, 4)
+    parts = [p.permute(1, 2, 3, 0).reshape(ci_pad // 4, 4, k * k, co_pad).permute(0, 2, 3, 1)
+             for p in split_tf32(w)]
+    return torch.stack(parts, 1).contiguous()
+
+
+def taps_shape_3xtf32(co: int, ci: int, k: int) -> tuple[int, int, int, int, int]:
+    """The shape `pack_taps_3xtf32` gives a (co, ci, k, k) weight."""
+    return (-(-ci // 8) * 2, 2, k * k, -(-co // 8) * 8, 4)
+
+
+def pack_for_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The packed weight the tensor-core body takes for w's dtype: bf16
+    `pack_taps`, f32 `pack_taps_3xtf32`."""
+    return pack_taps_3xtf32(w) if w.dtype == torch.float32 else pack_taps(w)
+
+
+def packed_shape_for(dtype: torch.dtype, co: int, ci: int, k: int) -> tuple:
+    """The shape of `pack_for_kernel` of a (co, ci, k, k) weight of dtype."""
+    return taps_shape_3xtf32(co, ci, k) if dtype == torch.float32 else taps_shape(co, ci, k)
+
+
+# the conv bodies (csrc/common.cuh::Body)
+TENSOR_CORES, CUDA_CORES = 1, 2
+_forced_conv7_body: list = []  # the body forced_conv7_body() holds, if any
+
+
+def conv7_body(dtype: torch.dtype, ci: int, co: int) -> int:
+    """The body a 7x7 conv of dtype runs on the card, a fixed rule on its
+    shape: the tensor cores (csrc/conv_wgmma.cuh; in f32 as 3xTF32), but
+    for an f32 conv with Co <= 8 or Ci <= 4 the CUDA cores
+    (csrc/conv_kxk.cuh). There an n8 wgmma holds 3 of 8 output channels
+    (the Co = 3 heads) or a k8 step 3 of 8 input channels (the Ci = 3
+    Encoder stem), and each of its products still reads its whole A operand
+    from shared memory; the CUDA-core tile is sized to Co. The shapes of the
+    single-image paths and the same-run A/B of the two bodies at each
+    (chip_smoke.py phase 6) are in PERF.md. Every 3x3 conv (respair, conv3,
+    conv3_fused) runs on the tensor cores, which won that A/B at every
+    respair shape."""
+    if dtype != torch.float32:
+        return TENSOR_CORES
+    if _forced_conv7_body:
+        return _forced_conv7_body[-1]
+    return CUDA_CORES if co <= 8 or ci <= 4 else TENSOR_CORES
+
+
+@contextlib.contextmanager
+def forced_conv7_body(body: int):
+    """Within the block every f32 7x7 conv launch runs `body` (TENSOR_CORES
+    or CUDA_CORES), whatever `conv7_body`'s rule says: for an A/B of the two
+    bodies at one shape. Nothing in the port selects it."""
+    _forced_conv7_body.append(body)
+    try:
+        yield
+    finally:
+        _forced_conv7_body.pop()
+
+
+def check_packed(what: str, x: torch.Tensor, packed: torch.Tensor, co: int, ci: int,
+                 k: int) -> None:
+    """Raise unless `packed` is the tensor-core body's packed weight of a
+    (co, ci, k, k) weight for x's dtype, on x's device, contiguous."""
+    if packed.dtype != x.dtype:
+        kind = "bf16" if packed.dtype == torch.bfloat16 else f"{packed.dtype} (3xTF32)"
+        raise ValueError(f"{what}: packed weights are the {kind} kernel's, x is {x.dtype}")
+    want = packed_shape_for(x.dtype, co, ci, k)
+    if tuple(packed.shape) != want:
+        raise ValueError(f"{what}: packed {tuple(packed.shape)} != {want}")
+    build.require_cuda_operands(what, x.device, x.dtype, packed=packed)
 
 
 def pack_conv7_weight(w: torch.Tensor) -> torch.Tensor:
@@ -118,21 +224,20 @@ def _forward(x, w, bias, reflect: bool, packed) -> torch.Tensor:
     code = build.require_cuda_operands("conv7", x.device, x.dtype, x=x, w=w)
     if bias is not None:
         build.require_cuda_operands("conv7", x.device, torch.float32, bias=bias)
+    co, ci = w.shape[:2]
     if packed is not None:
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"conv7: packed weights are the bf16 kernel's, x is {x.dtype}")
-        want = taps_shape(*w.shape[:2], K)
-        if tuple(packed.shape) != want:
-            raise ValueError(f"conv7: packed {tuple(packed.shape)} != {want}")
-        build.require_cuda_operands("conv7", x.device, x.dtype, packed=packed)
-    elif x.dtype == torch.bfloat16:
-        packed = pack_taps(w)
-    fn = build.function("v2v_conv7", [_VOID] * 5 + [_INT] * 7 + [_VOID])
-    out = torch.empty((x.shape[0], w.shape[0], h, wd), dtype=x.dtype, device=x.device)
+        check_packed("conv7", x, packed, co, ci, K)
+    body = conv7_body(x.dtype, ci, co)
+    if body == TENSOR_CORES and packed is None:
+        packed = pack_for_kernel(w)
+    elif body != TENSOR_CORES:
+        packed = None
+    fn = build.function("v2v_conv7", [_VOID] * 5 + [_INT] * 8 + [_VOID])
+    out = torch.empty((x.shape[0], co, h, wd), dtype=x.dtype, device=x.device)
     err = build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
                        None if packed is None else packed.data_ptr(),
                        None if bias is None else bias.data_ptr(), out.data_ptr(),
-                       x.shape[0], x.shape[1], w.shape[0], h, wd, int(reflect), code)
+                       x.shape[0], ci, co, h, wd, int(reflect), code, body)
     build.check(err, "conv7 kernel launch")
     (conv7_reflect if reflect else conv7_padded).launches += 1
     return out
@@ -177,10 +282,11 @@ def conv7_reflect(
 ) -> torch.Tensor:
     """ReflectionPad2d(3) + 7x7 conv: (B, Ci, H, W) -> (B, Co, H, W).
 
-    w: (Co, Ci, 7, 7) in x's dtype; bias: (Co,) float32 or None; packed: in
-    bf16 optionally `pack_conv7_weight(w)`, made once by the caller. A CPU
-    tensor takes `conv7_reflect_plain`; a CUDA tensor launches the kernel
-    (f32 or bf16, contiguous, H, W >= 4) or raises.
+    w: (Co, Ci, 7, 7) in x's dtype; bias: (Co,) float32 or None; packed:
+    optionally `pack_for_kernel(w)` (bf16: `pack_conv7_weight(w)`; f32:
+    `pack_taps_3xtf32(w)`), made once by the caller. A CPU tensor takes
+    `conv7_reflect_plain`; a CUDA tensor launches the kernel (f32 or bf16,
+    contiguous, H, W >= 4) or raises.
     """
     return _conv7(x, w, bias, True, packed)
 

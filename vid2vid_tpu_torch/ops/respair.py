@@ -7,11 +7,12 @@
 affine (nn/layers.py::eval_affine). `respair` runs the hand-written CUDA
 kernel (csrc/respair.cu) on a CUDA tensor and `respair_plain` on a CPU
 tensor; `respair_plain` is also the kernel's oracle. Unlike the TPU kernel
-it takes any channel count and any H, W >= 2. In bf16 the kernel runs on
-the tensor cores and takes its weights packed (ops/conv3.py::
-pack_conv3_weight): a caller that runs the block often packs them once and
-passes them as `packed` (nn/blocks.py::ResnetBlock); otherwise they are
-packed on each call. The gradient is the plain version's autograd (on the
+it takes any channel count and any H, W >= 2. The kernel runs on the
+tensor cores (bf16; f32 as 3xTF32) and takes its weights packed
+(ops/conv7.py::pack_for_kernel: pack_conv3_weight in bf16,
+pack_taps_3xtf32 in f32): a caller that runs the block often packs them
+once and passes them as `packed` (nn/blocks.py::ResnetBlock); otherwise
+they are packed on each call. The gradient is the plain version's autograd (on the
 unpacked weights), as the JAX package differentiates its plain block.
 """
 
@@ -23,8 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
-from vid2vid_tpu_torch.ops.conv3 import kernel_weight, packed_shape
-from vid2vid_tpu_torch.ops.conv7 import plain_vjp, wants_grad
+from vid2vid_tpu_torch.ops.conv7 import check_packed, pack_for_kernel, plain_vjp, wants_grad
 
 Affine = tuple[torch.Tensor, torch.Tensor]
 
@@ -59,14 +59,9 @@ def _check_shapes(x, k0, ab0, k1, ab1) -> None:
 
 
 def _check_packed(x, k0, packed) -> None:
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"respair: packed weights are the bf16 kernel's, x is {x.dtype}")
-    want = packed_shape(*k0.shape[:2])
+    c = k0.shape[0]
     for name, p in zip(("packed k0", "packed k1"), packed):
-        if tuple(p.shape) != want:
-            raise ValueError(f"respair: {name} {tuple(p.shape)} != {want}")
-    build.require_cuda_operands("respair", x.device, x.dtype,
-                                packed_k0=packed[0], packed_k1=packed[1])
+        check_packed(f"respair: {name}", x, p, c, c, 3)
 
 
 _VOID = ctypes.c_void_p
@@ -85,11 +80,11 @@ def _respair_forward(x, k0, ab0, k1, ab1, packed) -> torch.Tensor:
     )
     if packed is not None:
         _check_packed(x, k0, packed)
-    wk = packed or (kernel_weight(k0), kernel_weight(k1))
+    b, c, h, w = x.shape
+    wk = packed or (pack_for_kernel(k0), pack_for_kernel(k1))
     fn = build.function(
         "v2v_respair", [_VOID] * 9 + [_INT] * 5 + [_VOID]
     )
-    b, c, h, w = x.shape
     hbuf = torch.empty_like(x)
     out = torch.empty_like(x)
     err = build.launch(
@@ -125,8 +120,9 @@ def respair(
     """One eval-mode residual block.
 
     x: (B, C, H, W); k0, k1: (C, C, 3, 3) OIHW in x's dtype; ab0, ab1:
-    (scale, offset) pairs of (C,) float32; packed: in bf16 optionally
-    (pack_conv3_weight(k0), pack_conv3_weight(k1)), made once by the caller.
+    (scale, offset) pairs of (C,) float32; packed: optionally
+    (pack_for_kernel(k0), pack_for_kernel(k1)) (ops/conv7.py), made once by
+    the caller.
     Returns (B, C, H, W) in x's dtype. A CPU tensor takes `respair_plain`; a
     CUDA tensor launches the kernel (f32 or bf16, contiguous) or raises.
     The gradient, for every tensor but `packed`, is `respair_plain`'s.
