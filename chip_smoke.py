@@ -11,10 +11,14 @@ non-zero):
      one line per kernel of the tensor-core body (csrc/conv_wgmma.cuh, bf16
      and f32 as 3xTF32, K = 3 and 7) with its registers, spills, shared
      memory and HGMMA count (cuobjdump -sass); fails without HGMMA or with
-     spills there, or with a bf16 CUDA-core 3x3 left;
+     spills there, or with a bf16 CUDA-core 3x3 left; one line for the
+     correlation kernel (registers, spills, blocks an SM), which fails on
+     spills or on fewer blocks an SM than its channel split assumes;
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
-     bf16, correlation (FlowNetC, f32), flow_warp (FlowNet2, f32 and bf16),
+     bf16, correlation (FlowNetC, f32, also at two of its tile's edges, and
+     the same bit for bit on a second launch), flow_warp (FlowNet2, f32 and
+     bf16),
      the warp backward (training): warp_blend's and flow_warp's, conv7 at
      the single-image nets' 7x7 stems and heads, and conv3 / conv3_fused
      at the label2city path's 3x3 stride-1 convs, in f32 and bf16; and
@@ -61,7 +65,10 @@ non-zero):
      flagship composite's 21 7x7 shapes against cuDNN, with TFLOP/s and the
      share of the bound;
      the warps' device time (profiler) and per-call time (events over 200
-     back-to-back calls) beside grid_sample's, alone and with the blend.
+     back-to-back calls) beside grid_sample's, alone and with the blend,
+     and the warp backward's the same way (its memset and cast counted);
+     the correlation per shape with TFLOP/s, the share of its FFMA bound,
+     the f2 stagings per value and its channel split.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -115,7 +122,15 @@ from vid2vid_tpu_torch.ops.conv7 import (  # noqa: E402
     pack_conv7_weight,
     pack_for_kernel,
 )
-from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain  # noqa: E402
+from vid2vid_tpu_torch.ops.correlation import (  # noqa: E402
+    TILE_BLOCKS_PER_SM,
+    TILE_SMEM_BYTES,
+    TILE_THREADS,
+    correlation,
+    correlation_plain,
+    correlation_plan,
+    f2_stagings,
+)
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain  # noqa: E402
 from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
     flow_warp,
@@ -153,6 +168,10 @@ WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
 # pairs (the first, the shape of the FlowNet2 phase), then the 1024x512 and
 # 512x256 training recipes' pairs
 CORR_SHAPES = [(2, 256, 128, 256), (2, 256, 64, 128), (2, 256, 32, 64)]
+# two of the correlation tile's edges (ops/correlation.py::TILE_*): W not a
+# multiple of the 64-column tile, C not a multiple of the 16-channel chunk,
+# rows of a parity not a multiple of 4, W odd
+CORR_EDGE_SHAPES = [(1, 17, 13, 70), (2, 9, 22, 131)]
 # (B, C, H, W) of FlowNet2's five unfused warps per FlowEstimator call
 FLOW_WARP_SHAPE = (2, 3, 1024, 2048)
 # (net, Ci, Co, H, W) of the 7x7 convs per single-image frame: edge2face
@@ -439,10 +458,20 @@ def reset_launches() -> None:
     for fns in COUNTERS.values():
         for fn in fns:
             fn.launches = 0
+            if hasattr(fn, "second_kernels"):
+                fn.second_kernels = 0
 
 
 def read_launches() -> dict:
     return {name: sum(fn.launches for fn in fns) for name, fns in COUNTERS.items()}
+
+
+def read_kernels() -> dict:
+    """The kernels each wrapper launched: its counted launches plus the
+    second kernels some of them launch (the correlation's pass that adds a
+    split channel sum, the warp backward's bf16 cast of its splat)."""
+    return {name: sum(fn.launches + getattr(fn, "second_kernels", 0) for fn in fns)
+            for name, fns in COUNTERS.items()}
 
 
 def upcast(args):
@@ -496,10 +525,14 @@ def time_ms(fn, args) -> float:
     return start.elapsed_time(end) / reps
 
 
-def call_and_device_ms(fn, args, n: int = 200) -> tuple[float, float]:
+def call_and_device_ms(fn, args, n: int = 200, fills: bool = False,
+                       tries: int = 3) -> tuple[float, float]:
     """(ms per call, device ms per call) of n back-to-back calls: CUDA events
     around them (the host's time per call where it exceeds the device's),
-    and the profiler's kernel rows over them, after a warm-up window."""
+    and the profiler's kernel rows over them, after a warm-up window; raises
+    if `tries` windows all record no device time. With
+    `fills` the memsets and fills count too (the warp backward zeroes its
+    splat), open_window's one 4-byte fill per window included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -513,20 +546,29 @@ def call_and_device_ms(fn, args, n: int = 200) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     per_call = start.elapsed_time(end) / n
-    recorded = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
-        for _ in range(2):
-            open_window()
-            for _ in range(n):
-                fn(*args)
-            torch.cuda.synchronize()
-            prof.step()
-    us = sum(next((getattr(e, a) for a in DEVICE_TIME if hasattr(e, a)), 0.0)
-             for e in recorded[0] if e.device_type == DeviceType.CUDA
-             and not e.key.startswith(("Command Buffer", "Memcpy", "Memset"))
-             and "FillFunctor" not in e.key)  # open_window's
+    # the profiler has lost every kernel of a window now and then (one
+    # grid_sample window read 0): such a window is recorded anew
+    for attempt in range(1, tries + 1):
+        recorded = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
+            for _ in range(2):
+                open_window()
+                for _ in range(n):
+                    fn(*args)
+                torch.cuda.synchronize()
+                prof.step()
+        us = sum(next((getattr(e, a) for a in DEVICE_TIME if hasattr(e, a)), 0.0)
+                 for e in recorded[0] if e.device_type == DeviceType.CUDA
+                 and not e.key.startswith(("Command Buffer", "Memcpy"))
+                 and (fills or not (e.key.startswith("Memset")
+                                    or "FillFunctor" in e.key)))  # open_window's
+        if us > 0:
+            break
+        say("profile_empty", fn=getattr(fn, "__name__", repr(fn)), window=attempt)
+    else:
+        raise AssertionError(f"{fn}: the profiler recorded no device time in {tries} windows")
     return per_call, us / 1e3 / n
 
 
@@ -747,8 +789,9 @@ FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first 
     ("respair (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, true,"),
     ("conv7 (ours)", r"conv7x7_kernel<|conv_wgmma_kernel<\w+, 7,"),
     ("conv3 / conv3_fused (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, false,"),
-    ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel"),
-    ("correlation (ours)", r"corr"),
+    ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel|splat_to_bf16_kernel"),
+    ("correlation (ours)", r"correlation_kernel|sum_parts_kernel"),
+    ("memset (the warp backward's splat, others)", r"^memset"),
     ("conv / gemm (cuDNN, cuBLAS)",
      r"conv|cudnn|gemm|xmma|wgrad|dgrad|fprop|cutlass|winograd|implicit"),
     ("batch norm", r"batch_norm|batchnorm|bn_"),
@@ -757,9 +800,9 @@ FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first 
     ("pool / resize", r"pool|upsample|grid_sampler|interpolate"),
     ("elementwise / copy / cat", r"elementwise|vectorized|copy|cat|fill|index|gather|scatter"),
 ]
-# our families' launch counters, each with its kernels per counted launch
-# (respair's wrapper launches the conv twice): the profiled launches of a
-# family must equal their sum
+# our families' counters (read_kernels), each with its kernels per counted
+# kernel (respair's wrapper launches the conv twice): the profiled launches
+# of a family must equal their sum
 OUR_FAMILIES = {
     "respair (ours)": {"respair": 2}, "conv7 (ours)": {"conv7": 1},
     "conv3 / conv3_fused (ours)": {"conv3": 1, "conv3_fused": 1},
@@ -787,12 +830,12 @@ def profile_once(fn) -> tuple[list, float, dict]:
         torch.cuda.synchronize()
         prof.step()
         open_window()
-        before = read_launches()
+        before = read_kernels()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        counted = read_launches()
+        counted = read_kernels()
         close_window()
         prof.step()
     rows = []
@@ -800,7 +843,7 @@ def profile_once(fn) -> tuple[list, float, dict]:
         us = next((getattr(evt, a) for a in DEVICE_TIME if hasattr(evt, a)), 0.0)
         if (us <= 0 or evt.device_type != DeviceType.CUDA
                 or getattr(evt, "is_user_annotation", False)
-                or evt.key.startswith(("Command Buffer", "Memcpy", "Memset"))):
+                or evt.key.startswith(("Command Buffer", "Memcpy"))):
             continue
         fam = next((f for f, pattern in FAMILIES if re.search(pattern, evt.key.lower())),
                    "other")
@@ -894,11 +937,15 @@ def check_kernels(gen: torch.Generator) -> dict:
         args = flow_warp_case(dtype, gen)
         record("flow_warp", dtype, compare("flow_warp", args, dtype), FLOW_WARP_SHAPE)
         del args
-    for shape in CORR_SHAPES:
+    for shape in CORR_SHAPES + CORR_EDGE_SHAPES:
         args = corr_case(shape, gen)
         record("correlation", torch.float32,
                compare("correlation", args, torch.float32), shape)
-        del args
+        # no atomics: the split channel sum is added in a fixed order
+        first = correlation(*args)
+        if not torch.equal(first, correlation(*args)):
+            raise AssertionError(f"correlation {shape}: two launches disagree")
+        del args, first
     for name, shape, dtype in BWD_CHECKS:
         args = bwd_case(name, shape, dtype, gen)
         record(name, dtype, compare(name, args, dtype), shape)
@@ -1030,6 +1077,26 @@ def sass_counts(lib_path, opcode: str) -> dict:
     return counts
 
 
+def correlation_build_line(regs: dict) -> None:
+    """Phase 2: the correlation kernel's registers, spills and shared memory,
+    and the blocks an SM holds by each (registers and spills: None where
+    the library was already built); raises on spills, or if fewer than
+    ops/correlation.py::TILE_BLOCKS_PER_SM fit (its channel split assumes
+    them)."""
+    # no report where the library was built by an earlier run in this checkout
+    name = next((n for n in regs if "correlation_kernel" in n), None)
+    r, st, ld = regs[name] if name else (None, None, None)
+    by_regs = 65536 // (TILE_THREADS * -(-r // 8) * 8) if name else None
+    by_smem = 233472 // (TILE_SMEM_BYTES + 1024)  # 228 KB an SM, 1 KB reserved a block
+    say("build_kernel", kernel="correlation_kernel", registers=r, spill_store_bytes=st,
+        spill_load_bytes=ld, dyn_smem_bytes=TILE_SMEM_BYTES, threads=TILE_THREADS,
+        blocks_per_sm_by_registers=by_regs, blocks_per_sm_by_smem=by_smem)
+    fit = by_smem if by_regs is None else min(by_regs, by_smem)
+    if st or ld or fit < TILE_BLOCKS_PER_SM:
+        raise AssertionError(f"build: {name} spills ({st}, {ld}) or fits fewer than "
+                             f"{TILE_BLOCKS_PER_SM} blocks an SM ({by_regs}, {by_smem})")
+
+
 def build_phase() -> None:
     """Phase 2: build the kernels; one line per kernel of the tensor-core
     body (csrc/conv_wgmma.cuh: bf16 and f32 as 3xTF32, K = 3 and 7) with its
@@ -1065,6 +1132,7 @@ def build_phase() -> None:
     old = [n for n in hgmma if "conv3x3_kernel" in n]
     if old:
         raise AssertionError(f"build: CUDA-core 3x3 kernels remain: {old}")
+    correlation_build_line(regs)
     say("build", seconds=f"{seconds:.2f}", lib=lib_path.name, wgmma_kernels=len(wgmma),
         wgmma_7x7_kernels=kinds[(0, 7)] + kinds[(1, 7)],
         f32_wgmma_kernels=kinds[(1, 3)] + kinds[(1, 7)],
@@ -1728,29 +1796,41 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
     for i, shape in enumerate(CORR_SHAPES):
         args = corr_case(shape, gen)
         k, p = time_ms(correlation, args), time_ms(correlation_plain, args)
-        flop = 2.0 * shape[0] * shape[2] * shape[3] * 441 * shape[1]
+        b, c, h, w = shape
+        flop = 2.0 * b * h * w * 441 * c
+        nb = (2 * c + 441) * b * h * w * 4
         if i == 0:
             ms["correlation"] = [k, p, None]
-            b, c, h, w = shape
-            work["correlation"] = [(2 * c + 441) * b * h * w * 4, flop]
+            work["correlation"] = [nb, flop]
+        plan = correlation_plan(*shape, torch.cuda.get_device_properties(DEV)
+                                .multi_processor_count)
         say("time", kernel="correlation", shape="x".join(map(str, shape)),
             dtype="float32", ms=f"{k:.4f}", plain_ms=f"{p:.4f}",
-            tflops=f"{flop / k / 1e9:.2f}", calls_per_flow_call=int(i == 0))
+            tflops=f"{flop / k / 1e9:.2f}",
+            share_of_ffma_bound=f"{bound_ms(nb, flop, F32_FLOPS)[0] / k:.3f}",
+            f2_stagings_per_value=f"{f2_stagings(h, w):.3f}", split=plan.split,
+            blocks=math.prod(plan.grid), calls_per_flow_call=int(i == 0))
         del args
     for name, (shape, dtype, n) in BWD_PATH.items():
         args = bwd_case(name, shape, dtype, gen)
         image, flow, g = (args[0], args[1], args[2]) if name == "flow_warp_bwd" else (
             args[1], args[2], args[4])
-        k, p = time_ms(KERNELS[name], args), time_ms(PLAIN[name], args)
-        lib = time_ms(grid_sample_backward(image, flow, g), ())
+        # per call (events, the wrapper's host time included) and device
+        # time (the profiler: kernels, the splat's memset, the cast)
+        (k, k_dev), p = call_and_device_ms(KERNELS[name], args, fills=True), time_ms(
+            PLAIN[name], args)
+        lib, lib_dev = call_and_device_ms(grid_sample_backward(image, flow, g), (),
+                                          fills=True)
         ms[name] = [n * k, n * p, n * lib]
+        ms["warp_device"][name] = [n * k_dev, n * lib, n * lib_dev]
         # read g, image, flow [raw, w]; write dimage, dflow [d_raw, d_w]
         rw = (8, 5, 30) if name == "flow_warp_bwd" else (12, 9, 40)
         nb, nop = warp_work(shape, dtype, *rw)
         work[name] = [n * nb, n * nop]
         say("time", kernel=name, shape="x".join(map(str, shape)), dtype=str(dtype)[6:],
-            ms=f"{k:.4f}", plain_ms=f"{p:.4f}", grid_sample_backward_ms=f"{lib:.4f}",
-            calls_per_chunk=n)
+            ms_per_call=f"{k:.4f}", device_ms=f"{k_dev:.4f}", plain_ms=f"{p:.4f}",
+            grid_sample_backward_ms_per_call=f"{lib:.4f}",
+            grid_sample_backward_device_ms=f"{lib_dev:.4f}", calls_per_chunk=n)
         del args, image, flow, g
     for name, shape, dtype in BWD_CHECKS[2:]:  # the f32 backward at both sizes
         args = bwd_case(name, shape, dtype, gen)
@@ -2024,15 +2104,23 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
         "correlation": ("vid2vid_tpu_torch/csrc/correlation.cu",
                         "vid2vid_tpu/ops/correlation_pallas.py:35", "flownet2", F32_FLOPS,
                         "f32, one FlowEstimator call's one launch at "
-                        "(2, 256, 128, 256); no library call computes it"),
+                        "(2, 256, 128, 256), on register tiles of 4 rows x 2 "
+                        "pixels x 21 dx, f2 rows shared along diagonals, cp.async "
+                        "double buffering, the channel sum split where the grid is "
+                        "under one wave; bound: FFMA; no library call computes it"),
         "warp_blend_bwd": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
                            "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
                            "bf16, summed over one 512x256 training chunk's 2 calls at "
-                           "(1, 3, 256, 512); library: F.grid_sample's backward alone"),
+                           "(1, 3, 256, 512); ms: per call (events over 200 "
+                           "back-to-back calls, the wrapper included: one ctypes "
+                           "call, which zeroes and casts the splat itself), "
+                           "device_ms: the profiler's kernels, memsets and fills, "
+                           "on bwd_case's independent 8 px flows; library: F.grid_sample's backward alone, timed both ways"),
         "flow_warp_bwd": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
                           "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
                           "f32, one 512x256 training chunk's F_Warp call at "
-                          "(2, 3, 256, 512); library: F.grid_sample's backward"),
+                          "(2, 3, 256, 512); ms per call and device_ms as "
+                          "warp_blend_bwd's; library: F.grid_sample's backward"),
         "conv7": ("vid2vid_tpu_torch/csrc/conv.cu", "vid2vid_tpu/ops/conv7_pallas.py:52",
                   "edge2face_single", TF32X3_FLOPS,
                   "f32, summed over one 512x512 edge2face single-image frame's 4 "

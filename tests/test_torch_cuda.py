@@ -33,7 +33,7 @@ from vid2vid_tpu_torch.ops.conv7 import (
     pack_conv7_weight,
     pack_taps_3xtf32,
 )
-from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain
+from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain, correlation_plan
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
 from vid2vid_tpu_torch.ops.warp import (
     flow_warp,
@@ -226,16 +226,69 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize(
     "b,c,h,w",
-    [(2, 3, 7, 9), (1, 17, 13, 70), (2, 17, 1, 1), (1, 3, 45, 130), (1, 256, 8, 16)],
+    [(2, 3, 7, 9), (1, 17, 13, 70), (2, 17, 1, 1), (1, 3, 45, 130), (1, 256, 8, 16),
+     # the tile's edges (ops/correlation.py::TILE_*): rows of a parity not a
+     # multiple of TILE_ROWS, W not a multiple of TILE_X and odd, C = 1, C
+     # not a multiple of TILE_CHUNK; then chip_smoke.py's CORR_SHAPES
+     (1, 8, 9, 20), (2, 9, 22, 131), (1, 1, 5, 20), (2, 12, 16, 64),
+     (2, 256, 128, 256), (2, 256, 64, 128), (2, 256, 32, 64)],
 )
 def test_correlation_kernel_any_shape(cuda, b, c, h, w):
     g = torch.Generator().manual_seed(c * 1000 + h * 10 + w)
     f1, f2 = (torch.randn((b, c, h, w), generator=g).to(cuda) for _ in range(2))
-    before = correlation.launches
+    before, second = correlation.launches, correlation.second_kernels
     got = correlation(f1, f2)
     assert correlation.launches == before + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert correlation.second_kernels == second + (correlation_plan(b, c, h, w, sms).split > 1)
     assert got.shape == (b, 441, h, w) and got.dtype == torch.float32
     _close("correlation", got, correlation_plain(f1, f2), torch.float32)
+
+
+@pytest.mark.parametrize("b,c,h,w", [(2, 256, 32, 64), (1, 3, 45, 130), (2, 256, 128, 256)])
+def test_correlation_is_the_same_bit_for_bit_from_run_to_run(cuda, b, c, h, w):
+    """No atomics: the split channel sum (2, 256, 32, 64) is added in a fixed
+    order, so two launches on the same inputs agree exactly."""
+    g = torch.Generator().manual_seed(b + c + h + w)
+    f1, f2 = (torch.randn((b, c, h, w), generator=g).to(cuda) for _ in range(2))
+    first = correlation(f1, f2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, correlation(f1, f2))
+
+
+def _dirty_allocator(*tensors):
+    """Fill the caching allocator's blocks of these tensors' sizes (f32 and
+    in their own dtype) with NaN and free them, so the wrapper's torch.empty
+    outputs and scratch start from garbage: a kernel entry that did not zero
+    its splat would show it."""
+    for t in tensors:
+        for dtype in {t.dtype, torch.float32}:
+            torch.full(t.shape, float("nan"), dtype=dtype, device=t.device)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_backward_entries_zero_their_splat_and_cast_it_themselves(cuda, dtype):
+    """One wrapper call of each backward is one launch count (and, in bf16,
+    one count of the splat's cast), returns its gradients in the input dtype (bf16 rounded by the entry, no cast by the
+    caller) and matches the plain version although every buffer the wrapper
+    takes from the allocator held NaN."""
+    image, flow, cot = _warp_bwd_case(2, 3, 19, 37, 3.0, 5, cuda, dtype)
+    g = torch.Generator().manual_seed(11)
+    raw = torch.randn(image.shape, generator=g).to(cuda, dtype)
+    weight = torch.sigmoid(torch.randn((2, 1, 19, 37), generator=g)).to(cuda, dtype)
+    for fn, plain, args in (
+            (flow_warp_bwd, flow_warp_backward_plain, (image, flow, cot)),
+            (warp_blend_bwd, warp_blend_backward_plain, (raw, image, flow, weight, cot))):
+        _dirty_allocator(*args)
+        before, casts = fn.launches, fn.second_kernels
+        got = fn(*args)
+        assert fn.launches == before + 1
+        assert fn.second_kernels == casts + (dtype == torch.bfloat16)
+        want = plain(*(t.float() for t in args))
+        for gt, wt, ref in zip(got, want, args):
+            assert gt.dtype == dtype and gt.shape == ref.shape
+            _close("warp_bwd", gt, wt, dtype)
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):

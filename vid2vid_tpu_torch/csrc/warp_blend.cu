@@ -40,17 +40,25 @@
 // clipped to [0, size-2], the fractional weights clipped to [0, 1], and
 // JAX's gradient of the clip: 1 inside, 1/2 where a weight sits exactly on
 // a bound (every integer sample point, so every zero flow), 0 beyond.
-//   d/dimage: the bilinear splat, four f32 atomicAdds per channel into
-//             scratch the wrapper zeroes (a scatter: taps of many pixels may
-//             meet); the sum order of the atomics varies from run to run.
+//   d/dimage: the bilinear splat into an f32 buffer that the entry zeroes
+//             (cudaMemsetAsync) and, in bf16, rounds into d/dimage with a
+//             second launch (a scatter: taps of many pixels may meet); the
+//             sum order of the reductions varies from run to run.
 //   d/dflow:  per pixel, summed over C in registers, no atomics.
 //   blend:    d_raw = g * w, d_w = sum_c g * (raw - warped), and the warp's
 //             backward of g * (1 - w).
-// What bounds it on the H100: memory, as the forward (it reads g, the four
-// taps of the image, flow [raw, w] and writes the f32 splat, dflow [d_raw,
-// d_w]); the atomics hit L2, mostly without conflict for smooth flows. One
-// thread per pixel, looping over C, keeps the flow, weight and the per-pixel
-// sums in registers. H and W must be at least 2.
+// What bounds it on the H100: the f32 reductions of the splat in L2 (4 a
+// pixel and channel; the bytes it must move, g, the taps, flow [raw, w] in
+// and the splat, dflow [d_raw, d_w] out, take ~4 us at (2, 3, 256, 512)).
+// A warp's reductions to neighbouring addresses (smooth flows) coalesce;
+// scattered ones (independent flows) each take their own L2 operation.
+// One thread per pixel, looping over C, keeps the flow, weight and the
+// per-pixel sums in registers; the grid is columns x rows x batch, as the
+// forward's, so the indices need no division. One call of the entry is the
+// whole backward (zeroing, kernel, cast): the wrapper makes one ctypes call
+// and no other device operation. A splat through a shared-memory tile with
+// a halo was tried and was slower on smooth flows; it is not kept. H and W
+// must be at least 2.
 
 #include <algorithm>
 #include <cstdint>
@@ -197,34 +205,34 @@ __device__ __forceinline__ float clip_grad(float u) {
 
 // BLEND: the backward of out = raw * w + warp(prev) * (1 - w), writing
 // draw, dprev (f32 splat), dflow, dweight; otherwise the backward of
-// out = warp(prev) (raw, weight, draw, dweight are not touched).
+// out = warp(prev) (raw, weight, draw, dweight are not touched). Thread
+// (blockIdx.x, threadIdx.x) of block row (y = blockIdx.y, b = blockIdx.z)
+// takes pixel x = blockIdx.x * blockDim.x + threadIdx.x of row y.
 template <typename T, bool BLEND>
 __global__ void __launch_bounds__(NTHREADS)
 warp_bwd_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
                 const T* __restrict__ flow, const T* __restrict__ weight,
                 const T* __restrict__ g, T* __restrict__ draw,
                 float* __restrict__ dprev, T* __restrict__ dflow,
-                T* __restrict__ dweight, int B, int C, int H, int W) {
-  const size_t hw = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
-  if (i >= (size_t)B * hw) return;
-  const int b = (int)(i / hw);
-  const size_t pix = i % hw;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix % W);
-
-  const float sx = (float)x + to_f(flow[((size_t)b * 2 + 0) * hw + pix]);
-  const float sy = (float)y + to_f(flow[((size_t)b * 2 + 1) * hw + pix]);
+                T* __restrict__ dweight, int C, int H, int W) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= W) return;
+  const int y = blockIdx.y, b = blockIdx.z;
+  const int plane = H * W;
+  const int pix = y * W + x;  // in a channel plane
+  const T* fl = flow + (size_t)b * 2 * plane + pix;
+  const float sx = (float)x + to_f(fl[0]);
+  const float sy = (float)y + to_f(fl[plane]);
   float ux, uy;
   const Taps t = patch_taps(sx, sy, H, W, &ux, &uy);
   const float wx = t.wx, wy = t.wy;
   const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
   const float w10 = (1.f - wx) * wy, w11 = wx * wy;
-  const float wb = BLEND ? to_f(weight[(size_t)b * hw + pix]) : 0.f;
+  const float wb = BLEND ? to_f(weight[(size_t)b * plane + pix]) : 0.f;
 
   float dwx = 0.f, dwy = 0.f, dw = 0.f;
   for (int ch = 0; ch < C; ++ch) {
-    const size_t base = ((size_t)b * C + ch) * hw;
+    const size_t base = ((size_t)b * C + ch) * plane;
     const T* p = prev + base;
     const float v00 = to_f(p[t.i00]), v01 = to_f(p[t.i01]);
     const float v10 = to_f(p[t.i10]), v11 = to_f(p[t.i11]);
@@ -245,44 +253,76 @@ warp_bwd_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
     atomicAdd(d + t.i10, gc * w10);
     atomicAdd(d + t.i11, gc * w11);
   }
-  dflow[((size_t)b * 2 + 0) * hw + pix] = from_f<T>(dwx * clip_grad(ux));
-  dflow[((size_t)b * 2 + 1) * hw + pix] = from_f<T>(dwy * clip_grad(uy));
-  if (BLEND) dweight[(size_t)b * hw + pix] = from_f<T>(dw);
+  T* df = dflow + (size_t)b * 2 * plane + pix;
+  df[0] = from_f<T>(dwx * clip_grad(ux));
+  df[plane] = from_f<T>(dwy * clip_grad(uy));
+  if (BLEND) dweight[(size_t)b * plane + pix] = from_f<T>(dw);
 }
 
+// out = the f32 splat rounded to bf16 (to nearest even), n elements; two a
+// thread where n is even (the tensors are aligned to 4 bytes at least).
+__global__ void __launch_bounds__(NTHREADS)
+splat_to_bf16_kernel(const float* __restrict__ splat, __nv_bfloat16* __restrict__ out,
+                     size_t n) {
+  const size_t i = (size_t)blockIdx.x * NTHREADS + threadIdx.x;
+  if (n % 2 == 0) {
+    if (2 * i < n) {
+      const float2 v = reinterpret_cast<const float2*>(splat)[i];
+      reinterpret_cast<__nv_bfloat162*>(out)[i] = __floats2bfloat162_rn(v.x, v.y);
+    }
+  } else if (i < n) {
+    out[i] = __float2bfloat16(splat[i]);
+  }
+}
+
+// One backward call: zero the f32 splat on the stream, run the kernel on a
+// grid of columns x rows x batch (as the forward's), and, in bf16, round
+// the splat into dprev_out; in f32 the splat is dprev_out itself.
 template <typename T, bool BLEND>
-void launch_bwd(const void* raw, const void* prev, const void* flow,
-                const void* weight, const void* g, void* draw, void* dprev,
-                void* dflow, void* dweight, int B, int C, int H, int W,
-                cudaStream_t stream) {
-  const size_t n = (size_t)B * H * W;
-  const unsigned blocks = (unsigned)((n + NTHREADS - 1) / NTHREADS);
-  warp_bwd_kernel<T, BLEND><<<blocks, NTHREADS, 0, stream>>>(
+int launch_bwd(const void* raw, const void* prev, const void* flow,
+               const void* weight, const void* g, void* draw, void* dprev_out,
+               void* splat, void* dflow, void* dweight, int B, int C, int H, int W,
+               cudaStream_t stream) {
+  const size_t n = (size_t)B * C * H * W;
+  cudaError_t err = cudaMemsetAsync(splat, 0, n * sizeof(float), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = std::min(NTHREADS, (W + 31) / 32 * 32);
+  const dim3 grid((W + threads - 1) / threads, H, B);
+  warp_bwd_kernel<T, BLEND><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(raw), static_cast<const T*>(prev),
       static_cast<const T*>(flow), static_cast<const T*>(weight),
       static_cast<const T*>(g), static_cast<T*>(draw),
-      static_cast<float*>(dprev), static_cast<T*>(dflow),
-      static_cast<T*>(dweight), B, C, H, W);
+      static_cast<float*>(splat), static_cast<T*>(dflow),
+      static_cast<T*>(dweight), C, H, W);
+  if (sizeof(T) == 2 && n > 0) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t work = n % 2 == 0 ? n / 2 : n;
+    splat_to_bf16_kernel<<<(unsigned)((work + NTHREADS - 1) / NTHREADS), NTHREADS, 0,
+                           stream>>>(static_cast<const float*>(splat),
+                                     static_cast<__nv_bfloat16*>(dprev_out), n);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <bool BLEND>
 int dispatch_bwd(const void* raw, const void* prev, const void* flow,
-                 const void* weight, const void* g, void* draw, void* dprev,
-                 void* dflow, void* dweight, int B, int C, int H, int W,
-                 int dtype, void* stream) {
+                 const void* weight, const void* g, void* draw, void* dprev_out,
+                 void* splat, void* dflow, void* dweight, int B, int C, int H,
+                 int W, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  if (H < 2 || W < 2 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;  // nothing to launch
   if (dtype == kFloat32) {
-    launch_bwd<float, BLEND>(raw, prev, flow, weight, g, draw, dprev, dflow,
-                             dweight, B, C, H, W, s);
-  } else if (dtype == kBFloat16) {
-    launch_bwd<__nv_bfloat16, BLEND>(raw, prev, flow, weight, g, draw, dprev,
-                                     dflow, dweight, B, C, H, W, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (splat != dprev_out) return (int)cudaErrorInvalidValue;
+    return launch_bwd<float, BLEND>(raw, prev, flow, weight, g, draw, dprev_out,
+                                    splat, dflow, dweight, B, C, H, W, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == kBFloat16)
+    return launch_bwd<__nv_bfloat16, BLEND>(raw, prev, flow, weight, g, draw,
+                                            dprev_out, splat, dflow, dweight, B, C,
+                                            H, W, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Blocks of up to NTHREADS threads along a row (a warp at least), one grid
@@ -343,22 +383,24 @@ extern "C" int v2v_flow_warp(const void* image, const void* flow, void* out,
                               dtype, stream);
 }
 
-// dimage: f32, zeroed by the caller (the splat accumulates into it).
+// dimage in the dtype; splat: f32 scratch of the same shape, which the
+// entry zeroes and accumulates into (in f32 it must be dimage itself).
 extern "C" int v2v_flow_warp_bwd(const void* image, const void* flow,
-                                 const void* g, void* dimage, void* dflow,
-                                 int B, int C, int H, int W, int dtype,
-                                 void* stream) {
+                                 const void* g, void* dimage, void* splat,
+                                 void* dflow, int B, int C, int H, int W,
+                                 int dtype, void* stream) {
   return v2v::dispatch_bwd<false>(nullptr, image, flow, nullptr, g, nullptr,
-                                  dimage, dflow, nullptr, B, C, H, W, dtype,
-                                  stream);
+                                  dimage, splat, dflow, nullptr, B, C, H, W,
+                                  dtype, stream);
 }
 
-// dprev: f32, zeroed by the caller; draw, dflow, dweight in the dtype.
+// draw, dprev, dflow, dweight in the dtype; splat as v2v_flow_warp_bwd's.
 extern "C" int v2v_warp_blend_bwd(const void* raw, const void* prev,
                                   const void* flow, const void* weight,
                                   const void* g, void* draw, void* dprev,
-                                  void* dflow, void* dweight, int B, int C,
-                                  int H, int W, int dtype, void* stream) {
-  return v2v::dispatch_bwd<true>(raw, prev, flow, weight, g, draw, dprev,
+                                  void* splat, void* dflow, void* dweight,
+                                  int B, int C, int H, int W, int dtype,
+                                  void* stream) {
+  return v2v::dispatch_bwd<true>(raw, prev, flow, weight, g, draw, dprev, splat,
                                  dflow, dweight, B, C, H, W, dtype, stream);
 }

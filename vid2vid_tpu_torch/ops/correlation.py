@@ -14,11 +14,19 @@ FlowNetC's configuration (max displacement 20, stride2 2) and f32, as the
 TPU kernel is; for anything else on a CUDA tensor the wrapper raises. The
 gradient is `correlation_plain`'s autograd, as the JAX package
 differentiates `correlation_ref`.
+
+The kernel's tile is mirrored here as plain constants (`TILE_ROWS`, ...;
+the source note in csrc/correlation.cu explains them) with
+`correlation_plan`, which sizes its grid and picks how many parts the
+channel sum is split into; tests/test_torch_correlation_tiles.py walks that
+map in numpy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +37,83 @@ from vid2vid_tpu_torch.ops.conv7 import plain_vjp, wants_grad
 # the configuration the CUDA kernel is built for (FlowNetC's)
 KERNEL_MAX_DISPLACEMENT = 20
 KERNEL_STRIDE2 = 2
+
+# csrc/correlation.cu's tile: a block owns TILE_ROWS output rows of one
+# parity, TILE_DIAGS diagonals (one warp each; diagonal n holds the (row q,
+# dy index j = n - q) pairs that read one f2 row) and TILE_X columns, and
+# walks C in chunks of TILE_CHUNK channels. TILE_BLOCKS_PER_SM blocks fit an
+# SM (registers: at most 255 a thread); the channel sum is split only where
+# the grid would not fill the card once.
+TILE_ROWS = 4
+TILE_DIAGS = 4
+TILE_X = 64
+TILE_CHUNK = 16
+TILE_STAGES = 2  # chunks in shared memory
+TILE_BLOCKS_PER_SM = 2
+KERNEL_RADIUS = KERNEL_MAX_DISPLACEMENT // KERNEL_STRIDE2  # 10
+TILE_DIAGONALS = TILE_ROWS + 2 * KERNEL_RADIUS  # diagonals of a row group
+TILE_DIAG_GROUPS = math.ceil(TILE_DIAGONALS / TILE_DIAGS)
+TILE_WINDOW = TILE_X + 2 * KERNEL_MAX_DISPLACEMENT  # staged f2 columns a row
+TILE_THREADS = 32 * TILE_DIAGS
+
+
+def _odd_offset(half: int) -> int:
+    """Where a staged row's odd columns start: the first offset >= the
+    even half's length that is 16 (mod 32), so a warp's copy of 32
+    consecutive columns writes disjoint banks (csrc/correlation.cu)."""
+    return (half - 16 + 31) // 32 * 32 + 16
+
+
+TILE_F2_ODD = _odd_offset(TILE_WINDOW // 2)  # 80
+TILE_F2_ROW = TILE_F2_ODD + TILE_WINDOW // 2  # floats a staged f2 row: 132
+TILE_F1_ODD = _odd_offset(TILE_X // 2)  # 48
+TILE_F1_ROW = TILE_F1_ODD + TILE_X // 2  # 80
+TILE_SMEM_BYTES = TILE_STAGES * 4 * TILE_CHUNK * (TILE_DIAGS * TILE_F2_ROW
+                                                  + TILE_ROWS * TILE_F1_ROW)
+H100_SMS = 132
+
+
+class CorrelationPlan(NamedTuple):
+    grid: tuple[int, int, int]  # (x tiles, row groups * diagonal groups, B * 2 * split)
+    split: int  # parts of the channel sum (1: no scratch, no second pass)
+    chunks_per_part: int  # channel chunks a part sums
+
+
+def correlation_plan(b: int, c: int, h: int, w: int, n_sm: int = H100_SMS) -> CorrelationPlan:
+    """The kernel's launch at (B, C, H, W) on a card of `n_sm` SMs, as
+    v2v_correlation takes it: split the channel sum into the fewest parts of
+    equal chunk counts (the last may have fewer, never none) that fill
+    TILE_BLOCKS_PER_SM blocks on every SM, or one chunk a part."""
+    groups = math.ceil(math.ceil(h / 2) / TILE_ROWS)
+    x_tiles = math.ceil(w / TILE_X)
+    blocks = x_tiles * groups * TILE_DIAG_GROUPS * b * 2
+    chunks = math.ceil(c / TILE_CHUNK)
+    want = min(chunks, math.ceil(n_sm * TILE_BLOCKS_PER_SM / max(blocks, 1)))
+    per_part = math.ceil(chunks / want)
+    while per_part > 1 and math.ceil(chunks / per_part) < want:
+        per_part -= 1
+    split = math.ceil(chunks / per_part)
+    return CorrelationPlan((x_tiles, groups * TILE_DIAG_GROUPS, b * 2 * split), split,
+                           per_part)
+
+
+def f2_stagings(h: int, w: int) -> float:
+    """How many times the kernel copies each f2 value into shared memory,
+    averaged over the image: the in-image taps of every block's staged
+    window (out-of-image taps are zero-filled, not read), over H * W. The
+    channel split does not change it (each part stages its own channels)."""
+    staged = 0
+    for par in range(2):
+        hp = (h - par + 1) // 2
+        for u0 in range(0, hp, TILE_ROWS):
+            # the row group's diagonals n stage f2 row 2(u0 + n - R) + par
+            rows = sum(0 <= 2 * (u0 + n - KERNEL_RADIUS) + par < h
+                       for n in range(TILE_DIAG_GROUPS * TILE_DIAGS))
+            for x0 in range(0, w, TILE_X):
+                cols = min(w, x0 + TILE_X + KERNEL_MAX_DISPLACEMENT) - max(
+                    0, x0 - KERNEL_MAX_DISPLACEMENT)
+                staged += rows * cols
+    return staged / (h * w)
 
 
 def _check(f1: torch.Tensor, f2: torch.Tensor) -> None:
@@ -79,12 +164,20 @@ def _correlation_forward(f1, f2, max_displacement, stride2) -> torch.Tensor:
     if c == 0:
         raise ValueError("correlation: C must be positive")
     d = 2 * (max_displacement // stride2) + 1
-    fn = build.function("v2v_correlation", [_VOID] * 3 + [_INT] * 5 + [_VOID])
+    fn = build.function("v2v_correlation", [_VOID] * 4 + [_INT] * 7 + [_VOID])
     out = torch.empty((b, d * d, h, w), dtype=torch.float32, device=f1.device)
+    plan = correlation_plan(
+        b, c, h, w, torch.cuda.get_device_properties(f1.device).multi_processor_count)
+    scratch = None
+    if plan.split > 1:  # the parts of the channel sum, added by a second pass
+        scratch = torch.empty((plan.split, *out.shape), dtype=torch.float32,
+                              device=f1.device)
     err = build.launch(fn, f1.device, f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
-                       b, c, h, w, code)
+                       None if scratch is None else scratch.data_ptr(), b, c, h, w,
+                       plan.split, plan.chunks_per_part, code)
     build.check(err, "correlation kernel launch")
     correlation.launches += 1
+    correlation.second_kernels += plan.split > 1
     return out
 
 
@@ -118,3 +211,5 @@ def correlation(
 
 
 correlation.launches = 0
+# the second passes that added a split channel sum's parts (a kernel each)
+correlation.second_kernels = 0

@@ -28,8 +28,9 @@ fractional weights clipped to [0, 1].
     gradient, and none beyond. `flow_warp_ref`'s autodiff gives the full
     gradient there instead; the port follows the JAX package's flow_warp.
 The backward is the kernel `v2v_flow_warp_bwd` / `v2v_warp_blend_bwd` on a
-CUDA tensor and `flow_warp_backward_plain` / `warp_blend_backward_plain` on
-a CPU tensor. It needs H and W of at least 2.
+CUDA tensor (one ctypes call: the entry zeroes its f32 splat and, in bf16,
+rounds it into d/dimage itself) and `flow_warp_backward_plain` /
+`warp_blend_backward_plain` on a CPU tensor. It needs H and W of at least 2.
 """
 
 from __future__ import annotations
@@ -218,6 +219,16 @@ def _flow_warp_forward(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _splat_buffers(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(d/dimage, the f32 buffer the kernel's splat accumulates into), both
+    uninitialised: the C entry zeroes the buffer and, in bf16, rounds it
+    into d/dimage; in f32 the two are one tensor."""
+    dimage = torch.empty_like(image)
+    if image.dtype == torch.float32:
+        return dimage, dimage
+    return dimage, torch.empty(image.shape, dtype=torch.float32, device=image.device)
+
+
 def flow_warp_bwd(
     image: torch.Tensor, flow: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -231,19 +242,21 @@ def flow_warp_bwd(
     code = build.require_cuda_operands(
         "flow_warp_bwd", image.device, image.dtype, image=image, flow=flow, g=g
     )
-    fn = build.function("v2v_flow_warp_bwd", [_VOID] * 5 + [_INT] * 5 + [_VOID])
+    fn = build.function("v2v_flow_warp_bwd", [_VOID] * 6 + [_INT] * 5 + [_VOID])
     b, c, h, w = image.shape
-    # the splat accumulates with f32 atomics into zeroed scratch
-    dimage = torch.zeros(image.shape, dtype=torch.float32, device=image.device)
+    dimage, splat = _splat_buffers(image)
     dflow = torch.empty_like(flow)
     err = build.launch(fn, image.device, image.data_ptr(), flow.data_ptr(), g.data_ptr(),
-                       dimage.data_ptr(), dflow.data_ptr(), b, c, h, w, code)
+                       dimage.data_ptr(), splat.data_ptr(), dflow.data_ptr(), b, c, h, w,
+                       code)
     build.check(err, "flow_warp backward kernel launch")
     flow_warp_bwd.launches += 1
-    return dimage.to(image.dtype), dflow
+    flow_warp_bwd.second_kernels += image.dtype == torch.bfloat16 and image.numel() > 0  # the splat's cast
+    return dimage, dflow
 
 
 flow_warp_bwd.launches = 0
+flow_warp_bwd.second_kernels = 0  # the casts of the f32 splat to bf16
 
 
 class _FlowWarp(torch.autograd.Function):
@@ -306,19 +319,22 @@ def warp_blend_bwd(
         "warp_blend_bwd", prev.device, prev.dtype,
         raw=raw, prev=prev, flow=flow, weight=weight, g=g,
     )
-    fn = build.function("v2v_warp_blend_bwd", [_VOID] * 9 + [_INT] * 5 + [_VOID])
+    fn = build.function("v2v_warp_blend_bwd", [_VOID] * 10 + [_INT] * 5 + [_VOID])
     b, c, h, w = prev.shape
-    dprev = torch.zeros(prev.shape, dtype=torch.float32, device=prev.device)
+    dprev, splat = _splat_buffers(prev)
     draw, dflow, dweight = (torch.empty_like(t) for t in (raw, flow, weight))
     err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
                        weight.data_ptr(), g.data_ptr(), draw.data_ptr(), dprev.data_ptr(),
-                       dflow.data_ptr(), dweight.data_ptr(), b, c, h, w, code)
+                       splat.data_ptr(), dflow.data_ptr(), dweight.data_ptr(), b, c, h, w,
+                       code)
     build.check(err, "warp_blend backward kernel launch")
     warp_blend_bwd.launches += 1
-    return draw, dprev.to(prev.dtype), dflow, dweight
+    warp_blend_bwd.second_kernels += prev.dtype == torch.bfloat16 and prev.numel() > 0  # the splat's cast
+    return draw, dprev, dflow, dweight
 
 
 warp_blend_bwd.launches = 0
+warp_blend_bwd.second_kernels = 0  # the casts of the f32 splat to bf16
 
 
 class _WarpBlend(torch.autograd.Function):
