@@ -4,8 +4,8 @@ A tiny label2city-style test set (label maps + instance maps, two
 sequences) goes through `vid2vid_tpu.test_cli` and
 `vid2vid_tpu_torch.test_cli` with the same flags and the same weights
 (random, saved as an orbax snapshot for the JAX CLI and as the
-reference's per-scale .pth files for the port); the frames they write
-must agree.
+reference's per-scale .pth files for the port); they write the same files,
+the same label maps and frames that agree.
 """
 
 import os
@@ -70,8 +70,12 @@ def test_cli_matches_jax_cli(tmp_path):
     jdir = tmp_path / "res_jax" / "cli" / "test_latest"
     pdir = tmp_path / "res_port" / "cli" / "test_latest"
     names = sorted(p.name for p in pdir.iterdir())
-    assert names == sorted(p.name for p in jdir.iterdir() if p.name.endswith("_fake_B.jpg"))
+    assert names == sorted(p.name for p in jdir.iterdir())
+    assert names == [f"f{k:02d}_{label}.jpg" for k in (2, 3) for label in ("fake_B", "real_A")]
     for name in names:
+        if name.endswith("_real_A.jpg"):  # the same label colours, the same file
+            assert (pdir / name).read_bytes() == (jdir / name).read_bytes(), name
+            continue
         got = np.asarray(Image.open(pdir / name), np.int16)
         want = np.asarray(Image.open(jdir / name), np.int16)
         assert got.shape == (H, W, 3) and want.std() > 1.0  # not a flat frame
@@ -105,14 +109,14 @@ def test_cli_use_single_g(tmp_path, capsys, monkeypatch):
 
     written = {}
     save = test_cli.save_frame
-    monkeypatch.setattr(test_cli, "save_frame", lambda d, path, frame: written.setdefault(
-        path, frame) is not None and save(d, path, frame))
+    monkeypatch.setattr(test_cli, "save_frame", lambda v, d, o, item, frame: written.setdefault(
+        item["path"], frame) is not None and save(v, d, o, item, frame))
     assert test_cli.main(flags) == 2 * (N_FRAMES - 2)
     warned = capsys.readouterr().out
     assert "net_G*.pth" in warned and "single-image checkpoint" not in warned
-    assert len(written) == 4  # two per sequence; both write f02 / f03_fake_B.jpg
+    assert len(written) == 4  # two per sequence; both write f02 / f03_*.jpg
     assert {p.name for p in (tmp_path / "res" / "cli" / "test_latest").iterdir()} == {
-        "f02_fake_B.jpg", "f03_fake_B.jpg"}
+        "f02_fake_B.jpg", "f03_fake_B.jpg", "f02_real_A.jpg", "f03_real_A.jpg"}
 
     opt = parse_args(flags, is_train=False, save=False)
     eng = InferenceEngine(opt, device="cpu")

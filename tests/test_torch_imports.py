@@ -96,6 +96,11 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.train.steps", "vid2vid_tpu_torch.train.loop",
         "vid2vid_tpu_torch.data.synthetic", "vid2vid_tpu_torch.ops.conv7",
         "vid2vid_tpu_torch.ops.conv3", "vid2vid_tpu_torch.nn.pix2pixhd",
+        "vid2vid_tpu_torch.train_cli", "vid2vid_tpu_torch.train.checkpoints",
+        "vid2vid_tpu_torch.data.files", "vid2vid_tpu_torch.data.transforms",
+        "vid2vid_tpu_torch.data.temporal", "vid2vid_tpu_torch.data.loader",
+        "vid2vid_tpu_torch.utils.images", "vid2vid_tpu_torch.utils.html",
+        "vid2vid_tpu_torch.utils.visualizer",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []
@@ -253,8 +258,8 @@ def test_convert_tensor_copy_equals_the_jax_one(rng):
 
 def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
     """Without a CUDA device and without the caller asking for the CPU,
-    InferenceEngine, FlowHarness, Trainer and both CLIs raise."""
-    from vid2vid_tpu_torch import test_cli
+    InferenceEngine, FlowHarness, Trainer and the CLIs raise."""
+    from vid2vid_tpu_torch import test_cli, train_cli
     from vid2vid_tpu_torch.models.flownet2 import main_cli
     from vid2vid_tpu_torch.models.flownet2.harness import FlowHarness
     from vid2vid_tpu_torch.models.flownet2.nets import FlowNetC
@@ -269,6 +274,7 @@ def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
         lambda: Trainer(opt),
         lambda: FlowHarness(FlowNetC()),
         lambda: test_cli.main(["--checkpoints_dir", str(tmp_path)]),
+        lambda: train_cli.main(["--checkpoints_dir", str(tmp_path)]),
         lambda: main_cli.main(["--inference", "--model", "FlowNetC", "--save",
                                str(tmp_path / "work")]),
     ):

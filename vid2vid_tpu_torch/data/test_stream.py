@@ -1,126 +1,29 @@
 """The test-time frame stream of the temporal datasets (label2city).
 
-A port of vid2vid_tpu/data/{files,transforms,temporal}.py's test path:
+The port of vid2vid_tpu/data/temporal.py::TestTemporalStream:
 `{dataroot}/test_A/<sequence>/<frame>` label maps (or RGB conditioning
 when label_nc == 0), with `test_inst/` instance maps under --use_instance
 and `test_B/` real frames under --use_real_img. Each item is a dict with
 "A" (H, W) int32 labels or (H, W, 3) float32, "B" and "inst" (or None),
-"change_seq", "path" and "seq". Images are read with PIL, imported when a
-stream is opened; the face and pose datasets are not ported.
+"change_seq", "path" and "seq". The scan and the transforms are
+data/files.py's and data/transforms.py's; images are read with PIL,
+imported when a frame is read. The face and pose datasets are not ported.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import random
 
 import numpy as np
 
-IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".tif", ".tiff", ".webp")
-
-
-def make_grouped_dataset(root: str) -> list[list[str]]:
-    """[[seq0_frame0, seq0_frame1, ...], ...], sequences and frames sorted."""
-    if not os.path.isdir(root):
-        raise FileNotFoundError(f"{root} is not a directory")
-    sequences = []
-    for dirname in sorted(os.listdir(root)):
-        subdir = os.path.join(root, dirname)
-        if not os.path.isdir(subdir):
-            continue
-        frames = sorted(
-            os.path.join(dp, f)
-            for dp, _, files in os.walk(subdir)
-            for f in files
-            if f.lower().endswith(IMG_EXTENSIONS)
-        )
-        if frames:
-            sequences.append(frames)
-    return sequences
-
-
-def make_power_2(n: int, base: int = 32) -> int:
-    return int(round(n / base) * base)
-
-
-@dataclasses.dataclass
-class ImgParams:
-    new_size: tuple[int, int]  # (w, h)
-    crop_size: tuple[int, int]
-    crop_pos: tuple[int, int]
-
-
-def get_img_params(opt, size: tuple[int, int]) -> ImgParams:
-    """Resize target and crop of a sequence (test time: no flip)."""
-    w, h = size
-    new_h, new_w = h, w
-    roc = opt.resize_or_crop
-    if "resize" in roc:
-        new_h = new_w = opt.loadSize
-    elif "scaleWidth" in roc:
-        new_w = opt.loadSize
-        new_h = opt.loadSize * h // w
-    elif "scaleHeight" in roc:
-        new_h = opt.loadSize
-        new_w = opt.loadSize * w // h
-    elif "randomScaleWidth" in roc:
-        new_w = random.randint(opt.fineSize, opt.loadSize + 1)
-        new_h = new_w * h // w
-    elif "randomScaleHeight" in roc:
-        new_h = random.randint(opt.fineSize, opt.loadSize + 1)
-        new_w = new_h * w // h
-    new_w = int(round(new_w / 4)) * 4
-    new_h = int(round(new_h / 4)) * 4
-
-    crop_x = crop_y = crop_w = crop_h = 0
-    if "crop" in roc or "scaledCrop" in roc:
-        if "crop" in roc:
-            crop_w = crop_h = opt.fineSize
-        elif "Width" in roc:
-            crop_w = opt.fineSize
-            crop_h = opt.fineSize * h // w
-        else:
-            crop_h = opt.fineSize
-            crop_w = opt.fineSize * w // h
-        crop_w, crop_h = make_power_2(crop_w), make_power_2(crop_h)
-        x_span = (new_w - crop_w) // 2
-        crop_x = int(np.clip(int(np.random.randn() * x_span / 3 + x_span), 0, x_span * 2))
-        crop_y = random.randint(0, int(min(max(0, new_h - crop_h), new_h // 8)))
-    else:
-        new_w, new_h = make_power_2(new_w), make_power_2(new_h)
-    return ImgParams((new_w, new_h), (crop_w, crop_h), (crop_x, crop_y))
-
-
-def _load(path: str, opt, params: ImgParams, nearest: bool):
-    from PIL import Image
-
-    img = Image.open(path)
-    if not nearest:
-        img = img.convert("RGB")
-    method = Image.NEAREST if nearest else Image.BICUBIC
-    if "resize" in opt.resize_or_crop:
-        img = img.resize((opt.loadSize, opt.loadSize), method)
-    else:
-        img = img.resize(params.new_size, method)
-    if "crop" in opt.resize_or_crop or "scaledCrop" in opt.resize_or_crop:
-        ow, oh = img.size
-        tw, th = params.crop_size
-        x1, y1 = params.crop_pos
-        if ow > tw or oh > th:
-            img = img.crop((x1, y1, min(ow, x1 + tw), min(oh, y1 + th)))
-    return np.asarray(img)
-
-
-def load_label_map(path: str, opt, params: ImgParams) -> np.ndarray:
-    """Label map -> (H, W) int32 class ids (nearest resampling)."""
-    arr = _load(path, opt, params, nearest=True)
-    return (arr[..., 0] if arr.ndim == 3 else arr).astype(np.int32)
-
-
-def load_image_rgb(path: str, opt, params: ImgParams) -> np.ndarray:
-    """Image -> (H, W, 3) float32 in [-1, 1]."""
-    return _load(path, opt, params, nearest=False).astype(np.float32) / 255.0 * 2.0 - 1.0
+from vid2vid_tpu_torch.data.files import make_grouped_dataset
+from vid2vid_tpu_torch.data.transforms import (
+    get_img_params,
+    image_size,
+    load_image_rgb,
+    load_label_map,
+)
 
 
 class TestTemporalStream:
@@ -140,14 +43,13 @@ class TestTemporalStream:
             make_grouped_dataset(os.path.join(opt.dataroot, "test_inst"))
             if opt.use_instance else None
         )
+        self.rng = random.Random(opt.seed)
+        self.np_rng = np.random.RandomState(opt.seed)
 
     def __iter__(self):
-        from PIL import Image
-
         opt = self.opt
         for seq_idx, seq in enumerate(self.a_paths):
-            with Image.open(seq[0]) as probe:
-                params = get_img_params(opt, probe.size)
+            params = get_img_params(opt, image_size(seq[0]), self.rng, self.np_rng)
             start = min(opt.start_frame, len(seq) - 1) if seq_idx == 0 else 0
             for k in range(start, len(seq)):
                 yield {

@@ -6,9 +6,10 @@
 Takes the reference's test.py flags (vid2vid_tpu_torch/config.py), streams
 the test set frame by frame through the generator on the first CUDA device
 (on the CPU with `--gpu_ids -1`; without a card and that flag it raises),
-resets the state at every sequence change, and
-writes each generated frame to results/<name>/<phase>_<epoch>/
-<frame>_fake_B.jpg. Weights: the reference's per-scale checkpoints
+resets the state at every sequence change, and writes each frame's label
+map and generated frame to results/<name>/<phase>_<epoch>/<frame>_real_A.jpg
+and <frame>_fake_B.jpg (utils/visualizer.py::Visualizer.save_images).
+Weights: the reference's per-scale checkpoints
 `<checkpoints_dir>/<name>/<which_epoch>_net_G<s>.pth`, loaded with
 load_state_dict; without them the generator runs on its seeded random
 initialization (with a warning). `--use_single_G` seeds each sequence with
@@ -31,6 +32,8 @@ import torch
 from vid2vid_tpu_torch.config import Options, parse_args
 from vid2vid_tpu_torch.models.inference import InferenceEngine
 from vid2vid_tpu_torch.nn.layers import init_weights
+from vid2vid_tpu_torch.utils.images import label_to_color, to_image
+from vid2vid_tpu_torch.utils.visualizer import Visualizer
 
 
 def stream_frames(
@@ -158,15 +161,18 @@ def single_g_state(opt: Options, eng: InferenceEngine, labels: torch.Tensor,
     return eng.single_g_first_frames(enc, real_first, pool_map, eng.feature_clusters)
 
 
-def save_frame(save_dir: str, path: str, frame: torch.Tensor) -> str:
-    """(1, 3, H, W) frame in [-1, 1] -> <save_dir>/<frame>_fake_B.jpg, with
-    the reference's tensor2im conversion ((x + 1) / 2 * 255, truncated)."""
-    from PIL import Image
-
-    img = ((frame[0].permute(1, 2, 0) + 1.0) / 2.0 * 255.0).clamp(0, 255)
-    name = os.path.splitext(os.path.basename(path))[0] + "_fake_B.jpg"
-    Image.fromarray(img.to(torch.uint8).cpu().numpy()).save(os.path.join(save_dir, name))
-    return name
+def save_frame(visualizer: Visualizer, save_dir: str, opt: Options, item: dict,
+               frame: torch.Tensor) -> list[str]:
+    """The item's label map and its (1, 3, H, W) frame in [-1, 1] ->
+    <save_dir>/<frame>_real_A.jpg and <frame>_fake_B.jpg, with the JAX
+    package's conversions (label_to_color, or the first 3 channels of an
+    RGB input; to_image: (x + 1) / 2 * 255, truncated)."""
+    a = item["A"]
+    visuals = {
+        "real_A": label_to_color(a, opt.label_nc) if opt.label_nc > 0 else to_image(a[..., :3]),
+        "fake_B": to_image(frame[0].permute(1, 2, 0).float().cpu().numpy()),
+    }
+    return visualizer.save_images(save_dir, visuals, item["path"])
 
 
 def main(argv=None) -> int:
@@ -183,6 +189,7 @@ def main(argv=None) -> int:
             "(ROADMAP.md, queue 1: data pipelines)"
         )
     eng = InferenceEngine(opt, device="cuda" if opt.gpu_ids else "cpu")
+    visualizer = Visualizer(opt)
     load_weights(opt, eng)
     if opt.use_single_G:
         load_single_g(opt, eng)
@@ -192,7 +199,7 @@ def main(argv=None) -> int:
 
     count = 0
     for item, frame in stream_frames(opt, eng, TestTemporalStream(opt)):
-        save_frame(save_dir, item["path"], frame)
+        save_frame(visualizer, save_dir, opt, item, frame)
         count += 1
         if count % 10 == 0:
             print(f"processed {count} frames -> {save_dir}")

@@ -89,6 +89,10 @@ class Trainer:
         update_running_stats(self.engine, False)
         self.flow_fn = flow_fn or zero_flow_fn
         self.schedule = Schedule(opt)
+        # the last chunk's ClipOutputs (detached) and its (labels, real_b,
+        # flow_ref, conf_ref), for train_cli.py's visuals
+        self.last_outs = None
+        self.last_inputs = None
 
     # ------------------------------------------------------------------ setup
 
@@ -175,6 +179,8 @@ class Trainer:
             finetune_all=self.schedule.finetune_all, chunk_start=carry.chunk_start,
         )
         outs = aux["outs"]
+        self.last_outs = outs
+        self.last_inputs = (labels, real_b, flow_ref, conf_ref)
         carry.gen_state = aux["gen_state"]
         carry.fake_buf = aux["fake_buf"]
         carry.fake_prev_first = outs.fake[:, -1:]

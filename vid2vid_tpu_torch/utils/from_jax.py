@@ -15,6 +15,13 @@ Inverse layout conversions:
   channels) splits into model_final_flow (2) and model_final_w (1).
 Every norm with running stats also gets `num_batches_tracked = 0`.
 
+`train_state_checkpoint` turns a JAX train-state payload (the dict
+vid2vid_tpu/train/checkpoints.py::save_checkpoint writes: gparams, dparams,
+opt_g, opt_d, opt_dt, schedule) into the port's checkpoint files
+(train/checkpoints.py): optax's Adam moments `mu` / `nu` and `count` become
+torch Adam's `exp_avg` / `exp_avg_sq` and `step`, through the weights'
+mappings, so a run the JAX CLI trained resumes in the port's CLI.
+
 The JAX package has no checkpoint mapping for LocalEnhancer and
 LocalWithFeatures (no published single-image checkpoint uses them in its
 registry); `local_enhancer_mapping` and `local_with_features_mapping` pair
@@ -27,6 +34,10 @@ import numpy as np
 import torch
 
 from vid2vid_tpu_torch.config import Options
+from vid2vid_tpu_torch.models.generator import Vid2VidGenerator
+from vid2vid_tpu_torch.models.loss_engine import LossEngine
+from vid2vid_tpu_torch.train.checkpoints import SCHEDULE_FIELDS
+from vid2vid_tpu_torch.train.state import create_train_state
 from vid2vid_tpu_torch.utils.mappings import (
     Triple,
     _conv,
@@ -155,6 +166,100 @@ def loss_engine_state_dict(dparams: dict, opt: Options) -> dict:
         sd = jax_variables_to_state_dict(dparams[key], mapping)
         out.update({f"{prefix}.{k}": v for k, v in sd.items()})
     return out
+
+
+# ------------------------------------------------------------ train state
+
+
+def _fields(node) -> dict | None:
+    """The children of a node of an optax state: a NamedTuple's fields, a
+    dict's items, a sequence's entries; None for a leaf."""
+    if hasattr(node, "_asdict"):
+        return node._asdict()
+    if isinstance(node, dict):
+        return node
+    if isinstance(node, (list, tuple)):
+        return dict(enumerate(node))
+    return None
+
+
+def _find(node, keys: set) -> dict | None:
+    """The first node, depth first, whose children include every key."""
+    fields = _fields(node)
+    if fields is None:
+        return None
+    if keys <= fields.keys():
+        return fields
+    for child in fields.values():
+        found = _find(child, keys)
+        if found is not None:
+            return found
+    return None
+
+
+def _adam_state_dict(opt_state, template: dict, names: list[str], to_sd) -> dict:
+    """An optax inject_hyperparams(adam) state -> torch Adam's state_dict.
+    `template` is the torch optimizer's own state_dict (its param_groups),
+    `names` its parameters' state-dict keys in order, `to_sd` maps a tree
+    shaped like the weights to a state_dict."""
+    adam = _find(opt_state, {"mu", "nu", "count"})
+    hyper = _find(opt_state, {"learning_rate"})
+    if adam is None or hyper is None:
+        raise ValueError("not an optax inject_hyperparams(adam) state")
+    mu, nu = to_sd(adam["mu"]), to_sd(adam["nu"])
+    step = float(np.asarray(adam["count"]))
+    groups = [dict(g) for g in template["param_groups"]]
+    for g in groups:
+        g["lr"] = float(np.asarray(hyper["learning_rate"]))
+    state = {
+        i: {"step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+        for i, n in enumerate(names)
+    }
+    return {"state": state, "param_groups": groups}
+
+
+def train_state_checkpoint(payload: dict, opt: Options) -> dict:
+    """A JAX train-state payload (numpy leaves; optax states as NamedTuples
+    or as nested dicts / lists) -> the port's checkpoint files, as
+    train/checkpoints.py::checkpoint_payloads returns them (write them with
+    write_checkpoint)."""
+    with torch.device("meta"):  # the modules only name and order the parameters
+        gen, engine = Vid2VidGenerator(opt), LossEngine(opt)
+    state = create_train_state(opt, gen, engine)
+    d_map = multiscale_discriminator_mapping(opt.num_D, opt.n_layers_D, opt.norm)
+
+    def d_sd(tree):
+        return jax_variables_to_state_dict(tree, d_map)
+
+    def g_sd(tree):
+        return generator_state_dict(tree, opt)
+
+    def names(net):
+        return [n for n, _ in net.named_parameters()]
+
+    g_weights = g_sd(payload["gparams"])
+    files = {
+        f"net_G{s}": {k[len(f"G{s}."):]: v for k, v in g_weights.items()
+                      if k.startswith(f"G{s}.")}
+        for s in range(opt.n_scales_spatial)
+    }
+    files["net_D"] = d_sd(payload["dparams"]["D"])
+    for s in range(opt.n_scales_temporal):
+        files[f"net_D_T{s}"] = d_sd(payload["dparams"][f"D_T{s}"])
+    files["optim"] = {
+        "opt_g": _adam_state_dict(payload["opt_g"], state.opt_g.state_dict(),
+                                  names(gen), g_sd),
+        "opt_d": _adam_state_dict(payload["opt_d"], state.opt_d.state_dict(),
+                                  names(engine.netD),
+                                  lambda tree: d_sd(_fields(tree)["D"])),
+        "opt_dt": [
+            _adam_state_dict(o, state.opt_dt[s].state_dict(), names(engine.netD_T[s]), d_sd)
+            for s, o in enumerate(payload["opt_dt"])
+        ],
+        "schedule": {f: np.asarray(payload["schedule"][f]).item() for f in SCHEDULE_FIELDS},
+    }
+    return files
 
 
 # ------------------------------------------------------------- pix2pixHD
