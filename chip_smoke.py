@@ -90,6 +90,7 @@ import io
 import json
 import math
 import os
+import random
 import re
 import shutil
 import statistics
@@ -107,7 +108,15 @@ if not torch.cuda.is_available():
 
 from vid2vid_tpu_torch import test_cli, train_cli  # noqa: E402
 from vid2vid_tpu_torch.config import Options  # noqa: E402
-from vid2vid_tpu_torch.data.synthetic import moving_square_clip  # noqa: E402
+from vid2vid_tpu_torch.data import face, pose, raster  # noqa: E402
+from vid2vid_tpu_torch.data.synthetic import (  # noqa: E402
+    densepose_iuv,
+    face_image,
+    face_landmarks,
+    moving_square_clip,
+    openpose_person,
+)
+from vid2vid_tpu_torch.data.transforms import get_img_params, target_size  # noqa: E402
 from vid2vid_tpu_torch.kernels import build  # noqa: E402
 from vid2vid_tpu_torch.models.flownet2.nets import init_flownet_weights  # noqa: E402
 from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator  # noqa: E402
@@ -177,6 +186,9 @@ RESPAIR_F32_SHAPES = [
     (528, 64, 64, 18, "edge2face_single"),
     (1024, 32, 64, 18, "label2city_single"), (64, 512, 1024, 6, "label2city_single"),
 ]
+# (C, H, W) of the pose2body 256p stream's trunk (256x192 / 8): a grid
+# width the bodies see on no other path, checked first
+POSE_RESPAIR = (1024, 32, 24)
 # (H, W) of the three warp + blend calls per frame
 WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
 # (B, C, H, W) of FlowNetC's correlation: FlowEstimator on two 1024x2048
@@ -327,6 +339,39 @@ TRAIN_HW = (256, 512)
 # one epoch that saves only `latest`, once
 TRAIN_CLI = dict(no_html=True, print_freq=1, display_freq=2, niter=1, niter_decay=0,
                  save_epoch_freq=2, name="train_cli")
+# the face and pose paths (their items built in memory by the port's array
+# builders, at frame sizes every resize keeps: the card's machine has no
+# PIL). edge2face 512 served (recipes/face/test_512.sh): 68 landmarks whose
+# crop box is the whole 512x512 frame, --use_single_G
+FACE_STREAM = dict(EDGE2FACE, dataset_mode="face", loadSize=512)
+FACE_STREAM_HW, FACE_WIDTH = (512, 512), 205.0  # crop side 2.5 * 205 -> 512
+# pose2body 256p served (recipes/pose/test_256p.sh) in bf16 at full width:
+# 256x384 frames, which scaleHeight 256 keeps; the central crop gives 256x192
+POSE_STREAM = dict(
+    label_nc=0, input_nc=6, use_instance=False, fg=False, ngf=128, n_downsample_G=3,
+    n_blocks=9, n_scales_spatial=1, n_frames_G=3, norm="batch", bf16=True, isTrain=False,
+    dataset_mode="pose", dataroot="datasets/pose/", resize_or_crop="scaleHeight",
+    loadSize=256, no_first_img=True,
+)
+POSE_STREAM_HW = (256, 384)
+# pose2body 512p training with the face discriminator
+# (recipes/pose/train_512p.sh) on one card: batchSize 1, seeded weights in
+# place of --load_pretrain, scaleHeight in place of randomScaleHeight (a
+# resize to loadSize 768, which the 768x1364 frames keep; the scaled crop
+# gives 512x896, the central crop 512x448),
+# clips of 3 frames (+ tG - 1) in place of 12, one epoch of two clips (one
+# without the face parts), serial batches; f32, as the recipe
+POSE_TRAIN = dict(
+    label_nc=0, input_nc=6, use_instance=False, fg=False, ngf=128, n_downsample_G=3,
+    n_blocks=9, n_blocks_local=3, n_scales_spatial=2, num_D=3, n_frames_G=3, n_frames_D=3,
+    norm="batch", isTrain=True, dataset_mode="pose", dataroot="datasets/pose/",
+    resize_or_crop="scaleHeight_and_scaledCrop", loadSize=768, fineSize=512,
+    no_first_img=True, n_frames_total=3, max_t_step=4, add_face_disc=True,
+    niter_fix_global=3, niter=1, niter_decay=0, lr=0.0001, batchSize=1, n_devices=1,
+    serial_batches=True, no_html=True, print_freq=1, display_freq=1000, save_epoch_freq=2,
+    name="pose_train",
+)
+POSE_TRAIN_RAW_HW = (768, 1364)
 # a small training configuration for the card-vs-CPU reference (f32)
 SMALL_TRAIN = dict(
     label_nc=4, use_instance=True, fg=True, fg_labels=(1,), ngf=16,
@@ -951,7 +996,7 @@ def check_kernels(gen: torch.Generator) -> dict:
         record_err(errs, name, dtype, e, shape)
 
     for dtype in (torch.float32, torch.bfloat16):
-        for c, h, w, _ in RESPAIR_SHAPES:
+        for c, h, w in [POSE_RESPAIR] + [shape[:3] for shape in RESPAIR_SHAPES]:
             args = respair_case(c, h, w, dtype, gen)
             record("respair", dtype, compare("respair", args, dtype), (c, h, w))
         for h, w in WARP_SHAPES:
@@ -1905,6 +1950,261 @@ def label2city_single_path(card: str) -> dict:
     return launches
 
 
+def host_ms(fn, *args):
+    """(fn(*args), its host ms)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def stream_items(opt: Options, eng, items: list, card: str, what: str, config: str,
+                 build_ms: list, extra: dict) -> dict:
+    """Stream `items` through test_cli.stream_frames (the CLI's loop), each
+    frame timed on the host clock up to a synchronize; the launch counts
+    of the run, checked (respair, conv7 and warp_blend launched), and one
+    line. The first frame of the stream includes its sequence's seeding."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, fakes = [], []
+    t1 = time.perf_counter()
+    for _, fake in test_cli.stream_frames(opt, eng, items):
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        fakes.append(fake)
+        t1 = time.perf_counter()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if len(fakes) != len(items) - opt.n_frames_G + 1:
+        raise AssertionError(f"{what}: {len(fakes)} frames from {len(items)} items")
+    h, w = items[0]["A"].shape[:2]
+    check_frames(fakes, (1, 3, h, w), what)
+    for name in ("respair", "conv7", "warp_blend"):
+        if launches[name] == 0:
+            raise AssertionError(f"{what}: {name} never launched ({launches})")
+    say(what, config=config, frames=len(fakes), frame_hw=f"{h}x{w}",
+        host_build_ms_per_frame_median=f"{statistics.median(build_ms):.2f}",
+        host_build_ms=",".join(f"{v:.1f}" for v in build_ms),
+        ms_per_frame_median=f"{statistics.median(step_ms[1:]):.2f}",
+        ms_per_frame=",".join(f"{v:.1f}" for v in step_ms), **extra,
+        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches), card=repr(card))
+    return launches
+
+
+def face_stream_path(card: str) -> dict:
+    """Phase 8c: edge2face 512x512 served through the test CLI's loop with
+    --use_single_G: each frame's 15 channels and part map built by
+    data/face.py::build_face_frame from 68 seeded landmarks and a seeded
+    frame (the landmark edges with the Canny edges outside the face, 14
+    distance maps), then the GlobalWithFeatures seeding (f32) and the bf16
+    stream at full width. Returns the launch counts."""
+    opt = Options(**FACE_STREAM)
+    (h, w), n_items = FACE_STREAM_HW, 8
+    rng = np.random.default_rng(0)
+    frames = []
+    for t in range(n_items):
+        pts = face_landmarks(rng, w / 2 + (t % 3), h / 2 - 10 + t, FACE_WIDTH)
+        frames.append((pts, face_image(rng, h, w, pts)))
+    crop_box = face.face_crop_box(frames[0][0], (w, h))
+    params = get_img_params(opt, (crop_box[3] - crop_box[2], crop_box[1] - crop_box[0]),
+                            random.Random(0), np.random.RandomState(0))
+    if crop_box != (0, h, 0, w) or target_size(opt, params) != (w, h):
+        raise AssertionError(f"face crop {crop_box}, resize to {target_size(opt, params)}: "
+                             f"want the whole {w}x{h} frame, kept")
+    items, build_ms = [], []
+    for t, (pts, rgb) in enumerate(frames):
+        (a, b, label), ms = host_ms(face.build_face_frame, pts, rgb, opt, params, crop_box)
+        build_ms.append(ms)
+        items.append({"A": a, "B": b, "inst": label, "change_seq": t == 0,
+                      "path": f"face{t:02d}"})
+    gray = raster.rgb_to_gray(frames[0][1])
+    _, canny_ms = host_ms(raster.canny, gray, 100, 200)
+    _, dist_ms = host_ms(face.distance_maps, face.draw_part_edges(
+        face.extend_keypoints(frames[0][0]), (w, h))[1])
+    eng = seeded_engine(opt, DEV, seed=8)
+    eng.build_single_g()
+    seed_net(eng.single_g, 9)
+    seed_net(eng.encoder, 10)
+    eng.feature_clusters = face_inputs(1, 16, 16, 7, 50, seed=8)[3]
+    with torch_default_tf32():
+        launches = stream_items(
+            opt, eng, items, card, "face_stream_path",
+            "edge2face 512x512 served: build_face_frame, --use_single_G (GlobalWithFeatures "
+            "ngf64 + Encoder f32), then 1-scale ngf128 bf16", build_ms,
+            dict(canny_ms=f"{canny_ms:.2f}", distance_maps_ms=f"{dist_ms:.2f}",
+                 a_channels=items[0]["A"].shape[-1],
+                 parts=",".join(map(str, np.unique(items[0]["inst"])))))
+    n = n_items - opt.n_frames_G + 1
+    want = dict.fromkeys(KERNELS, 0) | {"conv7": 4 * 2 + 5 * n, "respair": 9 * 2 + 18 * n,
+                                        "warp_blend": n}
+    if launches != want:
+        raise AssertionError(f"face_stream launch counts {launches}, want {want}")
+    return launches
+
+
+def pose_stream_path(card: str) -> dict:
+    """Phase 8d: pose2body 256p served through the test CLI's loop: each
+    frame's 6 channels built by data/pose.py::pose_conditioning from a
+    seeded DensePose IUV render and OpenPose people, centrally cropped to
+    256x192 (the bodies' first run at a 32x24 grid), --no_first_img, bf16 at
+    full width. Returns the launch counts."""
+    opt = Options(**POSE_STREAM)
+    (h, w), n_items = POSE_STREAM_HW, 8
+    rng, gen = np.random.default_rng(0), np.random.default_rng(0)
+    params = get_img_params(opt, (w, h), random.Random(0),
+                            np.random.RandomState(0))
+    if target_size(opt, params) != (w, h):
+        raise AssertionError(f"pose resize to {target_size(opt, params)}: want {w}x{h}, kept")
+    items, build_ms = [], []
+    for t in range(n_items):
+        cx, top, height = w / 2 + 2 * t, 8, h - 16
+        iuv = densepose_iuv(rng, h, w, cx, top, height)
+        people = [openpose_person(rng, cx, top, height)]
+        rgb = face_image(rng, h, w, np.array([[cx - 10, top], [cx + 10, top + 30]]))
+        t0 = time.perf_counter()
+        a = pose.central_crop(pose.pose_conditioning(iuv, people, (w, h), opt, params, gen))
+        b = pose.central_crop(pose.pose_image(rgb, opt, params))
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+        items.append({"A": a, "B": b, "inst": None, "change_seq": t == 0,
+                      "path": f"pose{t:02d}"})
+    eng = seeded_engine(opt, DEV, seed=11)
+    return stream_items(opt, eng, items, card, "pose_stream_path",
+                        "pose2body 256p served: pose_conditioning (IUV + OpenPose), "
+                        "--no_first_img, 1-scale ngf128 bf16", build_ms,
+                        dict(a_channels=items[0]["A"].shape[-1]))
+
+
+class PoseClips:
+    """PoseDataset's training items built in memory by data/pose.py's array
+    builders: clip 0 with DensePose's face parts (23, 24), clip 1 without;
+    each item draws its crop from the dataset's generators, as PoseDataset
+    does, and records its host build ms."""
+
+    def __init__(self, opt: Options, raw_hw: tuple[int, int]):
+        self.opt, (self.h, self.w) = opt, raw_hw
+        self.seq_len_max = opt.n_frames_total + opt.n_frames_G - 1
+        self.rng = random.Random(opt.seed)
+        self.np_rng = np.random.RandomState(opt.seed)
+        self.gen = np.random.default_rng(opt.seed)
+        self.build_ms: list = []
+
+    def __len__(self):
+        return 2
+
+    def __getitem__(self, i):
+        opt, h, w = self.opt, self.h, self.w
+        params = get_img_params(opt, (w, h), self.rng, self.np_rng)
+        if target_size(opt, params) != (w, h):
+            raise AssertionError(f"pose resize to {target_size(opt, params)}: want {w}x{h}")
+        rng = np.random.default_rng(i)
+        t0 = time.perf_counter()
+        a_frames, b_frames = [], []
+        for t in range(self.seq_len_max):
+            cx, top, height = w / 2 + 3 * t, 40, h - 80
+            iuv = densepose_iuv(rng, h, w, cx, top, height, face=i == 0)
+            people = [openpose_person(rng, cx, top, height)]
+            rgb = face_image(rng, h, w, np.array([[cx - 30, top], [cx + 30, top + 90]]))
+            a_frames.append(pose.central_crop(
+                pose.pose_conditioning(iuv, people, (w, h), opt, params, self.gen)))
+            b_frames.append(pose.central_crop(pose.pose_image(rgb, opt, params)))
+        self.build_ms.append((time.perf_counter() - t0) * 1e3 / self.seq_len_max)
+
+        def nchw(frames):
+            return np.ascontiguousarray(np.stack(frames).transpose(0, 3, 1, 2))
+
+        return {"A": nchw(a_frames), "B": nchw(b_frames), "inst": None,
+                "A_path": f"pose_clip{i}", "seq": i}
+
+
+def pose_train_path(card: str) -> dict:
+    """Phase 7c: pose2body 512p training with the face discriminator
+    through train_cli.train on PoseClips, the training phase's seeded
+    FlowEstimator as the flow: one epoch of two clips (3 chunks each), the
+    face losses nonzero on the face clip and zero on the other, `latest`
+    saved (net_D_f.pth with it) and restored bit for bit into a fresh
+    Trainer; warp_blend_bwd's per-call and device ms at the 512x256
+    recipe's shape measured again. Returns the epoch's launch counts."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_pose_train_")
+    try:
+        opt = Options(**POSE_TRAIN, checkpoints_dir=root)
+        dataset = PoseClips(opt, POSE_TRAIN_RAW_HW)
+        est = seeded_flow_estimator(DEV, seed=3, tf32_seen=[])
+        clip_ms, chunk_ms, save_ms, clip_outs, chunk_outs = [], [], [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        with torch_default_tf32(), timed(Trainer, "train_clip", clip_ms, clip_outs), \
+                timed(Trainer, "train_chunk", chunk_ms, chunk_outs), \
+                timed(train_cli, "save_checkpoint", save_ms):
+            reset_launches()
+            t0 = time.perf_counter()
+            trainer, state = train_cli.train(opt, dataset=dataset, flow_fn=est)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if (len(clip_ms), len(chunk_ms), trainer.schedule.total_steps) != (2, 6, 6):
+            raise AssertionError(f"{len(clip_ms)} clips, {len(chunk_ms)} chunks: want 2, 6")
+        face_keys = ("G_f_GAN", "G_f_GAN_Feat", "D_f_real", "D_f_fake")
+        per_chunk = [out[2] for out in chunk_outs]
+        for k, losses in enumerate(per_chunk):
+            if not all(math.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"chunk {k}: non-finite loss {losses}")
+            found = k < 3  # clip 0 holds the face parts
+            if any((losses[f] != 0) != found for f in face_keys):
+                raise AssertionError(f"chunk {k}: face losses {[losses[f] for f in face_keys]}, "
+                                     f"want {'nonzero' if found else 'zero'}")
+        for name in ("warp_blend", "warp_blend_bwd", "flow_warp", "flow_warp_bwd",
+                     "correlation"):
+            if launches[name] == 0:
+                raise AssertionError(f"pose_train: {name} never launched ({launches})")
+        run_dir = os.path.join(root, opt.name)
+        ckpt = sorted(f for f in os.listdir(run_dir) if f.endswith(".pth"))
+        want_files = ["latest_net_D.pth", "latest_net_D_T0.pth", "latest_net_D_T1.pth",
+                      "latest_net_D_f.pth", "latest_net_G0.pth", "latest_net_G1.pth",
+                      "latest_optim.pth"]
+        if ckpt != want_files:
+            raise AssertionError(f"checkpoint files {ckpt}, want {want_files}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(run_dir, f)) for f in ckpt)
+        fresh = Trainer(opt, flow_fn=est, device=DEV)
+        fstate = fresh.init_state()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fstate, _ = restore_checkpoint(opt, fstate, fresh.schedule)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        want, got = train_state_tensors(trainer, state), train_state_tensors(fresh, fstate)
+        differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        n_face = sum(k.startswith("D.netD_f.") for k in want)
+        if differ or got.keys() != want.keys() or not n_face:
+            raise AssertionError(f"restored state differs at {differ[:8]} ({len(differ)}); "
+                                 f"{n_face} netD_f tensors")
+        n_tensors = len(want)
+        del trainer, state, fresh, fstate, est, want, got
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # warp_blend_bwd at the 512x256 recipe's shape, three times (PR 9's run
+    # read 0.1547 ms a call, device 0.0508, where PR 8's read 0.0464 / 0.0259)
+    shape, dtype, _ = BWD_PATH["warp_blend_bwd"]
+    args = bwd_case("warp_blend_bwd", shape, dtype, torch.Generator().manual_seed(1))
+    bwd = [call_and_device_ms(warp_blend_bwd, args, fills=True) for _ in range(3)]
+    del args
+    say("pose_train_path", config="pose2body 512p: 2 scales ngf128 f32, D 3 scales + D_f "
+        "1 scale, FlowNet2 f32, 2 clips x 3 chunks of 512x448, latest saved once",
+        train_s=f"{train_s:.2f}", ms_per_clip=",".join(f"{v:.1f}" for v in clip_ms),
+        ms_per_chunk=",".join(f"{v:.1f}" for v in chunk_ms),
+        ms_per_chunk_median=f"{statistics.median(chunk_ms):.2f}",
+        host_build_ms_per_frame=",".join(f"{v:.1f}" for v in dataset.build_ms),
+        face_losses=json.dumps([[round(c[f], 5) for f in face_keys] for c in per_chunk]),
+        loss_G_total=",".join(f"{c['loss_G_total']:.5g}" for c in per_chunk),
+        loss_D_total=",".join(f"{c['loss_D_total']:.5g}" for c in per_chunk),
+        checkpoint_bytes=ckpt_bytes, save_s=f"{save_ms[0] / 1e3:.2f}",
+        restore_s=f"{restore_s:.2f}", restored_tensors_bit_for_bit=n_tensors,
+        of_them_netD_f=n_face,
+        peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
+        warp_blend_bwd_ms_per_call=",".join(f"{a:.4f}" for a, _ in bwd),
+        warp_blend_bwd_device_ms=",".join(f"{d:.4f}" for _, d in bwd), card=repr(card))
+    return launches
+
+
 def conv_workspace(nets, fn) -> int:
     """The largest transient allocation of any one cuDNN conv call (every
     nn.Conv2d and nn.ConvTranspose2d of the nets but the conv7 kernel's
@@ -2412,7 +2712,9 @@ def main() -> None:
     for path, run in (("label2city", label2city_path), ("flownet2", flownet2_path),
                       ("training", training_path), ("train_cli", train_cli_path),
                       ("edge2face_single", edge2face_single_path),
-                      ("label2city_single", label2city_single_path)):
+                      ("label2city_single", label2city_single_path),
+                      ("face_stream", face_stream_path), ("pose_stream", pose_stream_path),
+                      ("pose_train", pose_train_path)):
         with kernel_call_shapes() as seen:
             launches[path] = run(card)
         torch.cuda.empty_cache()

@@ -11,12 +11,13 @@ the same label maps and frames that agree.
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
-from torch_parity import randomize
+from torch_parity import randomize, torch_threads
 from vid2vid_tpu import test_cli as jax_cli
 from vid2vid_tpu.config import parse_args
 from vid2vid_tpu.models.inference import InferenceEngine as JaxEngine
@@ -157,5 +158,121 @@ def test_stream_resets_state_per_sequence():
 
 
 def test_unported_dataset_modes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_cli.main(["--dataset_mode", "face", "--checkpoints_dir", str(tmp_path)])
+    """The face and pose modes are ported: the CLI opens their test streams
+    (which look for their own directories)."""
+    for mode, missing in (("face", "test_keypoints"), ("pose", "test_img")):
+        with pytest.raises(FileNotFoundError, match=missing):
+            test_cli.main(["--dataset_mode", mode, "--checkpoints_dir", str(tmp_path),
+                           "--dataroot", str(tmp_path), "--gpu_ids", "-1", "--label_nc", "0",
+                           "--ngf", "8", "--n_downsample_G", "1", "--n_blocks", "1"])
+
+
+def _drawn(init, rng, *args):
+    """Variables of the tree `init` would return, drawn with numpy without
+    compiling it (kernels N(0, 0.02), norm scales 1, the rest 0), then
+    randomized (biases, running stats): for nets whose parameters are all
+    flax Conv / norm leaves (the single-image nets)."""
+    shapes = jax.eval_shape(init, jax.random.key(0), *args)
+
+    def walk(node, name=None):
+        if hasattr(node, "items"):
+            return {k: walk(v, k) for k, v in node.items()}
+        if name == "kernel":
+            return 0.02 * rng.standard_normal(node.shape).astype(np.float32)
+        return np.full(node.shape, 1.0 if name in ("scale", "var") else 0.0, np.float32)
+
+    return randomize(walk(shapes), rng)
+
+
+def _same_weights(tmp_path, flags, h, w):
+    """The generator's random weights as the JAX CLI's orbax snapshot and as
+    the port's latest_net_G0.pth."""
+    opt = parse_args(flags, is_train=False, save=False)
+    rng = np.random.default_rng(1)
+    params = {k: randomize(v, rng)
+              for k, v in JaxEngine(opt).init(jax.random.key(0), 1, h, w).items()}
+    save_params(opt, params, "G_latest")
+    os.makedirs(tmp_path / "ck" / "cli", exist_ok=True)
+    sd = generator_state_dict(params, opt)
+    torch.save({k[3:]: v for k, v in sd.items() if k.startswith("G0.")},
+               tmp_path / "ck" / "cli" / "latest_net_G0.pth")
+    return opt
+
+
+def _face_registry(tmp_path, opt, hw):
+    """The edge2face registry's GlobalWithFeatures and Encoder at their
+    published widths with random weights, and a clusters file: orbax trees
+    under edge2face_single/state/ for the JAX CLI, .pth files and
+    features.npy beside them for the port."""
+    import orbax.checkpoint as ocp
+
+    from vid2vid_tpu_torch.utils.from_jax import encoder_state_dict, single_g_state_dict
+
+    jeng = JaxEngine(opt)
+    jeng.build_single_g()
+    rng = np.random.default_rng(2)
+    gparams = _drawn(jeng._single_g.init, rng, jnp.zeros((1, hw, hw, 15)),
+                     jnp.zeros((1, hw, hw, 16)))
+    eparams = _drawn(jeng._encoder.init, rng, jnp.zeros((1, hw, hw, 3)),
+                     jnp.zeros((1, hw, hw), jnp.int32))
+    root = tmp_path / "ck" / "edge2face_single"
+    for name, tree in (("G", gparams), ("E", eparams)):
+        ocp.PyTreeCheckpointer().save(str(root / "state" / name), tree, force=True)
+    torch.save(single_g_state_dict(gparams, "global_with_features", n_downsampling=3,
+                                   n_blocks=9), root / "G.pth")
+    torch.save(encoder_state_dict(eparams, n_downsampling=4), root / "E.pth")
+    clusters = {p: rng.standard_normal((4, 17)).astype(np.float32) for p in range(1, 7)}
+    for path in (root / "features.npy", root / "state" / "features.npy"):
+        np.save(path, clusters, allow_pickle=True)
+
+
+def _compare_results(tmp_path, n_frames):
+    jdir = tmp_path / "res_jax" / "cli" / "test_latest"
+    pdir = tmp_path / "res_port" / "cli" / "test_latest"
+    names = sorted(p.name for p in pdir.iterdir())
+    assert names == sorted(p.name for p in jdir.iterdir())
+    assert len(names) == 2 * n_frames
+    for name in names:
+        if name.endswith("_real_A.jpg"):  # the same conditioning, the same file
+            assert (pdir / name).read_bytes() == (jdir / name).read_bytes(), name
+            continue
+        got = np.asarray(Image.open(pdir / name), np.int16)
+        want = np.asarray(Image.open(jdir / name), np.int16)
+        assert want.std() > 1.0  # not a flat frame
+        # the bounds of test_cli_matches_jax_cli
+        assert np.abs(got - want).max() <= 8, name
+        assert np.abs(got - want).mean() <= 0.5, name
+
+
+@pytest.mark.parametrize("mode", ["face", "pose"])
+def test_cli_face_and_pose_modes_match_jax_cli(tmp_path, mode):
+    """--dataset_mode face with --use_single_G (the edge2face registry at
+    its published widths seeds each sequence from the stream's real frames
+    and part maps) and --dataset_mode pose with --no_first_img, on trees of
+    two sequences, against the JAX CLI: the same files, real_A byte for
+    byte, the frames within test_cli_matches_jax_cli's bounds."""
+    from test_torch_face_pose_data import write_face_tree, write_pose_tree
+
+    root = tmp_path / mode  # the registry is chosen by "face" in the dataroot
+    if mode == "face":  # 26-wide faces: 64-square crops, which loadSize 64 keeps
+        write_face_tree(str(root), phase="test", n_frames=4, hw=(96, 96), width=26)
+        extra, (h, w) = ["--input_nc", "15", "--loadSize", "64", "--use_single_G"], (64, 64)
+    else:  # scaleHeight keeps 96x128; the central crop gives 96x64
+        write_pose_tree(str(root), phase="test", n_frames=4, hw=(96, 128))
+        extra, (h, w) = ["--input_nc", "6", "--resize_or_crop", "scaleHeight", "--loadSize",
+                         "96", "--no_first_img"], (96, 64)
+
+    def flags(results):
+        return ["--dataroot", str(root), "--dataset_mode", mode, "--label_nc", "0",
+                "--ngf", "8", "--n_downsample_G", "2", "--n_blocks", "2",
+                "--n_scales_spatial", "1", "--name", "cli", "--checkpoints_dir",
+                str(tmp_path / "ck"), "--results_dir", str(tmp_path / results),
+                "--gpu_ids", "-1", *extra]
+
+    opt = _same_weights(tmp_path, flags("unused"), h, w)
+    if mode == "face":
+        _face_registry(tmp_path, opt, h)
+    jax_cli.main(flags("res_jax"))
+    with torch_threads(1):
+        assert test_cli.main(flags("res_port")) == 2 * (4 - 2)
+    _compare_results(tmp_path, 2 * (4 - 2))

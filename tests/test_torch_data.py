@@ -175,9 +175,13 @@ def test_loader_raises_a_failed_item_and_stops_its_thread(tmp_path):
 
 
 def test_unported_dataset_modes_raise(tmp_path):
-    for mode in ("face", "pose"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The face and pose modes are ported: they reach their datasets (which
+    look for their own directories); an unknown mode still raises."""
+    for mode, missing in (("face", "train_keypoints"), ("pose", "train_img")):
+        with pytest.raises(FileNotFoundError, match=missing):
             create_dataset(Options(dataset_mode=mode, dataroot=str(tmp_path)))
+    with pytest.raises(ValueError, match="unknown dataset_mode"):
+        create_dataset(Options(dataset_mode="audio", dataroot=str(tmp_path)))
 
 
 def test_test_stream_matches_jax(tmp_path):

@@ -1,5 +1,5 @@
 """Importing the port (and what chip_smoke.py imports) loads neither JAX,
-PIL nor the JAX package and builds no kernel; the port's copies of the JAX
+PIL, cv2 nor the JAX package and builds no kernel; the port's copies of the JAX
 package's config and name mappings equal the originals; and a CUDA-only
 entry without a GPU raises instead of falling back."""
 
@@ -46,7 +46,7 @@ loaded = sorted(set(sys.modules) - before)
 print(json.dumps({
     "modules": mods,
     "loaded": [m for m in loaded
-               if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL", "vid2vid_tpu")],
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL", "cv2", "vid2vid_tpu")],
     "subprocesses": started,
     "library_loaded": build.library.cache_info().currsize,
 }))
@@ -100,7 +100,9 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.data.files", "vid2vid_tpu_torch.data.transforms",
         "vid2vid_tpu_torch.data.temporal", "vid2vid_tpu_torch.data.loader",
         "vid2vid_tpu_torch.utils.images", "vid2vid_tpu_torch.utils.html",
-        "vid2vid_tpu_torch.utils.visualizer",
+        "vid2vid_tpu_torch.utils.visualizer", "vid2vid_tpu_torch.data.raster",
+        "vid2vid_tpu_torch.data.keypoints", "vid2vid_tpu_torch.data.face",
+        "vid2vid_tpu_torch.data.pose",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []

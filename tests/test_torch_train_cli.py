@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from test_data import write_temporal_dataset
+from torch_parity import torch_threads
 from vid2vid_tpu_torch import test_cli, train_cli
 from vid2vid_tpu_torch.config import parse_args
 from vid2vid_tpu_torch.data.loader import create_dataset
@@ -115,3 +116,39 @@ def test_flow_fn_loads_the_published_file_or_seeds(tmp_path, monkeypatch, capsys
     assert len(seeded) == 1 and "WARNING" not in capsys.readouterr().out
     for k, v in est.net.state_dict().items():
         assert torch.equal(v, published[k]), k
+
+
+def test_train_cli_pose_with_face_disc(tmp_path, capsys):
+    """--dataset_mode pose --add_face_disc for one epoch on the CPU: pose
+    items (inst None) from the files, the face discriminator's losses
+    printed, its checkpoint file saved and restored."""
+    from test_torch_face_pose_data import write_pose_tree
+
+    # 96x256 frames: scaleHeight 96 keeps them; the scaled crop (fineSize
+    # 64) gives 64x160, the central crop 64x64, a 16-square face window
+    write_pose_tree(str(tmp_path), n_seqs=2, n_frames=5, hw=(96, 256), faceless=())
+    flags = [
+        "--dataroot", str(tmp_path), "--dataset_mode", "pose", "--name", "pose",
+        "--checkpoints_dir", str(tmp_path / "ckpt"), "--label_nc", "0", "--input_nc", "6",
+        "--resize_or_crop", "scaleHeight_and_scaledCrop", "--loadSize", "96",
+        "--fineSize", "64", "--ngf", "8", "--ndf", "8", "--n_blocks", "1",
+        "--n_downsample_G", "2", "--n_scales_spatial", "1", "--n_frames_total", "2",
+        "--max_frames_per_gpu", "1", "--num_D", "3", "--n_layers_D", "2",
+        "--n_scales_temporal", "1", "--no_vgg", "--no_flow", "--no_first_img",
+        "--add_face_disc", "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+        "--gpu_ids", "-1",
+    ]
+    with torch_threads(1):
+        trainer, state = train_cli.main(flags)
+    # 2 clips of 2 + tG - 1 frames, one frame a chunk
+    assert trainer.schedule.epoch == 2 and trainer.schedule.total_steps == 4
+    assert trainer.engine.netD_f.num_d == 1
+    out = capsys.readouterr().out
+    assert "D_f_real" in out and "G_f_GAN" in out
+    run = tmp_path / "ckpt" / "pose"
+    assert (run / "latest_net_D_f.pth").exists()
+    opt = parse_args(flags, is_train=True, save=False)
+    fresh = Trainer(opt, device="cpu")
+    fstate, _ = restore_checkpoint(opt, fresh.init_state(), fresh.schedule)
+    for k, v in trainer.engine.netD_f.state_dict().items():
+        assert torch.equal(fstate.engine.netD_f.state_dict()[k], v), k

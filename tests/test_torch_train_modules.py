@@ -240,6 +240,7 @@ def test_learning_rates_match_jax(ttur):
         def __init__(self):
             super().__init__()
             self.netD = torch.nn.Linear(2, 1)
+            self.netD_f = None  # no --add_face_disc
             self.netD_T = torch.nn.ModuleList(torch.nn.Linear(2, 1) for _ in range(2))
             self.vgg = torch.nn.Linear(2, 1).requires_grad_(False)
 
@@ -267,14 +268,19 @@ def test_learning_rates_match_jax(ttur):
 
 
 def test_unported_training_options_raise():
-    """The face discriminator belongs to the face / pose slice and the
-    device mesh to the multi-device one: both raise, naming ROADMAP."""
+    """The face discriminator is ported (max(1, num_D - 2) scales, in the D
+    optimizer's group); the device mesh belongs to the multi-device slice
+    and raises, naming ROADMAP."""
     from vid2vid_tpu_torch.models.loss_engine import LossEngine
     from vid2vid_tpu_torch.train.loop import Trainer
 
     small = dict(label_nc=3, ngf=4, n_downsample_G=1, n_blocks=1, ndf=4,
                  num_D=1, n_layers_D=1, no_vgg=True, isTrain=True)
-    with pytest.raises(NotImplementedError, match="face"):
-        LossEngine(Options(**small, add_face_disc=True))
+    for num_d, n_face in ((1, 1), (4, 2)):
+        engine = LossEngine(Options(**{**small, "num_D": num_d}, add_face_disc=True))
+        assert engine.netD_f.num_d == n_face
+        group = tstate.create_train_state(engine.opt, torch.nn.Linear(1, 1), engine).opt_d
+        assert len(group.param_groups[0]["params"]) == len(list(engine.netD.parameters())) \
+            + len(list(engine.netD_f.parameters()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(Options(**small, n_devices=2), device="cpu")

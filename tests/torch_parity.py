@@ -8,6 +8,8 @@ port with vid2vid_tpu_torch.utils.from_jax.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,19 @@ from vid2vid_tpu.train.loop import Trainer as JaxTrainer
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.train.loop import Trainer
 from vid2vid_tpu_torch.utils.from_jax import generator_state_dict, loss_engine_state_dict
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to `n` for the block: the small CPU nets
+    of the tests run no slower on one thread, and the test workers, which
+    share the machine's cores, do not oversubscribe them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
 
 
 def nhwc(x) -> np.ndarray:
@@ -124,9 +139,9 @@ def clip(seed: int = 11):
     return labels, real
 
 
-def jax_trainer(n_frames_bp: int):
+def jax_trainer(n_frames_bp: int, **overrides):
     """The JAX Trainer with random biases; returns (trainer, state)."""
-    trainer = JaxTrainer(JaxOptions(**CONFIG), flow_fn=jax_stub_flow)
+    trainer = JaxTrainer(JaxOptions(**{**CONFIG, **overrides}), flow_fn=jax_stub_flow)
     state = trainer.init_state(H, W)
     rng = np.random.default_rng(5)
     gparams = {k: randomize(v, rng) for k, v in state.gparams.items()}
@@ -150,17 +165,17 @@ def port_trainer(jax_state, n_frames_bp: int, **overrides):
     return trainer, state
 
 
-def run_jax(n_frames_bp: int):
-    """Two chunks of the JAX Trainer: (per-chunk loss dicts, the state
-    after the first chunk's steps, the initial state)."""
+def run_jax(n_frames_bp: int, n_chunks: int = 2, **overrides):
+    """`n_chunks` (1 or 2) chunks of the JAX Trainer: (per-chunk loss dicts,
+    the state after the first chunk's steps, the initial state)."""
     labels, real = clip()
-    trainer, state = jax_trainer(n_frames_bp)
+    trainer, state = jax_trainer(n_frames_bp, **overrides)
     init = _copy(state)
     carry = trainer.start_clip()
     out, after_first = [], None
     real_j = jnp.asarray(np.moveaxis(real, 2, -1))
     t_len = N_LOAD + TG - 1
-    for i in (0, N_LOAD):
+    for i in (0, N_LOAD)[:n_chunks]:
         state, carry, losses = trainer.train_chunk(
             state, carry, jnp.asarray(labels[:, i : i + t_len]), real_j[:, i : i + t_len])
         out.append(losses)
@@ -174,15 +189,16 @@ def _copy(tree):
     return jax.tree.map(np.array, tree)
 
 
-def run_port(jax_init, n_frames_bp: int, **overrides):
-    """Two chunks of the port's Trainer: (per-chunk loss dicts, the
-    generator's and the engine's state_dicts after the first chunk)."""
+def run_port(jax_init, n_frames_bp: int, n_chunks: int = 2, **overrides):
+    """`n_chunks` (1 or 2) chunks of the port's Trainer: (per-chunk loss
+    dicts, the generator's and the engine's state_dicts after the first
+    chunk)."""
     labels, real = (torch.from_numpy(a) for a in clip())
     trainer, state = port_trainer(jax_init, n_frames_bp, **overrides)
     carry = trainer.start_clip()
     out, after_first = [], None
     t_len = N_LOAD + TG - 1
-    for i in (0, N_LOAD):
+    for i in (0, N_LOAD)[:n_chunks]:
         state, carry, losses = trainer.train_chunk(
             state, carry, labels[:, i : i + t_len], real[:, i : i + t_len])
         out.append(losses)
@@ -194,15 +210,15 @@ def run_port(jax_init, n_frames_bp: int, **overrides):
     return out, after_first
 
 
-def losses_within(got: list[dict], want: list[dict]) -> list[str]:
+def losses_within(got: list[dict], want: list[dict], extra_keys: tuple = ()) -> list[str]:
     """The keys whose values leave the bounds of tests/test_train_oracle.py:
-    losses 2e-4 (rtol and atol) in chunk 1 and 2e-2 in chunk 2, grad norms
-    rtol 5e-3 / 5e-2 with atol 5e-4."""
+    losses (KEYS and `extra_keys`) 2e-4 (rtol and atol) in chunk 1 and
+    2e-2 in chunk 2, grad norms rtol 5e-3 / 5e-2 with atol 5e-4."""
     bad = []
     for chunk, (g, w) in enumerate(zip(got, want)):
         tol = 2e-4 if chunk == 0 else 2e-2
         gtol = 5e-3 if chunk == 0 else 5e-2
-        for k in KEYS:
+        for k in KEYS + list(extra_keys):
             if not np.isclose(g[k], w[k], rtol=tol, atol=tol):
                 bad.append(f"chunk {chunk} {k}: {g[k]} vs {w[k]}")
         for k in GRAD_KEYS:

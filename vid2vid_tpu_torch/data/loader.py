@@ -1,10 +1,10 @@
 """The dataset factory and the prefetching loader, the port of
 vid2vid_tpu/data/loader.py.
 
-`create_dataset` dispatches on --dataset_mode like the reference factory
-(reference: data/custom_dataset_data_loader.py:5-45). The loader decodes
-in a background thread (PIL releases the interpreter lock while it
-decodes), so host decoding overlaps the card's work.
+`create_dataset` and `create_test_stream` dispatch on --dataset_mode like
+the reference factory (reference: data/custom_dataset_data_loader.py:5-45).
+The loader decodes in a background thread (PIL releases the interpreter
+lock while it decodes), so host decoding overlaps the card's work.
 """
 
 from __future__ import annotations
@@ -23,16 +23,37 @@ def create_dataset(opt):
         from vid2vid_tpu_torch.data.temporal import TemporalDataset
 
         return TemporalDataset(opt)
+    if mode == "face":
+        from vid2vid_tpu_torch.data.face import FaceDataset
+
+        return FaceDataset(opt)
+    if mode == "pose":
+        from vid2vid_tpu_torch.data.pose import PoseDataset
+
+        return PoseDataset(opt)
     if mode == "test":
         from vid2vid_tpu_torch.data.test_stream import TestTemporalStream
 
         return TestTemporalStream(opt)
-    if mode in ("face", "pose"):
-        raise NotImplementedError(
-            f"--dataset_mode {mode} is not ported yet "
-            "(ROADMAP.md, queue 1 item 3: the face and pose slice)"
-        )
     raise ValueError(f"unknown dataset_mode {mode!r}")
+
+
+def create_test_stream(opt):
+    """The per-frame test feed of any dataset mode."""
+    mode = opt.dataset_mode
+    if mode in ("temporal", "test"):
+        from vid2vid_tpu_torch.data.test_stream import TestTemporalStream
+
+        return TestTemporalStream(opt)
+    if mode == "face":
+        from vid2vid_tpu_torch.data.face import FaceTestStream
+
+        return FaceTestStream(opt)
+    if mode == "pose":
+        from vid2vid_tpu_torch.data.pose import PoseTestStream
+
+        return PoseTestStream(opt)
+    raise ValueError(f"no test stream for dataset_mode {mode!r}")
 
 
 class PrefetchLoader:

@@ -7,7 +7,8 @@ and `test_B/` real frames under --use_real_img. Each item is a dict with
 "A" (H, W) int32 labels or (H, W, 3) float32, "B" and "inst" (or None),
 "change_seq", "path" and "seq". The scan and the transforms are
 data/files.py's and data/transforms.py's; images are read with PIL,
-imported when a frame is read. The face and pose datasets are not ported.
+imported when a frame is read. The face and pose streams are
+data/face.py's and data/pose.py's.
 """
 
 from __future__ import annotations

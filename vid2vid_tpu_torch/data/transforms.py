@@ -8,7 +8,9 @@ rounded to /4, then to the nearest multiple of 32 (`make_power_2`).
 The JAX package draws from the global `random` and `np.random`; the port
 draws from a `random.Random` and an `np.random.RandomState` that the caller
 owns, with the same method calls in the same order, so the same seed gives
-the same draws. PIL is imported only by the functions that read a file.
+the same draws. PIL is imported only by the functions that read a file or
+resize to a new size: `transform_array` transforms arrays whose resize keeps
+their size without it.
 """
 
 from __future__ import annotations
@@ -80,17 +82,29 @@ def get_img_params(
     return ImgParams((new_w, new_h), (crop_w, crop_h), (crop_x, crop_y), flip)
 
 
-def apply_transform(img, opt, params: ImgParams, nearest: bool = False):
-    """Scale -> crop -> flip a PIL image by the clip's parameters, with
-    nearest resampling (label maps) or bicubic (images)."""
+# PIL's resampling filters by name (Image.NEAREST, BILINEAR, BICUBIC)
+RESAMPLE = {"nearest": 0, "bilinear": 2, "bicubic": 3}
+
+
+def target_size(opt, params: ImgParams) -> tuple[int, int]:
+    """(w, h) every frame is resized to before the crop."""
+    if "resize" in opt.resize_or_crop:
+        return opt.loadSize, opt.loadSize
+    return params.new_size
+
+
+def _crops(opt) -> bool:
+    return "crop" in opt.resize_or_crop or "scaledCrop" in opt.resize_or_crop
+
+
+def apply_transform(img, opt, params: ImgParams, method: str = "bicubic"):
+    """Scale -> crop -> flip a PIL image by the clip's parameters, resampled
+    by `method`: "nearest" (label maps), "bilinear" (the face channels) or
+    "bicubic" (images)."""
     from PIL import Image
 
-    method = Image.NEAREST if nearest else Image.BICUBIC
-    if "resize" in opt.resize_or_crop:
-        img = img.resize((opt.loadSize, opt.loadSize), method)
-    else:
-        img = img.resize(params.new_size, method)
-    if "crop" in opt.resize_or_crop or "scaledCrop" in opt.resize_or_crop:
+    img = img.resize(target_size(opt, params), RESAMPLE[method])
+    if _crops(opt):
         ow, oh = img.size
         tw, th = params.crop_size
         x1, y1 = params.crop_pos
@@ -99,6 +113,26 @@ def apply_transform(img, opt, params: ImgParams, nearest: bool = False):
     if params.flip:
         img = img.transpose(Image.FLIP_LEFT_RIGHT)
     return img
+
+
+def transform_array(arr: np.ndarray, opt, params: ImgParams, method: str) -> np.ndarray:
+    """apply_transform on an (H, W) or (H, W, C) uint8 array, returning an
+    array. Where the resize keeps the size it is the identity (Pillow
+    returns a copy), and the crop and flip are numpy slices: no PIL. A
+    resize to a new size goes through PIL."""
+    h, w = arr.shape[:2]
+    if target_size(opt, params) != (w, h):
+        from PIL import Image
+
+        return np.asarray(apply_transform(Image.fromarray(arr), opt, params, method))
+    if _crops(opt):
+        tw, th = params.crop_size
+        x1, y1 = params.crop_pos
+        if w > tw or h > th:
+            arr = arr[y1 : min(h, y1 + th), x1 : min(w, x1 + tw)]
+    if params.flip:
+        arr = arr[:, ::-1]
+    return np.ascontiguousarray(arr)
 
 
 def image_size(path: str) -> tuple[int, int]:
@@ -122,7 +156,7 @@ def load_label_map(path: str, opt, params: ImgParams) -> np.ndarray:
     """Label map -> (H, W) int32 class ids (nearest resampling)."""
     from PIL import Image
 
-    arr = np.asarray(apply_transform(Image.open(path), opt, params, nearest=True))
+    arr = np.asarray(apply_transform(Image.open(path), opt, params, "nearest"))
     if arr.ndim == 3:
         arr = arr[..., 0]
     return arr.astype(np.int32)

@@ -4,11 +4,15 @@
         --label_nc 35 --use_instance --fg --n_scales_spatial 3 ...
 
 Takes the reference's test.py flags (vid2vid_tpu_torch/config.py), streams
-the test set frame by frame through the generator on the first CUDA device
+the test set of --dataset_mode (label maps, face landmarks, or DensePose and
+OpenPose renders: data/loader.py::create_test_stream) frame by frame
+through the generator on the first CUDA device
 (on the CPU with `--gpu_ids -1`; without a card and that flag it raises),
 resets the state at every sequence change, and writes each frame's label
 map and generated frame to results/<name>/<phase>_<epoch>/<frame>_real_A.jpg
-and <frame>_fake_B.jpg (utils/visualizer.py::Visualizer.save_images).
+and <frame>_fake_B.jpg (utils/visualizer.py::Visualizer.save_images; an
+RGB input's real_A is its first three channels). In face mode each item's
+part map ("inst") is also the pool map of the --use_single_G seeding.
 Weights: the reference's per-scale checkpoints
 `<checkpoints_dir>/<name>/<which_epoch>_net_G<s>.pth`, loaded with
 load_state_dict; without them the generator runs on its seeded random
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from vid2vid_tpu_torch.config import Options, parse_args
+from vid2vid_tpu_torch.data.loader import create_test_stream
 from vid2vid_tpu_torch.models.inference import InferenceEngine
 from vid2vid_tpu_torch.nn.layers import init_weights
 from vid2vid_tpu_torch.utils.images import label_to_color, to_image
@@ -183,22 +188,16 @@ def main(argv=None) -> int:
         nThreads=1, serial_batches=True, no_flip=True, isTrain=False,
         dataset_mode="test" if opt.dataset_mode == "temporal" else opt.dataset_mode,
     )
-    if opt.dataset_mode != "test":
-        raise NotImplementedError(
-            f"--dataset_mode {opt.dataset_mode} (face / pose) is not ported yet "
-            "(ROADMAP.md, queue 1: data pipelines)"
-        )
     eng = InferenceEngine(opt, device="cuda" if opt.gpu_ids else "cpu")
+    stream = create_test_stream(opt)
     visualizer = Visualizer(opt)
     load_weights(opt, eng)
     if opt.use_single_G:
         load_single_g(opt, eng)
     save_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.which_epoch}")
     os.makedirs(save_dir, exist_ok=True)
-    from vid2vid_tpu_torch.data.test_stream import TestTemporalStream
-
     count = 0
-    for item, frame in stream_frames(opt, eng, TestTemporalStream(opt)):
+    for item, frame in stream_frames(opt, eng, stream):
         save_frame(visualizer, save_dir, opt, item, frame)
         count += 1
         if count % 10 == 0:

@@ -6,8 +6,10 @@ Under <checkpoints_dir>/<name>/:
   <tag>_net_G<s>.pth    one per spatial scale: that scale's state_dict
                         without its `G<s>.` prefix (what test_cli.py reads);
   <tag>_net_D.pth       the spatial discriminator;
+  <tag>_net_D_f.pth     the face discriminator (--add_face_disc);
   <tag>_net_D_T<s>.pth  one per temporal scale;
-  <tag>_optim.pth       the three Adam state dicts and the schedule
+  <tag>_optim.pth       the three Adam state dicts (the D one over netD's
+                        and netD_f's parameters) and the schedule
                         counters (the JAX package's payload, field for
                         field; the reference kept no optimizer state);
   iter.txt              "epoch epoch_iter".
@@ -65,6 +67,8 @@ def checkpoint_payloads(state: TrainState, schedule: Schedule) -> dict:
     gen, engine = state.gen, state.engine
     files = {f"net_G{s}": gen.scale(s).state_dict() for s in range(gen.n_scales)}
     files["net_D"] = engine.netD.state_dict()
+    if engine.netD_f is not None:
+        files["net_D_f"] = engine.netD_f.state_dict()
     files.update({f"net_D_T{s}": net.state_dict() for s, net in enumerate(engine.netD_T)})
     files["optim"] = {
         "opt_g": state.opt_g.state_dict(),
@@ -107,8 +111,16 @@ def restore_checkpoint(opt, state: TrainState, schedule: Schedule, tag: str = "l
     for s in range(gen.n_scales):
         gen.scale(s).load_state_dict(_load(checkpoint_path(opt, tag, f"net_G{s}")))
     engine.netD.load_state_dict(_load(checkpoint_path(opt, tag, "net_D")))
+    if engine.netD_f is not None:
+        engine.netD_f.load_state_dict(_load(checkpoint_path(opt, tag, "net_D_f")))
     for s, net in enumerate(engine.netD_T):
         net.load_state_dict(_load(checkpoint_path(opt, tag, f"net_D_T{s}")))
+    n_saved = len(optim["opt_d"]["param_groups"][0]["params"])
+    n_held = len(state.opt_d.param_groups[0]["params"])
+    if n_saved != n_held:
+        raise ValueError(
+            f"the checkpoint's D optimizer holds {n_saved} parameters, the state's "
+            f"{n_held} (netD and netD_f: is --add_face_disc the same?)")
     state.opt_g.load_state_dict(optim["opt_g"])
     state.opt_d.load_state_dict(optim["opt_d"])
     if len(optim["opt_dt"]) != len(state.opt_dt):
@@ -142,7 +154,8 @@ def load_pretrain(opt, state: TrainState) -> TrainState:
     in place: a full checkpoint (`latest_net_G*.pth` and `latest_net_D*.pth`)
     or a generator-only one. Entries whose name or shape do not match (a
     new enhancer scale) stay at init, as the reference's fuzzy
-    load_network leaves them (scripts/street/train_1024.sh:5)."""
+    load_network leaves them (scripts/street/train_1024.sh:5); a face
+    discriminator loads from `latest_net_D_f.pth` where there is one."""
     root, tag = os.path.abspath(opt.load_pretrain), "latest"
     src = opt.replace(checkpoints_dir=os.path.dirname(root), name=os.path.basename(root))
     if not os.path.exists(checkpoint_path(src, tag, "net_G0")):
@@ -162,6 +175,8 @@ def load_pretrain(opt, state: TrainState) -> TrainState:
     msg = f"load_pretrain: {n_g} generator tensors from {root}"
     if os.path.exists(checkpoint_path(src, tag, "net_D")):
         d_loaded = {f"netD.{k}": v for k, v in _load(checkpoint_path(src, tag, "net_D")).items()}
+        if os.path.exists(path := checkpoint_path(src, tag, "net_D_f")):
+            d_loaded.update({f"netD_f.{k}": v for k, v in _load(path).items()})
         d_loaded.update(scales("netD_T.", "net_D_T"))
         template = {k: v for k, v in engine.state_dict().items() if not k.startswith("vgg.")}
         merged, n_d, skipped_d = fuzzy_merge(template, d_loaded)

@@ -6,9 +6,9 @@ models/vid2vid_model_G.py:66-84, models/vid2vid_model_D.py:76-91):
 
   - the G optimizer over the generator: Adam(lr, (beta1, 0.999)), or under
     TTUR Adam(lr/2, (0, 0.9));
-  - the D optimizer over the spatial discriminator only (not VGG, not the
-    temporal discriminators): Adam(lr, (beta1, 0.999)), TTUR Adam(2lr,
-    (0, 0.9));
+  - the D optimizer over the spatial discriminator and, under
+    --add_face_disc, the face discriminator (not VGG, not the temporal
+    discriminators): Adam(lr, (beta1, 0.999)), TTUR Adam(2lr, (0, 0.9));
   - one D_T optimizer per temporal scale, always Adam(lr, (beta1, 0.999));
   - linear lr decay after `niter` epochs over `niter_decay` epochs;
   - `niter_fix_global`: for the first N epochs only the finest generator
@@ -133,11 +133,19 @@ def make_g_optimizer(opt: Options, gen: nn.Module) -> torch.optim.Adam:
     return _adam(gen.parameters(), _initial_lrs(opt)[0], betas)
 
 
+def d_parameters(engine: nn.Module) -> list:
+    """The D group's parameters: netD's, then netD_f's (the JAX package
+    labels both "d")."""
+    nets = [engine.netD] + ([engine.netD_f] if engine.netD_f is not None else [])
+    return [p for net in nets for p in net.parameters()]
+
+
 def create_train_state(opt: Options, gen: nn.Module, engine: nn.Module) -> TrainState:
-    """The three optimizer groups with TTUR. The D group holds netD only:
-    VGG is frozen and each netD_T[s] has its own always-undecayed Adam."""
+    """The three optimizer groups with TTUR. The D group holds netD and
+    netD_f: VGG is frozen and each netD_T[s] has its own always-undecayed
+    Adam."""
     betas = (0.0, 0.9) if opt.TTUR else (opt.beta1, 0.999)
-    opt_d = _adam(engine.netD.parameters(), _initial_lrs(opt)[1], betas)
+    opt_d = _adam(d_parameters(engine), _initial_lrs(opt)[1], betas)
     opt_dt = [
         _adam(net.parameters(), opt.lr, (opt.beta1, 0.999)) for net in engine.netD_T
     ]

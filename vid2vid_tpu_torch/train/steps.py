@@ -135,8 +135,9 @@ def g_step(
 
 
 def d_step(state: TrainState, opt: Options, enc_a, real_b_all, fake, raw):
-    """The spatial D step on detached fakes (raw None under use_raw_only).
-    Returns (loss_D, losses with D_grad_norm)."""
+    """The spatial (and face) D step on detached fakes (raw None under
+    use_raw_only). Returns (loss_D, losses with D_grad_norm, the norm of
+    netD's and netD_f's gradients)."""
     tG = opt.n_frames_G
     with cudnn_f32():
         losses = state.engine.discriminator_losses(

@@ -20,7 +20,8 @@ vid2vid_tpu/train/checkpoints.py::save_checkpoint writes: gparams, dparams,
 opt_g, opt_d, opt_dt, schedule) into the port's checkpoint files
 (train/checkpoints.py): optax's Adam moments `mu` / `nu` and `count` become
 torch Adam's `exp_avg` / `exp_avg_sq` and `step`, through the weights'
-mappings, so a run the JAX CLI trained resumes in the port's CLI.
+mappings (the D group's over D and, under --add_face_disc, D_f), so a run
+the JAX CLI trained resumes in the port's CLI.
 
 The JAX package has no checkpoint mapping for LocalEnhancer and
 LocalWithFeatures (no published single-image checkpoint uses them in its
@@ -152,14 +153,21 @@ def flownet2_state_dict(variables: dict) -> dict:
     return jax_variables_to_state_dict(variables, flownet2_mapping())
 
 
+def face_discriminator_mapping(opt: Options) -> list:
+    """The mapping of the face discriminator: max(1, num_D - 2) scales."""
+    return multiscale_discriminator_mapping(max(1, opt.num_D - 2), opt.n_layers_D, opt.norm)
+
+
 def loss_engine_state_dict(dparams: dict, opt: Options) -> dict:
-    """JAX LossEngine params {'D', 'D_T{s}', 'vgg'} -> the port's LossEngine
-    state_dict (keys netD., netD_T.{s}. and vgg.)."""
+    """JAX LossEngine params {'D', ['D_f'], 'D_T{s}', 'vgg'} -> the port's
+    LossEngine state_dict (keys netD., netD_f., netD_T.{s}. and vgg.)."""
     d_map = multiscale_discriminator_mapping(opt.num_D, opt.n_layers_D, opt.norm)
     out = {}
     groups = [("D", "netD", d_map)] + [
         (f"D_T{s}", f"netD_T.{s}", d_map) for s in range(opt.n_scales_temporal)
     ]
+    if opt.add_face_disc:
+        groups.append(("D_f", "netD_f", face_discriminator_mapping(opt)))
     if not opt.no_vgg:
         groups.append(("vgg", "vgg", vgg19_mapping()))
     for key, prefix, mapping in groups:
@@ -232,6 +240,16 @@ def train_state_checkpoint(payload: dict, opt: Options) -> dict:
     def d_sd(tree):
         return jax_variables_to_state_dict(tree, d_map)
 
+    def df_sd(tree):
+        return jax_variables_to_state_dict(tree, face_discriminator_mapping(opt))
+
+    def d_group_sd(tree):  # the D optimizer's group: netD's and netD_f's moments
+        fields = _fields(tree)
+        out = {f"netD.{k}": v for k, v in d_sd(fields["D"]).items()}
+        if opt.add_face_disc:
+            out.update({f"netD_f.{k}": v for k, v in df_sd(fields["D_f"]).items()})
+        return out
+
     def g_sd(tree):
         return generator_state_dict(tree, opt)
 
@@ -245,14 +263,18 @@ def train_state_checkpoint(payload: dict, opt: Options) -> dict:
         for s in range(opt.n_scales_spatial)
     }
     files["net_D"] = d_sd(payload["dparams"]["D"])
+    if opt.add_face_disc:
+        files["net_D_f"] = df_sd(payload["dparams"]["D_f"])
     for s in range(opt.n_scales_temporal):
         files[f"net_D_T{s}"] = d_sd(payload["dparams"][f"D_T{s}"])
     files["optim"] = {
         "opt_g": _adam_state_dict(payload["opt_g"], state.opt_g.state_dict(),
                                   names(gen), g_sd),
-        "opt_d": _adam_state_dict(payload["opt_d"], state.opt_d.state_dict(),
-                                  names(engine.netD),
-                                  lambda tree: d_sd(_fields(tree)["D"])),
+        "opt_d": _adam_state_dict(
+            payload["opt_d"], state.opt_d.state_dict(),
+            [f"netD.{n}" for n in names(engine.netD)]
+            + ([f"netD_f.{n}" for n in names(engine.netD_f)] if opt.add_face_disc else []),
+            d_group_sd),
         "opt_dt": [
             _adam_state_dict(o, state.opt_dt[s].state_dict(), names(engine.netD_T[s]), d_sd)
             for s, o in enumerate(payload["opt_dt"])
