@@ -16,9 +16,10 @@ non-zero):
      spills or on fewer blocks an SM than its channel split assumes;
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
-     bf16, correlation (FlowNetC, f32, also at two of its tile's edges, and
-     the same bit for bit on a second launch), flow_warp (FlowNet2, f32 and
-     bf16),
+     bf16, correlation and its backward (FlowNetC, f32, at FlowNetC's
+     training shape, the FlowNet2 shapes and two of the forward tile's
+     edges, each the same bit for bit on a second launch), flow_warp
+     (FlowNet2, f32 and bf16),
      the warp backward (training): warp_blend's and flow_warp's, conv7 at
      the single-image nets' 7x7 stems and heads, and conv3 / conv3_fused
      at the label2city path's 3x3 stride-1 convs, in f32 and bf16; and
@@ -31,14 +32,20 @@ non-zero):
   4. small-input references: the port on the card (kernels) against the
      port on the CPU (plain versions), same weights, f32: the label2city
      generator (its 7x7 stems and heads through conv7), the FlowNet2
-     FlowEstimator (4b), two training chunks (4c) and the single-image
-     seeding of both registries (4d);
+     FlowEstimator (4b), two training chunks (4c), the single-image
+     seeding of both registries (4d) and one FlowNetC training step of the
+     flow harness (4e: loss, EPE and every gradient);
   5. the label2city path: the flagship configuration at 2048x1024
      (3 scales, ngf 128, fg, instance edges, bf16) streaming frames through
      InferenceEngine.step, with every kernel's launch count checked (conv7:
      the composite's 21 7x7 stems and heads a frame), a profile of one
      frame, and an A/B of the frame with those convs on conv7 and on cuDNN
      (in turns: cuDNN, conv7, conv7, cuDNN);
+  5c. the same configuration streaming an 8-frame clip through
+     InferenceEngine.generate_clip_raw (labels on the host, one frame
+     encoded a step into a window on the card): launch counts, its frames
+     and state against the step loop's, ms per frame of both in turns, and
+     its peak memory against encode + generate_clip;
   5b. the FlowNet2 reference-flow path: FlowEstimator at full FlowNet2
      width (162.5M parameters, f32) on (B=1, T=2) pairs of 1024x2048
      frames, with every kernel's launch count checked;
@@ -77,7 +84,16 @@ non-zero):
      back-to-back calls) beside grid_sample's, alone and with the blend,
      and the warp backward's the same way (its memset and cast counted);
      the correlation per shape with TFLOP/s, the share of its FFMA bound,
-     the f2 stagings per value and its channel split.
+     the f2 stagings per value and its channel split; its backward at
+     FlowNetC's training shape against the plain VJP, with TFLOP/s and its
+     bound;
+  9. flow-net training: FlowNetC through FlowHarness at batch 8 on 384x512
+     pairs, 5 timed steps in f32 and 5 with mixed precision (median ms a
+     step, peak memory, one correlation forward and one backward a step,
+     the f32 convs without TF32), a profile of one f32 step by kernel family
+     with the backward kernel's share, the casts around the correlation
+     under bf16 timed beside its kernels, and `fit` over two in-memory
+     datasets for 2 epochs with its best checkpoint restored bit for bit.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -118,7 +134,8 @@ from vid2vid_tpu_torch.data.synthetic import (  # noqa: E402
 )
 from vid2vid_tpu_torch.data.transforms import get_img_params, target_size  # noqa: E402
 from vid2vid_tpu_torch.kernels import build  # noqa: E402
-from vid2vid_tpu_torch.models.flownet2.nets import init_flownet_weights  # noqa: E402
+from vid2vid_tpu_torch.models.flownet2.harness import FlowHarness  # noqa: E402
+from vid2vid_tpu_torch.models.flownet2.nets import FlowNetC, init_flownet_weights  # noqa: E402
 from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator  # noqa: E402
 from vid2vid_tpu_torch.models.inference import InferenceEngine  # noqa: E402
 from vid2vid_tpu_torch.nn.layers import ReflectConv7, init_weights  # noqa: E402
@@ -147,6 +164,8 @@ from vid2vid_tpu_torch.ops.correlation import (  # noqa: E402
     TILE_SMEM_BYTES,
     TILE_THREADS,
     correlation,
+    correlation_backward_plain,
+    correlation_bwd,
     correlation_plain,
     correlation_plan,
     f2_stagings,
@@ -195,6 +214,11 @@ WARP_SHAPES = [(256, 512), (512, 1024), (1024, 2048)]
 # pairs (the first, the shape of the FlowNet2 phase), then the 1024x512 and
 # 512x256 training recipes' pairs
 CORR_SHAPES = [(2, 256, 128, 256), (2, 256, 64, 128), (2, 256, 32, 64)]
+# (B, C, H, W) of FlowNetC's correlation operands when it trains at batch 8
+# (the reference flownet2_pytorch/main.py's default --batch_size) on
+# 384x512 pairs (FlyingChairs' frame): the conv3 features at 1/8
+FLOW_TRAIN_BATCH, FLOW_TRAIN_HW = 8, (384, 512)
+CORR_TRAIN_SHAPE = (FLOW_TRAIN_BATCH, 256, FLOW_TRAIN_HW[0] // 8, FLOW_TRAIN_HW[1] // 8)
 # two of the correlation tile's edges (ops/correlation.py::TILE_*): W not a
 # multiple of the 64-column tile, C not a multiple of the 16-channel chunk,
 # rows of a parity not a multiple of 4, W odd
@@ -255,6 +279,9 @@ TOL = {
     # the correlation is a multiply-sum on the CUDA cores in both versions
     # (TF32 never touches it); only the summation order differs
     ("correlation", torch.float32): dict(atol=1e-5, rtol=1e-5),
+    # its backward likewise: each gradient element sums 441 products in f32,
+    # the kernel in displacement order, the plain autograd plane by plane
+    ("correlation_bwd", torch.float32): dict(atol=1e-5, rtol=1e-5),
     ("warp_blend_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
     ("warp_blend_bwd", torch.bfloat16): dict(atol=1e-2, rtol=8e-3),
     ("flow_warp_bwd", torch.float32): dict(atol=1e-4, rtol=1e-5),
@@ -270,11 +297,13 @@ TOL = {
 }
 KERNELS = {"respair": respair, "warp_blend": warp_blend,
            "flow_warp": flow_warp, "correlation": correlation,
+           "correlation_bwd": correlation_bwd,
            "warp_blend_bwd": warp_blend_bwd, "flow_warp_bwd": flow_warp_bwd,
            "conv7": conv7_reflect, "conv3": conv3_padded,
            "conv3_fused": conv3_fused_padded}
 PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
          "flow_warp": flow_warp_plain, "correlation": correlation_plain,
+         "correlation_bwd": correlation_backward_plain,
          "warp_blend_bwd": warp_blend_backward_plain,
          "flow_warp_bwd": flow_warp_backward_plain,
          "conv7": conv7_reflect_plain, "conv3": conv3_plain,
@@ -283,6 +312,12 @@ PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
 COUNTERS = {name: (fn,) for name, fn in KERNELS.items()} | {
     "conv7": (conv7_reflect, conv7_padded)}
 PLAIN_OF = {conv7_padded: conv7_plain}  # the plain version of a second entry
+# the wrappers that their own module calls, from an autograd backward: the
+# path logs their calls there too (kernel_call_shapes)
+CALLED_IN_THEIR_MODULE = {"correlation_bwd"}
+# phase 9's times of the f32 casts around the correlation kernels under
+# bf16, and of the kernels at the same shape (the correlation JSON row)
+FLOW_TRAIN_CASTS: dict = {}
 # call_key of every kernel call compare() has held against its plain version
 CHECKED: set = set()
 # the launch counts of each single-image path's timed seeding calls alone
@@ -303,6 +338,10 @@ OTHER_BODY_ERRS: dict = {}
 # register set added to the accumulator once the chunk is done) read 2.8e-4
 # at C = 528 and 4.7e-4 at C = 1024; a single TF32 pass misses by ~1e-3.
 F32_TENSOR_CORE_ERR = 1e-4
+# generate_clip_raw against the step loop on the same seeded state (phase
+# 5c): both run the same kernels on the same bf16 values, so the frames may
+# differ only by bf16 rounding in another order: one bf16 ulp of a frame
+CLIP_TOL = dict(atol=1e-2, rtol=8e-3)
 FLAGSHIP = dict(
     label_nc=35, use_instance=True, fg=True, fg_labels=(26,), ngf=128,
     n_downsample_G=3, n_blocks=9, n_blocks_local=3, n_scales_spatial=3,
@@ -449,6 +488,12 @@ def corr_case(shape, gen):
     return tuple(torch.randn(shape, generator=gen).to(DEV) for _ in range(2))
 
 
+def corr_bwd_case(shape, gen):
+    """f1, f2 (B, C, H, W) and a cotangent (B, 441, H, W)."""
+    b, _, h, w = shape
+    return (*corr_case(shape, gen), torch.randn((b, 441, h, w), generator=gen).to(DEV))
+
+
 def conv7_case(ci, co, h, w, dtype, gen, b=1):
     """(x, w, bias) of a 7x7 conv: (B, Ci, H, W) input, weights of
     1 / sqrt(49 Ci) so the output is O(1), an f32 bias."""
@@ -479,6 +524,8 @@ def case_at(name, shapes, dtype, gen):
         return flow_warp_case(dtype, gen, shapes[0])
     if name == "correlation":
         return corr_case(shapes[0], gen)
+    if name == "correlation_bwd":
+        return corr_bwd_case(shapes[0], gen)
     if name == "conv7":
         return conv7_case(c, shapes[1][0], h, w, dtype, gen, b)
     raise NotImplementedError(f"no seeded case for {name}: add one to case_at")
@@ -490,6 +537,27 @@ def call_key(fn, args) -> tuple:
     return fn, tuple(tuple(t.shape) for t in tensors), tensors[0].dtype
 
 
+class LoggedCall:
+    """A kernel wrapper that logs each call's key into `seen` before it
+    runs; its attributes (the launch counters, which a wrapper updates
+    through its module's name for itself) are the wrapper's."""
+
+    def __init__(self, name, fn, seen):
+        object.__setattr__(self, "_call", (name, fn, seen))
+
+    def __call__(self, *args, **kwargs):
+        name, fn, seen = self._call
+        key = (name, *call_key(fn, args))
+        seen[key] = seen.get(key, 0) + 1
+        return fn(*args, **kwargs)
+
+    def __getattr__(self, attr):
+        return getattr(self._call[1], attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self._call[1], attr, value)
+
+
 @contextlib.contextmanager
 def kernel_call_shapes():
     """Within the block, every call that a module of the port makes to a
@@ -499,21 +567,15 @@ def kernel_call_shapes():
     names = {id(fn): name for name, fns in COUNTERS.items() for fn in fns}
     seen, swapped = {}, []
 
-    def shim(name, fn):
-        def call(*args, **kwargs):
-            key = (name, *call_key(fn, args))
-            seen[key] = seen.get(key, 0) + 1
-            return fn(*args, **kwargs)
-        return call
-
     for mod in list(sys.modules.values()):
         if not getattr(mod, "__name__", "").startswith("vid2vid_tpu_torch."):
             continue
         for attr, val in list(vars(mod).items()):
             name = names.get(id(val))
-            if name is not None and val.__module__ != mod.__name__:
+            if name is not None and (val.__module__ != mod.__name__
+                                     or attr in CALLED_IN_THEIR_MODULE):
                 swapped.append((mod, attr, val))
-                setattr(mod, attr, shim(name, val))
+                setattr(mod, attr, LoggedCall(name, val, seen))
     try:
         yield seen
     finally:
@@ -858,6 +920,7 @@ FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first 
     ("conv7 (ours)", r"conv7x7_kernel<|conv_wgmma_kernel<\w+, 7,"),
     ("conv3 / conv3_fused (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, false,"),
     ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel|splat_to_bf16_kernel"),
+    ("correlation backward (ours)", r"correlation_bwd_kernel"),
     ("correlation (ours)", r"correlation_kernel|sum_parts_kernel"),
     ("memset (the warp backward's splat, others)", r"^memset"),
     ("conv / gemm (cuDNN, cuBLAS)",
@@ -877,6 +940,7 @@ OUR_FAMILIES = {
     "warp kernels (ours)": dict.fromkeys(
         ("warp_blend", "flow_warp", "warp_blend_bwd", "flow_warp_bwd"), 1),
     "correlation (ours)": {"correlation": 1},
+    "correlation backward (ours)": {"correlation_bwd": 1},
 }
 
 
@@ -1005,7 +1069,7 @@ def check_kernels(gen: torch.Generator) -> dict:
         args = flow_warp_case(dtype, gen)
         record("flow_warp", dtype, compare("flow_warp", args, dtype), FLOW_WARP_SHAPE)
         del args
-    for shape in CORR_SHAPES + CORR_EDGE_SHAPES:
+    for shape in [CORR_TRAIN_SHAPE] + CORR_SHAPES + CORR_EDGE_SHAPES:
         args = corr_case(shape, gen)
         record("correlation", torch.float32,
                compare("correlation", args, torch.float32), shape)
@@ -1013,6 +1077,13 @@ def check_kernels(gen: torch.Generator) -> dict:
         first = correlation(*args)
         if not torch.equal(first, correlation(*args)):
             raise AssertionError(f"correlation {shape}: two launches disagree")
+        # the backward: a gather, each element summed by one thread in order
+        args = corr_bwd_case(shape, gen)
+        record("correlation_bwd", torch.float32,
+               compare("correlation_bwd", args, torch.float32), shape)
+        first = correlation_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(first, correlation_bwd(*args))):
+            raise AssertionError(f"correlation_bwd {shape}: two launches disagree")
         del args, first
     for name, shape, dtype in BWD_CHECKS:
         args = bwd_case(name, shape, dtype, gen)
@@ -1352,6 +1423,62 @@ def reference_single_g() -> None:
         net_cudnn_allow_tf32=sorted(set(tf32_seen)), ok=True)
 
 
+def flow_pairs(b: int, h: int, w: int, seed: int = 0):
+    """(B, 2, H, W, 3) frame pairs and (B, H, W, 2) flows from numpy: the
+    second frame is the first moved 3 px right and 2 down, plus small noise,
+    and the flow is (3, 2) everywhere."""
+    rng = np.random.default_rng(seed)
+    first = rng.random((b, h, w, 3), dtype=np.float32)
+    moved = np.roll(first, (2, 3), axis=(1, 2))
+    moved += 0.02 * rng.standard_normal(moved.shape, dtype=np.float32)
+    pair = np.stack([first, np.clip(moved, 0.0, 1.0)], 1)
+    return pair, np.broadcast_to(np.float32([3.0, 2.0]), (b, h, w, 2)).copy()
+
+
+def seeded_flownet_c(seed: int) -> FlowNetC:
+    """FlowNetC with its training outputs and the reference flow nets'
+    initialisation from a seeded torch.Generator (on the CPU)."""
+    net = FlowNetC(train_outputs=True)
+    init_flownet_weights(net, torch.Generator().manual_seed(seed))
+    return net
+
+
+def reference_flow_train() -> None:
+    """Phase 4e: one f32 FlowNetC training step (FlowHarness.train_step) at
+    (1, 2, 64, 128, 3): the card (both correlation kernels) against the CPU
+    (plain), same weights and inputs, PyTorch's default TF32 flags (the
+    harness turns cuDNN's TF32 off itself). Bounds: loss and EPE 1e-4
+    relative, each parameter's gradient 1e-3 relative in L2: f32 sums in
+    other orders (cuDNN's algorithms, the kernels'), through ~20 layers."""
+    pair, flow = flow_pairs(1, 64, 128, seed=1)
+    got, tf32_seen = {}, []
+    reset_launches()
+    for d in ("cpu", DEV):
+        net = seeded_flownet_c(seed=1)
+        watch_tf32(tf32_seen, net)
+        harness = FlowHarness(net, device=d)
+        with torch_default_tf32():
+            loss, err = harness.train_step(pair, flow)
+            check_f32_convs(tf32_seen, "FlowNetC training")
+        got[d] = (float(loss), float(err),
+                  {n: p.grad.cpu() for n, p in harness.net.named_parameters()})
+    launches = read_launches()
+    (loss_c, err_c, g_c), (loss_d, err_d, g_d) = got["cpu"], got[DEV]
+    rel = {n: float((g_d[n] - g_c[n]).norm() / g_c[n].norm()) for n in g_c}
+    worst = max(rel, key=rel.get)
+    if not (math.isclose(loss_d, loss_c, rel_tol=1e-4) and math.isclose(err_d, err_c, rel_tol=1e-4)
+            and rel[worst] <= 1e-3):
+        raise AssertionError(f"FlowNetC training reference: loss {loss_d} vs {loss_c}, EPE "
+                             f"{err_d} vs {err_c}, gradient {worst} off by {rel[worst]:.3g}")
+    if launches["correlation"] != 1 or launches["correlation_bwd"] != 1:
+        raise AssertionError(f"FlowNetC training reference launches {launches}")
+    say("reference", config="FlowNetC training step (1, 2, 64, 128, 3) f32", loss=f"{loss_d:.6g}",
+        loss_rel_err=f"{abs(loss_d - loss_c) / abs(loss_c):.3g}", epe=f"{err_d:.6g}",
+        epe_rel_err=f"{abs(err_d - err_c) / abs(err_c):.3g}", bound=1e-4,
+        grad_worst=worst, grad_worst_rel_l2=f"{rel[worst]:.3g}", grad_bound=1e-3,
+        launches=json.dumps({k: v for k, v in launches.items() if v}), ok=True)
+
+
 def label2city_path(card: str) -> dict:
     """Phase 5: the label2city path at full width; returns the kernels'
     launch counts on it."""
@@ -1459,6 +1586,87 @@ def conv7_route_ab(eng, frame, first_frame, n: int = 5) -> None:
         first_frame_mean_abs_diff=f"{float(diff.mean()):.3g}",
         first_frame_max_abs_diff=f"{float(diff.max()):.3g}",
         route_wins=med["conv7"] < med["cudnn"])
+
+
+def label2city_clip_path(card: str) -> dict:
+    """Phase 5c: the flagship configuration of phase 5 streaming an 8-frame
+    clip through InferenceEngine.generate_clip_raw, the labels on the host
+    (one frame a step goes to the card). Checks every kernel's launch count
+    in that run, holds its frames and state to the step loop's from the same
+    seeded state within CLIP_TOL, times ms per frame of both in turns (step,
+    clip, clip, step; each one 8-frame run after a warm-up of both; host
+    clock around torch.cuda.synchronize()), and reads the peak memory of
+    generate_clip_raw against encode + generate_clip on the same clip.
+    Returns the launch counts of the counted clip."""
+    opt = Options(**FLAGSHIP)
+    (h, w), n_frames = CITY_HW, 8
+    eng = seeded_engine(opt, DEV, seed=0)
+    labels, inst = label_stream(opt, n_frames, h, w)
+    zero = eng.initial_state(1, h, w)
+
+    def clip():
+        return eng.generate_clip_raw(labels, inst, zero)
+
+    def steps():
+        state, fakes = zero, []
+        for t in range(n_frames):
+            fake, state = eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state)
+            fakes.append(fake)
+        return torch.stack(fakes, 1), state
+
+    clip()
+    steps()
+    torch.cuda.synchronize()
+    reset_launches()
+    outs, clip_state = clip()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = dict.fromkeys(KERNELS, 0) | {
+        "respair": 45 * n_frames, "warp_blend": 3 * n_frames, "conv7": 21 * n_frames}
+    if launches != want:
+        raise AssertionError(f"generate_clip_raw launch counts {launches}, want {want}")
+    check_frames(outs.fake.unbind(1), (1, 3, h, w), "generate_clip_raw")
+    if any(o.dtype != torch.float32 for o in outs) or any(
+            s.dtype != torch.bfloat16 for s in clip_state):
+        raise AssertionError("generate_clip_raw: outputs not f32 or state not bf16")
+    ref, step_state = steps()
+    diffs = []
+    for got, ref_t in [(outs.fake, ref)] + list(zip(clip_state, step_state)):
+        err = (got.float() - ref_t.float()).abs()
+        if bool((err > CLIP_TOL["atol"] + CLIP_TOL["rtol"] * ref_t.float().abs()).any()):
+            raise AssertionError(f"generate_clip_raw vs the step loop: max abs diff "
+                                 f"{float(err.max())} outside {CLIP_TOL}")
+        diffs.append(float(err.max()))
+    del outs, clip_state, ref, step_state
+    times = {"clip": [], "step": []}
+    for side in ("step", "clip", "clip", "step"):
+        t1 = time.perf_counter()
+        (clip if side == "clip" else steps)()
+        torch.cuda.synchronize()
+        times[side].append((time.perf_counter() - t1) * 1e3 / n_frames)
+    torch.cuda.empty_cache()
+    resting = torch.cuda.memory_allocated()
+    peaks = {}
+    for name, run in (("generate_clip_raw", clip),
+                      ("encode_generate_clip",
+                       lambda: eng.generate_clip(eng.encode(labels, inst), zero))):
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    say("clip_path", config="label2city 2048x1024 3-scale ngf128 fg bf16, generate_clip_raw",
+        frames=n_frames, launches=json.dumps({k: v for k, v in launches.items() if v}),
+        frames_max_abs_diff_vs_step=f"{diffs[0]:.3g}",
+        state_max_abs_diff_vs_step=f"{max(diffs[1:]):.3g}", bound=CLIP_TOL,
+        clip_ms_per_frame=",".join(f"{v:.2f}" for v in times["clip"]),
+        step_ms_per_frame=",".join(f"{v:.2f}" for v in times["step"]),
+        clip_over_step=f"{statistics.mean(times['clip']) / statistics.mean(times['step']):.4f}",
+        order="step,clip,clip,step", resting_gib=f"{resting / 2**30:.3f}",
+        peak_gib_generate_clip_raw=f"{peaks['generate_clip_raw'] / 2**30:.3f}",
+        peak_gib_encode_generate_clip=f"{peaks['encode_generate_clip'] / 2**30:.3f}",
+        card=repr(card))
+    return launches
 
 
 def flownet2_path(card: str) -> dict:
@@ -2205,6 +2413,152 @@ def pose_train_path(card: str) -> dict:
     return launches
 
 
+class PairDataset:
+    """In-memory flow samples (pair (2, H, W, 3), flow (H, W, 2)), as the
+    flow datasets yield them (the card's machine has no PIL)."""
+
+    def __init__(self, pairs, flows):
+        self.pairs, self.flows = pairs, flows
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, i):
+        return self.pairs[i], self.flows[i]
+
+
+def timed_steps(harness, pair, flow, n: int) -> list[float]:
+    """ms of n training steps, each ended by torch.cuda.synchronize()."""
+    ms = []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        harness.train_step(pair, flow)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    return ms
+
+
+def flow_train_fit(card: str) -> None:
+    """Phase 9, fit: FlowNetC over two 2-sample in-memory datasets at 64x128
+    for 2 epochs, saving in a temporary directory (removed after); both
+    files exist; `best` restored into a fresh harness equals the best file
+    bit for bit (weights and Adam state) and validates to the tracked best
+    within 1e-3 relative."""
+    pairs, flows = flow_pairs(4, 64, 128, seed=2)
+    train_ds, val_ds = PairDataset(pairs[:2], flows[:2]), PairDataset(pairs[2:], flows[2:])
+    tmp = tempfile.mkdtemp(prefix="flow_fit_")
+    try:
+        harness = FlowHarness(seeded_flownet_c(seed=4), device=DEV)
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            best = harness.fit(train_ds, val_ds, 2, save_dir=tmp, prefix="fit")
+        files = sorted(os.listdir(tmp))
+        if files != ["fit_checkpoint.pth.tar", "fit_model_best.pth.tar"]:
+            raise AssertionError(f"fit wrote {files}")
+        saved = torch.load(os.path.join(tmp, files[1]), map_location="cpu", weights_only=True)
+        fresh = FlowHarness(seeded_flownet_c(seed=5), device=DEV)
+        epoch, best2 = fresh.restore_checkpoint(tmp, prefix="fit", best=True)
+        same = all(torch.equal(v.cpu(), saved["state_dict"][k])
+                   for k, v in fresh.net.state_dict().items())
+        opt_saved = [t for st in saved["optimizer"]["state"].values() for t in st.values()]
+        opt_got = [t for st in fresh.optimizer.state_dict()["state"].values() for t in st.values()]
+        same_opt = len(opt_got) == len(opt_saved) > 0 and all(
+            torch.equal(a.cpu(), b) for a, b in zip(opt_got, opt_saved))
+        val = fresh.validate(val_ds)
+        if not (same and same_opt and best2 == best and math.isclose(val, best, rel_tol=1e-3)):
+            raise AssertionError(f"fit restore: weights {same}, Adam {same_opt}, best {best2} "
+                                 f"vs {best}, validate {val}")
+        say("flow_fit", config="FlowNetC 64x128, 2 + 2 samples, 2 epochs", best_epe=f"{best:.5g}",
+            best_epoch=epoch, validate_restored=f"{val:.5g}", files=",".join(files),
+            restored_bit_for_bit=True, epochs=log.getvalue().count("epoch "), card=repr(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def flow_train_path(card: str) -> dict:
+    """Phase 9: FlowNetC training through FlowHarness at batch 8 on 384x512
+    pairs (the correlation at CORR_TRAIN_SHAPE), seeded weights, pairs from
+    numpy seed 0: one warm-up and 5 timed steps in f32, then the same with
+    mixed precision (bf16 forward, f32 masters); median ms a step, the peak
+    memory, the launch counts (one correlation forward and one backward a
+    step), the f32 convs without TF32; a profile of one f32 step by kernel
+    family with the backward kernel's share; the casts around the
+    correlation under bf16 timed beside its kernels; then `flow_train_fit`.
+    Returns the launch counts of the 10 timed steps."""
+    n_steps = 5
+    pair, flow = flow_pairs(FLOW_TRAIN_BATCH, *FLOW_TRAIN_HW, seed=0)
+    result, launches, tf32_seen = {}, {}, []
+    for mode, mixed in (("f32", False), ("bf16", True)):
+        net = seeded_flownet_c(seed=0)
+        watch_tf32(tf32_seen, net)
+        harness = FlowHarness(net, mixed_precision=mixed, device=DEV)
+        with torch_default_tf32():
+            timed_steps(harness, pair, flow, 1)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            ms = timed_steps(harness, pair, flow, n_steps)
+            counted = read_launches()
+            check_f32_convs(tf32_seen, "FlowNetC training")
+            loss, err = harness.train_step(pair, flow)
+            torch.cuda.synchronize()
+        launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+        want = dict.fromkeys(KERNELS, 0) | {"correlation": n_steps, "correlation_bwd": n_steps}
+        if counted != want:
+            raise AssertionError(f"{mode} steps: launch counts {counted}, want {want}")
+        if not (math.isfinite(float(loss)) and math.isfinite(float(err))):
+            raise AssertionError(f"{mode} step: loss {float(loss)}, EPE {float(err)}")
+        if any(p.dtype != torch.float32 for p in harness.net.parameters()):
+            raise AssertionError(f"{mode}: the master weights left f32")
+        result[mode] = dict(ms=ms, peak=torch.cuda.max_memory_allocated(), loss=float(loss),
+                            epe=float(err))
+        if mode == "f32":
+            with torch_default_tf32():
+                families, busy_ms, prof_wall = profile_by_family(
+                    lambda: harness.train_step(pair, flow), "one FlowNetC training step",
+                    "chip_smoke_profile_flow_train.txt")
+        del harness, net
+        torch.cuda.empty_cache()
+    fam = {f: ms for f, ms, _ in families}
+    bwd_ms = fam.get("correlation backward (ours)", 0.0)
+    med = {m: statistics.median(r["ms"]) for m, r in result.items()}
+    say("flow_train_path", config="FlowNetC training, batch 8, 384x512 pairs",
+        steps=n_steps, launches=json.dumps({k: v for k, v in launches.items() if v}),
+        **{f"{m}_ms_per_step_median": f"{med[m]:.2f}" for m in result},
+        **{f"{m}_ms_per_step": ",".join(f"{v:.1f}" for v in r["ms"]) for m, r in result.items()},
+        **{f"{m}_peak_mem_gib": f"{r['peak'] / 2**30:.3f}" for m, r in result.items()},
+        **{f"{m}_loss": f"{r['loss']:.5g}" for m, r in result.items()},
+        **{f"{m}_epe": f"{r['epe']:.5g}" for m, r in result.items()},
+        net_cudnn_allow_tf32=sorted(set(tf32_seen)), card=repr(card))
+    say("flow_train_profile", profiled_step_wall_ms=f"{prof_wall:.2f}",
+        kernel_ms=f"{busy_ms:.2f}", correlation_bwd_ms=f"{bwd_ms:.3f}",
+        correlation_bwd_share_of_kernels=f"{bwd_ms / busy_ms:.4f}",
+        correlation_bwd_share_of_step=f"{bwd_ms / prof_wall:.4f}",
+        families=json.dumps({f: [round(ms, 3), n] for f, ms, n in families}))
+    flow_train_casts()
+    flow_train_fit(card)
+    return launches
+
+
+def flow_train_casts() -> None:
+    """Phase 9: the f32 casts FlowNetC makes around the correlation kernels
+    in a bf16 step at CORR_TRAIN_SHAPE (forward: the two operands to f32,
+    the cost volume to bf16; backward: its cotangent to f32, the two
+    gradients to bf16), timed beside the kernels at that shape."""
+    gen = torch.Generator().manual_seed(9)
+    f1, f2, g = corr_bwd_case(CORR_TRAIN_SHAPE, gen)
+    f1_bf, f2_bf, g_bf = (t.bfloat16() for t in (f1, f2, g))
+
+    def casts():
+        f1_bf.float(), f2_bf.float(), g.bfloat16()  # forward
+        g_bf.float(), f1.bfloat16(), f2.bfloat16()  # backward
+
+    FLOW_TRAIN_CASTS.update(
+        casts_ms=time_ms(casts, ()), forward_ms=time_ms(correlation, (f1, f2)),
+        backward_ms=time_ms(correlation_bwd, (f1, f2, g)))
+    say("flow_train_casts", shape="x".join(map(str, CORR_TRAIN_SHAPE)),
+        **{k: f"{v:.4f}" for k, v in FLOW_TRAIN_CASTS.items()},
+        casts_over_kernels=f"{FLOW_TRAIN_CASTS['casts_ms'] / (FLOW_TRAIN_CASTS['forward_ms'] + FLOW_TRAIN_CASTS['backward_ms']):.3f}")
+
+
 def conv_workspace(nets, fn) -> int:
     """The largest transient allocation of any one cuDNN conv call (every
     nn.Conv2d and nn.ConvTranspose2d of the nets but the conv7 kernel's
@@ -2306,7 +2660,7 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
             plain_ms=f"{p:.4f}", grid_sample_ms_per_call=f"{lib:.4f}",
             grid_sample_device_ms=f"{lib_dev:.4f}", calls_per_flow_call=5)
         del args, image, flow
-    for i, shape in enumerate(CORR_SHAPES):
+    for i, shape in enumerate(CORR_SHAPES + [CORR_TRAIN_SHAPE]):
         args = corr_case(shape, gen)
         k, p = time_ms(correlation, args), time_ms(correlation_plain, args)
         b, c, h, w = shape
@@ -2324,6 +2678,21 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
             f2_stagings_per_value=f"{f2_stagings(h, w):.3f}", split=plan.split,
             blocks=math.prod(plan.grid), calls_per_flow_call=int(i == 0))
         del args
+    # the backward at FlowNetC's training shape, against the plain VJP (the
+    # autograd of correlation_plain): 2 x 441 FMAs per element of f1; f1, f2
+    # and g read once, df1 and df2 written once
+    args = corr_bwd_case(CORR_TRAIN_SHAPE, gen)
+    k, p = time_ms(correlation_bwd, args), time_ms(correlation_backward_plain, args)
+    b, c, h, w = CORR_TRAIN_SHAPE
+    flop, nb = 4.0 * b * h * w * 441 * c, (4 * c + 441) * b * h * w * 4
+    ms["correlation_bwd"], work["correlation_bwd"] = [k, p, None], [nb, flop]
+    b_ms, b_by = bound_ms(nb, flop, F32_FLOPS)
+    say("time", kernel="correlation_bwd", shape="x".join(map(str, CORR_TRAIN_SHAPE)),
+        dtype="float32", ms=f"{k:.4f}", plain_ms=f"{p:.4f}", tflops=f"{flop / k / 1e9:.2f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes_bound_ms=f"{nb / HBM_BPS * 1e3:.4f}",
+        share_of_bound=f"{b_ms / k:.4f}", plain_over_kernel=f"{p / k:.1f}",
+        calls_per_flow_train_step=1)
+    del args
     for name, (shape, dtype, n) in BWD_PATH.items():
         args = bwd_case(name, shape, dtype, gen)
         image, flow, g = (args[0], args[1], args[2]) if name == "flow_warp_bwd" else (
@@ -2621,6 +2990,15 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                         "pixels x 21 dx, f2 rows shared along diagonals, cp.async "
                         "double buffering, the channel sum split where the grid is "
                         "under one wave; bound: FFMA; no library call computes it"),
+        "correlation_bwd": ("vid2vid_tpu_torch/csrc/correlation.cu",
+                            "vid2vid_tpu/ops/correlation.py:25", "flow_train", F32_FLOPS,
+                            "f32, one FlowNetC training step's one launch at "
+                            "(8, 256, 48, 64) (batch 8 of 384x512 pairs): the VJP of the "
+                            "cost volume as a gather, a thread a pixel and 16 channels, "
+                            "no atomics; replaces the autograd of correlation_plain "
+                            "(plain_ms), as JAX differentiates correlation_ref; bound: "
+                            "FFMA, 2 x 441 FMAs per element of f1; no library call "
+                            "computes it"),
         "warp_blend_bwd": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
                            "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
                            "bf16, summed over one 512x256 training chunk's 2 calls at "
@@ -2672,6 +3050,13 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
         if name in ("respair", "conv7"):  # the f32 calls: per seeding call
             extra["f32"] = {p: f32_block(name, p, ms, work)
                             for p in ("edge2face_single", "label2city_single")}
+        if name == "correlation":
+            extra["bf16_casts_flow_train"] = dict(
+                FLOW_TRAIN_CASTS, shape=list(CORR_TRAIN_SHAPE),
+                ms_is="per bf16 FlowNetC training step: the f32 casts of the two "
+                      "operands and the cost volume's cast back (forward), the "
+                      "cotangent's and the two gradients' (backward), beside the "
+                      "kernels at that shape")
         if name == "conv7":
             extra["max_abs_err_f32_other_body"] = OTHER_BODY_ERRS.get(name)
             extra["bound_ms_ffma"] = bound_ms(*work[name], F32_FLOPS)[0]
@@ -2708,13 +3093,16 @@ def main() -> None:
     reference_flow()
     reference_training()
     reference_single_g()
+    reference_flow_train()
     launches = {}
-    for path, run in (("label2city", label2city_path), ("flownet2", flownet2_path),
+    for path, run in (("label2city", label2city_path),
+                      ("label2city_clip", label2city_clip_path),
+                      ("flownet2", flownet2_path),
                       ("training", training_path), ("train_cli", train_cli_path),
                       ("edge2face_single", edge2face_single_path),
                       ("label2city_single", label2city_single_path),
                       ("face_stream", face_stream_path), ("pose_stream", pose_stream_path),
-                      ("pose_train", pose_train_path)):
+                      ("pose_train", pose_train_path), ("flow_train", flow_train_path)):
         with kernel_call_shapes() as seen:
             launches[path] = run(card)
         torch.cuda.empty_cache()

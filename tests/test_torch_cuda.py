@@ -33,7 +33,13 @@ from vid2vid_tpu_torch.ops.conv7 import (
     pack_conv7_weight,
     pack_taps_3xtf32,
 )
-from vid2vid_tpu_torch.ops.correlation import correlation, correlation_plain, correlation_plan
+from vid2vid_tpu_torch.ops.correlation import (
+    correlation,
+    correlation_backward_plain,
+    correlation_bwd,
+    correlation_plain,
+    correlation_plan,
+)
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain
 from vid2vid_tpu_torch.ops.warp import (
     flow_warp,
@@ -254,6 +260,73 @@ def test_correlation_is_the_same_bit_for_bit_from_run_to_run(cuda, b, c, h, w):
     first = correlation(f1, f2)
     torch.cuda.synchronize()
     assert torch.equal(first, correlation(f1, f2))
+
+
+# (B, C, H, W) of the correlation backward: C below, at and past the
+# kernel's 16-channel chunk, H and W off its 8 x 32 block and smaller than
+# the displacement, one pixel; then FlowNetC's training shape (8, 256, 48,
+# 64) and chip_smoke.py's CORR_SHAPES
+CORR_BWD_SHAPES = [(2, 3, 7, 9), (1, 17, 13, 70), (2, 17, 1, 1), (1, 16, 9, 20),
+                   (2, 9, 22, 131), (1, 1, 5, 20), (8, 256, 48, 64), (2, 256, 64, 128),
+                   (2, 256, 32, 64)]
+
+
+def _corr_bwd_case(b, c, h, w, cuda):
+    g = torch.Generator().manual_seed(c * 1000 + h * 10 + w)
+    return [torch.randn(shape, generator=g).to(cuda)
+            for shape in ((b, c, h, w), (b, c, h, w), (b, 441, h, w))]
+
+
+@pytest.mark.parametrize("b,c,h,w", CORR_BWD_SHAPES)
+def test_correlation_backward_kernel_any_shape(cuda, b, c, h, w):
+    """One launch, both gradients f32 of f1's shape, within the forward's
+    bound of the plain version's autograd."""
+    f1, f2, cot = _corr_bwd_case(b, c, h, w, cuda)
+    before = correlation_bwd.launches
+    got = correlation_bwd(f1, f2, cot)
+    assert correlation_bwd.launches == before + 1
+    for gt, wt in zip(got, correlation_backward_plain(f1, f2, cot)):
+        assert gt.shape == f1.shape and gt.dtype == torch.float32
+        _close("correlation", gt, wt, torch.float32)
+
+
+@pytest.mark.parametrize("b,c,h,w", [(8, 256, 48, 64), (1, 17, 13, 70)])
+def test_correlation_backward_is_the_same_bit_for_bit_from_run_to_run(cuda, b, c, h, w):
+    """A gather with no atomics: each element is summed by one thread in a
+    fixed order."""
+    args = _corr_bwd_case(b, c, h, w, cuda)
+    first = correlation_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, correlation_bwd(*args)):
+        assert torch.equal(a, b_)
+
+
+def test_correlation_gradient_runs_the_backward_kernel(cuda):
+    """autograd through `correlation` on the card launches the backward
+    kernel once, for a cotangent that is not contiguous too."""
+    f1, f2, _ = _corr_bwd_case(2, 20, 11, 40, cuda)
+    leaves = [t.clone().requires_grad_() for t in (f1, f2)]
+    before = correlation_bwd.launches
+    out = correlation(*leaves)
+    cot = torch.randn((2, 11, 441, 40), device=cuda).transpose(1, 2)
+    out.backward(cot)
+    assert correlation_bwd.launches == before + 1
+    for leaf, want in zip(leaves, correlation_backward_plain(f1, f2, cot)):
+        _close("correlation", leaf.grad, want, torch.float32)
+
+
+def test_correlation_backward_rejects_what_it_does_not_take(cuda):
+    f1, f2, cot = _corr_bwd_case(1, 8, 6, 6, cuda)
+    before = correlation_bwd.launches
+    with pytest.raises(ValueError, match="not supported"):
+        correlation_bwd(f1.bfloat16(), f2.bfloat16(), cot.bfloat16())
+    with pytest.raises(ValueError, match="max_displacement"):
+        correlation_bwd(f1, f2, torch.zeros((1, 81, 6, 6), device=cuda), 4, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation_bwd(f1, f2, cot.transpose(2, 3))
+    with pytest.raises(ValueError, match="want"):
+        correlation_bwd(f1, f2, cot[:, :440])
+    assert correlation_bwd.launches == before
 
 
 def _dirty_allocator(*tensors):

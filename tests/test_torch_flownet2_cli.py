@@ -210,6 +210,16 @@ def test_flow_loss_matches_jax(rng, fn):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
+def _chairs_tree(root, n=2, hw=(64, 64)):
+    """A FlyingChairs tree of n (img1, img2, flow) triples."""
+    r = np.random.default_rng(0)
+    for i in range(n):
+        for tag in ("img1", "img2"):
+            _image(root / f"{i:05d}_{tag}.ppm", r, *hw)
+        flow_io.write_flo(str(root / f"{i:05d}_flow.flo"), np.ones(hw + (2,), np.float32))
+    return root
+
+
 @pytest.mark.parametrize(
     "argv",
     [
@@ -218,9 +228,30 @@ def test_flow_loss_matches_jax(rng, fn):
     ],
     ids=["train", "resume"],
 )
-def test_training_mode_is_not_ported(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(argv + ["--save", str(tmp_path / "work")])
-    harness = FlowHarness(FlowNetC(), device="cpu")
-    with pytest.raises(NotImplementedError, match="training harness"):
-        harness.fit(None, None, 1)
+def test_training_mode_is_not_ported(tmp_path, capsys, argv):
+    """Both modes once raised NotImplementedError (training was not
+    ported); now each runs. Training (no --inference) fits FlowNetS for an
+    epoch on a FlyingChairs tree and writes the checkpoint and best files;
+    --resume best restores the best file of such a run before inference
+    writes its .flo files."""
+    data = _chairs_tree(tmp_path / "chairs")
+    common = ["--save", str(tmp_path / "work"), "--device", "cpu", "--name", "run"]
+    fit = ["--training_dataset_root", str(data), "--validation_dataset", "FlyingChairs",
+           "--validation_dataset_root", str(data), "--total_epochs", "1"]
+    resume = "--resume" in argv
+    if resume:  # a best file to resume from, then inference on the tree's frames
+        assert main(["--model", "FlowNetS"] + fit + common) == 0
+        capsys.readouterr()
+        extra = ["--model", "FlowNetS", "--inference_dataset_root", str(data),
+                 "--inference_dataset_ext", "ppm"]
+    else:
+        extra = fit
+    assert main(argv + extra + common) == 0
+    out = capsys.readouterr().out
+    if resume:
+        assert "resumed best (epoch 1, best EPE" in out
+        assert len(list((tmp_path / "work" / "run_inference").iterdir())) == 3
+    else:
+        assert "best val EPE:" in out
+        for tag in ("checkpoint", "model_best"):
+            assert (tmp_path / "work" / f"run_{tag}.pth.tar").is_file()

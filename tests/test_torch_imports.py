@@ -19,7 +19,7 @@ from vid2vid_tpu.utils import torch_import
 from vid2vid_tpu_torch import config
 from vid2vid_tpu_torch.ops.conv3 import conv3_fused_padded, conv3_padded
 from vid2vid_tpu_torch.ops.conv7 import conv7_padded, conv7_reflect
-from vid2vid_tpu_torch.ops.correlation import correlation
+from vid2vid_tpu_torch.ops.correlation import correlation, correlation_bwd
 from vid2vid_tpu_torch.ops.respair import respair
 from vid2vid_tpu_torch.ops.warp import flow_warp, flow_warp_bwd, warp_blend, warp_blend_bwd
 from vid2vid_tpu_torch.utils import mappings
@@ -151,6 +151,17 @@ def test_flownet2_wrappers_never_take_the_plain_path_off_cpu():
     assert (correlation.launches, flow_warp.launches) == before
 
 
+def test_correlation_backward_never_takes_the_plain_path_off_cpu():
+    """correlation_bwd on a non-CPU tensor goes to the CUDA kernel's checks,
+    which reject a non-CUDA device; no launch is counted."""
+    device = "meta"
+    f = torch.zeros(1, 8, 6, 6, device=device)
+    before = correlation_bwd.launches
+    with pytest.raises(ValueError, match="not CUDA"):
+        correlation_bwd(f, f, torch.zeros(1, 441, 6, 6, device=device))
+    assert correlation_bwd.launches == before
+
+
 def test_backward_wrappers_never_take_the_plain_path_off_cpu():
     device = "meta"
     img = torch.zeros(1, 3, 6, 6, device=device)
@@ -260,7 +271,9 @@ def test_convert_tensor_copy_equals_the_jax_one(rng):
 
 def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
     """Without a CUDA device and without the caller asking for the CPU,
-    InferenceEngine, FlowHarness, Trainer and the CLIs raise."""
+    InferenceEngine (whose generate_clip_raw and step run on its device),
+    FlowHarness, Trainer and the CLIs (the flow-net CLI in inference and in
+    training mode) raise."""
     from vid2vid_tpu_torch import test_cli, train_cli
     from vid2vid_tpu_torch.models.flownet2 import main_cli
     from vid2vid_tpu_torch.models.flownet2.harness import FlowHarness
@@ -279,6 +292,7 @@ def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
         lambda: train_cli.main(["--checkpoints_dir", str(tmp_path)]),
         lambda: main_cli.main(["--inference", "--model", "FlowNetC", "--save",
                                str(tmp_path / "work")]),
+        lambda: main_cli.main(["--model", "FlowNetC", "--save", str(tmp_path / "work")]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_entry()

@@ -348,6 +348,91 @@ __global__ void sum_parts_kernel(const float* __restrict__ parts,
   }
 }
 
+// ---------------------------------------------------------------- backward
+//
+// The VJP of the cost volume above, in the same configuration (max
+// displacement 20, stride2 2, f32): with dy = 2(j-10), dx = 2(i-10),
+//     df1[b,c,y,x] = 1/C sum_{j,i} g[b, j*21+i, y, x]       f2[b,c, y+dy, x+dx]
+//     df2[b,c,y,x] = 1/C sum_{j,i} g[b, j*21+i, y-dy, x-dx] f1[b,c, y-dy, x-dx]
+// with every tap outside the image zero. It replaces the autograd of the
+// plain version (ops/correlation.py::correlation_plain), the port's
+// counterpart of the JAX package's jax.vjp of correlation_ref
+// (vid2vid_tpu/ops/correlation.py:25-65; the TPU kernel has no backward).
+//
+// What bounds it on the H100: FMAs on the CUDA cores, 2 * 441 per element
+// of f1: 5.5 G at FlowNetC's training shape (8, 256, 48, 64), 0.166 ms at
+// 67 TFLOP/s; the compulsory bytes (f1, f2, g read once, df1, df2 written
+// once) are 144 MB there, 0.043 ms at 3.35 TB/s.
+//
+// The design is the simple gather form. A thread owns one pixel (y, x) and
+// BWD_CC channels of both gradients and walks the 441 displacements in
+// order, each a g value shared by its channels and one f value per
+// channel, read through L1 (a warp holds 32 consecutive x, so every read is
+// one coalesced row segment). Each output element is written once by one
+// thread in a fixed order: no atomics, so the result is the same bit for
+// bit from run to run. The cost of that simplicity: about one load per FMA
+// (an SM issues 32 lanes of loads against 128 of FMAs a clock), so the
+// load unit, not the FMA pipes, sets its pace. Register tiles that share
+// the f rows along the diagonals, as the forward does, are the next step.
+
+constexpr int BWD_TX = 32;  // pixels along x a block row (one warp)
+constexpr int BWD_TY = 8;   // rows a block, one warp each
+constexpr int BWD_CC = 16;  // channels a thread (ops/correlation.py mirrors these)
+
+__global__ void __launch_bounds__(BWD_TX * BWD_TY)
+correlation_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                       const float* __restrict__ g, float* __restrict__ df1,
+                       float* __restrict__ df2, int C, int H, int W, float inv_c) {
+  const int x = blockIdx.x * BWD_TX + threadIdx.x;
+  const int y = blockIdx.y * BWD_TY + threadIdx.y;
+  const int chunks = (C + BWD_CC - 1) / BWD_CC;
+  const int b = blockIdx.z / chunks;
+  const int c0 = (blockIdx.z - b * chunks) * BWD_CC;
+  if (x >= W || y >= H) return;
+  const int nc = min(BWD_CC, C - c0);
+  const size_t hw = (size_t)H * W;
+  const float* f1b = f1 + ((size_t)b * C + c0) * hw;
+  const float* f2b = f2 + ((size_t)b * C + c0) * hw;
+  const float* gb = g + (size_t)b * ND * ND * hw;
+
+  float a1[BWD_CC], a2[BWD_CC];
+#pragma unroll
+  for (int cc = 0; cc < BWD_CC; ++cc) a1[cc] = a2[cc] = 0.f;
+  for (int j = 0; j < ND; ++j) {
+    const int dy = 2 * (j - RAD);
+    const int y1 = y + dy, y2 = y - dy;
+    const bool row1 = y1 >= 0 && y1 < H, row2 = y2 >= 0 && y2 < H;
+    for (int i = 0; i < ND; ++i) {
+      const int dx = 2 * (i - RAD);
+      const int x1 = x + dx, x2 = x - dx;
+      const float* gd = gb + (size_t)(j * ND + i) * hw;
+      if (row1 && x1 >= 0 && x1 < W) {  // df1: g here, f2 at the tap
+        const float gv = __ldg(gd + (size_t)y * W + x);
+        const float* p = f2b + (size_t)y1 * W + x1;
+#pragma unroll
+        for (int cc = 0; cc < BWD_CC; ++cc)
+          if (cc < nc) a1[cc] = fmaf(gv, __ldg(p + cc * hw), a1[cc]);
+      }
+      if (row2 && x2 >= 0 && x2 < W) {  // df2: g and f1 at the pixel that read here
+        const size_t o = (size_t)y2 * W + x2;
+        const float gv = __ldg(gd + o);
+        const float* p = f1b + o;
+#pragma unroll
+        for (int cc = 0; cc < BWD_CC; ++cc)
+          if (cc < nc) a2[cc] = fmaf(gv, __ldg(p + cc * hw), a2[cc]);
+      }
+    }
+  }
+  const size_t at = ((size_t)b * C + c0) * hw + (size_t)y * W + x;
+#pragma unroll
+  for (int cc = 0; cc < BWD_CC; ++cc) {
+    if (cc < nc) {
+      df1[at + cc * hw] = a1[cc] * inv_c;
+      df2[at + cc * hw] = a2[cc] * inv_c;
+    }
+  }
+}
+
 }  // namespace
 }  // namespace v2v
 
@@ -388,5 +473,23 @@ extern "C" int v2v_correlation(const void* f1, const void* f2, void* out,
     sum_parts_kernel<<<blocks, threads, 0, s>>>(dst, static_cast<float*>(out), n,
                                                 split, inv_c);
   }
+  return (int)cudaGetLastError();
+}
+
+// The backward: f1, f2 (B, C, H, W), g (B, 441, H, W), all f32 and
+// contiguous; writes df1 and df2 (B, C, H, W). One launch, no scratch.
+extern "C" int v2v_correlation_bwd(const void* f1, const void* f2, const void* g,
+                                   void* df1, void* df2, int B, int C, int H, int W,
+                                   int dtype, void* stream) {
+  using namespace v2v;
+  if (dtype != kFloat32 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (B * H * W == 0) return (int)cudaSuccess;  // nothing to launch
+  const dim3 block(BWD_TX, BWD_TY);
+  const dim3 grid((W + BWD_TX - 1) / BWD_TX, (H + BWD_TY - 1) / BWD_TY,
+                  B * ((C + BWD_CC - 1) / BWD_CC));
+  correlation_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f1), static_cast<const float*>(f2),
+      static_cast<const float*>(g), static_cast<float*>(df1), static_cast<float*>(df2), C,
+      H, W, 1.f / (float)C);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 reference: models/flownet2_pytorch/losses.py), NCHW, channel 0 = x.
 
 EPE (end-point error), L1 / L2 norms and the multiscale pyramid loss used to
-train the component flow nets. The eval path uses `epe`; the rest serves
-the flow-net training harness, which is not ported yet.
+train the component flow nets. The eval path uses `epe`; the flow-net
+training harness (`harness.FlowHarness.train_step`) uses
+`multiscale_flow_loss`.
 """
 
 from __future__ import annotations

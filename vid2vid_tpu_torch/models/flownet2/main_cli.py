@@ -1,22 +1,27 @@
 """Standalone flow-net CLI (the port of vid2vid_tpu/models/flownet2/main_cli.py;
-the reference's flownet2_pytorch/main.py), inference mode.
+the reference's flownet2_pytorch/main.py): train a flow net, or write its
+flows.
 
 Reflection-driven flags like the reference's `tools.add_arguments_for_module`
 (flownet2_pytorch/utils/tools.py:55-86): every keyword argument of the
-chosen model / inference dataset class is exposed as `--model_<kwarg>` /
-`--inference_dataset_<kwarg>`. Only the flags that inference reads are
-parsed; the training flags come with the training mode.
+chosen model / training / validation / inference dataset class is exposed
+as `--model_<kwarg>` / `--training_dataset_<kwarg>` /
+`--validation_dataset_<kwarg>` / `--inference_dataset_<kwarg>`.
 
-    python -m vid2vid_tpu_torch.models.flownet2.main_cli --inference \\
-        --model FlowNetC --inference_dataset ImagesFromFolder \\
-        --inference_dataset_root frames/ --save ./work --name run
+    python -m vid2vid_tpu_torch.models.flownet2.main_cli --model FlowNetC \\
+        --training_dataset FlyingChairs --training_dataset_root chairs/ \\
+        --validation_dataset FlyingChairs --validation_dataset_root chairs_val/ \\
+        --total_epochs 10 --save ./work --name run
 
-writes <save>/<name>_inference/NNNNNN.flo, one per consecutive frame pair,
-from the network's seeded initialisation (--seed). It runs on the first
-CUDA device (`--device cuda`, the default; it raises without one) or, with
-`--device cpu`, on the CPU; the datasets read images with PIL.
-Training (no --inference) and --resume raise NotImplementedError: the
-flow-net training harness is not ported yet.
+trains from the network's seeded initialisation (--seed) with Adam (--lr,
+--fp16: bf16 compute on f32 master weights), validates each epoch and
+writes <save>/<name>_checkpoint.pth.tar, and <name>_model_best.pth.tar on
+a new best validation EPE. `--resume latest|best` restores one of them
+(weights and Adam state) first. With `--inference` it writes
+<save>/<name>_inference/NNNNNN.flo, one per consecutive frame pair of the
+inference dataset, instead of training. It runs on the first CUDA device
+(`--device cuda`, the default; it raises without one) or, with `--device
+cpu`, on the CPU; the datasets read images with PIL.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from vid2vid_tpu_torch.models.flownet2 import datasets as flow_datasets
 from vid2vid_tpu_torch.models.flownet2 import nets as flow_nets
-from vid2vid_tpu_torch.models.flownet2.harness import TRAINING_NOT_PORTED, FlowHarness
+from vid2vid_tpu_torch.models.flownet2.harness import FlowHarness
 
 
 def _class_registry(module):
@@ -80,26 +85,32 @@ def main(argv=None):
     # no abbreviations: "--inference" must not read as "--inference_dataset"
     pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     pre.add_argument("--model", default="FlowNetS", choices=sorted(MODELS))
+    pre.add_argument("--training_dataset", default="FlyingChairs", choices=sorted(DATASETS))
+    pre.add_argument("--validation_dataset", default="MpiSintelClean",
+                     choices=sorted(DATASETS))
     pre.add_argument("--inference_dataset", default="ImagesFromFolder",
                      choices=sorted(DATASETS))
     known, _ = pre.parse_known_args(argv)
 
     parser = argparse.ArgumentParser(parents=[pre], allow_abbrev=False)
+    parser.add_argument("--total_epochs", type=int, default=10)
+    parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--div_flow", type=float, default=0.05)
+    parser.add_argument("--fp16", action="store_true",
+                        help="bf16 compute, f32 master params")
     parser.add_argument("--save", default="./work")
     parser.add_argument("--name", default="run")
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--inference", action="store_true")
     parser.add_argument("--resume", default="", choices=("", "latest", "best"))
+    parser.add_argument("--log_frequency", type=int, default=50)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     add_arguments_for_module(parser, "model", MODELS[known.model])
     if "input_channels" in inspect.signature(MODELS[known.model].__init__).parameters:
         parser.set_defaults(model_input_channels=6)  # the stacked frame pair
-    add_arguments_for_module(parser, "inference_dataset", DATASETS[known.inference_dataset])
+    for role in ("training_dataset", "validation_dataset", "inference_dataset"):
+        add_arguments_for_module(parser, role, DATASETS[getattr(known, role)])
     args = parser.parse_args(argv)
-
-    if args.resume or not args.inference:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
 
     model_cls = MODELS[args.model]
     mkw = _kwargs_for(args, "model", model_cls)
@@ -107,14 +118,31 @@ def main(argv=None):
         mkw.setdefault("train_outputs", True)
     net = model_cls(**mkw)
     flow_nets.init_flownet_weights(net, torch.Generator().manual_seed(args.seed))
-    harness = FlowHarness(net, div_flow=args.div_flow, device=args.device)
+    harness = FlowHarness(net, lr=args.lr, div_flow=args.div_flow,
+                          mixed_precision=args.fp16, device=args.device)
 
-    ds_cls = DATASETS[args.inference_dataset]
-    ds = ds_cls(**_kwargs_for(args, "inference_dataset", ds_cls))
     os.makedirs(args.save, exist_ok=True)
-    out = os.path.join(args.save, f"{args.name}_inference")
-    harness.infer_to_flo(ds, out)
-    print(f"wrote {len(ds)} .flo files to {out}")
+    if args.resume:
+        epoch, best = harness.restore_checkpoint(args.save, prefix=args.name,
+                                                 best=args.resume == "best")
+        print(f"resumed {args.resume} (epoch {epoch}, best EPE {best:.3f})")
+
+    def dataset(role: str):
+        cls = DATASETS[getattr(args, role)]
+        return cls(**_kwargs_for(args, role, cls))
+
+    if args.inference:
+        ds = dataset("inference_dataset")
+        out = os.path.join(args.save, f"{args.name}_inference")
+        harness.infer_to_flo(ds, out)
+        print(f"wrote {len(ds)} .flo files to {out}")
+        return 0
+
+    train_ds, val_ds = dataset("training_dataset"), dataset("validation_dataset")
+    print(f"train: {len(train_ds)} pairs, val: {len(val_ds)} pairs")
+    best = harness.fit(train_ds, val_ds, args.total_epochs, save_dir=args.save,
+                       prefix=args.name, log_every=args.log_frequency)
+    print(f"best val EPE: {best:.3f}")
     return 0
 
 

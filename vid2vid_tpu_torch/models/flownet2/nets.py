@@ -12,7 +12,9 @@ maps:
   predict_flow{l}            = Conv2d(3, 1, 1) to 2 channels
   upsampled_flow{l}_to_{l-1} = ConvTranspose2d(2, 2, 4, 2, 1), with no bias in FlowNetS.
 FlowNetC's correlation is vid2vid_tpu_torch.ops.correlation (the CUDA
-kernel on the card) followed by LeakyReLU(0.1).
+kernel on the card, forward and backward) followed by LeakyReLU(0.1). The
+kernel takes f32 only, so under a bf16 forward (the flow harness's mixed
+precision) its operands are cast to f32 and the cost volume back to bf16.
 """
 
 from __future__ import annotations
@@ -106,7 +108,8 @@ class FlowNetC(nn.Module):
         a2 = self.conv2(self.conv1(x[:, :3]))
         a3 = self.conv3(a2)
         b3 = self.conv3(self.conv2(self.conv1(x[:, 3:])))
-        corr = F.leaky_relu(correlation(a3.contiguous(), b3.contiguous()), 0.1)
+        corr = correlation(a3.float().contiguous(), b3.float().contiguous()).to(a3.dtype)
+        corr = F.leaky_relu(corr, 0.1)
         merged = torch.cat([self.conv_redir(a3), corr], 1)  # 473 channels
         flows = _decode(self, a2, *_encode6(self, merged))
         return flows if self.train_outputs else flows[:1]

@@ -10,6 +10,11 @@ over frames is a Python loop here.
 Layouts: encoded clips are (B, T, C, H, W); the state is one
 (B, tG-1, 3, H, W) ring buffer of previous frames per pyramid level, finest
 first.
+
+Two clip entry points: `generate_clip` takes a clip that is already
+encoded (the training steps' path); `generate_clip_streaming` takes the raw
+labels and encodes one frame per step into a window kept on the
+generator's device, so the clip's encoded pyramid never exists whole.
 """
 
 from __future__ import annotations
@@ -146,11 +151,71 @@ class Vid2VidGenerator(nn.Module):
                 remat=train and self.opt.remat, params=params,
             )
             ys.append(y)
+        return self._clip_result(ys, bufs)
+
+    @torch.no_grad()
+    def generate_clip_streaming(
+        self, labels: torch.Tensor, inst: torch.Tensor | None, state: State, *,
+        use_raw_only: bool = False, compute_dtype: torch.dtype | None = None,
+    ) -> tuple[ClipOutputs, State]:
+        """Inference clip from the RAW conditioning, encoding one frame per
+        step: the same frames as `encode_input` + `generate_clip`, without
+        the clip's encoded pyramid (at 2048x1024 the 36-channel pyramid of
+        one bf16 frame is ~200 MB, so a clip's is GBs).
+
+        labels: (B, T+tG-1, H, W) integer maps, or (B, T+tG-1, C, H, W)
+        float maps when label_nc == 0; inst: (B, T+tG-1, H, W) or None.
+        They may lie on the host: one frame a step moves to the
+        generator's device. Each encoded frame is cast to `compute_dtype`
+        before its pyramid, as the JAX package does. Per level the last tG
+        encoded frames live in a ring of 2 tG slots on the device: frame k
+        is written to slots k % tG and k % tG + tG, so the window of frames
+        k-tG+1..k is the contiguous slice from slot (k+1) % tG and no frame
+        is copied again. Inference only (no BPTT).
+        """
+        tG, n_scales = self.tG, self.n_scales
+        device = next(self.parameters()).device
+        n_frames = labels.shape[1] - (tG - 1)
+
+        def encode_frame(t: int) -> list[torch.Tensor]:
+            enc = self.encode_input(
+                labels[:, t : t + 1].to(device),
+                None if inst is None else inst[:, t : t + 1].to(device),
+            )
+            if compute_dtype is not None:
+                enc = enc.to(compute_dtype)
+            return build_pyramid_video(enc, n_scales)
+
+        rings: list[torch.Tensor] = []
+
+        def push(k: int) -> list[torch.Tensor]:
+            """Encode frame k into the rings; the windows ending at it."""
+            pyr = encode_frame(k)
+            if not rings:  # the slots before frame 0 are never read
+                rings.extend(p.new_zeros((p.shape[0], 2 * tG) + p.shape[2:]) for p in pyr)
+            for ring, p in zip(rings, pyr):
+                ring[:, k % tG] = p[:, 0]
+                ring[:, k % tG + tG] = p[:, 0]
+            s = (k + 1) % tG
+            return [ring[:, s : s + tG] for ring in rings]
+
+        for k in range(tG - 1):
+            push(k)
+        bufs = tuple(stack_time(s) for s in state)
+        ys = []
+        for t in range(n_frames):
+            bufs, y = self._frame_pass(push(t + tG - 1), bufs, use_raw_only)
+            ys.append(y)
+        return self._clip_result(ys, bufs)
+
+    def _clip_result(self, ys: list, bufs: tuple) -> tuple[ClipOutputs, State]:
+        """The frame passes' outputs stacked over time, and the new state
+        (detached: it crosses the chunk boundary)."""
         fake, raw, flow, weight = (
             None if ys[0][i] is None else torch.stack([y[i] for y in ys], 1)
             for i in range(4)
         )
-        new_state = tuple(unstack_time(b, tG - 1).detach() for b in bufs)
+        new_state = tuple(unstack_time(b, self.tG - 1).detach() for b in bufs)
         return ClipOutputs(fake, raw, flow, weight), new_state
 
     def _apply_scale(self, s: int, params: dict | None, *args) -> CompositeOut:

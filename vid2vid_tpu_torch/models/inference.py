@@ -6,7 +6,9 @@ first-frame strategy: zeros, real frames, or a single-image (pix2pixHD)
 generator (`--use_single_G`, with the face-feature lookup for edge2face).
 
 Entry points: `step` (one frame from a raw label window and the state —
-true streaming) and `generate_clip` (a whole encoded clip). Compute-dtype
+true streaming), `generate_clip_raw` (a clip from raw labels, encoded one
+frame per step on the card) and `generate_clip` (a whole encoded clip).
+Compute-dtype
 policy (--bf16 / --fp16): the engine keeps float32 master weights and
 casts a copy of the generator, the inputs and the state to bfloat16 at
 entry; the frames it returns are float32, the state stays in the compute
@@ -253,6 +255,27 @@ class InferenceEngine:
             enc_a.to(self.device, dt),
             tuple(s.to(self.device, dt) for s in state),
             use_raw_only=use_raw_only,
+        )
+        return (
+            ClipOutputs(*(None if o is None else o.float() for o in outs)),
+            new_state,
+        )
+
+    @torch.no_grad()
+    def generate_clip_raw(
+        self, labels: torch.Tensor, inst: torch.Tensor | None, state: State,
+        use_raw_only: bool = False,
+    ) -> tuple[ClipOutputs, State]:
+        """A clip from RAW labels (B, T+tG-1, H, W) (float maps (B, T+tG-1,
+        C, H, W) when label_nc == 0) and instance maps, or inst=None:
+        `Vid2VidGenerator.generate_clip_streaming` on the compute-dtype
+        generator. The labels may stay on the host (one frame a step moves
+        to the card). Returns (ClipOutputs in f32, state in the compute
+        dtype)."""
+        dt = self.compute_dtype
+        outs, new_state = self.compute_generator().generate_clip_streaming(
+            labels, inst, tuple(s.to(self.device, dt) for s in state),
+            use_raw_only=use_raw_only, compute_dtype=dt,
         )
         return (
             ClipOutputs(*(None if o is None else o.float() for o in outs)),

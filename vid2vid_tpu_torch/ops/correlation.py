@@ -12,8 +12,11 @@ it; that stays in the network.
 CUDA kernel csrc/correlation.cu on a CUDA tensor. The kernel is fixed to
 FlowNetC's configuration (max displacement 20, stride2 2) and f32, as the
 TPU kernel is; for anything else on a CUDA tensor the wrapper raises. The
-gradient is `correlation_plain`'s autograd, as the JAX package
-differentiates `correlation_ref`.
+gradient is `correlation_bwd`: on a CPU tensor the autograd of
+`correlation_plain` (`correlation_backward_plain`), as the JAX package
+differentiates `correlation_ref`; on a CUDA tensor the backward kernel of
+csrc/correlation.cu (`v2v_correlation_bwd`, the same configuration and
+dtype, or a raise).
 
 The kernel's tile is mirrored here as plain constants (`TILE_ROWS`, ...;
 the source note in csrc/correlation.cu explains them) with
@@ -71,6 +74,16 @@ TILE_F1_ROW = TILE_F1_ODD + TILE_X // 2  # 80
 TILE_SMEM_BYTES = TILE_STAGES * 4 * TILE_CHUNK * (TILE_DIAGS * TILE_F2_ROW
                                                   + TILE_ROWS * TILE_F1_ROW)
 H100_SMS = 132
+# the backward kernel's block: BWD_TILE_X pixels of a row (one warp) x
+# BWD_TILE_Y rows, BWD_CHUNK channels a thread (csrc/correlation.cu)
+BWD_TILE_X, BWD_TILE_Y, BWD_CHUNK = 32, 8, 16
+
+
+def correlation_bwd_grid(b: int, c: int, h: int, w: int) -> tuple[int, int, int]:
+    """The backward kernel's grid at (B, C, H, W): (x tiles, row tiles,
+    B * channel chunks); block z holds batch z // chunks, chunk z % chunks."""
+    return (math.ceil(w / BWD_TILE_X), math.ceil(h / BWD_TILE_Y),
+            b * math.ceil(c / BWD_CHUNK))
 
 
 class CorrelationPlan(NamedTuple):
@@ -142,27 +155,43 @@ def correlation_plain(
     return torch.stack(planes, 1)
 
 
+def correlation_backward_plain(
+    f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, max_displacement: int = 20,
+    stride2: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2) for the cotangent g (B, D*D, H, W): the autograd of
+    `correlation_plain`."""
+    def plain(a, b):
+        return correlation_plain(a, b, max_displacement, stride2)
+    return plain_vjp(plain, (f1, f2), (True, True), g)
+
+
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+
+
+def _kernel_operands(what, max_displacement, stride2, f1, **tensors) -> int:
+    """Check a CUDA kernel call (FlowNetC's configuration, f32, contiguous,
+    one CUDA device, C > 0); returns the dtype code."""
+    if (max_displacement, stride2) != (KERNEL_MAX_DISPLACEMENT, KERNEL_STRIDE2):
+        raise ValueError(
+            f"{what}: the CUDA kernel takes max_displacement "
+            f"{KERNEL_MAX_DISPLACEMENT}, stride2 {KERNEL_STRIDE2} (FlowNetC), "
+            f"not {max_displacement}, {stride2}"
+        )
+    code = build.require_cuda_operands(what, f1.device, f1.dtype, f1=f1, **tensors)
+    if f1.dtype != torch.float32:
+        raise ValueError(f"{what}: dtype {f1.dtype} not supported (f32)")
+    if f1.shape[1] == 0:
+        raise ValueError(f"{what}: C must be positive")
+    return code
 
 
 def _correlation_forward(f1, f2, max_displacement, stride2) -> torch.Tensor:
     if f1.device.type == "cpu":
         return correlation_plain(f1, f2, max_displacement, stride2)
-    if (max_displacement, stride2) != (KERNEL_MAX_DISPLACEMENT, KERNEL_STRIDE2):
-        raise ValueError(
-            f"correlation: the CUDA kernel takes max_displacement "
-            f"{KERNEL_MAX_DISPLACEMENT}, stride2 {KERNEL_STRIDE2} (FlowNetC), "
-            f"not {max_displacement}, {stride2}"
-        )
-    code = build.require_cuda_operands(
-        "correlation", f1.device, f1.dtype, f1=f1, f2=f2
-    )
-    if f1.dtype != torch.float32:
-        raise ValueError(f"correlation: dtype {f1.dtype} not supported (f32)")
+    code = _kernel_operands("correlation", max_displacement, stride2, f1, f2=f2)
     b, c, h, w = f1.shape
-    if c == 0:
-        raise ValueError("correlation: C must be positive")
     d = 2 * (max_displacement // stride2) + 1
     fn = build.function("v2v_correlation", [_VOID] * 4 + [_INT] * 7 + [_VOID])
     out = torch.empty((b, d * d, h, w), dtype=torch.float32, device=f1.device)
@@ -190,9 +219,9 @@ class _Correlation(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        def plain(f1, f2):
-            return correlation_plain(f1, f2, *ctx.config)
-        return (*plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], g), None, None)
+        df1, df2 = correlation_bwd(*ctx.saved_tensors, g.contiguous(), *ctx.config)
+        n1, n2 = ctx.needs_input_grad[:2]
+        return df1 if n1 else None, df2 if n2 else None, None, None
 
 
 def correlation(
@@ -202,7 +231,7 @@ def correlation(
 
     A CPU tensor takes `correlation_plain`; a CUDA tensor launches the
     kernel (f32, contiguous, max_displacement 20, stride2 2) or raises. The
-    gradient is `correlation_plain`'s.
+    gradient is `correlation_bwd`'s.
     """
     _check(f1, f2)
     if wants_grad(f1, f2):
@@ -213,3 +242,32 @@ def correlation(
 correlation.launches = 0
 # the second passes that added a split channel sum's parts (a kernel each)
 correlation.second_kernels = 0
+
+
+def correlation_bwd(
+    f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, max_displacement: int = 20,
+    stride2: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(df1, df2), the gradients of `correlation(f1, f2)` for the cotangent
+    g (B, D*D, H, W). A CPU tensor takes `correlation_backward_plain`; a CUDA
+    tensor launches csrc/correlation.cu's backward kernel (f32, contiguous,
+    max_displacement 20, stride2 2: one launch, the same bit for bit from
+    run to run) or raises."""
+    _check(f1, f2)
+    d = 2 * (max_displacement // stride2) + 1
+    b, c, h, w = f1.shape
+    if tuple(g.shape) != (b, d * d, h, w):
+        raise ValueError(f"correlation_bwd: g {tuple(g.shape)}, want {(b, d * d, h, w)}")
+    if f1.device.type == "cpu":
+        return correlation_backward_plain(f1, f2, g, max_displacement, stride2)
+    code = _kernel_operands("correlation_bwd", max_displacement, stride2, f1, f2=f2, g=g)
+    df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+    fn = build.function("v2v_correlation_bwd", [_VOID] * 5 + [_INT] * 5 + [_VOID])
+    err = build.launch(fn, f1.device, f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
+                       df1.data_ptr(), df2.data_ptr(), b, c, h, w, code)
+    build.check(err, "correlation backward kernel launch")
+    correlation_bwd.launches += 1
+    return df1, df2
+
+
+correlation_bwd.launches = 0

@@ -30,6 +30,7 @@ import os
 import torch
 
 from vid2vid_tpu_torch.train.state import Schedule, TrainState
+from vid2vid_tpu_torch.utils.device import to_cpu
 
 SCHEDULE_FIELDS = (
     "epoch", "epoch_iter", "total_steps", "n_frames_total", "n_frames_per_dev",
@@ -40,17 +41,6 @@ SCHEDULE_FIELDS = (
 def checkpoint_path(opt, tag: str, what: str) -> str:
     """<checkpoints_dir>/<name>/<tag>_<what>.pth"""
     return os.path.join(opt.checkpoints_dir, opt.name, f"{tag}_{what}.pth")
-
-
-def _cpu(obj):
-    """A copy of a nested dict / list of tensors with every tensor on the CPU."""
-    if torch.is_tensor(obj):
-        return obj.detach().cpu()
-    if isinstance(obj, dict):
-        return {k: _cpu(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_cpu(v) for v in obj)
-    return obj
 
 
 def _load(path: str):
@@ -85,7 +75,7 @@ def write_checkpoint(opt, files: dict, tag: str = "latest") -> None:
     os.makedirs(root, exist_ok=True)
     for what, payload in files.items():
         path = checkpoint_path(opt, tag, what)
-        torch.save(_cpu(payload), path + ".part")
+        torch.save(to_cpu(payload), path + ".part")
         os.replace(path + ".part", path)
     sched = files["optim"]["schedule"]
     with open(os.path.join(root, "iter.txt"), "w") as fh:

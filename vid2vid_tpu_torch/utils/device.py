@@ -20,3 +20,15 @@ def require_device(device: torch.device | str = "cuda") -> torch.device:
             "cpu) to run on the CPU"
         )
     return dev
+
+
+def to_cpu(obj):
+    """A copy of a nested dict / list / tuple of tensors with every tensor
+    detached and on the CPU (what a checkpoint saves)."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj
