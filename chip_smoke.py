@@ -11,14 +11,16 @@ non-zero):
      one line per kernel of the tensor-core body (csrc/conv_wgmma.cuh, bf16
      and f32 as 3xTF32, K = 3 and 7) with its registers, spills, shared
      memory and HGMMA count (cuobjdump -sass); fails without HGMMA or with
-     spills there, or with a bf16 CUDA-core 3x3 left; one line for the
-     correlation kernel (registers, spills, blocks an SM), which fails on
-     spills or on fewer blocks an SM than its channel split assumes;
+     spills there, or with a bf16 CUDA-core 3x3 left; one line for each
+     correlation kernel, forward and backward (registers, spills, shared
+     memory, blocks an SM), which fails on spills or on fewer blocks an SM
+     than its plan assumes;
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
      bf16, correlation and its backward (FlowNetC, f32, at FlowNetC's
      training shape, the FlowNet2 shapes and two of the forward tile's
-     edges, each the same bit for bit on a second launch), flow_warp
+     edges, the backward also at four of its tile's edges, each the same
+     bit for bit on a second launch), flow_warp
      (FlowNet2, f32 and bf16),
      the warp backward (training): warp_blend's and flow_warp's, conv7 at
      the single-image nets' 7x7 stems and heads, and conv3 / conv3_fused
@@ -83,10 +85,12 @@ non-zero):
      the warps' device time (profiler) and per-call time (events over 200
      back-to-back calls) beside grid_sample's, alone and with the blend,
      and the warp backward's the same way (its memset and cast counted);
-     the correlation per shape with TFLOP/s, the share of its FFMA bound,
-     the f2 stagings per value and its channel split; its backward at
-     FlowNetC's training shape against the plain VJP, with TFLOP/s and its
-     bound;
+     the correlation per shape with TFLOP/s, the share of its FFMA bound
+     (one FMA per tap inside the image), the f2 stagings per value and its
+     channel split; its backward at FlowNetC's training shape against the
+     plain VJP and at two more shapes, with TFLOP/s, its bound (the same
+     count), its grid's blocks and waves, the FMAs it executes and its
+     FMAs per shared-memory word;
   9. flow-net training: FlowNetC through FlowHarness at batch 8 on 384x512
      pairs, 5 timed steps in f32 and 5 with mixed precision (median ms a
      step, peak memory, one correlation forward and one backward a step,
@@ -160,14 +164,23 @@ from vid2vid_tpu_torch.ops.conv7 import (  # noqa: E402
     pack_for_kernel,
 )
 from vid2vid_tpu_torch.ops.correlation import (  # noqa: E402
+    BWD_BLOCKS_PER_SM,
+    BWD_ROWS,
+    BWD_SMEM_BYTES,
+    BWD_THREAD_CHANNELS,
+    BWD_THREADS,
+    KERNEL_RADIUS,
     TILE_BLOCKS_PER_SM,
     TILE_SMEM_BYTES,
     TILE_THREADS,
     correlation,
     correlation_backward_plain,
     correlation_bwd,
+    correlation_bwd_fmas,
+    correlation_bwd_plan,
     correlation_plain,
     correlation_plan,
+    correlation_taps,
     f2_stagings,
 )
 from vid2vid_tpu_torch.ops.respair import respair, respair_plain  # noqa: E402
@@ -223,6 +236,14 @@ CORR_TRAIN_SHAPE = (FLOW_TRAIN_BATCH, 256, FLOW_TRAIN_HW[0] // 8, FLOW_TRAIN_HW[
 # multiple of the 64-column tile, C not a multiple of the 16-channel chunk,
 # rows of a parity not a multiple of 4, W odd
 CORR_EDGE_SHAPES = [(1, 17, 13, 70), (2, 9, 22, 131)]
+# the backward tile's edges (ops/correlation.py::BWD_*): C one past the
+# 64-channel block and two blocks and a bit, H not a multiple of 2 *
+# BWD_ROWS, W not a multiple of the 64-column tile with W % 4 == 0 (its
+# 16-byte stores) or odd
+CORR_BWD_EDGE_SHAPES = [(1, 70, 9, 66), (2, 65, 12, 20), (2, 130, 19, 131), (1, 256, 47, 68)]
+# the backward's other timed shapes, grids of 1.94 and 0.48 waves against
+# the training shape's 2.91 (the backward runs only in flow-net training)
+CORR_BWD_TIMED = [(2, 256, 64, 128), (2, 256, 32, 64)]
 # (B, C, H, W) of FlowNet2's five unfused warps per FlowEstimator call
 FLOW_WARP_SHAPE = (2, 3, 1024, 2048)
 # (net, Ci, Co, H, W) of the 7x7 convs per single-image frame: edge2face
@@ -1077,7 +1098,9 @@ def check_kernels(gen: torch.Generator) -> dict:
         first = correlation(*args)
         if not torch.equal(first, correlation(*args)):
             raise AssertionError(f"correlation {shape}: two launches disagree")
-        # the backward: a gather, each element summed by one thread in order
+        del args, first
+    for shape in [CORR_TRAIN_SHAPE] + CORR_SHAPES + CORR_EDGE_SHAPES + CORR_BWD_EDGE_SHAPES:
+        # the backward: each element summed by one thread in a fixed order
         args = corr_bwd_case(shape, gen)
         record("correlation_bwd", torch.float32,
                compare("correlation_bwd", args, torch.float32), shape)
@@ -1216,24 +1239,25 @@ def sass_counts(lib_path, opcode: str) -> dict:
     return counts
 
 
-def correlation_build_line(regs: dict) -> None:
-    """Phase 2: the correlation kernel's registers, spills and shared memory,
+def correlation_build_line(regs: dict, kernel: str, smem: int, threads: int,
+                           blocks_per_sm: int) -> None:
+    """Phase 2: a correlation kernel's registers, spills and shared memory,
     and the blocks an SM holds by each (registers and spills: None where
     the library was already built); raises on spills, or if fewer than
-    ops/correlation.py::TILE_BLOCKS_PER_SM fit (its channel split assumes
-    them)."""
+    `blocks_per_sm` fit (ops/correlation.py's TILE_BLOCKS_PER_SM and
+    BWD_BLOCKS_PER_SM: the plans' waves assume them)."""
     # no report where the library was built by an earlier run in this checkout
-    name = next((n for n in regs if "correlation_kernel" in n), None)
+    name = next((n for n in regs if f"{len(kernel)}{kernel}E" in n), None)
     r, st, ld = regs[name] if name else (None, None, None)
-    by_regs = 65536 // (TILE_THREADS * -(-r // 8) * 8) if name else None
-    by_smem = 233472 // (TILE_SMEM_BYTES + 1024)  # 228 KB an SM, 1 KB reserved a block
-    say("build_kernel", kernel="correlation_kernel", registers=r, spill_store_bytes=st,
-        spill_load_bytes=ld, dyn_smem_bytes=TILE_SMEM_BYTES, threads=TILE_THREADS,
+    by_regs = 65536 // (threads * -(-r // 8) * 8) if name else None
+    by_smem = 233472 // (smem + 1024)  # 228 KB an SM, 1 KB reserved a block
+    say("build_kernel", kernel=kernel, registers=r, spill_store_bytes=st,
+        spill_load_bytes=ld, dyn_smem_bytes=smem, threads=threads,
         blocks_per_sm_by_registers=by_regs, blocks_per_sm_by_smem=by_smem)
     fit = by_smem if by_regs is None else min(by_regs, by_smem)
-    if st or ld or fit < TILE_BLOCKS_PER_SM:
+    if st or ld or fit < blocks_per_sm:
         raise AssertionError(f"build: {name} spills ({st}, {ld}) or fits fewer than "
-                             f"{TILE_BLOCKS_PER_SM} blocks an SM ({by_regs}, {by_smem})")
+                             f"{blocks_per_sm} blocks an SM ({by_regs}, {by_smem})")
 
 
 def build_phase() -> None:
@@ -1271,7 +1295,10 @@ def build_phase() -> None:
     old = [n for n in hgmma if "conv3x3_kernel" in n]
     if old:
         raise AssertionError(f"build: CUDA-core 3x3 kernels remain: {old}")
-    correlation_build_line(regs)
+    correlation_build_line(regs, "correlation_kernel", TILE_SMEM_BYTES, TILE_THREADS,
+                           TILE_BLOCKS_PER_SM)
+    correlation_build_line(regs, "correlation_bwd_kernel", BWD_SMEM_BYTES, BWD_THREADS,
+                           BWD_BLOCKS_PER_SM)
     say("build", seconds=f"{seconds:.2f}", lib=lib_path.name, wgmma_kernels=len(wgmma),
         wgmma_7x7_kernels=kinds[(0, 7)] + kinds[(1, 7)],
         f32_wgmma_kernels=kinds[(1, 3)] + kinds[(1, 7)],
@@ -2477,7 +2504,7 @@ def flow_train_fit(card: str) -> None:
 def flow_train_path(card: str) -> dict:
     """Phase 9: FlowNetC training through FlowHarness at batch 8 on 384x512
     pairs (the correlation at CORR_TRAIN_SHAPE), seeded weights, pairs from
-    numpy seed 0: one warm-up and 5 timed steps in f32, then the same with
+    numpy seed 0: three warm-up and 5 timed steps in f32, then the same with
     mixed precision (bf16 forward, f32 masters); median ms a step, the peak
     memory, the launch counts (one correlation forward and one backward a
     step), the f32 convs without TF32; a profile of one f32 step by kernel
@@ -2492,7 +2519,10 @@ def flow_train_path(card: str) -> dict:
         watch_tf32(tf32_seen, net)
         harness = FlowHarness(net, mixed_precision=mixed, device=DEV)
         with torch_default_tf32():
-            timed_steps(harness, pair, flow, 1)
+            # 3 warm-up steps: a bf16 step settles over its first few
+            # (31.2, 27.5, then ~23 ms a step after one warm-up step on an
+            # H100 80GB HBM3 at 700 W)
+            timed_steps(harness, pair, flow, 3)
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             ms = timed_steps(harness, pair, flow, n_steps)
@@ -2664,7 +2694,7 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
         args = corr_case(shape, gen)
         k, p = time_ms(correlation, args), time_ms(correlation_plain, args)
         b, c, h, w = shape
-        flop = 2.0 * b * h * w * 441 * c
+        flop = 2.0 * b * c * correlation_taps(h, w)  # one FMA a tap inside the image
         nb = (2 * c + 441) * b * h * w * 4
         if i == 0:
             ms["correlation"] = [k, p, None]
@@ -2678,21 +2708,7 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
             f2_stagings_per_value=f"{f2_stagings(h, w):.3f}", split=plan.split,
             blocks=math.prod(plan.grid), calls_per_flow_call=int(i == 0))
         del args
-    # the backward at FlowNetC's training shape, against the plain VJP (the
-    # autograd of correlation_plain): 2 x 441 FMAs per element of f1; f1, f2
-    # and g read once, df1 and df2 written once
-    args = corr_bwd_case(CORR_TRAIN_SHAPE, gen)
-    k, p = time_ms(correlation_bwd, args), time_ms(correlation_backward_plain, args)
-    b, c, h, w = CORR_TRAIN_SHAPE
-    flop, nb = 4.0 * b * h * w * 441 * c, (4 * c + 441) * b * h * w * 4
-    ms["correlation_bwd"], work["correlation_bwd"] = [k, p, None], [nb, flop]
-    b_ms, b_by = bound_ms(nb, flop, F32_FLOPS)
-    say("time", kernel="correlation_bwd", shape="x".join(map(str, CORR_TRAIN_SHAPE)),
-        dtype="float32", ms=f"{k:.4f}", plain_ms=f"{p:.4f}", tflops=f"{flop / k / 1e9:.2f}",
-        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes_bound_ms=f"{nb / HBM_BPS * 1e3:.4f}",
-        share_of_bound=f"{b_ms / k:.4f}", plain_over_kernel=f"{p / k:.1f}",
-        calls_per_flow_train_step=1)
-    del args
+    correlation_bwd_times(gen, ms, work)
     for name, (shape, dtype, n) in BWD_PATH.items():
         args = bwd_case(name, shape, dtype, gen)
         image, flow, g = (args[0], args[1], args[2]) if name == "flow_warp_bwd" else (
@@ -2723,6 +2739,59 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
         del args
     conv_times(gen, ms, work)
     return ms, work
+
+
+def corr_bwd_counts() -> dict:
+    """Phase 6: the backward kernel's shared-memory reads against its FMAs,
+    counted from its tile (csrc/correlation.cu's note). Per thread and f
+    row: 21 steps of 4 rows x 8 channels x 4 pixels FMAs on 4 float4 G
+    reads and one new window word a channel (3 more to start each window).
+    Per warp: a G LDS.128 is broadcast over the 4 channel groups, 128
+    distinct bytes (one wavefront; four if the card splits 128-bit loads by
+    quarter warp), an F LDS.32 32 distinct words (one wavefront); an SM
+    serves one wavefront a clock against 4 warp FMAs."""
+    nd = 2 * KERNEL_RADIUS + 1
+    fmas = nd * BWD_ROWS * BWD_THREAD_CHANNELS * 4
+    g_loads, f_words = nd * BWD_ROWS, BWD_THREAD_CHANNELS * (nd + 3)
+    return dict(fmas_per_thread_f_row=fmas,
+                smem_words_per_thread_f_row=4 * g_loads + f_words,
+                fmas_per_smem_word=round(fmas / (4 * g_loads + f_words), 3),
+                wavefronts_per_warp_f_row=f"{g_loads + f_words}-{4 * g_loads + f_words}",
+                fma_clocks_per_warp_f_row=fmas // 4)
+
+
+def correlation_bwd_times(gen: torch.Generator, ms: dict, work: dict) -> None:
+    """Phase 6: the backward at FlowNetC's training shape against the plain
+    VJP (the autograd of correlation_plain), then at CORR_BWD_TIMED; its
+    bound: one FMA per tap inside the image a gradient element (f1, f2 and
+    g read once, df1 and df2 written once); its grid's blocks and waves,
+    the FMAs it executes (f rows outside the image skipped, zero-filled
+    pairs and columns computed) and its shared-memory reads per FMA."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    for i, shape in enumerate([CORR_TRAIN_SHAPE] + CORR_BWD_TIMED):
+        args = corr_bwd_case(shape, gen)
+        k = time_ms(correlation_bwd, args)
+        p = time_ms(correlation_backward_plain, args) if i == 0 else None
+        b, c, h, w = shape
+        fmas = 2 * b * c * correlation_taps(h, w)  # both gradients
+        flop, nb = 2.0 * fmas, (4 * c + 441) * b * h * w * 4
+        b_ms, b_by = bound_ms(nb, flop, F32_FLOPS)
+        if i == 0:
+            ms["correlation_bwd"], work["correlation_bwd"] = [k, p, None], [nb, flop]
+        blocks = math.prod(correlation_bwd_plan(*shape))
+        executed = correlation_bwd_fmas(*shape)
+        say("time", kernel="correlation_bwd", shape="x".join(map(str, shape)),
+            dtype="float32", ms=f"{k:.4f}", plain_ms=None if p is None else f"{p:.4f}",
+            tflops=f"{flop / k / 1e9:.2f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            bytes_bound_ms=f"{nb / HBM_BPS * 1e3:.4f}", share_of_bound=f"{b_ms / k:.4f}",
+            plain_over_kernel=None if p is None else f"{p / k:.1f}",
+            blocks=blocks, sms=sms, blocks_per_sm=BWD_BLOCKS_PER_SM,
+            waves=f"{blocks / (sms * BWD_BLOCKS_PER_SM):.3f}",
+            fmas_needed=fmas, fmas_executed=executed,
+            executed_over_needed_fmas=f"{executed / fmas:.4f}",
+            executed_tflops=f"{2 * executed / k / 1e9:.2f}",
+            calls_per_flow_train_step=int(i == 0), **(corr_bwd_counts() if i == 0 else {}))
+        del args
 
 
 def respair_work(c, h, w, size):
@@ -2989,16 +3058,18 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                         "(2, 256, 128, 256), on register tiles of 4 rows x 2 "
                         "pixels x 21 dx, f2 rows shared along diagonals, cp.async "
                         "double buffering, the channel sum split where the grid is "
-                        "under one wave; bound: FFMA; no library call computes it"),
+                        "under one wave; bound: FFMA, one FMA per tap inside the "
+                        "image; no library call computes it"),
         "correlation_bwd": ("vid2vid_tpu_torch/csrc/correlation.cu",
                             "vid2vid_tpu/ops/correlation.py:25", "flow_train", F32_FLOPS,
                             "f32, one FlowNetC training step's one launch at "
                             "(8, 256, 48, 64) (batch 8 of 384x512 pairs): the VJP of the "
-                            "cost volume as a gather, a thread a pixel and 16 channels, "
-                            "no atomics; replaces the autograd of correlation_plain "
-                            "(plain_ms), as JAX differentiates correlation_ref; bound: "
-                            "FFMA, 2 x 441 FMAs per element of f1; no library call "
-                            "computes it"),
+                            "cost volume on register tiles of 4 rows x 4 pixels x 8 "
+                            "channels, f rows shared along diagonals, cp.async double "
+                            "buffering, no atomics; replaces the autograd of "
+                            "correlation_plain (plain_ms), as JAX differentiates "
+                            "correlation_ref; bound: FFMA, one FMA per tap inside the "
+                            "image a gradient element; no library call computes it"),
         "warp_blend_bwd": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
                            "vid2vid_tpu/ops/warp.py:300", "training", F32_FLOPS,
                            "bf16, summed over one 512x256 training chunk's 2 calls at "

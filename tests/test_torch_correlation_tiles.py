@@ -220,6 +220,21 @@ def test_f2_stagings_at_the_flownet2_shape():
     assert corr.f2_stagings(128, 256) == pytest.approx(7.986, abs=1e-3)
 
 
+# (H, W) of correlation_taps: one pixel, images smaller than the
+# displacement, odd and uneven sizes, FlowNetC's training shape (48 x 64)
+TAP_SHAPES = [(1, 1), (5, 9), (13, 70), (22, 41), (48, 64)]
+
+
+@pytest.mark.parametrize("hw", TAP_SHAPES, ids=["x".join(map(str, s)) for s in TAP_SHAPES])
+def test_correlation_taps_count_the_products_inside_the_image(hw):
+    """correlation_taps, which the FFMA bounds of the correlation and of its
+    backward count, equals the sum of JAX's correlation_ref over all-ones
+    features at C = 1: one for each tap inside the image, zero outside."""
+    h, w = hw
+    ones = jnp.ones((1, h, w, 1), jnp.float32)
+    assert int(np.asarray(correlation_ref(ones, ones)).sum()) == corr.correlation_taps(h, w)
+
+
 def test_staging_writes_and_compute_reads_are_free_of_bank_conflicts():
     """Each copy instruction of a warp (one row slot, 32 consecutive
     columns split by parity) writes 32 distinct banks, and each LDS.64 of

@@ -262,13 +262,17 @@ def test_correlation_is_the_same_bit_for_bit_from_run_to_run(cuda, b, c, h, w):
     assert torch.equal(first, correlation(f1, f2))
 
 
-# (B, C, H, W) of the correlation backward: C below, at and past the
-# kernel's 16-channel chunk, H and W off its 8 x 32 block and smaller than
-# the displacement, one pixel; then FlowNetC's training shape (8, 256, 48,
-# 64) and chip_smoke.py's CORR_SHAPES
+# (B, C, H, W) of the correlation backward: C below and off the kernel's
+# 64-channel block, H and W smaller than the displacement, one pixel; the
+# tile's edges (ops/correlation.py::BWD_*): C one past a block (65) and two
+# blocks and a bit (130), H not a multiple of 2 * BWD_ROWS, W not a
+# multiple of the 64-column tile with W % 4 == 0 (16-byte stores, 20 and
+# 68) and odd (131); then FlowNetC's training shape (8, 256, 48, 64) and
+# chip_smoke.py's CORR_SHAPES
 CORR_BWD_SHAPES = [(2, 3, 7, 9), (1, 17, 13, 70), (2, 17, 1, 1), (1, 16, 9, 20),
-                   (2, 9, 22, 131), (1, 1, 5, 20), (8, 256, 48, 64), (2, 256, 64, 128),
-                   (2, 256, 32, 64)]
+                   (2, 9, 22, 131), (1, 1, 5, 20), (1, 70, 9, 66), (2, 65, 12, 20),
+                   (2, 130, 19, 131), (1, 256, 47, 68), (8, 256, 48, 64),
+                   (2, 256, 64, 128), (2, 256, 32, 64)]
 
 
 def _corr_bwd_case(b, c, h, w, cuda):
@@ -290,10 +294,9 @@ def test_correlation_backward_kernel_any_shape(cuda, b, c, h, w):
         _close("correlation", gt, wt, torch.float32)
 
 
-@pytest.mark.parametrize("b,c,h,w", [(8, 256, 48, 64), (1, 17, 13, 70)])
+@pytest.mark.parametrize("b,c,h,w", [(8, 256, 48, 64), (1, 17, 13, 70), (2, 65, 12, 20)])
 def test_correlation_backward_is_the_same_bit_for_bit_from_run_to_run(cuda, b, c, h, w):
-    """A gather with no atomics: each element is summed by one thread in a
-    fixed order."""
+    """No atomics: each element is summed by one thread in a fixed order."""
     args = _corr_bwd_case(b, c, h, w, cuda)
     first = correlation_bwd(*args)
     torch.cuda.synchronize()

@@ -1,9 +1,10 @@
 """The port's flow-net training (vid2vid_tpu_torch.models.flownet2:
 FlowHarness.train_step / train_epoch / fit, the .pth.tar checkpoints, the
 CLI's training mode) against the JAX package's harness, on CPU, f32; and a
-numpy walk of the correlation backward kernel's gather indexing
-(csrc/correlation.cu::correlation_bwd_kernel) against jax.vjp of
-correlation_ref.
+numpy walk of the correlation backward kernel's tile map
+(csrc/correlation.cu::correlation_bwd_kernel, mirrored by
+ops/correlation.py's BWD_* constants and correlation_bwd_plan) against
+jax.vjp of correlation_ref.
 
 One FlowNetC step at (1, 2, 64, 128, 3) shares its weights (xavier-uniform
 kernels drawn with numpy into flax's tree, random biases, carried into the
@@ -226,68 +227,194 @@ def test_cli_trains_saves_and_resumes_best(tmp_path, capsys):
     assert "resumed best (epoch 1, best EPE" in capsys.readouterr().out
 
 
-# ------------------------------------------- the backward kernel's indexing
+# ------------------------------------------- the backward kernel's tile map
 
-# (B, C, H, W): C not a multiple of BWD_CHUNK and below it, H not a multiple
-# of BWD_TILE_Y, W not a multiple of BWD_TILE_X, images smaller than the
-# displacement, and two channel chunks of a batch of two
-WALK_SHAPES = [(1, 17, 13, 70), (2, 9, 22, 41), (2, 32, 5, 9)]
+R, MD = corr.KERNEL_RADIUS, corr.KERNEL_MAX_DISPLACEMENT
+ND = 2 * R + 1
+BQ, BTX, BCB, BK = corr.BWD_ROWS, corr.BWD_X, corr.BWD_CHANNELS, corr.BWD_THREAD_CHANNELS
+BNT, BWIN = corr.BWD_THREADS, corr.BWD_WINDOW
+BROWF, BODDF, BF_STAGE = corr.BWD_F_ROW, corr.BWD_F_ODD, corr.BWD_F_STAGE
+BG_ROW = corr.BWD_G_ROW
+BSTAGE = BF_STAGE + corr.BWD_G_STAGE
+
+# (B, C, H, W): C not a multiple of the 64-channel block and below it (17,
+# 9, 32) or above it (70, 65), H not a multiple of 2 * BWD_ROWS, W not a
+# multiple of the 64-column tile (odd, or W % 4 != 0; W = 20 takes the
+# kernel's 16-byte stores), images smaller than the displacement (5 x 9,
+# 12 x 20), B = 2
+WALK_SHAPES = [(1, 17, 13, 70), (2, 9, 22, 41), (2, 32, 5, 9), (1, 70, 9, 66),
+               (2, 65, 12, 20)]
+# the plan's coverage also at FlowNetC's training shape and chip_smoke.py's
+# other timed shapes
+PLAN_SHAPES = [(8, 256, 48, 64), (2, 256, 64, 128), (2, 256, 32, 64)] + WALK_SHAPES
+
+
+def _lanes():
+    """Each thread's warp (wx: column half, wc: channel half) and lane
+    (px: column parity, pg: 4-pixel group, cg: channel group), as the
+    kernel's compute map takes them from threadIdx.x."""
+    t = np.arange(BNT)
+    warp, lane = t >> 5, t & 31
+    return t, warp & 1, warp >> 1, lane & 1, (lane >> 1) & 3, lane >> 3
+
+
+def _blocks(shape):
+    """Every block that has output rows, as (cb0, x0, u0, hp, par, grad,
+    b), decoded from the plan's grid as the kernel does."""
+    _, _, h, w = shape
+    gx, gy, gz = corr.correlation_bwd_plan(*shape)
+    x_tiles = -(-w // BTX)
+    blocks = []
+    for bz in range(gz):
+        par, grad, b = bz & 1, (bz >> 1) & 1, bz >> 2
+        hp = (h - par + 1) >> 1
+        for by in range(gy):
+            grp, xt = divmod(by, x_tiles)
+            if grp * BQ >= hp:
+                continue  # the block returns at once
+            for bx in range(gx):
+                blocks.append((bx * BCB, xt * BTX, grp * BQ, hp, par, grad, b))
+    return blocks
+
+
+def _stores(v, shape, cb0, x0, u0, hp, par, b):
+    """The epilogue: v [thread, q, cc, e] (pixel e of the lane's parity)
+    through the shuffle across parities and the masks; returns (values,
+    flat (B, C, H, W) offsets) of every store, and checks that each lands
+    in its own pixel's column."""
+    _, c_n, h, w = shape
+    t, wx, wc, px, pg, cg = _lanes()
+    col = x0 + 2 * (16 * wx + 4 * pg)[:, None] + 2 * np.arange(4) + px[:, None]  # [t, e]
+    xs = x0 + 32 * wx + 8 * pg + 4 * px
+    out_v, out_at = [], []
+    for q in range(BQ):
+        u = u0 + q
+        if u >= hp:
+            break
+        for cc in range(BK):
+            val = np.stack([v[:, q, cc], np.broadcast_to(col, (BNT, 4))], -1)  # value, column
+            r0 = np.where(px[:, None], val[:, 0], val[:, 2])[t ^ 1]
+            r1 = np.where(px[:, None], val[:, 1], val[:, 3])[t ^ 1]
+            o = np.where(px[:, None, None], np.stack([r0, val[:, 2], r1, val[:, 3]], 1),
+                         np.stack([val[:, 0], r0, val[:, 1], r1], 1))  # [t, e', 2]
+            c = cb0 + 32 * wc + cg + 4 * cc
+            xe = xs[:, None] + np.arange(4)
+            assert (o[..., 1] == xe).all(), "the shuffle put a pixel in another column"
+            keep = (c < c_n)[:, None] & (xe < w)
+            at = ((b * c_n + c)[:, None] * h + 2 * u + par) * w + xe
+            out_v.append(o[..., 0][keep])
+            out_at.append(at[keep])
+    return np.concatenate(out_v), np.concatenate(out_at)
+
+
+def _stage(shape, f, g, n, cb0, x0, u0, par, grad, b):
+    """Stage f row n as the kernel's `stage` does: (values, and per slot
+    the tap copied: kind 1 f / 2 g / 0 never written, channel or g plane,
+    row, column, copied from the image (else zero-filled))."""
+    _, c_n, h, w = shape
+    vals = np.zeros(BSTAGE)
+    kind, idx, row, col = (np.zeros(BSTAGE, np.int64) for _ in range(4))
+    live = np.zeros(BSTAGE, bool)
+    yf = 2 * (u0 + n - R) + par
+    assert 0 <= yf < h
+
+    def put(slot, k, i, y, x, ok, src):
+        assert kind[slot].max() == 0 and len(np.unique(slot)) == len(slot)
+        kind[slot], idx[slot], row[slot], col[slot], live[slot] = k, i, y, x, ok
+        vals[slot[ok]] = src[i[ok], y[ok], x[ok]]
+
+    tf = np.arange(BWIN)  # threads t < BWIN copy window column t
+    xf = x0 - MD + tf
+    for cl in range(BCB):
+        c = cb0 + cl
+        put((tf & 1) * BODDF + (tf >> 1) + cl * BROWF, 1, np.full_like(tf, c),
+            np.full_like(tf, yf), xf, (xf >= 0) & (xf < w) & (c < c_n), f[b])
+    t = np.arange(BNT)
+    gcol, gq = t & (BTX - 1), t >> 6
+    gx = x0 + gcol
+    g_slot = BF_STAGE + 8 * (gcol >> 3) + 4 * (gcol & 1) + ((gcol >> 1) & 3)
+    for qq in range(2):
+        q = gq + 2 * qq
+        for k in range(ND):
+            slot = g_slot + (q * ND + k) * BG_ROW
+            if grad == 0:  # g[(n - q) * 21 + k] at output row q, the tile's column
+                j, y = n - q, 2 * (u0 + q) + par
+                ok = (gx < w) & (j >= 0) & (j < ND) & (y < h)
+                put(slot, 2, j * ND + k, y, gx, ok, g[b])
+            else:  # g[(q + 20 - n) * 21 + 20 - k] at the f row, column gx - 20 + 2k
+                j, xk = q + 2 * R - n, gx - MD + 2 * k
+                ok = (j >= 0) & (j < ND) & (xk >= 0) & (xk < w)
+                put(slot, 2, j * ND + 2 * R - k, np.full_like(t, yf), xk, ok, g[b])
+    return vals, (kind, idx, row, col, live)
 
 
 def _walk_bwd(f1, f2, g):
-    """(df1, df2, writes) as csrc/correlation.cu::correlation_bwd_kernel
-    indexes them: its grid (`correlation_bwd_grid`), each thread's pixel
-    and channel chunk, the flat offsets of every g / f read and of every
-    store, and the in-image tests; f64 sums."""
-    b_, c_, h, w = f1.shape
-    tx, ty, cc_n = corr.BWD_TILE_X, corr.BWD_TILE_Y, corr.BWD_CHUNK
-    rad = corr.KERNEL_RADIUS
-    nd = 2 * rad + 1
-    hw = h * w
-    f1f, f2f, gf = (a.astype(np.float64).ravel() for a in (f1, f2, g))
-    df1, df2 = np.full(f1.size, np.nan), np.full(f1.size, np.nan)
-    writes = np.zeros(f1.size, np.int64)
-    gx, gy, gz = corr.correlation_bwd_grid(b_, c_, h, w)
-    chunks = -(-c_ // cc_n)
-    tyy, txx = np.meshgrid(np.arange(ty), np.arange(tx), indexing="ij")
-    for bz in range(gz):
-        b = bz // chunks
-        c0 = (bz - b * chunks) * cc_n
-        nc = min(cc_n, c_ - c0)
-        chan = np.arange(nc)[:, None] * hw
-        base = (b * c_ + c0) * hw
-        for by in range(gy):
-            for bx in range(gx):
-                x, y = (bx * tx + txx).ravel(), (by * ty + tyy).ravel()
-                live = (x < w) & (y < h)
-                x, y = x[live], y[live]
-                a1, a2 = np.zeros((nc, x.size)), np.zeros((nc, x.size))
-                for j in range(nd):
-                    dy = 2 * (j - rad)
-                    y1, y2 = y + dy, y - dy
-                    row1, row2 = (y1 >= 0) & (y1 < h), (y2 >= 0) & (y2 < h)
-                    for i in range(nd):
-                        dx = 2 * (i - rad)
-                        x1, x2 = x + dx, x - dx
-                        gd = b * nd * nd * hw + (j * nd + i) * hw
-                        m1 = row1 & (x1 >= 0) & (x1 < w)
-                        gv = gf[gd + y[m1] * w + x[m1]]
-                        a1[:, m1] += gv * f2f[base + chan + y1[m1] * w + x1[m1]]
-                        m2 = row2 & (x2 >= 0) & (x2 < w)
-                        o = y2[m2] * w + x2[m2]
-                        a2[:, m2] += gf[gd + o] * f1f[base + chan + o]
-                at = base + chan + y * w + x
-                df1[at], df2[at] = a1 / c_, a2 / c_
-                np.add.at(writes, at.ravel(), 1)
-    return df1.reshape(f1.shape), df2.reshape(f1.shape), writes.reshape(f1.shape)
+    """(df1, df2, writes per gradient and element) as csrc/correlation.cu's
+    backward indexes them: the plan's grid, each block's f rows, the
+    staging map (slots, parity halves, zero fill), each thread's reads of
+    the staged slots (checked tap by tap against the taps its pixels,
+    channels and rows need) and the stores; f64 sums."""
+    shape = f1.shape
+    _, c_n, h, w = shape
+    blocks = _blocks(shape)
+    df = np.full((2, f1.size), np.nan)
+    writes = np.zeros((2, f1.size), np.int64)
+    f64 = [a.astype(np.float64) for a in (f1, f2, g)]
+    t, wx, wc, px, pg, cg = _lanes()
+    hpix = 16 * wx + 4 * pg                                    # [t]: the lane's first pixel
+    chan = 32 * wc[:, None] + cg[:, None] + 4 * np.arange(BK)  # [t, cc]
+    f_read = px * BODDF + (32 * wc + cg) * BROWF + 16 * wx + 4 * pg
+    g_read = BF_STAGE + 8 * (4 * wx + pg) + 4 * px
+    # the reads of one f row: F [t, cc, window word m = k + e], G [t, q, k, e]
+    m = np.arange(ND + 3)
+    f_at = f_read[:, None, None] + (4 * np.arange(BK) * BROWF)[:, None] + m
+    qk = (np.arange(BQ)[:, None] * ND + np.arange(ND)) * BG_ROW
+    g_at = g_read[:, None, None, None] + qk[..., None] + np.arange(4)
+    e_k = np.arange(ND)[:, None] + np.arange(4)  # [k, e]: the window word
+    for cb0, x0, u0, hp, par, grad, b in blocks:
+        acc = np.zeros((BNT, BQ, BK, 4))
+        for n in corr.correlation_bwd_rows(u0, hp):
+            vals, (kind, idx, row, col, live) = _stage(
+                shape, f64[1] if grad == 0 else f64[0], f64[2], n, cb0, x0, u0, par, grad, b)
+            yf = 2 * (u0 + n - R) + par
+            # F: channel cb0 + chan, the f row, column x0 - 20 + 2(h + m) + px
+            want_col = x0 - MD + 2 * (hpix[:, None, None] + m) + px[:, None, None]
+            assert (kind[f_at] == 1).all() and (row[f_at] == yf).all()
+            assert (idx[f_at] == cb0 + chan[..., None]).all() and (col[f_at] == want_col).all()
+            assert (live[f_at] == ((want_col >= 0) & (want_col < w)
+                                   & (cb0 + chan[..., None] < c_n))).all()
+            # G: row q, step k, pixel e (column x), by gradient
+            q = np.arange(BQ)[:, None, None]                     # [q, k, e] axes
+            k = np.arange(ND)[:, None]
+            x = x0 + 2 * (hpix[:, None, None, None] + np.arange(4)) + px[:, None, None, None]
+            if grad == 0:
+                j = n - q
+                want = (j * ND + k, 2 * (u0 + q) + par, x + 0 * k)
+                ok = (j >= 0) & (j < ND) & (want[1] < h) & (x < w)
+            else:
+                j = q + 2 * R - n
+                want = (j * ND + 2 * R - k, yf + 0 * q, x - MD + 2 * k)
+                ok = (j >= 0) & (j < ND) & (want[2] >= 0) & (want[2] < w)
+            ok = np.broadcast_to(ok, g_at.shape)
+            assert (kind[g_at] == 2).all() and (live[g_at] == ok).all()
+            for got, exp in zip((idx, row, col), want):
+                assert (got[g_at][ok] == np.broadcast_to(exp, ok.shape)[ok]).all()
+            fv, gv = vals[f_at], vals[g_at]  # [t, cc, m], [t, q, k, e]
+            for e in range(4):
+                acc[..., e] += np.einsum("tqk,tck->tqc", gv[..., e], fv[:, :, e_k[:, e]])
+        v, at = _stores(acc / c_n, shape, cb0, x0, u0, hp, par, b)
+        df[grad, at] = v
+        writes[grad, at] += 1
+    return df[0].reshape(shape), df[1].reshape(shape), writes
 
 
 @pytest.mark.parametrize("shape", WALK_SHAPES, ids=["x".join(map(str, s)) for s in WALK_SHAPES])
 def test_correlation_backward_walk_matches_jax_vjp(shape):
-    """Every gradient element is stored exactly once, and the gather sums
-    (in f64) equal jax.vjp of correlation_ref within 1e-5: JAX sums up to
-    441 products of O(1) in f32 (~2e-6 off at C = 9), where a wrong tap or
-    store is off by O(0.1)."""
+    """Every gradient element is stored exactly once, each thread reads
+    exactly the taps its pixels need (or a zero fill), and
+    the walk's sums (in f64) equal jax.vjp of correlation_ref within 1e-5:
+    JAX sums up to 441 products of O(1) in f32 (~2e-6 off at C = 9), where
+    a wrong tap or store is off by O(0.1)."""
     rng = np.random.default_rng(sum(shape))
     f1, f2 = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
     b, c, h, w = shape
@@ -305,3 +432,21 @@ def test_correlation_backward_walk_matches_jax_vjp(shape):
     plain = corr.correlation_bwd(*(torch.from_numpy(a) for a in (f1, f2, g)))
     for got, ref in zip(plain, want):
         np.testing.assert_allclose(got.numpy(), nchw(ref).numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
+def test_correlation_backward_plan_covers_every_output(shape):
+    """correlation_bwd_plan's grid, with the kernel's block decode and
+    store map, writes every element of both gradients exactly once, and
+    each block walks every f row inside the image once."""
+    b_n, c_n, h, w = shape
+    writes = np.zeros((2, b_n * c_n * h * w), np.int32)
+    for cb0, x0, u0, hp, par, grad, b in _blocks(shape):
+        _, at = _stores(np.zeros((BNT, BQ, BK, 4)), shape, cb0, x0, u0, hp, par, b)
+        assert len(np.unique(at)) == len(at)
+        writes[grad, at] += 1
+    assert (writes == 1).all()
+    # the f rows inside the image, each once per block
+    for hp, u0 in corr._bwd_row_groups(h):
+        rows = [n for n in range(corr.BWD_DIAGONALS) if 0 <= u0 + n - R < hp]
+        assert list(corr.correlation_bwd_rows(u0, hp)) == rows

@@ -81,6 +81,7 @@
 
 #include <algorithm>
 #include <cstddef>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -359,76 +360,276 @@ __global__ void sum_parts_kernel(const float* __restrict__ parts,
 // counterpart of the JAX package's jax.vjp of correlation_ref
 // (vid2vid_tpu/ops/correlation.py:25-65; the TPU kernel has no backward).
 //
-// What bounds it on the H100: FMAs on the CUDA cores, 2 * 441 per element
-// of f1: 5.5 G at FlowNetC's training shape (8, 256, 48, 64), 0.166 ms at
-// 67 TFLOP/s; the compulsory bytes (f1, f2, g read once, df1, df2 written
-// once) are 144 MB there, 0.043 ms at 3.35 TB/s.
+// What bounds it on the H100: FMAs on the CUDA cores, one per in-image tap
+// of each gradient (ops/correlation.py::correlation_taps: 788 of the 48 x
+// 21 row taps and 1124 of the 64 x 21 column taps are inside the image at
+// FlowNetC's training shape (8, 256, 48, 64)): 2 x 8 x 256 x 788 x 1124 =
+// 3.63 G FMAs there, 0.108 ms at 67 TFLOP/s; the compulsory bytes (f1, f2,
+// g read once, df1, df2 written once) are 144 MB there, 0.043 ms at
+// 3.35 TB/s.
 //
-// The design is the simple gather form. A thread owns one pixel (y, x) and
-// BWD_CC channels of both gradients and walks the 441 displacements in
-// order, each a g value shared by its channels and one f value per
-// channel, read through L1 (a warp holds 32 consecutive x, so every read is
-// one coalesced row segment). Each output element is written once by one
-// thread in a fixed order: no atomics, so the result is the same bit for
-// bit from run to run. The cost of that simplicity: about one load per FMA
-// (an SM issues 32 lanes of loads against 128 of FMAs a clock), so the
-// load unit, not the FMA pipes, sets its pace. Register tiles that share
-// the f rows along the diagonals, as the forward does, are the next step.
+// One form for both gradients. Output row y = 2u + parity meets the f row
+// 2(u + n - 10) + parity on diagonal n of its row group (as in the forward):
+// for df1 the f2 row, paired with g at the output pixel (j = n - q); for
+// df2 the f1 row, paired with g at that same row, the pixel that read this
+// one (j = q + 20 - n, i = 20 - k). In both, with the staged g row G and
+// the staged f window F (columns x0 - 20 .. x0 + 83, each parity a half),
+//     acc[c][q][h] += G[q][k][h] * F[c][h + k],   k in [0, 21)
+// for pixel h of a parity half: df1 stages G[q][k] = g[(n-q)*21 + k] at row
+// q, columns x0..x0+63; df2 stages G[q][k] = g[(q+20-n)*21 + 20-k] at the
+// f row, columns shifted by -20 + 2k. Only the staging differs.
+//
+// The tiling.
+//  - A block owns Q = 4 output rows of one parity, a 64-column x tile and
+//    64 channels of one gradient (a channel block; the grid covers C with
+//    them), and walks the Q + 20 = 24 f rows its rows meet, or those inside
+//    the image (at (8, 256, 48, 64) 108 of a channel block's 144). Each f
+//    row is staged once for the block and serves every (row, j) pair on
+//    its diagonal; the pairs of the first and last three diagonals that
+//    fall outside [0, 21) read a zero-filled G row, and the columns of a
+//    window outside the image a zero-filled F word: 4.76 G FMAs executed
+//    there, 1.31 times the 3.63 G the bound counts.
+//  - Four warps: two column halves x two channel halves. A lane owns 4
+//    same-parity pixels (h = 16 wx + 4 pg + e) x 8 channels (32 wc + cg +
+//    4 cc) x the Q rows: 128 accumulators. Per f row and k it reads the Q
+//    G words of its pixels (4 LDS.128, broadcast over the 4 channel groups
+//    of a warp) and one new word of each channel's window (8 LDS.32): the
+//    window F[c][h0 + k .. h0 + k + 3] slides along k in registers (word m
+//    in slot m mod 4), so one f word serves the next pixel at the next k.
+//    The 21 steps are unrolled in groups of 4 (the window's period) and a
+//    last step, which keeps the f-row loop ~12 KB of code.
+//  - Per f row a thread does 21 * 128 = 2688 FMAs on 336 G + 192 F words:
+//    5.1 FMAs per shared-memory word (>= 4, see the forward's note). Per
+//    warp, a G LDS.128 is 128 distinct bytes (one wavefront, or four if the
+//    hardware splits 128-bit loads by quarter warp) and an F LDS.32 32
+//    distinct words: 276 (at most 528) wavefronts against 672 FMA clocks.
+//  - Banks: the F halves of 64 channels lie in two arrays of rows of 53
+//    floats (odd, so 4 consecutive channels start in 4 banks mod 4), the
+//    odd array 3408 floats on (16 mod 32): a warp's F read hits 32 banks.
+//    A G row holds chunks of 4 pixels, each parity's side by side (slot
+//    8 (h / 4) + 4 parity + h mod 4): a warp's LDS.128 reads 128 contiguous
+//    bytes and a warp's copy of 32 columns writes 32 banks.
+//  - Staging is asynchronous and double-buffered: `cp.async` of 4 bytes a
+//    column (so each lands in its parity's half), f row n + 1 in flight
+//    while row n is computed, one __syncthreads a row. Taps outside the
+//    image, channels past C and pairs outside [0, 21) copy with src-size 0,
+//    which zero-fills, so the inner loop has no border branch. A block
+//    stages <= 6656 + 5376 words an f row for 344,064 FMAs (28.6 a word);
+//    each g value once per channel block (C / 64 = 4 times at C = 256,
+//    against 16 L1 passes in the gather this replaces).
+//  - Stores: one shuffle between the lanes of the two parities gives each
+//    lane 4 adjacent columns; a warp writes 128 contiguous bytes of 4
+//    channel rows with 16-byte stores (scalar where W % 4 != 0).
+//  - Registers: 128 accumulators, 32 window and 16 G words (~200 in all,
+//    at most 255); 97,408 bytes of shared memory; two blocks an SM. At
+//    (8, 256, 48, 64): 4 x 6 x 1 x 8 x 2 x 2 = 768 blocks over 264 slots,
+//    2.91 waves, in one launch (ops/correlation.py::correlation_bwd_plan).
+//  - Each output element is summed by one thread in a fixed order (f rows,
+//    then k, ascending), scaled by 1/C and written once: no atomics, the
+//    same bit for bit from launch to launch. tests/test_torch_flow_train.py
+//    walks the map in numpy from the constants ops/correlation.py mirrors.
 
-constexpr int BWD_TX = 32;  // pixels along x a block row (one warp)
-constexpr int BWD_TY = 8;   // rows a block, one warp each
-constexpr int BWD_CC = 16;  // channels a thread (ops/correlation.py mirrors these)
+constexpr int BQ = 4;                  // output rows per block and per thread
+constexpr int BTX = 64;                // output columns per block
+constexpr int BCB = 64;                // channels per block
+constexpr int BK = 8;                  // channels per thread
+constexpr int BNT = 128;               // 2 column halves x 2 channel halves, a warp each
+constexpr int BSTAGES = 2;             // f rows in shared memory (in flight + computed)
+constexpr int BNDIAG = BQ + 2 * RAD;   // f rows a row group meets: 24
+constexpr int BWIN = BTX + 2 * MD;     // staged f columns a row: 104
+constexpr int BROWF = BWIN / 2 + 1;    // floats of a staged half row: 53 (odd)
+constexpr int BODDF = odd_offset(BCB * BROWF);  // the odd halves' array: 3408
+constexpr int BF_STAGE = BODDF + BCB * BROWF;   // 6800
+constexpr int BG_ROW = BTX;                     // floats of a staged g row: 64
+constexpr int BG_STAGE = BQ * ND * BG_ROW;      // 5376
+constexpr int BSTAGE = BF_STAGE + BG_STAGE;     // 12176
+constexpr int BSMEM_BYTES = BSTAGES * BSTAGE * (int)sizeof(float);  // 97408
+static_assert(BROWF % 2 == 1 && BF_STAGE % 4 == 0 && BSTAGE % 4 == 0, "banks, alignment");
+static_assert(BNT >= BWIN && BNT == 2 * BTX && BQ == 4, "staging map");
+static_assert(BCB == 2 * 4 * BK && BTX == 2 * 32 && BNT == 128, "compute map");
 
-__global__ void __launch_bounds__(BWD_TX * BWD_TY)
-correlation_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                       const float* __restrict__ g, float* __restrict__ df1,
-                       float* __restrict__ df2, int C, int H, int W, float inv_c) {
-  const int x = blockIdx.x * BWD_TX + threadIdx.x;
-  const int y = blockIdx.y * BWD_TY + threadIdx.y;
-  const int chunks = (C + BWD_CC - 1) / BWD_CC;
-  const int b = blockIdx.z / chunks;
-  const int c0 = (blockIdx.z - b * chunks) * BWD_CC;
-  if (x >= W || y >= H) return;
-  const int nc = min(BWD_CC, C - c0);
-  const size_t hw = (size_t)H * W;
-  const float* f1b = f1 + ((size_t)b * C + c0) * hw;
-  const float* f2b = f2 + ((size_t)b * C + c0) * hw;
-  const float* gb = g + (size_t)b * ND * ND * hw;
-
-  float a1[BWD_CC], a2[BWD_CC];
+// Step k of an f row: the Q G words of the lane's pixels, the new word k + 3
+// of each channel's window into slot S = (k + 3) mod 4, then 128 FMAs;
+// pixel e reads window word k + e, in slot (S + 1 + e) mod 4.
+template <int S>
+__device__ __forceinline__ void bwd_step(const float* g_k, const float* f_new,
+                                         float (&win)[BK][4], float (&acc)[BQ][BK][4]) {
+  float4 gv[BQ];
 #pragma unroll
-  for (int cc = 0; cc < BWD_CC; ++cc) a1[cc] = a2[cc] = 0.f;
-  for (int j = 0; j < ND; ++j) {
-    const int dy = 2 * (j - RAD);
-    const int y1 = y + dy, y2 = y - dy;
-    const bool row1 = y1 >= 0 && y1 < H, row2 = y2 >= 0 && y2 < H;
-    for (int i = 0; i < ND; ++i) {
-      const int dx = 2 * (i - RAD);
-      const int x1 = x + dx, x2 = x - dx;
-      const float* gd = gb + (size_t)(j * ND + i) * hw;
-      if (row1 && x1 >= 0 && x1 < W) {  // df1: g here, f2 at the tap
-        const float gv = __ldg(gd + (size_t)y * W + x);
-        const float* p = f2b + (size_t)y1 * W + x1;
+  for (int q = 0; q < BQ; ++q)
+    gv[q] = *reinterpret_cast<const float4*>(g_k + q * ND * BG_ROW);
 #pragma unroll
-        for (int cc = 0; cc < BWD_CC; ++cc)
-          if (cc < nc) a1[cc] = fmaf(gv, __ldg(p + cc * hw), a1[cc]);
-      }
-      if (row2 && x2 >= 0 && x2 < W) {  // df2: g and f1 at the pixel that read here
-        const size_t o = (size_t)y2 * W + x2;
-        const float gv = __ldg(gd + o);
-        const float* p = f1b + o;
+  for (int cc = 0; cc < BK; ++cc) win[cc][S] = f_new[cc * 4 * BROWF];
 #pragma unroll
-        for (int cc = 0; cc < BWD_CC; ++cc)
-          if (cc < nc) a2[cc] = fmaf(gv, __ldg(p + cc * hw), a2[cc]);
-      }
+  for (int q = 0; q < BQ; ++q) {
+#pragma unroll
+    for (int cc = 0; cc < BK; ++cc) {
+      acc[q][cc][0] = fmaf(gv[q].x, win[cc][(S + 1) & 3], acc[q][cc][0]);
+      acc[q][cc][1] = fmaf(gv[q].y, win[cc][(S + 2) & 3], acc[q][cc][1]);
+      acc[q][cc][2] = fmaf(gv[q].z, win[cc][(S + 3) & 3], acc[q][cc][2]);
+      acc[q][cc][3] = fmaf(gv[q].w, win[cc][S], acc[q][cc][3]);
     }
   }
-  const size_t at = ((size_t)b * C + c0) * hw + (size_t)y * W + x;
+}
+
+// Grid: channel blocks, row groups * x tiles, (b * 2 + grad) * 2 + parity
+// (grad 0: df1 to out1, 1: df2 to out2), each scaled by `scale` (1/C).
+// `vec`: W % 4 == 0 and the outputs 16-byte aligned.
+__global__ void __launch_bounds__(BNT, 2)
+correlation_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+                       const float* __restrict__ g, float* __restrict__ out1,
+                       float* __restrict__ out2, int B, int C, int H, int W, int x_tiles,
+                       float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+
+  const int cb0 = blockIdx.x * BCB;
+  const int grp = blockIdx.y / x_tiles;
+  const int x0 = (blockIdx.y - grp * x_tiles) * BTX;
+  const int par = blockIdx.z & 1;
+  const bool df2 = (blockIdx.z >> 1) & 1;
+  const int b = blockIdx.z >> 2;
+  const int u0 = grp * BQ;               // first row of the group (this parity)
+  const int hp = (H - par + 1) >> 1;     // rows of this parity
+  if (u0 >= hp) return;                  // the block has no output row
+  // the f rows inside the image: 2(u0 + n - RAD) + par in [0, H)
+  const int n0 = max(0, RAD - u0), n1 = min(BNDIAG, hp + RAD - u0);
+  const size_t hw = (size_t)H * W;
+  const float* fb = (df2 ? f1 : f2) + (size_t)b * C * hw;  // the staged f rows
+  const float* gb = g + (size_t)b * ND * ND * hw;
+  const bool full_c = cb0 + BCB <= C;
+
+  // the staging map, fixed for the whole kernel: thread t < BWIN copies
+  // window column t of the 64 channels' f rows; thread t copies tile column
+  // t mod 64 of the G rows q = t / 64 and q + 2 (all k)
+  const int t = threadIdx.x;
+  const bool stages_f = t < BWIN;
+  const int xf = x0 - MD + t;
+  const bool xf_in = stages_f && xf >= 0 && xf < W;
+  const int f_slot = (t & 1) * BODDF + (t >> 1);
+  const int gcol = t & (BTX - 1), gq = t >> 6;
+  const int gx = x0 + gcol;
+  const int g_slot = BF_STAGE + 8 * (gcol >> 3) + 4 * (gcol & 1) + ((gcol >> 1) & 3);
+
+  auto stage = [&](int n, float* buf) {
+    const int yf = 2 * (u0 + n - RAD) + par;  // the f row (inside the image)
+    if (stages_f) {
+      const float* src = fb + (size_t)cb0 * hw + (size_t)yf * W + (xf_in ? xf : 0);
+      float* dst = buf + f_slot;
+      if (full_c) {
+#pragma unroll 16
+        for (int cl = 0; cl < BCB; ++cl) {
+          cp_async4(dst + cl * BROWF, src, xf_in ? 4 : 0);
+          src += hw;
+        }
+      } else {
+        for (int cl = 0; cl < BCB; ++cl) {
+          const bool in = xf_in && cb0 + cl < C;
+          cp_async4(dst + cl * BROWF, in ? src : fb, in ? 4 : 0);
+          src += hw;
+        }
+      }
+    }
 #pragma unroll
-  for (int cc = 0; cc < BWD_CC; ++cc) {
-    if (cc < nc) {
-      df1[at + cc * hw] = a1[cc] * inv_c;
-      df2[at + cc * hw] = a2[cc] * inv_c;
+    for (int qq = 0; qq < 2; ++qq) {
+      const int q = gq + 2 * qq;
+      float* dst = buf + g_slot + q * ND * BG_ROW;
+      if (!df2) {  // g[(n - q) * 21 + k] at output row q, tile column gcol
+        const int j = n - q, y = 2 * (u0 + q) + par;
+        const bool ok = gx < W && j >= 0 && j < ND && y < H;
+        const float* src = ok ? gb + (size_t)j * ND * hw + (size_t)y * W + gx : gb;
+        const size_t step = ok ? hw : 0;
+#pragma unroll
+        for (int k = 0; k < ND; ++k) {
+          cp_async4(dst + k * BG_ROW, src, ok ? 4 : 0);
+          src += step;
+        }
+      } else {  // g[(q + 20 - n) * 21 + 20 - k] at the f row, column gx - 20 + 2k
+        const int j = q + 2 * RAD - n;
+        const bool ok = j >= 0 && j < ND;
+        const long long off0 =
+            ((long long)(j * ND + 2 * RAD) * H + yf) * W + (gx - MD);
+        const long long step = 2 - (long long)hw;
+#pragma unroll
+        for (int k = 0; k < ND; ++k) {
+          const int xk = gx - MD + 2 * k;
+          const bool in = ok && xk >= 0 && xk < W;
+          cp_async4(dst + k * BG_ROW, in ? gb + (off0 + k * step) : gb, in ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // the compute map: warp (wx, wc), lane (cg, pg, px); pixels h = 16 wx +
+  // 4 pg + e of parity px (column x0 + 2h + px), channels 32 wc + cg + 4 cc
+  const int warp = t >> 5, lane = t & 31;
+  const int wx = warp & 1, wc = warp >> 1;
+  const int px = lane & 1, pg = (lane >> 1) & 3, cg = lane >> 3;
+  const int f_read = px * BODDF + (32 * wc + cg) * BROWF + 16 * wx + 4 * pg;
+  const int g_read = BF_STAGE + 8 * (4 * wx + pg) + 4 * px;
+
+  float acc[BQ][BK][4];
+#pragma unroll
+  for (int q = 0; q < BQ; ++q)
+#pragma unroll
+    for (int cc = 0; cc < BK; ++cc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][cc][e] = 0.f;
+
+  if (n0 < n1) stage(n0, smem);
+  cp_async_commit();
+  int slot = 0;
+  for (int n = n0; n < n1; ++n) {
+    const float* cur = smem + slot * BSTAGE;
+    cp_async_wait<0>();
+    __syncthreads();  // row n landed everywhere; row n-1's reads are done
+    if (n + 1 < n1) stage(n + 1, smem + (slot ^ 1) * BSTAGE);
+    cp_async_commit();
+    slot ^= 1;
+    const float* fr = cur + f_read;
+    const float* gr = cur + g_read;
+    float win[BK][4];
+#pragma unroll
+    for (int cc = 0; cc < BK; ++cc)
+#pragma unroll
+      for (int e = 0; e < 3; ++e) win[cc][e] = fr[cc * 4 * BROWF + e];
+#pragma unroll 1
+    for (int k = 0; k < 20; k += 4) {
+      bwd_step<3>(gr + k * BG_ROW, fr + k + 3, win, acc);
+      bwd_step<0>(gr + (k + 1) * BG_ROW, fr + k + 4, win, acc);
+      bwd_step<1>(gr + (k + 2) * BG_ROW, fr + k + 5, win, acc);
+      bwd_step<2>(gr + (k + 3) * BG_ROW, fr + k + 6, win, acc);
+    }
+    bwd_step<3>(gr + 20 * BG_ROW, fr + 23, win, acc);
+  }
+
+  // lane (px, pg) holds columns 8 pg + 2e + px of its warp's 32; after one
+  // shuffle across the parities it holds xs .. xs + 3, xs = 8 pg + 4 px
+  const int xs = x0 + 32 * wx + 8 * pg + 4 * px;
+  float* outp = (df2 ? out2 : out1) + (size_t)b * C * hw;
+#pragma unroll
+  for (int q = 0; q < BQ; ++q) {
+    const int u = u0 + q;
+    if (u >= hp) break;  // uniform over the block
+    const int y = 2 * u + par;
+#pragma unroll
+    for (int cc = 0; cc < BK; ++cc) {
+      const float v0 = acc[q][cc][0] * scale, v1 = acc[q][cc][1] * scale;
+      const float v2 = acc[q][cc][2] * scale, v3 = acc[q][cc][3] * scale;
+      const float r0 = __shfl_xor_sync(0xffffffffu, px ? v0 : v2, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, px ? v1 : v3, 1);
+      const float4 o = px ? make_float4(r0, v2, r1, v3) : make_float4(v0, r0, v1, r1);
+      const int c = cb0 + 32 * wc + cg + 4 * cc;
+      if (c >= C || xs >= W) continue;
+      float* p = outp + (size_t)c * hw + (size_t)y * W + xs;
+      if (vec) {
+        *reinterpret_cast<float4*>(p) = o;
+      } else {
+        p[0] = o.x;
+        if (xs + 1 < W) p[1] = o.y;
+        if (xs + 2 < W) p[2] = o.z;
+        if (xs + 3 < W) p[3] = o.w;
+      }
     }
   }
 }
@@ -477,19 +678,31 @@ extern "C" int v2v_correlation(const void* f1, const void* f2, void* out,
 }
 
 // The backward: f1, f2 (B, C, H, W), g (B, 441, H, W), all f32 and
-// contiguous; writes df1 and df2 (B, C, H, W). One launch, no scratch.
+// contiguous; writes df1 and df2 (B, C, H, W) in one launch
+// (ops/correlation.py::correlation_bwd_plan mirrors its grid).
 extern "C" int v2v_correlation_bwd(const void* f1, const void* f2, const void* g,
                                    void* df1, void* df2, int B, int C, int H, int W,
                                    int dtype, void* stream) {
   using namespace v2v;
   if (dtype != kFloat32 || C <= 0) return (int)cudaErrorInvalidValue;
   if (B * H * W == 0) return (int)cudaSuccess;  // nothing to launch
-  const dim3 block(BWD_TX, BWD_TY);
-  const dim3 grid((W + BWD_TX - 1) / BWD_TX, (H + BWD_TY - 1) / BWD_TY,
-                  B * ((C + BWD_CC - 1) / BWD_CC));
-  correlation_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int x_tiles = (W + BTX - 1) / BTX;
+  const int groups = ((H + 1) / 2 + BQ - 1) / BQ;
+  if ((long long)groups * x_tiles > 65535 || (long long)B * 4 > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (BSMEM_BYTES > 48 * 1024) {  // above the default limit: ask for it
+    const cudaError_t attr = cudaFuncSetAttribute(
+        correlation_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BSMEM_BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  float* o1 = static_cast<float*>(df1);
+  float* o2 = static_cast<float*>(df2);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = W % 4 == 0 && aligned(o1) && aligned(o2);
+  const dim3 grid((C + BCB - 1) / BCB, groups * x_tiles, B * 4);
+  correlation_bwd_kernel<<<grid, BNT, BSMEM_BYTES, s>>>(
       static_cast<const float*>(f1), static_cast<const float*>(f2),
-      static_cast<const float*>(g), static_cast<float*>(df1), static_cast<float*>(df2), C,
-      H, W, 1.f / (float)C);
+      static_cast<const float*>(g), o1, o2, B, C, H, W, x_tiles, 1.f / (float)C, vec);
   return (int)cudaGetLastError();
 }

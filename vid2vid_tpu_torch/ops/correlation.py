@@ -22,7 +22,11 @@ The kernel's tile is mirrored here as plain constants (`TILE_ROWS`, ...;
 the source note in csrc/correlation.cu explains them) with
 `correlation_plan`, which sizes its grid and picks how many parts the
 channel sum is split into; tests/test_torch_correlation_tiles.py walks that
-map in numpy.
+map in numpy. The backward's tile likewise (`BWD_*`,
+`correlation_bwd_plan`, its one launch's grid), walked by
+tests/test_torch_flow_train.py. `correlation_taps` counts the products
+either direction needs (the taps inside the image), which is what its
+bound counts.
 """
 
 from __future__ import annotations
@@ -74,16 +78,73 @@ TILE_F1_ROW = TILE_F1_ODD + TILE_X // 2  # 80
 TILE_SMEM_BYTES = TILE_STAGES * 4 * TILE_CHUNK * (TILE_DIAGS * TILE_F2_ROW
                                                   + TILE_ROWS * TILE_F1_ROW)
 H100_SMS = 132
-# the backward kernel's block: BWD_TILE_X pixels of a row (one warp) x
-# BWD_TILE_Y rows, BWD_CHUNK channels a thread (csrc/correlation.cu)
-BWD_TILE_X, BWD_TILE_Y, BWD_CHUNK = 32, 8, 16
+
+# csrc/correlation.cu's backward tile: a block owns BWD_ROWS output rows of
+# one parity, BWD_X columns and BWD_CHANNELS channels of one gradient, and
+# walks the BWD_DIAGONALS f rows those rows meet (those inside the image),
+# each staged once (the f row's window of BWD_WINDOW columns, split by
+# parity into two arrays of BWD_F_ROW-float rows, the odd one at
+# BWD_F_ODD; then the Q x 21 g rows it pairs with, BWD_G_ROW floats each,
+# 4-pixel chunks of the two parities side by side). A thread owns 4
+# same-parity pixels x BWD_THREAD_CHANNELS channels x the BWD_ROWS rows;
+# BWD_BLOCKS_PER_SM blocks fit an SM.
+BWD_ROWS = 4
+BWD_X = 64
+BWD_CHANNELS = 64
+BWD_THREAD_CHANNELS = 8
+BWD_THREADS = 128
+BWD_STAGES = 2  # f rows in shared memory
+BWD_BLOCKS_PER_SM = 2
+BWD_DIAGONALS = BWD_ROWS + 2 * KERNEL_RADIUS  # 24
+BWD_WINDOW = BWD_X + 2 * KERNEL_MAX_DISPLACEMENT  # 104
+BWD_F_ROW = BWD_WINDOW // 2 + 1  # 53 (odd)
+BWD_F_ODD = _odd_offset(BWD_CHANNELS * BWD_F_ROW)  # 3408
+BWD_F_STAGE = BWD_F_ODD + BWD_CHANNELS * BWD_F_ROW  # 6800
+BWD_G_ROW = BWD_X
+BWD_G_STAGE = BWD_ROWS * (2 * KERNEL_RADIUS + 1) * BWD_G_ROW  # 5376
+BWD_SMEM_BYTES = BWD_STAGES * 4 * (BWD_F_STAGE + BWD_G_STAGE)  # 97408
 
 
-def correlation_bwd_grid(b: int, c: int, h: int, w: int) -> tuple[int, int, int]:
-    """The backward kernel's grid at (B, C, H, W): (x tiles, row tiles,
-    B * channel chunks); block z holds batch z // chunks, chunk z % chunks."""
-    return (math.ceil(w / BWD_TILE_X), math.ceil(h / BWD_TILE_Y),
-            b * math.ceil(c / BWD_CHUNK))
+def correlation_taps(h: int, w: int) -> int:
+    """The (y, x, j, i) with y and y + 2(j - R), x and x + 2(i - R) all
+    inside an H x W image: the products one channel of one image needs,
+    in the cost volume or in either gradient, with the zero taps outside
+    the image left out. Rows and columns count apart: the rows' taps
+    times the columns'."""
+    def taps(n: int) -> int:
+        return sum(0 <= p + KERNEL_STRIDE2 * (j - KERNEL_RADIUS) < n
+                   for p in range(n) for j in range(2 * KERNEL_RADIUS + 1))
+    return taps(h) * taps(w)
+
+
+def correlation_bwd_rows(u0: int, hp: int) -> range:
+    """The f rows (diagonals n) that a row group starting at u0 walks:
+    those whose row 2(u0 + n - R) + parity lies in the image (hp rows of
+    that parity)."""
+    return range(max(0, KERNEL_RADIUS - u0), min(BWD_DIAGONALS, hp + KERNEL_RADIUS - u0))
+
+
+def _bwd_row_groups(h: int) -> list[tuple[int, int]]:
+    """(rows of the parity, first row u0) of every row group at height h."""
+    return [((h - par + 1) // 2, u0) for par in range(2)
+            for u0 in range(0, (h - par + 1) // 2, BWD_ROWS)]
+
+
+def correlation_bwd_plan(b: int, c: int, h: int, w: int) -> tuple[int, int, int]:
+    """The backward kernel's one launch at (B, C, H, W), as
+    v2v_correlation_bwd makes it: the grid (channel blocks, row groups * x
+    tiles, B * 2 gradients * 2 parities)."""
+    groups = math.ceil(math.ceil(h / 2) / BWD_ROWS)
+    return math.ceil(c / BWD_CHANNELS), groups * math.ceil(w / BWD_X), b * 4
+
+
+def correlation_bwd_fmas(b: int, c: int, h: int, w: int) -> int:
+    """The FMAs the backward kernel executes at (B, C, H, W), zero-filled
+    pairs, channels and columns included: 21 steps of BWD_ROWS x BWD_X x
+    BWD_CHANNELS a walked f row."""
+    per_row = (2 * KERNEL_RADIUS + 1) * BWD_ROWS * BWD_X * BWD_CHANNELS
+    rows = sum(len(correlation_bwd_rows(u0, hp)) for hp, u0 in _bwd_row_groups(h))
+    return 2 * b * math.ceil(c / BWD_CHANNELS) * math.ceil(w / BWD_X) * rows * per_row
 
 
 class CorrelationPlan(NamedTuple):
