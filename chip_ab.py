@@ -1,6 +1,6 @@
-"""Time the correlation backward, or FlowNetC's training step, of several
-checkouts of this repository on one card, in turns, so that two commits
-compare on one machine.
+"""Time the correlation backward, FlowNetC's training step, or the flagship
+streamed frame, of several checkouts of this repository on one card, in
+turns, so that two commits compare on one machine.
 
 Each checkout runs in its own process, through its own chip_smoke.py's
 helpers, and builds its own kernels under its own build/ the first time:
@@ -10,16 +10,26 @@ helpers, and builds its own kernels under its own build/ the first time:
     (`flow_pairs`, `seeded_flownet_c`, `timed_steps`), f32 with TF32 off
     and bf16, 5 warm-up and 10 timed steps each, ms a step (host clock);
     then one profiled step (`profile_by_family`): its kernels' device ms
-    and the correlation backward's.
+    and the correlation backward's;
+  - `--frame`: phase 5's flagship frame, label2city 2048x1024 bf16
+    (`seeded_engine`, `label_stream`, FLAGSHIP), through
+    InferenceEngine.step: 3 warm-up and 20 timed frames, ms a frame (host
+    clock around torch.cuda.synchronize()). After the runs, one process
+    times the host cost of calling an operator on a CUDA tensor, 20000
+    calls each, by three routes to the same body: a Python function, an
+    operator of `torch.library.Library(.., "DEF")` with a CUDA `impl` (the
+    port's registration, ops/library.py), and a `torch.library.custom_op`.
 Run from the root of a checkout on a machine with one NVIDIA Hopper card,
 e.g. with the parent commit unpacked (git archive) under the ignored
 build/parent:
 
     python3 chip_ab.py build/parent . . build/parent
     python3 chip_ab.py --flow-train build/parent . . build/parent
+    python3 chip_ab.py --frame build/parent . . build/parent
 
-One JSON line per run ({"root", "ms": ...}), then the card's name and
-power limit, then one JSON line with every run in order.
+One JSON line per run ({"root", "ms": ...}) (with --frame, then one with
+the three routes' microseconds a call), then the card's name and power
+limit, then one JSON line with every run in order.
 """
 
 from __future__ import annotations
@@ -59,7 +69,7 @@ for mode, mixed in (("f32", False), ("bf16", True)):
         cs.timed_steps(harness, pair, flow, 5)
         steps = cs.timed_steps(harness, pair, flow, 10)
         fams, busy, _ = cs.profile_by_family(lambda: harness.train_step(pair, flow),
-                                             f"FlowNetC {mode} step", f"chip_ab_{mode}.txt")
+                                             f"FlowNetC {mode} step")
     ms[mode] = statistics.median(steps)
     ms[mode + "_steps"] = [round(v, 3) for v in steps]
     ms[mode + "_kernel_ms"] = busy
@@ -68,6 +78,51 @@ for mode, mixed in (("f32", False), ("bf16", True)):
     del harness
     torch.cuda.empty_cache()
 print(json.dumps(ms))
+"""
+CHILD_FRAME = """
+import json, statistics, time
+import torch
+import chip_smoke as cs
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+opt = cs.Options(**cs.FLAGSHIP)
+(h, w), n_warm, n_timed = cs.CITY_HW, 3, 20
+eng = cs.seeded_engine(opt, cs.DEV, seed=0)
+labels, inst = cs.label_stream(opt, n_warm + n_timed, h, w)
+state = eng.initial_state(1, h, w)
+times = []
+for t in range(n_warm + n_timed):
+    t1 = time.perf_counter()
+    _, state = eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t1) * 1e3)
+timed = times[n_warm:]
+print(json.dumps({"median": statistics.median(timed), "mean": statistics.mean(timed),
+                  "min": min(timed), "max": max(timed), "frames": [round(v, 3) for v in timed]}))
+"""
+CHILD_DISPATCH = """
+import json, time
+import torch
+body = lambda x: torch.empty_like(x)
+lib = torch.library.Library("v2v_dispatch_ab", "DEF")
+lib.define("op(Tensor x) -> Tensor")
+lib.impl("op", body, "CUDA")
+@torch.library.custom_op("v2v_dispatch_ab2::op", mutates_args=(), device_types="cuda")
+def custom(x: torch.Tensor) -> torch.Tensor:
+    return body(x)
+x = torch.zeros(8, device="cuda")
+us = {}
+for name, fn in (("python", body), ("library_def", torch.ops.v2v_dispatch_ab.op.default),
+                 ("custom_op", custom)) * 2:
+    for _ in range(1000):
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        fn(x)
+    torch.cuda.synchronize()
+    us[name] = (time.perf_counter() - t0) / 20000 * 1e6
+print(json.dumps(us))
 """
 
 
@@ -80,15 +135,18 @@ def run(root: str, child: str) -> dict:
 
 
 def main(args: list[str]) -> None:
-    flow_train = "--flow-train" in args
-    roots = [a for a in args if a != "--flow-train"]
+    modes = {"--flow-train": CHILD_FLOW_TRAIN, "--frame": CHILD_FRAME}
+    roots = [a for a in args if a not in modes]
     if not roots:
         raise SystemExit(__doc__)
-    child = CHILD_FLOW_TRAIN if flow_train else CHILD_BWD
+    child = next((modes[a] for a in args if a in modes), CHILD_BWD)
     runs = []
     for root in roots:
         runs.append({"root": root, "ms": run(os.path.abspath(root), child)})
         print(json.dumps(runs[-1]), flush=True)
+    if child is CHILD_FRAME:
+        print(json.dumps({"dispatch_us_per_call": run(os.getcwd(), CHILD_DISPATCH)}),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())

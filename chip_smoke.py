@@ -41,8 +41,10 @@ non-zero):
      (3 scales, ngf 128, fg, instance edges, bf16) streaming frames through
      InferenceEngine.step, with every kernel's launch count checked (conv7:
      the composite's 21 7x7 stems and heads a frame), a profile of one
-     frame, and an A/B of the frame with those convs on conv7 and on cuDNN
-     (in turns: cuDNN, conv7, conv7, cuDNN);
+     frame (utils/profiling.py::profile_by_family), a Chrome trace of another
+     (utils/profiling.py::trace, summarize_trace: our families' ms against
+     the profile's within 5%), and an A/B of the frame with those convs on
+     conv7 and on cuDNN (in turns: cuDNN, conv7, conv7, cuDNN);
   5c. the same configuration streaming an 8-frame clip through
      InferenceEngine.generate_clip_raw (labels on the host, one frame
      encoded a step into a window on the card): launch counts, its frames
@@ -97,7 +99,18 @@ non-zero):
      the f32 convs without TF32), a profile of one f32 step by kernel family
      with the backward kernel's share, the casts around the correlation
      under bf16 timed beside its kernels, and `fit` over two in-memory
-     datasets for 2 epochs with its best checkpoint restored bit for bit.
+     datasets for 2 epochs with its best checkpoint restored bit for bit;
+  10. the serving artifact (tools/export.py): the flagship configuration of
+     phase 5 exported through torch.export on the card (its kernels as the
+     operators torch.ops.v2v.respair / conv7 / warp_blend), saved, loaded,
+     and 4 frames streamed through it and InferenceEngine.step in turns:
+     frames and state within CLIP_TOL, 45 / 21 / 3 launches a frame, ms a
+     frame of both, export and load seconds, the artifact's bytes, the
+     graph's operator nodes, peak memory;
+  11. the training ledger (tools/train_ledger.py) at the 512x256 recipe:
+     steady and serialized ms per iteration, each step's ms, FLOPs
+     (FlopCounterMode), bound and share of it; no respair or conv7 in the G
+     step, one correlation a chunk.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -105,6 +118,7 @@ Long tables go to build/chip_smoke_profile*.txt.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -198,7 +212,18 @@ from vid2vid_tpu_torch.train.checkpoints import (  # noqa: E402
     restore_checkpoint,
     schedule_fields,
 )
+from vid2vid_tpu_torch.tools import export, train_ledger  # noqa: E402
+from vid2vid_tpu_torch.tools.train_ledger import RECIPE as TRAIN_RECIPE  # noqa: E402
 from vid2vid_tpu_torch.train.loop import Trainer  # noqa: E402
+from vid2vid_tpu_torch.utils.profiling import (  # noqa: E402
+    COUNTERS,
+    DEVICE_TIME,
+    open_window,
+    profile_by_family,
+    read_launches,
+    summarize_trace,
+    trace,
+)
 
 DEV = torch.device("cuda", 0)
 OUT_DIR = "build"  # listed in .gitignore
@@ -329,9 +354,6 @@ PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
          "flow_warp_bwd": flow_warp_backward_plain,
          "conv7": conv7_reflect_plain, "conv3": conv3_plain,
          "conv3_fused": conv3_fused_plain}
-# the launch counters of each kernel: conv7 has two entries
-COUNTERS = {name: (fn,) for name, fn in KERNELS.items()} | {
-    "conv7": (conv7_reflect, conv7_padded)}
 PLAIN_OF = {conv7_padded: conv7_plain}  # the plain version of a second entry
 # the wrappers that their own module calls, from an autograd backward: the
 # path logs their calls there too (kernel_call_shapes)
@@ -383,15 +405,6 @@ EDGE2FACE = dict(
 )
 # (H, W) of the two single-image paths
 FACE_HW, CITY_HW = (512, 512), (1024, 2048)
-# the 512x256 label2city training recipe at full width (bench.py's
-# bench_train; recipes/street/train_512.sh on one card: loadSize 512,
-# n_frames_total 6, max_frames_per_gpu 2, with bf16 and remat)
-TRAIN_RECIPE = dict(
-    label_nc=35, use_instance=True, fg=True, fg_labels=(26,), ngf=128,
-    n_downsample_G=3, n_blocks=9, n_scales_spatial=1, n_frames_G=3,
-    n_frames_D=3, n_scales_temporal=2, n_frames_total=6, max_frames_per_gpu=2,
-    norm="batch", bf16=True, remat=True, isTrain=True, fineSize=512,
-)
 # (H, W) of the training CLI's clips
 TRAIN_HW = (256, 512)
 # the training CLI's options on top of the recipe: every clip printed, the
@@ -451,6 +464,10 @@ GRAD_KEYS = ["G_grad_norm", "D_grad_norm", "D_T_grad_norm0"]
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def out_path(file_name: str) -> str:
+    return os.path.join(OUT_DIR, file_name)
 
 
 def smi() -> str:
@@ -612,18 +629,6 @@ def reset_launches() -> None:
                 fn.second_kernels = 0
 
 
-def read_launches() -> dict:
-    return {name: sum(fn.launches for fn in fns) for name, fns in COUNTERS.items()}
-
-
-def read_kernels() -> dict:
-    """The kernels each wrapper launched: its counted launches plus the
-    second kernels some of them launch (the correlation's pass that adds a
-    split channel sum, the warp backward's bf16 cast of its splat)."""
-    return {name: sum(fn.launches + getattr(fn, "second_kernels", 0) for fn in fns)
-            for name, fns in COUNTERS.items()}
-
-
 def upcast(args):
     return [tuple(v.float() for v in a) if isinstance(a, tuple)
             else a.float() if torch.is_tensor(a) else a for a in args]
@@ -704,7 +709,7 @@ def call_and_device_ms(fn, args, n: int = 200, fills: bool = False,
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                      on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
             for _ in range(2):
-                open_window()
+                open_window(DEV)
                 for _ in range(n):
                     fn(*args)
                 torch.cuda.synchronize()
@@ -911,141 +916,6 @@ def out_of_bounds(got: list[dict], want: list[dict],
                         if "grad_norm" in k
                         else math.isclose(g[k], w[k], rel_tol=tol, abs_tol=tol))]
     return bad
-
-
-DEVICE_TIME = ("self_device_time_total", "self_cuda_time_total")
-
-
-def open_window() -> None:
-    """One PyTorch kernel (a fill) at the start of a profiler window: a
-    window whose first kernel came from our library through ctypes lost
-    that kernel (8a's seeding call, whose first kernel is the Encoder's
-    conv7)."""
-    torch.zeros(1, device=DEV)
-    torch.cuda.synchronize()
-
-
-def close_window() -> None:
-    """The same fill at the end of a profiler window, then 2 ms of host
-    time, so that no kernel of the recorded step ends near the window's
-    end."""
-    torch.zeros(1, device=DEV)
-    torch.cuda.synchronize()
-    time.sleep(0.002)
-
-
-FAMILIES = [  # (family, pattern searched in the lowercased kernel name), first match wins
-    # conv_wgmma_kernel<F32, 3, BN, RW, REFLECT, CL> (csrc/conv_wgmma.cuh,
-    # bf16 and f32): respair's launches are the reflect ones
-    ("respair (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, true,"),
-    ("conv7 (ours)", r"conv7x7_kernel<|conv_wgmma_kernel<\w+, 7,"),
-    ("conv3 / conv3_fused (ours)", r"conv_wgmma_kernel<\w+, 3, \d+, \d+, false,"),
-    ("warp kernels (ours)", r"warp_kernel|warp_bwd_kernel|splat_to_bf16_kernel"),
-    ("correlation backward (ours)", r"correlation_bwd_kernel"),
-    ("correlation (ours)", r"correlation_kernel|sum_parts_kernel"),
-    ("memset (the warp backward's splat, others)", r"^memset"),
-    ("conv / gemm (cuDNN, cuBLAS)",
-     r"conv|cudnn|gemm|xmma|wgrad|dgrad|fprop|cutlass|winograd|implicit"),
-    ("batch norm", r"batch_norm|batchnorm|bn_"),
-    ("optimizer (Adam)", r"adam|multi_tensor"),
-    ("reductions", r"reduce"),
-    ("pool / resize", r"pool|upsample|grid_sampler|interpolate"),
-    ("elementwise / copy / cat", r"elementwise|vectorized|copy|cat|fill|index|gather|scatter"),
-]
-# our families' counters (read_kernels), each with its kernels per counted
-# kernel (respair's wrapper launches the conv twice): the profiled launches
-# of a family must equal their sum
-OUR_FAMILIES = {
-    "respair (ours)": {"respair": 2}, "conv7 (ours)": {"conv7": 1},
-    "conv3 / conv3_fused (ours)": {"conv3": 1, "conv3_fused": 1},
-    "warp kernels (ours)": dict.fromkeys(
-        ("warp_blend", "flow_warp", "warp_blend_bwd", "flow_warp_bwd"), 1),
-    "correlation (ours)": {"correlation": 1},
-    "correlation backward (ours)": {"correlation_bwd": 1},
-}
-
-
-def profile_once(fn) -> tuple[list, float, dict]:
-    """One profiler window around fn, after a warm-up step: (rows [(ms,
-    count, family, kernel name)], wall ms, our families' launches by the
-    counters) of the recorded step. Only the kernels' own rows count: an
-    operator's row, and a user annotation's (Optimizer.step), repeat their
-    kernels' time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    recorded = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: recorded.append(p.key_averages())) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        open_window()
-        before = read_kernels()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        counted = read_kernels()
-        close_window()
-        prof.step()
-    rows = []
-    for evt in recorded[0]:
-        us = next((getattr(evt, a) for a in DEVICE_TIME if hasattr(evt, a)), 0.0)
-        if (us <= 0 or evt.device_type != DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)
-                or evt.key.startswith(("Command Buffer", "Memcpy"))):
-            continue
-        fam = next((f for f, pattern in FAMILIES if re.search(pattern, evt.key.lower())),
-                   "other")
-        rows.append((us / 1e3, evt.count, fam, evt.key[:120]))
-    rows.sort(reverse=True)
-    launched = {fam: sum(k * (counted[n] - before[n]) for n, k in names.items())
-                for fam, names in OUR_FAMILIES.items()}
-    return rows, wall, launched
-
-
-def profile_by_family(fn, what: str = "one training chunk",
-                      file_name: str = "chip_smoke_profile.txt",
-                      tries: int = 3) -> tuple[list, float, float]:
-    """Profile fn (profile_once): (families sorted by device time [(family,
-    ms, kernel count)], total kernel ms, wall ms) of the recorded step; the
-    kernels' rows go to build/<file_name>. Without the warm-up step the
-    first kernels launched after the profiler starts are missing from its
-    table, and so is a first kernel launched through our library (not
-    PyTorch's runtime), hence `open_window` / `close_window`. Each of our
-    kernel families must count as many launches as their counters did.
-    The profiler has dropped one of our kernels from a window now and then
-    (edge2face's streamed frame once listed 4 conv7 launches against the
-    counters' 5, in a run where every other window agreed), so a window
-    that disagrees is printed and recorded anew, up to `tries` windows in
-    all; raises if none agrees."""
-    for attempt in range(1, tries + 1):
-        rows, wall, launched = profile_once(fn)
-        fams: dict[str, list] = {}
-        for ms, n, fam, _ in rows:
-            entry = fams.setdefault(fam, [0.0, 0])
-            entry[0] += ms
-            entry[1] += n
-        off = {fam: (fams.get(fam, [0.0, 0])[1], n) for fam, n in launched.items()
-               if fams.get(fam, [0.0, 0])[1] != n}
-        if not off:
-            break
-        say("profile_disagrees", what=repr(what), window=attempt,
-            profiler_vs_counters=json.dumps(off),
-            rows=json.dumps([(n, key) for _, n, fam, key in rows if fam in off]))
-    else:
-        raise AssertionError(f"{what}: in {tries} windows the profiler's launches of our "
-                             f"kernels never matched the counters: {off}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, file_name), "w") as fh:
-        fh.write(f"{what}, wall {wall:.3f} ms, profiler window {attempt}\n")
-        for ms, n, fam, key in rows:
-            fh.write(f"{ms:10.4f} ms {n:6d}x  {fam:28s} {key}\n")
-    table = sorted(((f, v[0], v[1]) for f, v in fams.items()), key=lambda r: -r[1])
-    return table, sum(v[0] for v in fams.values()), wall
 
 
 def record_err(errs: dict, name, dtype, e, shape, **where) -> None:
@@ -1546,7 +1416,7 @@ def label2city_path(card: str) -> dict:
         return eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state, use_raw_only=False)
 
     profile = profile_by_family(frame, "one label2city 2048x1024 frame",
-                                "chip_smoke_profile_label2city.txt")
+                                out_path("chip_smoke_profile_label2city.txt"), DEV)
     say("main_path", config="label2city 2048x1024 3-scale ngf128 fg bf16",
         frames=n_frames, setup_s=f"{setup_s:.1f}",
         ms_per_frame_median=f"{statistics.median(times[warm:]):.2f}",
@@ -1554,9 +1424,38 @@ def label2city_path(card: str) -> dict:
         peak_mem_gib=f"{peak / 2**30:.3f}", launches=json.dumps(launches),
         card=repr(card))
     say_profile("main_path_profile", profile)
+    trace_frame(frame, profile)
     zero = eng.initial_state(1, h, w)
     conv7_route_ab(eng, frame, lambda: eng.step(labels[:, :3], inst[:, :3], zero)[0])
     return launches
+
+
+def trace_frame(frame, profile, tries: int = 3) -> None:
+    """Phase 5: one frame under utils/profiling.py::trace, its Chrome trace
+    under build/trace_label2city, summed by family (summarize_trace); each
+    of our families' ms must agree with profile_by_family's table of another
+    frame within 5% or 5 us (the warps' three calls are ~50 us in all, and a
+    trace's timestamps are whole us). A window that disagrees is printed and
+    recorded anew, as profile_by_family does, three windows at most."""
+    ours = {f: ms for f, ms, _ in profile[0] if f.endswith("(ours)")}
+    log_dir = out_path("trace_label2city")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    for attempt in range(1, tries + 1):
+        with trace(log_dir, DEV):
+            frame()
+            torch.cuda.synchronize()
+        traced = dict(summarize_trace(log_dir))
+        off = {f: (round(traced.get(f, 0.0), 4), round(ms, 4)) for f, ms in ours.items()
+               if abs(traced.get(f, 0.0) - ms) > max(0.05 * ms, 0.005)}
+        if not off:
+            break
+        say("trace_disagrees", window=attempt, trace_vs_profile=json.dumps(off))
+    else:
+        raise AssertionError(f"trace: our families' ms never matched the profile: {off}")
+    say("main_path_trace", trace_dir=log_dir, window=attempt,
+        families=json.dumps({f: round(ms, 4) for f, ms in traced.items()}),
+        ours_vs_profile=json.dumps({f: [round(traced.get(f, 0.0), 4), round(ms, 4)]
+                                    for f, ms in ours.items()}))
 
 
 @contextlib.contextmanager
@@ -1794,7 +1693,8 @@ def training_path(card: str) -> dict:
         carry = trainer.start_clip()
         state, carry, _ = chunk_fn(state, carry, labels[:, :4], frames[:, :4], labels[:, :4])
         families, busy_ms, prof_wall = profile_by_family(
-            lambda: chunk_fn(state, carry, labels[:, 2:6], frames[:, 2:6], labels[:, 2:6]))
+            lambda: chunk_fn(state, carry, labels[:, 2:6], frames[:, 2:6], labels[:, 2:6]),
+            "one training chunk", out_path("chip_smoke_profile.txt"), DEV)
     n_chunks = len(chunk_ms)
     if n_chunks != 3 * n_timed:
         raise AssertionError(f"{n_chunks} chunks in {n_timed} clips, want {3 * n_timed}")
@@ -1822,6 +1722,129 @@ def training_path(card: str) -> dict:
     say("train_profile", profiled_chunk_wall_ms=f"{prof_wall:.2f}",
         kernel_ms=f"{busy_ms:.2f}", busy_share_of_median_chunk=f"{busy_ms / med:.3f}",
         families=json.dumps({f: [round(ms, 3), n] for f, ms, n in families}))
+    return launches
+
+
+def export_path(card: str) -> dict:
+    """Phase 10: the serving artifact of the flagship configuration
+    (tools/export.py): exported on the card from seeded weights, saved,
+    loaded into a fresh step, and 4 frames streamed through it and through
+    InferenceEngine.step in turns from the same zero state. The artifact
+    runs the same kernels on the same bf16 values in the same order, so its
+    frames and state must equal the engine's within CLIP_TOL (bit for bit
+    expected); each artifact frame must launch respair 45, conv7 21 and
+    warp_blend 3 times and nothing else. Returns the launch counts of the
+    artifact's frames."""
+    opt = Options(**FLAGSHIP)
+    (h, w), n_frames = CITY_HW, 4
+    eng = seeded_engine(opt, DEV, seed=0)
+    labels, inst = label_stream(opt, n_frames, h, w)
+    out = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        program = export.save_exported(out, opt, eng, 1, h, w)
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in export.FILES)
+        t0 = time.perf_counter()
+        step = export.load_exported(out, DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    nodes = collections.Counter(str(n.target) for n in program.graph.nodes
+                                if n.op == "call_function")
+    del program
+    per_frame = {"respair": 45, "conv7": 21, "warp_blend": 3}
+    ops = {f"v2v.{k}.default": v for k, v in per_frame.items()}
+    if {k: v for k, v in nodes.items() if k.startswith("v2v.")} != ops:
+        raise AssertionError(f"exported graph: operator nodes {dict(nodes)}, want {ops}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state_a, state_e = None, eng.initial_state(1, h, w)
+    launches, diffs = dict.fromkeys(KERNELS, 0), []
+    for t in range(n_frames):
+        windows = labels[:, t : t + 3], inst[:, t : t + 3]
+        before = read_launches()
+        frame_a, state_a = step(*windows, state_a)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        if got != dict.fromkeys(KERNELS, 0) | per_frame:
+            raise AssertionError(f"artifact frame {t}: launches {got}, want {per_frame}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        frame_e, state_e = eng.step(*windows, state_e)
+        check_frames(frame_a, (3, h, w), "artifact")
+        if any(a.dtype != e.dtype for a, e in zip(state_a, state_e)):
+            raise AssertionError("artifact: state dtypes differ from the engine's")
+        for got_t, ref_t in [(frame_a, frame_e)] + list(zip(state_a, state_e)):
+            err = (got_t.float() - ref_t.float()).abs()
+            if bool((err > CLIP_TOL["atol"] + CLIP_TOL["rtol"] * ref_t.float().abs()).any()):
+                raise AssertionError(f"artifact frame {t} vs eng.step: max abs diff "
+                                     f"{float(err.max())} outside {CLIP_TOL}")
+            diffs.append(float(err.max()))
+    peak = torch.cuda.max_memory_allocated()
+    # ms a frame in turns (step, artifact, artifact, step; 5 frames each after
+    # one warm-up frame; host clock around torch.cuda.synchronize()), the
+    # windows on the host as a server receives them; then both with the
+    # windows already on the card, which leaves out their copy
+    windows = labels[:, :3], inst[:, :3]
+    on_card = tuple(x.to(DEV) for x in windows)
+    sides = {"step": lambda: eng.step(*windows, state_e),
+             "artifact": lambda: step(*windows, state_a),
+             "step_windows_on_card": lambda: eng.step(*on_card, state_e),
+             "artifact_windows_on_card": lambda: step(*on_card, state_a)}
+    times = {name: [] for name in sides}
+    for name in ("step", "artifact", "artifact", "step", "step_windows_on_card",
+                 "artifact_windows_on_card", "artifact_windows_on_card",
+                 "step_windows_on_card"):
+        sides[name]()
+        torch.cuda.synchronize()
+        for _ in range(5):
+            t1 = time.perf_counter()
+            sides[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t1) * 1e3)
+    # the device's work is the same kernels; under the profiler the graph
+    # module's host time is not the artifact's (it records every node)
+    for name in ("artifact", "step"):
+        say_profile(f"export_profile_{name}", profile_by_family(
+            sides[name], f"one {name} frame",
+            out_path(f"chip_smoke_profile_export_{name}.txt"), DEV))
+    say("export_path", config="label2city 2048x1024 3-scale ngf128 fg bf16, tools/export.py",
+        frames=n_frames, export_s=f"{export_s:.2f}", load_s=f"{load_s:.2f}",
+        artifact_bytes=nbytes, graph_nodes=sum(nodes.values()),
+        graph_nodes_not_ours=sum(v for k, v in nodes.items() if not k.startswith("v2v.")),
+        launches_per_frame=json.dumps(per_frame), max_abs_diff_vs_step=f"{max(diffs):.3g}",
+        bit_for_bit=max(diffs) == 0.0, bound=CLIP_TOL,
+        **{f"{k}_ms_median": f"{statistics.median(v):.2f}" for k, v in times.items()},
+        **{f"{k}_ms": ",".join(f"{x:.2f}" for x in v) for k, v in times.items()},
+        order="step,artifact,artifact,step, then the same on the card's windows",
+        peak_gib=f"{peak / 2**30:.3f}", card=repr(card))
+    return launches
+
+
+def ledger_path(card: str) -> dict:
+    """Phase 11: tools/train_ledger.py at the 512x256 recipe on the card
+    (3 timed clips of the serialized split): its table and JSON line. Every
+    step's FLOPs must be positive with a bound; the G step, which trains
+    plain layers, launches no respair or conv7; the flow forward launches
+    one correlation a chunk. Returns the launch counts of the whole run."""
+    reset_launches()
+    ledger = train_ledger.main(["--reps", "3"])
+    launches = read_launches()
+    for name in (*train_ledger.STEPS, train_ledger.FLOW_ROW):
+        row = ledger[name]
+        if not (row["tflop_per_iter"] > 0 and row["bound_ms"] and row["frac_of_bound"]):
+            raise AssertionError(f"ledger row {name}: {row}")
+    g = ledger["g_step"]["launches_per_iter"]
+    if g.get("respair", 0) or g.get("conv7", 0):
+        raise AssertionError(f"ledger: the G step launched respair or conv7: {g}")
+    corr = ledger[train_ledger.FLOW_ROW]["launches_per_iter"].get("correlation")
+    if corr != 1.0:
+        raise AssertionError(f"ledger: {corr} correlation launches a chunk, want 1")
+    say("ledger_path", config=ledger["config"], iters=ledger["iters"],
+        steady_ms_per_iter=f"{ledger['steady_ms_per_iter']:.2f}",
+        serialized_ms_per_iter=f"{ledger['serialized_ms_per_iter']:.2f}", card=repr(card))
     return launches
 
 
@@ -2102,11 +2125,12 @@ def edge2face_single_path(card: str) -> dict:
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         profile = profile_by_family(seed_fn, "one edge2face seeding call (2 frames)",
-                                    "chip_smoke_profile_edge2face_single.txt")
+                                    out_path("chip_smoke_profile_edge2face_single.txt"), DEV)
         check_f32_convs(tf32_seen, "the single-image nets")
     stream_profile = profile_by_family(
         lambda: eng.step(edges[:, n_frames - 1 : n_frames + 2], None, seeded),
-        "one edge2face 512x512 streamed frame", "chip_smoke_profile_edge2face.txt")
+        "one edge2face 512x512 streamed frame", out_path("chip_smoke_profile_edge2face.txt"),
+        DEV)
     check_frames(seeded[0][0].float(), (3, h, w), "edge2face single-image frame")
     check_frames(fakes, (1, 3, h, w), "edge2face stream")
     want = dict.fromkeys(KERNELS, 0) | {
@@ -2162,7 +2186,7 @@ def label2city_single_path(card: str) -> dict:
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         profile = profile_by_family(seed_fn, "one label2city seeding call (2 frames)",
-                                    "chip_smoke_profile_label2city_single.txt")
+                                    out_path("chip_smoke_profile_label2city_single.txt"), DEV)
         check_f32_convs(tf32_seen, "the single-image nets")
     memory = seeding_memory(eng, seed_fn, lambda: eng.step(labels[:, :3], inst[:, :3], seeded))
     check_frames(seeded[0][0].float(), (3, h, w), "label2city single-image frame")
@@ -2544,7 +2568,7 @@ def flow_train_path(card: str) -> dict:
             with torch_default_tf32():
                 families, busy_ms, prof_wall = profile_by_family(
                     lambda: harness.train_step(pair, flow), "one FlowNetC training step",
-                    "chip_smoke_profile_flow_train.txt")
+                    out_path("chip_smoke_profile_flow_train.txt"), DEV)
         del harness, net
         torch.cuda.empty_cache()
     fam = {f: ms for f, ms, _ in families}
@@ -3173,7 +3197,8 @@ def main() -> None:
                       ("edge2face_single", edge2face_single_path),
                       ("label2city_single", label2city_single_path),
                       ("face_stream", face_stream_path), ("pose_stream", pose_stream_path),
-                      ("pose_train", pose_train_path), ("flow_train", flow_train_path)):
+                      ("pose_train", pose_train_path), ("flow_train", flow_train_path),
+                      ("export", export_path), ("ledger", ledger_path)):
         with kernel_call_shapes() as seen:
             launches[path] = run(card)
         torch.cuda.empty_cache()

@@ -841,3 +841,69 @@ def test_f32_caches_on_the_card(cuda):
         assert conv._eval_cache[1][2] is not packed[1]
         want = fresh()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_served_ops_launch_their_kernels(cuda):
+    """torch.ops.v2v.respair / conv7 / warp_blend on CUDA tensors launch the
+    kernels (one count each), equal the wrappers bit for bit, and pass
+    torch.library.opcheck there (its fake and dispatch checks)."""
+    from vid2vid_tpu_torch.ops.library import served_ops
+
+    ops = served_ops()
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(cuda)
+
+    x, k0, k1 = randn(1, 32, 12, 20), 0.1 * randn(32, 32, 3, 3), 0.1 * randn(32, 32, 3, 3)
+    a, c = randn(32).abs() + 0.5, randn(32)
+    w, bias = 0.05 * randn(16, 32, 7, 7), randn(16)
+    prev, flow = randn(1, 3, 12, 20), 3 * randn(1, 2, 12, 20)
+    raw, weight = randn(1, 3, 12, 20), randn(1, 1, 12, 20).sigmoid()
+    for dtype in DTYPES:
+        xd, k0d, k1d, wd = (t.to(dtype) for t in (x, k0, k1, w))
+        cases = [
+            ("respair", respair, (xd, k0d, a, c, k1d, a, c, None, None),
+             lambda: respair(xd, k0d, (a, c), k1d, (a, c))),
+            ("conv7", conv7_reflect, (xd, wd, bias, None, True),
+             lambda: conv7_reflect(xd, wd, bias)),
+            ("warp_blend", warp_blend, tuple(t.to(dtype) for t in (raw, prev, flow, weight)),
+             lambda: warp_blend(*(t.to(dtype) for t in (raw, prev, flow, weight)))),
+        ]
+        for name, wrapper, args, via_wrapper in cases:
+            before = wrapper.launches
+            got = ops[name](*args)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1, name
+            assert torch.equal(got, via_wrapper()), name
+            torch.library.opcheck(ops[name], args, test_utils=("test_schema", "test_faketensor"))
+
+
+def test_exported_step_on_the_card(cuda, tmp_path):
+    """tools/export.py on the card at a small size: the loaded artifact
+    launches the kernels and equals InferenceEngine.step bit for bit."""
+    from vid2vid_tpu_torch.config import Options
+    from vid2vid_tpu_torch.models.inference import InferenceEngine
+    from vid2vid_tpu_torch.nn.layers import init_weights
+    from vid2vid_tpu_torch.tools import export
+
+    opt = Options(label_nc=4, use_instance=True, fg=True, fg_labels=(3,), ngf=32,
+                  n_downsample_G=2, n_blocks=3, n_blocks_local=1, n_scales_spatial=2,
+                  n_frames_G=3, norm="batch", bf16=True, isTrain=False)
+    eng = InferenceEngine(opt)
+    init_weights(eng.gen, torch.Generator().manual_seed(0))
+    export.save_exported(str(tmp_path), opt, eng, 1, 64, 128)
+    step = export.load_exported(str(tmp_path), "cuda")
+    gen = torch.Generator().manual_seed(1)
+    labels = torch.randint(0, 4, (1, 4, 64, 128), generator=gen)
+    inst = torch.randint(0, 3, (1, 4, 64, 128), generator=gen)
+    state, state_ref = None, eng.initial_state(1, 64, 128)
+    for t in range(2):
+        before = (respair.launches, conv7_reflect.launches, warp_blend.launches)
+        got, state = step(labels[:, t : t + 3], inst[:, t : t + 3], state)
+        torch.cuda.synchronize()
+        after = (respair.launches, conv7_reflect.launches, warp_blend.launches)
+        assert all(b < a for b, a in zip(before, after))
+        want, state_ref = eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state_ref)
+        assert torch.equal(got, want)
+        assert all(torch.equal(s, r) for s, r in zip(state, state_ref))

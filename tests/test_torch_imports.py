@@ -102,7 +102,9 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.utils.images", "vid2vid_tpu_torch.utils.html",
         "vid2vid_tpu_torch.utils.visualizer", "vid2vid_tpu_torch.data.raster",
         "vid2vid_tpu_torch.data.keypoints", "vid2vid_tpu_torch.data.face",
-        "vid2vid_tpu_torch.data.pose",
+        "vid2vid_tpu_torch.data.pose", "vid2vid_tpu_torch.ops.library",
+        "vid2vid_tpu_torch.utils.profiling", "vid2vid_tpu_torch.tools.export",
+        "vid2vid_tpu_torch.tools.train_ledger",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []

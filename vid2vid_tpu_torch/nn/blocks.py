@@ -18,12 +18,12 @@ from torch import nn
 from vid2vid_tpu_torch.nn.layers import (
     conv_transpose,
     eval_affine,
+    eval_cached,
     norm_layer,
     packs_on,
     reflect_conv,
     reflect_conv7,
     state_tensors,
-    version_key,
 )
 from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel
 from vid2vid_tpu_torch.ops.respair import respair
@@ -68,8 +68,9 @@ class ResnetBlock(nn.Module):
     the card, their packed layout for the tensor-core body (bf16, or f32 as
     3xTF32: twice the f32 weight's bytes) are kept, and rebuilt only when a
     parameter or buffer of the block changes (its version counter, storage,
-    dtype or device) or x's dtype or device does; with gradients on they
-    are rebuilt on each call, so the weights keep their gradient.
+    dtype or device) or x's dtype or device does (`nn.layers.eval_cached`);
+    with gradients on they are rebuilt on each call, so the weights keep
+    their gradient.
     """
 
     def __init__(self, dim: int, norm: str = "batch"):
@@ -79,7 +80,8 @@ class ResnetBlock(nn.Module):
             *reflect_conv(dim, dim, 3), norm_layer(norm, dim), nn.ReLU(True),
             *reflect_conv(dim, dim, 3), norm_layer(norm, dim),
         )
-        self._eval_cache: tuple | None = None  # (key, respair's weight args)
+        # (key, respair's weight args, {arg index: own parameter's name})
+        self._eval_cache: tuple | None = None
 
     def _folded(self, conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor):
         a, c = eval_affine(norm, self.dim, x.device)
@@ -95,17 +97,12 @@ class ResnetBlock(nn.Module):
             packed = (pack_for_kernel(k0), pack_for_kernel(k1))
         return k0, ab0, k1, ab1, packed
 
-    def _cache_key(self, x: torch.Tensor) -> list:
-        return [x.dtype, x.device, *version_key(state_tensors(self.conv_block))]
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return x + self.conv_block(x)
         if torch.is_grad_enabled():
             k0, ab0, k1, ab1, packed = self._respair_args(x)
         else:
-            key = self._cache_key(x)
-            if self._eval_cache is None or self._eval_cache[0] != key:
-                self._eval_cache = (key, self._respair_args(x))
-            k0, ab0, k1, ab1, packed = self._eval_cache[1]
+            k0, ab0, k1, ab1, packed = eval_cached(
+                self, x, lambda: state_tensors(self.conv_block), self._respair_args)
         return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)

@@ -96,6 +96,34 @@ def version_key(tensors) -> list:
     return key
 
 
+def eval_cached(module: nn.Module, x: torch.Tensor, tensors, build) -> tuple:
+    """`build(x)`, kept in `module._eval_cache` and made anew only when the
+    key (x's dtype and device, `version_key` of `tensors()`) changes. Under
+    `torch.export` the cache is read as it stands, without its key's
+    storage pointers, which traced tensors do not have: its derived tensors
+    (folded affines, packed weights) enter the exported graph as constants,
+    so the graph never rebuilds them, while an entry that is one of the
+    module's own parameters (a weight already in x's dtype) is read from
+    the module, so that the graph takes it as its parameter and stores no
+    second copy. An eager call with x's dtype and device must have filled
+    the cache (tools/export.py makes one); otherwise this raises."""
+    if torch.compiler.is_exporting():
+        cache = module._eval_cache
+        if cache is None or cache[0][:2] != [x.dtype, x.device]:
+            raise RuntimeError(f"{type(module).__name__}: no eval cache for {x.dtype} on "
+                               f"{x.device}; run the module once eagerly before export")
+        params = dict(module.named_parameters())
+        return tuple(params[cache[2][i]] if i in cache[2] else v
+                     for i, v in enumerate(cache[1]))
+    key = [x.dtype, x.device, *version_key(tensors())]
+    if module._eval_cache is None or module._eval_cache[0] != key:
+        args = build(x)
+        own = {i: name for i, v in enumerate(args) for name, p in module.named_parameters()
+               if v is p}
+        module._eval_cache = (key, args, own)
+    return module._eval_cache[1]
+
+
 def state_tensors(module: nn.Module, out: list | None = None) -> list:
     """Every parameter and buffer of `module` and its submodules, as they
     are now: a walk of the module tree, several times cheaper than
@@ -127,13 +155,14 @@ class ReflectConv7(nn.Conv2d):
     kernel arguments (the weight in x's dtype, the f32 bias and, on the
     card where `conv7_body` picks the tensor cores, their packed weight:
     bf16, or f32 as 3xTF32) are kept and rebuilt only when the weight or
-    bias changes (`version_key`) or x's dtype or device does;
-    with gradients on they are made on each call, so the weights keep
-    their gradient."""
+    bias changes (`version_key`) or x's dtype or device does
+    (`eval_cached`); with gradients on they are made on each call, so the
+    weights keep their gradient."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 7)
-        self._eval_cache: tuple | None = None  # (key, conv7_reflect's weight args)
+        # (key, conv7_reflect's weight args, {arg index: own parameter's name})
+        self._eval_cache: tuple | None = None
 
     def _kernel_args(self, x: torch.Tensor) -> tuple:
         w = self.weight.to(x.dtype)
@@ -149,10 +178,8 @@ class ReflectConv7(nn.Conv2d):
         if torch.is_grad_enabled():
             w, bias, packed = self._kernel_args(x)
         else:
-            key = [x.dtype, x.device, *version_key((self.weight, self.bias))]
-            if self._eval_cache is None or self._eval_cache[0] != key:
-                self._eval_cache = (key, self._kernel_args(x))
-            w, bias, packed = self._eval_cache[1]
+            w, bias, packed = eval_cached(self, x, lambda: (self.weight, self.bias),
+                                          self._kernel_args)
         return conv7_reflect(x.contiguous(), w, bias, packed=packed)
 
 

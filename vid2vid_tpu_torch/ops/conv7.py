@@ -4,10 +4,11 @@
     conv7_reflect(x, w, bias)  = conv2d(reflect_pad(x, 3), w) + bias
 
 NCHW inputs and OIHW weights, as nn.Conv2d holds them; the bias is
-optional. On a CUDA tensor both launch the hand-written kernel
-(csrc/conv.cu::v2v_conv7: f32 or bf16, f32 accumulation, the reflect pad
-folded into the load addressing, any shape) or raise; on a CPU tensor they
-run `conv7_plain`, which is also the kernel's oracle. In bf16 the kernel
+optional. Both call the operator `torch.ops.v2v.conv7` (ops/library.py),
+which dispatches on the device: a CUDA tensor launches the hand-written
+kernel (csrc/conv.cu::v2v_conv7: f32 or bf16, f32 accumulation, the
+reflect pad folded into the load addressing, any shape) or raises; a CPU
+tensor runs `conv7_plain`, which is also the kernel's oracle. In bf16 the kernel
 runs on the tensor cores (csrc/conv_wgmma.cuh with K = 7) and takes the
 weights in the layout of `pack_conv7_weight`: a caller that runs the conv
 often packs them once and passes them as `packed` (nn/layers.py::
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
+from vid2vid_tpu_torch.ops import library
 
 K = 7
 PAD = K // 2
@@ -193,8 +195,8 @@ def wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _check(x, w, bias, reflect: bool) -> tuple[int, int]:
-    """The output (H, W); raises on shapes the op does not take."""
+def _check(x, w, bias, reflect: bool) -> None:
+    """Raise on shapes the op does not take."""
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (K, K):
         raise ValueError(
             f"conv7: x must be (B, Ci, H, W) and w (Co, Ci, 7, 7), got "
@@ -207,20 +209,16 @@ def _check(x, w, bias, reflect: bool) -> tuple[int, int]:
     if reflect:
         if h <= PAD or wd <= PAD:
             raise ValueError(f"conv7: reflect padding needs H, W >= 4, got {h}x{wd}")
-        return h, wd
-    if h < K or wd < K:
+    elif h < K or wd < K:
         raise ValueError(f"conv7: a VALID 7x7 conv needs H, W >= 7, got {h}x{wd}")
-    return h - K + 1, wd - K + 1
 
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _forward(x, w, bias, reflect: bool, packed) -> torch.Tensor:
-    h, wd = _check(x, w, bias, reflect)
-    if x.device.type == "cpu":
-        return (conv7_reflect_plain if reflect else conv7_plain)(x, w, bias)
+def _conv7_cuda(x, w, bias, packed, reflect: bool) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel."""
     code = build.require_cuda_operands("conv7", x.device, x.dtype, x=x, w=w)
     if bias is not None:
         build.require_cuda_operands("conv7", x.device, torch.float32, bias=bias)
@@ -232,6 +230,7 @@ def _forward(x, w, bias, reflect: bool, packed) -> torch.Tensor:
         packed = pack_for_kernel(w)
     elif body != TENSOR_CORES:
         packed = None
+    h, wd = (x.shape[2], x.shape[3]) if reflect else (x.shape[2] - 2 * PAD, x.shape[3] - 2 * PAD)
     fn = build.function("v2v_conv7", [_VOID] * 5 + [_INT] * 8 + [_VOID])
     out = torch.empty((x.shape[0], co, h, wd), dtype=x.dtype, device=x.device)
     err = build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
@@ -241,6 +240,21 @@ def _forward(x, w, bias, reflect: bool, packed) -> torch.Tensor:
     build.check(err, "conv7 kernel launch")
     (conv7_reflect if reflect else conv7_padded).launches += 1
     return out
+
+
+def _conv7_plain(x, w, bias, packed, reflect: bool) -> torch.Tensor:
+    return (conv7_reflect_plain if reflect else conv7_plain)(x, w, bias)
+
+
+def _conv7_fake(x, w, bias, packed, reflect: bool) -> torch.Tensor:
+    pad = 0 if reflect else 2 * PAD
+    return x.new_empty((x.shape[0], w.shape[0], x.shape[2] - pad, x.shape[3] - pad))
+
+
+CONV7_OP = library.define(
+    "conv7", "(Tensor x, Tensor w, Tensor? bias, Tensor? packed, bool reflect) -> Tensor",
+    cpu=_conv7_plain, cuda=_conv7_cuda, fake=_conv7_fake,
+)
 
 
 def plain_vjp(plain, inputs: tuple, needs: tuple, g: torch.Tensor) -> tuple:
@@ -262,7 +276,7 @@ class _Conv7(torch.autograd.Function):
     def forward(ctx, x, w, bias, reflect, packed):
         ctx.save_for_backward(x, w, bias)
         ctx.reflect = reflect
-        return _forward(x, w, bias, reflect, packed)
+        return CONV7_OP(x, w, bias, packed, reflect)
 
     @staticmethod
     def backward(ctx, g):
@@ -271,9 +285,10 @@ class _Conv7(torch.autograd.Function):
 
 
 def _conv7(x, w, bias, reflect, packed):
+    _check(x, w, bias, reflect)
     if wants_grad(x, w, bias):
         return _Conv7.apply(x, w, bias, reflect, packed)
-    return _forward(x, w, bias, reflect, packed)
+    return CONV7_OP(x, w, bias, packed, reflect)
 
 
 def conv7_reflect(

@@ -6,7 +6,8 @@
 (a, c) fold the conv bias and the eval-mode norm into one per-channel
 affine (nn/layers.py::eval_affine). `respair` runs the hand-written CUDA
 kernel (csrc/respair.cu) on a CUDA tensor and `respair_plain` on a CPU
-tensor; `respair_plain` is also the kernel's oracle. Unlike the TPU kernel
+tensor (the operator `torch.ops.v2v.respair`, ops/library.py, dispatches
+on the device); `respair_plain` is also the kernel's oracle. Unlike the TPU kernel
 it takes any channel count and any H, W >= 2. The kernel runs on the
 tensor cores (bf16; f32 as 3xTF32) and takes its weights packed
 (ops/conv7.py::pack_for_kernel: pack_conv3_weight in bf16,
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
+from vid2vid_tpu_torch.ops import library
 from vid2vid_tpu_torch.ops.conv7 import check_packed, pack_for_kernel, plain_vjp, wants_grad
 
 Affine = tuple[torch.Tensor, torch.Tensor]
@@ -68,28 +70,27 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _respair_forward(x, k0, ab0, k1, ab1, packed) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return respair_plain(x, k0, ab0, k1, ab1)
-    (a0, c0), (a1, c1) = ab0, ab1
+def _respair_cuda(x, k0, a0, c0, k1, a1, c1, packed0, packed1) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel."""
     code = build.require_cuda_operands(
         "respair", x.device, x.dtype, x=x, k0=k0, k1=k1
     )
     build.require_cuda_operands(
         "respair", x.device, torch.float32, a0=a0, c0=c0, a1=a1, c1=c1
     )
-    if packed is not None:
-        _check_packed(x, k0, packed)
+    if packed0 is not None:
+        _check_packed(x, k0, (packed0, packed1))
+    else:
+        packed0, packed1 = pack_for_kernel(k0), pack_for_kernel(k1)
     b, c, h, w = x.shape
-    wk = packed or (pack_for_kernel(k0), pack_for_kernel(k1))
     fn = build.function(
         "v2v_respair", [_VOID] * 9 + [_INT] * 5 + [_VOID]
     )
     hbuf = torch.empty_like(x)
     out = torch.empty_like(x)
     err = build.launch(
-        fn, x.device, x.data_ptr(), wk[0].data_ptr(), a0.data_ptr(), c0.data_ptr(),
-        wk[1].data_ptr(), a1.data_ptr(), c1.data_ptr(),
+        fn, x.device, x.data_ptr(), packed0.data_ptr(), a0.data_ptr(), c0.data_ptr(),
+        packed1.data_ptr(), a1.data_ptr(), c1.data_ptr(),
         hbuf.data_ptr(), out.data_ptr(), b, c, h, w, code,
     )
     build.check(err, "respair kernel launch")
@@ -97,20 +98,29 @@ def _respair_forward(x, k0, ab0, k1, ab1, packed) -> torch.Tensor:
     return out
 
 
-def _respair_plain_flat(x, k0, a0, c0, k1, a1, c1):
+def _respair_plain_flat(x, k0, a0, c0, k1, a1, c1, packed0=None, packed1=None):
     return respair_plain(x, k0, (a0, c0), k1, (a1, c1))
+
+
+RESPAIR_OP = library.define(
+    "respair",
+    "(Tensor x, Tensor k0, Tensor a0, Tensor c0, Tensor k1, Tensor a1, Tensor c1, "
+    "Tensor? packed0, Tensor? packed1) -> Tensor",
+    cpu=_respair_plain_flat, cuda=_respair_cuda,
+    fake=lambda x, *args: torch.empty_like(x),
+)
 
 
 class _Respair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, k0, a0, c0, k1, a1, c1, packed):
+    def forward(ctx, x, k0, a0, c0, k1, a1, c1, packed0, packed1):
         ctx.save_for_backward(x, k0, a0, c0, k1, a1, c1)
-        return _respair_forward(x, k0, (a0, c0), k1, (a1, c1), packed)
+        return RESPAIR_OP(x, k0, a0, c0, k1, a1, c1, packed0, packed1)
 
     @staticmethod
     def backward(ctx, g):
         return (*plain_vjp(_respair_plain_flat, ctx.saved_tensors, ctx.needs_input_grad[:7],
-                           g), None)
+                           g), None, None)
 
 
 def respair(
@@ -129,9 +139,10 @@ def respair(
     """
     _check_shapes(x, k0, ab0, k1, ab1)
     (a0, c0), (a1, c1) = ab0, ab1
+    packed0, packed1 = packed or (None, None)
     if wants_grad(x, k0, a0, c0, k1, a1, c1):
-        return _Respair.apply(x, k0, a0, c0, k1, a1, c1, packed)
-    return _respair_forward(x, k0, ab0, k1, ab1, packed)
+        return _Respair.apply(x, k0, a0, c0, k1, a1, c1, packed0, packed1)
+    return RESPAIR_OP(x, k0, a0, c0, k1, a1, c1, packed0, packed1)
 
 
 respair.launches = 0

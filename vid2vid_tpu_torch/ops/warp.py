@@ -14,8 +14,9 @@ normalized flow, up to the rounding of the normalization round trip
 
 `warp_blend(raw, prev, flow, weight)` is the composite generator's blend
 `raw * w + flow_warp(prev, flow) * (1 - w)` (vid2vid_tpu/nn/composite.py::
-_blend): the hand-written CUDA kernel csrc/warp_blend.cu on a CUDA tensor,
-`warp_blend_plain` on a CPU tensor.
+_blend), through the operator `torch.ops.v2v.warp_blend` (ops/library.py),
+which dispatches on the device: the hand-written CUDA kernel
+csrc/warp_blend.cu on a CUDA tensor, `warp_blend_plain` on a CPU tensor.
 
 Both are `torch.autograd.Function`s whose backward mirrors the JAX
 package's hand-written one (vid2vid_tpu/ops/warp.py::_flow_warp_bwd), which
@@ -40,6 +41,7 @@ import ctypes
 import torch
 
 from vid2vid_tpu_torch.kernels import build
+from vid2vid_tpu_torch.ops import library
 from vid2vid_tpu_torch.ops.conv7 import wants_grad
 
 
@@ -287,9 +289,8 @@ def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 flow_warp.launches = 0
 
 
-def _warp_blend_forward(raw, prev, flow, weight) -> torch.Tensor:
-    if prev.device.type == "cpu":
-        return warp_blend_plain(raw, prev, flow, weight)
+def _warp_blend_cuda(raw, prev, flow, weight) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel."""
     code = build.require_cuda_operands(
         "warp_blend", prev.device, prev.dtype,
         raw=raw, prev=prev, flow=flow, weight=weight,
@@ -302,6 +303,13 @@ def _warp_blend_forward(raw, prev, flow, weight) -> torch.Tensor:
     build.check(err, "warp_blend kernel launch")
     warp_blend.launches += 1
     return out
+
+
+WARP_BLEND_OP = library.define(
+    "warp_blend", "(Tensor raw, Tensor prev, Tensor flow, Tensor weight) -> Tensor",
+    cpu=warp_blend_plain, cuda=_warp_blend_cuda,
+    fake=lambda raw, prev, flow, weight: torch.empty_like(prev),
+)
 
 
 def warp_blend_bwd(
@@ -341,7 +349,7 @@ class _WarpBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, raw, prev, flow, weight):
         ctx.save_for_backward(raw, prev, flow, weight)
-        return _warp_blend_forward(raw, prev, flow, weight)
+        return WARP_BLEND_OP(raw, prev, flow, weight)
 
     @staticmethod
     def backward(ctx, g):
@@ -361,7 +369,7 @@ def warp_blend(
     _check_blend(raw, prev, flow, weight)
     if wants_grad(raw, prev, flow, weight):
         return _WarpBlend.apply(raw, prev, flow, weight)
-    return _warp_blend_forward(raw, prev, flow, weight)
+    return WARP_BLEND_OP(raw, prev, flow, weight)
 
 
 warp_blend.launches = 0

@@ -42,6 +42,7 @@ from vid2vid_tpu_torch.train.checkpoints import (
 from vid2vid_tpu_torch.train.loop import Trainer, refresh_batch_stats
 from vid2vid_tpu_torch.utils.device import require_device
 from vid2vid_tpu_torch.utils.images import flow_to_color, label_to_color, to_image
+from vid2vid_tpu_torch.utils.profiling import device_memory_stats
 from vid2vid_tpu_torch.utils.visualizer import Visualizer
 
 FLOWNET2_WEIGHTS = os.path.join("flownet2", "FlowNet2_checkpoint.pth.tar")
@@ -112,9 +113,10 @@ def train(opt: Options, dataset=None, flow_fn=None):
             if sched.total_steps % opt.save_latest_freq < opt.batchSize:
                 save("latest")
             if opt.debug and device.type == "cuda":
-                used = torch.cuda.memory_stats(device)["allocated_bytes.all.current"]
-                total = torch.cuda.get_device_properties(device).total_memory
-                print(f"  {device}: {used / 1e9:.2f} / {total / 1e9:.2f} GB")
+                index = torch.cuda.current_device() if device.index is None else device.index
+                st = device_memory_stats()[f"cuda:{index}"]
+                print(f"  {device}: {st['bytes_in_use'] / 1e9:.2f} / "
+                      f"{st['bytes_limit'] / 1e9:.2f} GB")
 
         visualizer.vis_print(
             f"End of epoch {epoch} / {total_epochs} \t "
