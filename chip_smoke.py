@@ -110,7 +110,19 @@ non-zero):
   11. the training ledger (tools/train_ledger.py) at the 512x256 recipe:
      steady and serialized ms per iteration, each step's ms, FLOPs
      (FlopCounterMode), bound and share of it; no respair or conv7 in the G
-     step, one correlation a chunk.
+     step, one correlation a chunk;
+  12. the data axis (vid2vid_tpu_torch/parallel, --n_devices): pose2body
+     256p training at full width (recipes/pose/train_256p.sh, cut to batch
+     2 on 2 ranks and one clip of 2 chunks) through parallel.launch, every
+     training under deterministic algorithms: one rank over NCCL bit for
+     bit with the plain Trainer, two ranks over gloo on this one card with
+     equal weights bit for bit, chunk 1's weight displacement within
+     DDP_DISPLACEMENT_REL_L2 of one process's at batch 2 and the losses
+     within the training bounds of it (their chunk 2 restarted from its
+     state after chunk 1); ms a chunk per rank, each gradient bucket's
+     all-reduce ms and bytes, peak memory per rank; the ranks send their
+     launch counts and kernel call shapes back for 3b. Two ranks on one
+     card give no scaling figure.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -120,6 +132,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -132,6 +145,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -158,6 +172,8 @@ from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator  # noqa: E40
 from vid2vid_tpu_torch.models.inference import InferenceEngine  # noqa: E402
 from vid2vid_tpu_torch.nn.layers import ReflectConv7, init_weights  # noqa: E402
 from vid2vid_tpu_torch.nn.pix2pixhd import LocalEnhancer  # noqa: E402
+from vid2vid_tpu_torch.parallel import launch, mesh  # noqa: E402
+from vid2vid_tpu_torch.parallel.workers import deterministic_algorithms, run_chunks  # noqa: E402
 from vid2vid_tpu_torch.ops.conv3 import (  # noqa: E402
     conv3_fused_padded,
     conv3_fused_plain,
@@ -445,6 +461,30 @@ POSE_TRAIN = dict(
     name="pose_train",
 )
 POSE_TRAIN_RAW_HW = (768, 1364)
+# pose2body 256p training on the data axis (recipes/pose/train_256p.sh, the
+# recipe whose batch 8 on 8 devices makes a data-only mesh) at full width,
+# f32, with the seeded FlowEstimator: two cuts, batchSize 2 on --n_devices
+# 2 in place of 8 on 8 (each rank keeps the recipe's one sample a device),
+# and one clip of 2 chunks of DDP_LOAD frames (n_frames_load of the data-2
+# mesh: 2 x max_frames_per_gpu); scaleHeight in place of randomScaleHeight
+# (384x680 frames, which the resize to loadSize 384 keeps), serial batches
+POSE_DDP = dict(
+    label_nc=0, input_nc=6, use_instance=False, fg=False, ngf=128, n_downsample_G=3,
+    n_blocks=9, n_scales_spatial=1, num_D=2, n_frames_G=3, n_frames_D=3, norm="batch",
+    isTrain=True, dataset_mode="pose", dataroot="datasets/pose/",
+    resize_or_crop="scaleHeight_and_scaledCrop", loadSize=384, fineSize=256,
+    no_first_img=True, n_frames_total=12, max_frames_per_gpu=3, max_t_step=4,
+    batchSize=2, n_devices=2, serial_batches=True,
+)
+POSE_DDP_RAW_HW = (384, 680)
+DDP_LOAD = 6
+DDP_DEADLINE_S = 400.0
+# the most the relative L2 of the 2 ranks' chunk-1 weight displacement may
+# be off the single process's: on an H100 80GB HBM3 at 700 W it read 0.2133
+# as the port stands (1.15% of the moved weights the other way: Adam's
+# first step moves each by ~lr whatever its gradient's size) and 1.151 with
+# the ranks' batch norms left unsynced (chip_ddp_fault.py)
+DDP_DISPLACEMENT_REL_L2 = 0.3
 # a small training configuration for the card-vs-CPU reference (f32)
 SMALL_TRAIN = dict(
     label_nc=4, use_instance=True, fg=True, fg_labels=(1,), ngf=16,
@@ -1848,6 +1888,273 @@ def ledger_path(card: str) -> dict:
     return launches
 
 
+def ddp_clip() -> tuple[np.ndarray, np.ndarray]:
+    """The global batch of phase 12: PoseClips' two clips at POSE_DDP
+    (clip 0 with DensePose's face parts, clip 1 without), stacked: labels
+    (2, T, 6, H, W), frames (2, T, 3, H, W), T = 2 DDP_LOAD + tG - 1."""
+    opt = Options(**POSE_DDP)
+    clips = PoseClips(opt, POSE_DDP_RAW_HW)
+    items = [clips[i] for i in range(2)]
+    t = 2 * DDP_LOAD + opt.n_frames_G - 1
+    if items[0]["A"].shape[0] < t:
+        raise AssertionError(f"pose clip of {items[0]['A'].shape[0]} frames, want {t}")
+    return tuple(np.stack([it[k][:t] for it in items]) for k in ("A", "B"))
+
+
+def ddp_trainer(n_devices: int, batch: int, device):
+    """The phase-12 Trainer (POSE_DDP at --n_devices / --batchSize) with the
+    training phase's seeded FlowEstimator, and its state."""
+    opt = Options(**POSE_DDP).replace(n_devices=n_devices, batchSize=batch)
+    trainer = Trainer(opt, flow_fn=seeded_flow_estimator(device, seed=3, tf32_seen=[]),
+                      device=device)
+    return trainer, trainer.init_state()
+
+
+def map_tensors(obj, fn):
+    """`obj` with fn applied to every tensor in it (nested lists, tuples and
+    dataclass fields, as a ClipCarry holds them)."""
+    if torch.is_tensor(obj):
+        return fn(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(v, fn) for v in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: map_tensors(getattr(obj, f.name), fn)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def save_state_after_first(path: str | None):
+    """run_chunks' after_chunk: after chunk 0, the generator's and the
+    engine's weights and the clip's carry saved to `path`."""
+    def after(k, trainer, carry):
+        if path is not None and k == 0:
+            torch.save({"gen": trainer.gen.state_dict(), "engine": trainer.engine.state_dict(),
+                        "carry": map_tensors(carry, lambda t: t.cpu())}, path)
+    return after
+
+
+def displacement_then_load(path: str | None, init: dict, stats: dict):
+    """run_chunks' after_chunk for a rank: after chunk 0, this rank's
+    weight displacement from `init` (its weights before chunk 0, by name)
+    against the single process's (its weights saved at `path` by
+    save_state_after_first, from the same init) into `stats`: the relative
+    L2 of the difference and the share of the moved weights that moved the
+    same way; then the weights from `path` and this rank's rows of its
+    carry take the place of the rank's own (its Adam moments stay)."""
+    def after(k, trainer, carry):
+        if path is None or k != 0:
+            return None
+        saved = torch.load(path, map_location="cpu", weights_only=False)
+        diff_sq = ref_sq = agree = moved = 0.0
+        for part, module in (("gen", trainer.gen), ("engine", trainer.engine)):
+            for name, p in module.named_parameters():
+                w0 = init[f"{part}.{name}"].to(p.device)
+                d_rank = p.detach() - w0
+                d_one = saved[part][name].to(p.device) - w0
+                diff_sq += float(((d_rank - d_one) ** 2).sum())
+                ref_sq += float((d_one ** 2).sum())
+                agree += float(((torch.sign(d_rank) == torch.sign(d_one)) & (d_one != 0)).sum())
+                moved += float((d_one != 0).sum())
+        stats.update(rel_l2=math.sqrt(diff_sq / ref_sq), same_direction=agree / moved,
+                     moved=int(moved))
+        trainer.gen.load_state_dict(saved["gen"])
+        trainer.engine.load_state_dict(saved["engine"])
+        return map_tensors(saved["carry"], lambda t: trainer.local_rows(t).to(trainer.device))
+    return after
+
+
+def time_gradient_reduces(state, group, dev: torch.device) -> list[tuple[float, int]]:
+    """(ms between two synchronizes, bucket bytes) of one all_reduce_mean
+    of a bucket the size of each optimizer's gradients (the G, D and each
+    D_T step's, as train/steps.py::_apply reduces them), the ranks started
+    together by a barrier; nothing without a group."""
+    out = []
+    if mesh.group_size(group) == 1:
+        return out
+    for opt in (state.opt_g, state.opt_d, *state.opt_dt):
+        grads = [torch.zeros_like(p) for pg in opt.param_groups for p in pg["params"]]
+        torch.distributed.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mesh.all_reduce_mean(grads, group)
+        torch.cuda.synchronize(dev)
+        out.append(((time.perf_counter() - t0) * 1e3, 4 * sum(g.numel() for g in grads)))
+        del grads
+    return out
+
+
+def ddp_rank(labels: np.ndarray, frames: np.ndarray, device: str,
+             state_path: str | None) -> dict:
+    """One rank of phase 12, in a process started by parallel.launch (this
+    script imported anew as its main module): the rank's Trainer on the
+    global clip (it keeps its rows), under kernel_call_shapes; the launch
+    counts, the calls' shapes, the peak memory, the warnings of ops that
+    have no deterministic algorithm (it runs under
+    workers.deterministic_algorithms), run_chunks' losses, weights digests
+    and ms a chunk, and afterwards each gradient bucket's all-reduce
+    (time_gradient_reduces); with `state_path`, the chunk-1 displacement
+    against the single process's and chunk 2 from the weights and (this
+    rank's rows of) the carry saved there (displacement_then_load)."""
+    world = torch.distributed.get_world_size()
+    torch.distributed.barrier()  # one collective on the backend, whatever the world
+    dev = torch.device(device)
+    trainer, state = ddp_trainer(world, labels.shape[0], dev)
+    init = {f"{part}.{name}": p.detach().to("cpu", copy=True)
+            for part, module in (("gen", trainer.gen), ("engine", trainer.engine))
+            for name, p in module.named_parameters()} if state_path else {}
+    displacement = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with torch_default_tf32(), kernel_call_shapes() as seen, \
+            warnings.catch_warnings(record=True) as caught, \
+            deterministic_algorithms():
+        warnings.simplefilter("always")
+        out = run_chunks(trainer, state, torch.from_numpy(labels), torch.from_numpy(frames),
+                         None, DDP_LOAD,
+                         after_chunk=displacement_then_load(state_path, init, displacement))
+    torch.cuda.synchronize(dev)
+    launches, peak = read_launches(), torch.cuda.max_memory_allocated(dev)
+    del init
+    index = {id(fn): i for fns in COUNTERS.values() for i, fn in enumerate(fns)}
+    out.update(
+        launches=launches, peak=peak, displacement=displacement,
+        reduces=time_gradient_reduces(state, trainer.group, dev),
+        nondeterministic=sorted({str(w.message)[:120] for w in caught
+                                 if "deterministic" in str(w.message)}),
+        seen=[(name, index[id(fn)], shapes, str(dtype), calls)
+              for (name, fn, shapes, dtype), calls in seen.items()])
+    return out
+
+
+def ddp_reference(labels: np.ndarray, frames: np.ndarray,
+                  state_path: str | None = None) -> dict:
+    """Phase 12's single-process Trainer (no group) on the card, under
+    workers.deterministic_algorithms: run_chunks' losses, weights digests
+    and ms a chunk; with `state_path`, its weights and carry after chunk 1
+    are saved there."""
+    trainer, state = ddp_trainer(1, labels.shape[0], DEV)
+    with torch_default_tf32(), \
+            deterministic_algorithms():
+        out = run_chunks(trainer, state, torch.from_numpy(labels), torch.from_numpy(frames),
+                         None, DDP_LOAD, after_chunk=save_state_after_first(state_path))
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_train_path(card: str, seen: dict) -> dict:
+    """Phase 12: the data axis (parallel/, --n_devices 2) at the pose2body
+    256p recipe's width through parallel.launch:
+      - world 1 over NCCL (rank 0 on this card, batch 1): its losses and
+        weights after each chunk equal the plain Trainer's bit for bit
+        (every training here runs under deterministic algorithms);
+      - world 2 over gloo on this one card (NCCL refuses two ranks on one
+        device; gloo all-reduces the CUDA tensors through host memory),
+        batch 2, one sample a rank: the two ranks' weights equal bit for
+        bit after every chunk, and the losses within the training bounds
+        (out_of_bounds) of the single-process Trainer at batch 2.
+    Chunk 2 of the two ranks restarts from the single process's state after
+    chunk 1, weights and carry (as train_reference does between the CPU
+    and the card with the weights); their own Adam moments stay. So the
+    losses of chunk 2 are a second one-step comparison, and the trajectory
+    is held by chunk 1's weight displacement instead: its relative L2
+    against the single process's within DDP_DISPLACEMENT_REL_L2.
+    The ranks' kernel calls join `seen` (phase 3b checks their shapes);
+    returns the launch counts summed over every rank of both runs. Two
+    ranks sharing one card give no scaling figure."""
+    t0 = time.perf_counter()
+    labels, frames = ddp_clip()
+    clip_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        # every run is under deterministic algorithms: without them the
+        # plain Trainer differs from itself (chunk 2's G grad norm by ~2%
+        # from one saved state). Chunk 2 of the two ranks starts from the
+        # single process's state after chunk 1 (weights and carry): Adam's
+        # first step moves each weight by ~lr whatever its gradient's size,
+        # so gradients near zero whose sign the order of a sum flips set
+        # the weights apart by ~2 lr (chunk 2's D_T losses then differed by
+        # ~2.5%)
+        first = os.path.join(tmp, "after_chunk1.pt")
+        ref1 = ddp_reference(labels[:1], frames[:1])
+        ref2 = ddp_reference(labels, frames, state_path=first)
+        runs = {}
+        for name, world, backend, lab, frm, path in (
+                ("nccl_world1", 1, "nccl", labels[:1], frames[:1], None),
+                ("gloo_world2", 2, "gloo", labels, frames, first)):
+            t1 = time.perf_counter()
+            runs[name] = launch(ddp_rank, world, args=(lab, frm, str(DEV), path),
+                                devices=[DEV] * world, backend=backend,
+                                deadline_s=DDP_DEADLINE_S)
+            runs[name + "_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (one,), two = runs["nccl_world1"], runs["gloo_world2"]
+    if one["losses"] != ref1["losses"] or one["digests"] != ref1["digests"]:
+        raise AssertionError(
+            f"ddp_train: world 1 over NCCL differs from the plain Trainer: losses "
+            f"{[c['loss_G_total'] for c in one['losses']]} vs "
+            f"{[c['loss_G_total'] for c in ref1['losses']]}, digests {one['digests']} vs "
+            f"{ref1['digests']}")
+    if two[0]["digests"] != two[1]["digests"] or len(two[0]["digests"]) != 2:
+        raise AssertionError(f"ddp_train: the ranks' weights differ: {two[0]['digests']} vs "
+                             f"{two[1]['digests']}")
+    bad = out_of_bounds(two[0]["losses"], ref2["losses"])
+    if bad:
+        raise AssertionError(f"ddp_train: 2 ranks vs one process at batch 2: {bad}")
+    displacement = [r["displacement"] for r in two]
+    if displacement[0] != displacement[1] or not (
+            displacement[0]["rel_l2"] <= DDP_DISPLACEMENT_REL_L2):
+        raise AssertionError(
+            f"ddp_train: the ranks' chunk-1 weight displacement against one process's: "
+            f"{displacement} (relative L2 limit {DDP_DISPLACEMENT_REL_L2})")
+    launches = collections.Counter()
+    for rank in [one, *two]:
+        for name in ("warp_blend", "warp_blend_bwd", "flow_warp", "flow_warp_bwd",
+                     "correlation"):
+            if rank["launches"][name] == 0:
+                raise AssertionError(f"ddp_train: a rank never launched {name}")
+        launches.update(rank["launches"])
+        for name, i, shapes, dtype, calls in rank["seen"]:
+            key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
+            seen[key] = seen.get(key, 0) + calls
+    reduces = [r["reduces"] for r in two]
+    say("ddp_train_path", config="pose2body 256p (recipes/pose/train_256p.sh) ngf128 f32, "
+        "FlowNet2 f32, 2 chunks of 6 frames of 256x192; cut: batchSize 2 on --n_devices 2 "
+        "(recipe 8 on 8), one clip of 2 chunks (recipe n_frames_total 12); the 2 ranks' "
+        "chunk 2 restarts from the single process's weights and carry after chunk 1 "
+        "(their Adam moments kept), so its losses are a one-step comparison and chunk 1's "
+        "weight displacement holds the trajectory",
+        clip_build_s=f"{clip_s:.2f}", world1_nccl_s=f"{runs['nccl_world1_s']:.2f}",
+        world2_gloo_s=f"{runs['gloo_world2_s']:.2f}",
+        ms_per_chunk_world1=",".join(f"{v:.1f}" for v in one["ms"]),
+        ms_per_chunk_rank0=",".join(f"{v:.1f}" for v in two[0]["ms"]),
+        ms_per_chunk_rank1=",".join(f"{v:.1f}" for v in two[1]["ms"]),
+        ms_per_chunk_one_process_b1=",".join(f"{v:.1f}" for v in ref1["ms"]),
+        ms_per_chunk_one_process_b2=",".join(f"{v:.1f}" for v in ref2["ms"]),
+        allreduce_ms_rank0=",".join(f"{ms:.1f}" for ms, _ in reduces[0]),
+        allreduce_ms_rank1=",".join(f"{ms:.1f}" for ms, _ in reduces[1]),
+        bucket_bytes=",".join(str(b) for _, b in reduces[0]),
+        allreduce_buckets="G, D, D_T per scale: one all_reduce_mean each after the run, "
+        "the ranks started by a barrier",
+        chunk1_displacement_rel_l2=f"{displacement[0]['rel_l2']:.6g}",
+        chunk1_displacement_same_direction=f"{displacement[0]['same_direction']:.6g}",
+        chunk1_weights_moved=displacement[0]["moved"],
+        displacement_rel_l2_limit=DDP_DISPLACEMENT_REL_L2,
+        peak_mem_gib_world1=f"{one['peak'] / 2**30:.3f}",
+        peak_mem_gib_ranks=",".join(f"{r['peak'] / 2**30:.3f}" for r in two),
+        world1_bit_for_bit=True, ranks_equal_bit_for_bit=True,
+        without_deterministic_algorithms=json.dumps(
+            sorted({w for r in [one, *two] for w in r["nondeterministic"]})),
+        loss_G_total=",".join(f"{c['loss_G_total']:.6g}" for c in two[0]["losses"]),
+        loss_G_total_one_process=",".join(f"{c['loss_G_total']:.6g}" for c in ref2["losses"]),
+        G_grad_norm=",".join(f"{c['G_grad_norm']:.6g}" for c in two[0]["losses"]),
+        G_grad_norm_one_process=",".join(f"{c['G_grad_norm']:.6g}" for c in ref2["losses"]),
+        launches=json.dumps(dict(launches)), scaling="none: two ranks share one card",
+        card=repr(card))
+    return {name: launches[name] for name in COUNTERS}
+
+
 class SquareClips:
     """Two 8-frame moving-square clips (numpy seed 0) at H x W in
     data/temporal.py::TemporalDataset's item layout: "A" (T, H, W) int32
@@ -3198,9 +3505,10 @@ def main() -> None:
                       ("label2city_single", label2city_single_path),
                       ("face_stream", face_stream_path), ("pose_stream", pose_stream_path),
                       ("pose_train", pose_train_path), ("flow_train", flow_train_path),
-                      ("export", export_path), ("ledger", ledger_path)):
+                      ("export", export_path), ("ledger", ledger_path),
+                      ("ddp_train", ddp_train_path)):
         with kernel_call_shapes() as seen:
-            launches[path] = run(card)
+            launches[path] = run(card, seen) if path == "ddp_train" else run(card)
         torch.cuda.empty_cache()
         check_path_shapes(path, seen, errs, gen)
         torch.cuda.empty_cache()

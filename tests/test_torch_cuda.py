@@ -907,3 +907,30 @@ def test_exported_step_on_the_card(cuda, tmp_path):
         want, state_ref = eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state_ref)
         assert torch.equal(got, want)
         assert all(torch.equal(s, r) for s, r in zip(state, state_ref))
+
+
+def test_one_rank_over_nccl_equals_the_plain_trainer(cuda):
+    """parallel.launch with one rank over NCCL on the card: two training
+    chunks give the plain Trainer's losses and weights, bit for bit (both
+    under deterministic algorithms: two plain runs differ without them)."""
+    import functools
+
+    import numpy as np
+
+    import torch_ranks
+
+    from vid2vid_tpu_torch.parallel import launch
+
+    cfg = dict(label_nc=4, use_instance=False, output_nc=3, ngf=8, n_downsample_G=2,
+               n_blocks=1, n_scales_spatial=1, n_frames_G=3, n_frames_D=3,
+               n_scales_temporal=1, ndf=8, num_D=1, n_layers_D=2, n_frames_total=6,
+               max_frames_per_gpu=3, norm="batch", no_vgg=True, isTrain=True, fineSize=64)
+    rng = np.random.default_rng(11)
+    labels = rng.integers(0, 4, (1, 8, 32, 64)).astype(np.int32)
+    frames = rng.uniform(-1, 1, (1, 8, 3, 32, 64)).astype(np.float32)
+    run = functools.partial(torch_ranks.train_chunks, cfg, labels, frames, n_load=3,
+                            device="cuda:0", deterministic=True)
+    (rank,) = launch(run, 1, devices=["cuda:0"], backend="nccl", deadline_s=300)
+    plain = run()
+    assert rank["losses"] == plain["losses"]
+    assert rank["digests"] == plain["digests"]

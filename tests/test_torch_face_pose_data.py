@@ -110,11 +110,26 @@ def test_fill_poly_matches_cv2():
         np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w} {pts.tolist()}")
 
 
+@pytest.mark.parametrize("pts", [
+    [[3, 22], [10, -11], [35, 4]],  # an edge whose clipped ends share a row
+    [[43, 7], [-1, 72], [4, 28], [22, -23], [41, 15], [-15, 74], [-19, -17]],
+])
+def test_fill_poly_takes_the_clipped_x_of_an_edge_on_one_row(pts):
+    """An edge that crosses the image and whose clipped ends fall on one
+    row: cv2 takes their x with the rows of the ends as given (its
+    right-hand column filled on the rows the polygon covers there)."""
+    pts = np.array(pts, np.int32)
+    h, w = (7, 7) if len(pts) == 3 else (47, 17)
+    want = np.zeros((h, w), np.uint8)
+    cv2.fillPoly(want, pts=[pts], color=1)
+    np.testing.assert_array_equal(raster.fill_poly(np.zeros((h, w), np.uint8), pts, 1), want)
+
+
 def test_fill_poly_outside_the_image_differs_only_on_its_border():
-    """With vertices outside the image, cv2 also fills pixels of the
-    image's first and last rows and columns that the port leaves (and
-    a few the other way): the stated bound is that every differing pixel
-    lies on that border and that they are under 0.1% of the pixels."""
+    """With vertices outside the image, the port still fills a few pixels
+    of the image's last column that cv2 leaves (18 of 853,338 here): the
+    stated bound is that every differing pixel lies on the border and that
+    they are under 0.01% of the pixels."""
     rng = np.random.default_rng(1)
     n_diff = n_pix = 0
     for _ in range(300):
@@ -128,7 +143,7 @@ def test_fill_poly_outside_the_image_differs_only_on_its_border():
         assert np.all((ys == 0) | (ys == h - 1) | (xs == 0) | (xs == w - 1))
         n_diff += len(ys)
         n_pix += h * w
-    assert n_diff / n_pix < 1e-3
+    assert n_diff / n_pix < 1e-4
 
 
 @pytest.mark.parametrize("blur", [False, True])

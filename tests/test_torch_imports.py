@@ -104,7 +104,8 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.data.keypoints", "vid2vid_tpu_torch.data.face",
         "vid2vid_tpu_torch.data.pose", "vid2vid_tpu_torch.ops.library",
         "vid2vid_tpu_torch.utils.profiling", "vid2vid_tpu_torch.tools.export",
-        "vid2vid_tpu_torch.tools.train_ledger",
+        "vid2vid_tpu_torch.tools.train_ledger", "vid2vid_tpu_torch.parallel",
+        "vid2vid_tpu_torch.parallel.mesh", "vid2vid_tpu_torch.parallel.workers",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from torch_ranks import stub_flow
 from vid2vid_tpu.config import Options as JaxOptions
 from vid2vid_tpu.train.loop import Trainer as JaxTrainer
 from vid2vid_tpu_torch.config import Options
@@ -122,12 +123,8 @@ def jax_stub_flow(b1, b2):
     return jnp.stack([fx, fy], -1), jax.nn.sigmoid(d[..., 2])[..., None]
 
 
-def torch_stub_flow(b1, b2):
-    """The same stub on (B, T, 3, H, W) frames."""
-    d = b1 - b2
-    flow = torch.stack([2.0 * torch.tanh(3.0 * d[:, :, 0]),
-                        2.0 * torch.tanh(3.0 * d[:, :, 1])], 2)
-    return flow, torch.sigmoid(d[:, :, 2:3])
+# the same stub on (B, T, 3, H, W) frames
+torch_stub_flow = stub_flow
 
 
 def clip(seed: int = 11):

@@ -1,0 +1,138 @@
+"""Entry functions for the ranks that tests/test_torch_parallel.py and
+tests/test_torch_cuda.py start through vid2vid_tpu_torch.parallel.launch.
+
+A spawned rank imports the module of the function it runs, so this one
+imports torch and the port and nothing of JAX (a test module does). Each
+function takes numpy arrays or CPU tensors and returns CPU values.
+
+  - `train_chunks`: a Trainer on this rank's rows of a global clip, chunk by
+    chunk (parallel/workers.py::run_chunks), with the stub flow;
+  - `batch_norm_rows`: one synchronised BatchNorm2d forward and backward on
+    this rank's rows;
+  - `train_cli_rank`: train_cli's rank (train_cli.train_rank);
+  - `loaded_packages`: what the rank has imported;
+  - `run_all`: several of these in one launch, in order.
+
+`fault=` applies one named defect of the data axis in this rank, so that a
+test can show that its bounds see it: `unsynced_norms` (batch norm on the
+rank's rows alone), `summed_gradients` (the gradients summed over the ranks
+instead of averaged: train/steps.py's `all_reduce_mean` replaced for the
+call), `face_box_per_rank` (each rank crops the face at its own box) and,
+for the CLI, `rank0_rows` (every rank trains on rank 0's rows).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+
+import torch
+import torch.distributed as dist
+
+from vid2vid_tpu_torch import train_cli
+from vid2vid_tpu_torch.config import Options
+from vid2vid_tpu_torch.nn.layers import BatchNorm2d, sync_batch_norm
+from vid2vid_tpu_torch.parallel import mesh
+from vid2vid_tpu_torch.parallel.workers import deterministic_algorithms, run_chunks
+from vid2vid_tpu_torch.train import steps
+from vid2vid_tpu_torch.train.loop import Trainer
+
+FAULTS = ("unsynced_norms", "summed_gradients", "face_box_per_rank")
+
+
+def stub_flow(cur: torch.Tensor, prev: torch.Tensor):
+    """A deterministic stand-in for FlowNet2 on (B, T, 3, H, W) frames
+    (tests/test_train_oracle.py's)."""
+    d = cur - prev
+    flow = torch.stack([2.0 * torch.tanh(3.0 * d[:, :, 0]),
+                        2.0 * torch.tanh(3.0 * d[:, :, 1])], 2)
+    return flow, torch.sigmoid(d[:, :, 2:3])
+
+
+def _tensor(x):
+    return None if x is None else torch.as_tensor(x)
+
+
+def _all_reduce_sum_in_place(tensors, group) -> None:
+    """The `summed_gradients` fault: all_reduce_mean without the mean."""
+    if mesh.group_size(group) > 1:
+        for t in tensors:
+            dist.all_reduce(t, group=group)
+
+
+def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
+                 device: str = "cpu", weights: tuple | None = None,
+                 fault: str | None = None, deterministic: bool = False) -> dict:
+    """A Trainer of Options(**opt_kwargs) on `device` with the stub flow,
+    with `weights` ((generator, engine) state dicts) if given, trained on
+    the global clip (labels, frames, inst) chunk by chunk (`run_chunks`,
+    under `deterministic_algorithms` if asked)."""
+    if fault is not None and fault not in FAULTS:
+        raise ValueError(f"unknown fault {fault!r}; one of {FAULTS}")
+    trainer = Trainer(Options(**opt_kwargs), flow_fn=stub_flow, device=device)
+    state = trainer.init_state()
+    if weights is not None:
+        trainer.gen.load_state_dict({k: _tensor(v) for k, v in weights[0].items()})
+        trainer.engine.load_state_dict({k: _tensor(v) for k, v in weights[1].items()})
+    if fault == "unsynced_norms":
+        sync_batch_norm(trainer.gen, None)
+        sync_batch_norm(trainer.engine, None)
+    elif fault == "face_box_per_rank":
+        trainer.engine.group = None
+    elif fault == "summed_gradients":
+        steps.all_reduce_mean = _all_reduce_sum_in_place
+    try:
+        with deterministic_algorithms() if deterministic else contextlib.nullcontext():
+            return run_chunks(trainer, state, _tensor(labels), _tensor(frames),
+                              _tensor(inst), n_load)
+    finally:
+        steps.all_reduce_mean = mesh.all_reduce_mean
+
+
+def batch_norm_rows(x, weight, bias, grad_out, update_stats: bool) -> dict:
+    """A train-mode BatchNorm2d synchronised over the world, on this rank's
+    rows of the global (N, C, H, W) batch `x`, its forward and its backward
+    of `grad_out`'s rows: {"y", "dx"} (this rank's rows), {"dweight",
+    "dbias"} (this rank's share: the global ones are their sum), and the
+    running stats after the forward (updated while `update_stats`)."""
+    m = mesh.make_mesh()
+    x = mesh.shard_batch(torch.as_tensor(x), m).clone().requires_grad_(True)
+    g = mesh.shard_batch(torch.as_tensor(grad_out), m)
+    norm = BatchNorm2d(x.shape[1])
+    with torch.no_grad():
+        norm.weight.copy_(torch.as_tensor(weight))
+        norm.bias.copy_(torch.as_tensor(bias))
+    norm.update_stats = update_stats
+    sync_batch_norm(norm, m.group)
+    norm.train()
+    y = norm(x)
+    dx, dw, db = torch.autograd.grad(y, (x, norm.weight, norm.bias), g)
+    return {"y": y.detach(), "dx": dx, "dweight": dw, "dbias": db,
+            "running_mean": norm.running_mean.clone(), "running_var": norm.running_var.clone()}
+
+
+def train_cli_rank(opt: Options, fault: str | None = None) -> dict:
+    """train_cli.train_rank on this rank; with fault "rank0_rows" every rank
+    keeps rank 0's rows of each global batch in place of its own."""
+    if fault not in (None, "rank0_rows"):
+        raise ValueError(f"unknown CLI fault {fault!r}")
+    if fault == "rank0_rows":
+        def rank0_rows(self, x):
+            if x is None or self.mesh is None:
+                return x
+            return x.narrow(0, 0, x.shape[0] // self.mesh.data)
+
+        Trainer.local_rows = rank0_rows
+    return train_cli.train_rank(opt)
+
+
+def loaded_packages() -> list[str]:
+    """The top-level packages this rank has imported (a rank of the port
+    imports no JAX and nothing of the JAX package)."""
+    return sorted({name.split(".")[0] for name in sys.modules})
+
+
+def run_all(calls: list) -> list:
+    """Each (function name of this module, args, kwargs) called in order in
+    one launch; returns their results."""
+    return [globals()[name](*args, **kwargs) for name, args, kwargs in calls]

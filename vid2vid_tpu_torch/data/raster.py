@@ -123,15 +123,17 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color: int) -> np.ndarray:
     for p1 in pts:
         ys, xs = line_pixels(w, h, p0, p1)
         img[ys, xs] = color
-        # cv2's PolyEdge, with its clipped end points where one lies outside
+        # cv2's PolyEdge, with its clipped end points where one lies outside:
+        # their x, and their rows unless the clipped ends share one (then
+        # the rows of the ends as given)
         t0, t1 = p0, p1
         c0 = (p0[0] << XY_SHIFT, p0[1])
         c1 = (p1[0] << XY_SHIFT, p1[1])
         if not all(0 <= x < w and 0 <= y < h for x, y in (t0, t1)):
             t0, t1, _ = clip_line(w, h, t0, t1)
-            if t0[1] != t1[1]:
-                c0 = (t0[0] << XY_SHIFT, t0[1])
-                c1 = (t1[0] << XY_SHIFT, t1[1])
+            one_row = t0[1] == t1[1]
+            c0 = (t0[0] << XY_SHIFT, p0[1] if one_row else t0[1])
+            c1 = (t1[0] << XY_SHIFT, p1[1] if one_row else t1[1])
         if p0[1] != p1[1]:
             dx = _tdiv(c1[0] - c0[0], c1[1] - c0[1])
             if p0[1] < p1[1]:

@@ -12,6 +12,7 @@ first kernel launch (or an explicit `library()` call).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -71,27 +72,36 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu for sm_90a unless the hashed library exists."""
+    """Compile csrc/*.cu for sm_90a unless the hashed library exists.
+
+    One build at a time per checkout: the ranks of a data axis reach their
+    first launch together, so the first to take the lock on
+    BUILD_DIR/build.lock runs nvcc and the others wait, then find its
+    library (one nvcc tree, not one a process)."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a temporary directory, then rename: a cut build leaves no
-    # half-written library behind under the final name
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        sources = [s for s in _sources() if s.suffix == ".cu"]
-        objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
-        ptxas = ["-Xptxas", "-v"] if verbose else []
-        logs = _run_all([
-            [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
-            for src, obj in zip(sources, objs)
-        ])
-        lib = os.path.join(tmp, out.name)
-        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
-        if verbose:
-            print("".join(logs))
-        os.replace(lib, out)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        # build into a temporary directory, then rename: a cut build leaves
+        # no half-written library behind under the final name
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            sources = [s for s in _sources() if s.suffix == ".cu"]
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+            ptxas = ["-Xptxas", "-v"] if verbose else []
+            logs = _run_all([
+                [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources, objs)
+            ])
+            lib = os.path.join(tmp, out.name)
+            logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+            if verbose:
+                print("".join(logs))
+            os.replace(lib, out)
     return out
 
 

@@ -48,6 +48,7 @@ from vid2vid_tpu_torch.losses import (
 from vid2vid_tpu_torch.nn.discriminator import MultiscaleDiscriminator
 from vid2vid_tpu_torch.nn.vgg import Vgg19Features
 from vid2vid_tpu_torch.ops.warp import flow_warp
+from vid2vid_tpu_torch.parallel.mesh import all_reduce_max
 from vid2vid_tpu_torch.utils.precision import cudnn_f32
 
 Losses = dict[str, torch.Tensor]
@@ -75,6 +76,9 @@ class LossEngine(nn.Module):
             multiscale(self.dt_input_nc) for _ in range(opt.n_scales_temporal)
         )
         self.vgg = None if opt.no_vgg else Vgg19Features()
+        # the data axis's group (parallel/mesh.py), which face_region's box
+        # spans; None: this process's batch alone
+        self.group = None
 
     # ----------------------------------------------------------- primitives
 
@@ -92,7 +96,10 @@ class LossEngine(nn.Module):
         """The face box of a (N, C, H, W) pose conditioning (reference:
         models/vid2vid_model_D.py:215-230): the pixels of DensePose's face
         parts (channel 2 > 0.9), or under --openpose_only those of
-        OpenPose's face colour; over all N frames. Returns (found, y0, x0),
+        OpenPose's face colour; over all N frames, and over every rank's
+        frames while `group` (the data axis's torch.distributed group) holds
+        more than one, as JAX takes them over the sharded batch (one
+        all-reduce). Returns (found, y0, x0),
         0-d device tensors, the corner of the (fineSize // 32 * 8)-square
         window centred on the box, clamped into the frame."""
         opt = self.opt
@@ -103,12 +110,16 @@ class LossEngine(nn.Module):
         else:
             r, g, b = real_a[:, 0], real_a[:, 1], real_a[:, 2]
             mask = (r > 0.19) & (r < 0.21) & (g < -0.99) & (b > -0.61) & (b < -0.59)
-        found = mask.any()
         big = torch.iinfo(torch.int32).max
         ys = torch.arange(h, device=real_a.device).view(1, h, 1).expand_as(mask)
         xs = torch.arange(w, device=real_a.device).view(1, 1, w).expand_as(mask)
-        y_lo, y_hi = torch.where(mask, ys, big).min(), torch.where(mask, ys, -1).max()
-        x_lo, x_hi = torch.where(mask, xs, big).min(), torch.where(mask, xs, -1).max()
+        # found and the extents as maxima (a min is the max of the negation)
+        box = torch.stack([
+            mask.any().long(), -torch.where(mask, ys, big).min(),
+            torch.where(mask, ys, -1).max(), -torch.where(mask, xs, big).min(),
+            torch.where(mask, xs, -1).max()])
+        box = all_reduce_max(box, self.group)
+        found, y_lo, y_hi, x_lo, x_hi = box[0] > 0, -box[1], box[2], -box[3], box[4]
         yc = torch.clamp((y_lo + y_hi) // 2, size // 2, h - 1 - size // 2)
         xc = torch.clamp((x_lo + x_hi) // 2, size // 2, w - 1 - size // 2)
         return found, yc - size // 2, xc - size // 2

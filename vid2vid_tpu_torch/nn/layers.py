@@ -23,7 +23,10 @@ statistics and updates the running stats as torch.nn's norms do (momentum
 JAX package's training steps never update them (its loss engine and
 train_cli say why): `update_running_stats(module, False)` turns the update
 off on every norm of a module, which the port's Trainer does for the
-generator and the discriminators.
+generator and the discriminators. On a data axis of several ranks
+(parallel/mesh.py) `sync_batch_norm(module, group)` makes batch norm's
+train mode take the global batch's statistics, as JAX's norms do over a
+sharded batch; instance norm stays per sample.
 """
 
 from __future__ import annotations
@@ -33,18 +36,52 @@ import torch.nn.functional as F
 from torch import nn
 
 from vid2vid_tpu_torch.ops.conv7 import TENSOR_CORES, conv7_body, conv7_reflect, pack_for_kernel
+from vid2vid_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train mode leaves the running stats alone while
-    `update_stats` is False."""
+    `update_stats` is False, and takes the statistics of the global batch
+    while `group` (a torch.distributed group of the data axis) holds more
+    than one rank (`sync_batch_norm`)."""
 
     update_stats = True
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and group_size(self.group) > 1:
+            return self._synced(x)
         if not self.training or self.update_stats:
             return super().forward(x)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the group's global batch, in f32: the mean from
+        an all-reduced per-channel sum (and count), the biased variance
+        from an all-reduced per-channel sum of squared deviations, both
+        differentiable; the running stats, while `update_stats`, take the
+        global count's unbiased variance (what F.batch_norm does on the
+        whole batch)."""
+        xf = x.float()
+        dims = (0, 2, 3)
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        total = all_reduce_sum(torch.cat([xf.sum(dims), count]), self.group)
+        n = total[-1]
+        mean = total[:-1] / n
+        dev = xf - mean.view(1, -1, 1, 1)
+        var = all_reduce_sum((dev * dev).sum(dims), self.group) / n
+        y = dev * torch.rsqrt(var + self.eps).view(1, -1, 1, 1)
+        if self.affine:
+            y = y * self.weight.float().view(1, -1, 1, 1) + self.bias.float().view(1, -1, 1, 1)
+        if self.update_stats and self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (self.momentum if self.momentum is not None
+                     else 1.0 / float(self.num_batches_tracked))
+                unbiased = var.detach() * (n / (n - 1))
+                self.running_mean.mul_(1 - m).add_(mean.detach().to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1 - m).add_(unbiased.to(self.running_var.dtype), alpha=m)
+        return y.to(x.dtype)
 
 
 class InstanceNorm2d(nn.InstanceNorm2d):
@@ -66,6 +103,15 @@ def update_running_stats(module: nn.Module, on: bool) -> list[nn.Module]:
     for m in norms:
         m.update_stats = on
     return norms
+
+
+def sync_batch_norm(module: nn.Module, group) -> None:
+    """Every BatchNorm2d of `module` takes its train-mode statistics over
+    the ranks of `group` (None: this process's batch alone). Instance norm
+    stays per sample."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 def reflect_conv(cin: int, cout: int, kernel: int) -> list[nn.Module]:

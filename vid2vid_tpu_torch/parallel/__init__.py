@@ -1,0 +1,14 @@
+"""The data axis of the device mesh on torch.distributed (the port of
+vid2vid_tpu/parallel)."""
+
+from vid2vid_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_max,
+    all_reduce_mean,
+    all_reduce_sum,
+    init_process_group,
+    launch,
+    make_mesh,
+    replicated,
+    shard_batch,
+)

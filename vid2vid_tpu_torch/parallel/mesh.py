@@ -1,0 +1,330 @@
+"""The data axis of the device mesh, on torch.distributed.
+
+The port of vid2vid_tpu/parallel/mesh.py. The JAX package runs one process
+over a ('data', 'model') mesh and lets GSPMD shard the batch over 'data'
+(and the width over 'model'). Here each device is a process (a rank) of
+one torch.distributed group, and the data axis is written out:
+
+  - every rank holds the same weights (`replicated`: a broadcast from rank
+    0) and takes its rows of the global batch (`shard_batch`);
+  - train-mode batch norm takes the global batch's statistics
+    (nn/layers.py::BatchNorm2d, through `all_reduce_sum`), the face box
+    the global batch's extents (models/loss_engine.py::face_region);
+  - the gradients are averaged over the ranks in one flat f32 bucket
+    (`all_reduce_mean`) before the grad norms and Adam
+    (train/steps.py::_apply),
+so a step on N ranks computes what one process computes on the whole
+batch. The model axis (width sharding with halo exchanges) is not ported:
+a mesh with model > 1 is refused by its callers (ROADMAP.md, queue 1).
+
+`launch` starts the ranks of one group as processes; `init_process_group`
+joins one. Nothing here starts a process or opens a socket at import.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import hashlib
+import os
+import pickle
+import queue as queue_mod
+import socket
+import time
+import traceback
+from collections.abc import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+# the ROADMAP item a mesh with model > 1 waits for
+MODEL_AXIS_ITEM = "ROADMAP.md, queue 1: the model axis (width sharding with halo exchanges)"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A ('data', 'model') mesh over the ranks of one group: this rank's
+    place in it and the data axis's group (None with data 1: nothing to
+    reduce)."""
+
+    data: int
+    model: int
+    rank: int = 0
+    world: int = 1
+    group: object = None
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def data_index(self) -> int:
+        """This rank's row block on the data axis (ranks are laid out
+        data-major, as JAX's device array is reshaped (data, model))."""
+        return self.rank // self.model
+
+
+def make_mesh(n_devices: int | None = None, data: int | None = None) -> Mesh:
+    """A ('data', 'model') mesh over n_devices ranks (default: the
+    initialised group's world, else 1): `data` ranks on the data axis
+    (default all of them), the remainder on the model axis. JAX's shape
+    rule and assert (vid2vid_tpu/parallel/mesh.py:27-43)."""
+    initialised = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialised else 1
+    n = n_devices or world
+    if data is None:
+        data = n
+    model = n // data
+    assert data * model == n, f"{data}x{model} != {n} devices"
+    rank = dist.get_rank() if initialised else 0
+    group = dist.group.WORLD if initialised and data > 1 else None
+    return Mesh(data, model, rank, world, group)
+
+
+def shard_batch(x: torch.Tensor, mesh: Mesh, batch_axis: int | None = 0) -> torch.Tensor:
+    """This rank's rows of `x` along `batch_axis` (a view): the global batch
+    split into `mesh.data` equal blocks. `batch_axis=None` keeps the whole
+    batch on every rank, as JAX replicates a remainder batch that does not
+    divide the data axis (vid2vid_tpu/train/loop.py:172-182)."""
+    if batch_axis is None or mesh.data == 1:
+        return x
+    b = x.shape[batch_axis]
+    if b % mesh.data:
+        raise ValueError(f"batch {b} does not divide the data axis {mesh.data}")
+    rows = b // mesh.data
+    return x.narrow(batch_axis, mesh.data_index * rows, rows)
+
+
+def weights_digest(*modules: torch.nn.Module) -> str:
+    """A hash of the bytes of every parameter and buffer of `modules`, in
+    order: equal digests mean equal weights, bit for bit (how the ranks of
+    a data axis are checked to hold one model)."""
+    h = hashlib.blake2b(digest_size=16)
+    for module in modules:
+        for t in list(module.parameters()) + list(module.buffers()):
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def group_size(group) -> int:
+    """The ranks of `group` (1 for None: no group)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def replicated(*modules: torch.nn.Module, group=None) -> None:
+    """Every parameter and buffer of `modules` broadcast from rank 0 of
+    `group` (default: the whole world), in place: one broadcast of one flat
+    bucket per dtype. Nothing without an initialised group of more than one
+    rank."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    group = dist.group.WORLD if group is None else group
+    if group_size(group) == 1:
+        return
+    src = dist.get_global_rank(group, 0)
+    by_dtype: dict = {}
+    for module in modules:
+        for t in list(module.parameters()) + list(module.buffers()):
+            by_dtype.setdefault(t.dtype, []).append(t)
+    with torch.no_grad():
+        for tensors in by_dtype.values():
+            bucket = torch.cat([t.reshape(-1) for t in tensors])
+            dist.broadcast(bucket, src, group=group)
+            offset = 0
+            for t in tensors:
+                t.copy_(bucket[offset : offset + t.numel()].view_as(t))
+                offset += t.numel()
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> None:
+    """Each tensor replaced, in place, by its mean over the ranks of
+    `group`: one all-reduce of one flat f32 bucket (not one per tensor).
+    Nothing with no group or a group of one."""
+    n = group_size(group)
+    if n == 1 or not tensors:
+        return
+    with torch.no_grad():
+        bucket = torch.cat([t.reshape(-1).float() for t in tensors])
+        dist.all_reduce(bucket, group=group)
+        bucket.div_(n)
+        offset = 0
+        for t in tensors:
+            t.copy_(bucket[offset : offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks forward; the backward sums the incoming gradients
+    over the ranks (each rank's loss depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, differentiable (the
+    identity with no group or a group of one)."""
+    if group_size(group) == 1:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `x` over the ranks of `group` (not
+    differentiable; `x` itself with no group)."""
+    if group_size(group) == 1:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+# ------------------------------------------------------------ processes
+
+# the collectives' timeout: a rank that waits longer for another raises
+TIMEOUT_S = 600.0
+
+
+def init_process_group(
+    rank: int, world: int, init_method: str = "env://", backend: str | None = None,
+    device: torch.device | str = "cpu",
+) -> None:
+    """Join the default group as `rank` of `world`: nccl for a card, gloo
+    on the CPU (unless `backend` says otherwise), with an explicit timeout
+    on its collectives (TIMEOUT_S); on a card, that card becomes the
+    current one."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S),
+    )
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_rank() -> tuple[int, int, int] | None:
+    """(RANK, WORLD_SIZE, LOCAL_RANK) when torchrun started this process,
+    else None."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        return rank, world, int(os.environ.get("LOCAL_RANK", rank))
+    return None
+
+
+def _rank_main(rank, world, init_method, backend, device, threads, fn, args, results) -> None:
+    """A launched rank: join the group, run fn(*args), put (rank, ok,
+    pickled result or traceback) on the parent's queue."""
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        init_process_group(rank, world, init_method, backend, device)
+        try:
+            out = fn(*args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, pickle.dumps(out)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def launch(
+    fn: Callable, world: int, args: tuple = (),
+    devices: Sequence[torch.device | str] | None = None, backend: str | None = None,
+    deadline_s: float = 3600.0, threads: int | None = None,
+) -> list:
+    """Run fn(*args) on `world` ranks of one group and return each rank's
+    result, in rank order.
+
+    The ranks are processes started with the spawn method (fn and args are
+    pickled by reference and value: fn must be importable without the
+    caller's test modules), joined over tcp://127.0.0.1:<a free port>; rank
+    r runs on devices[r] (default: cuda:r where there are cards, else the
+    CPU), over `backend` (default: nccl on cards, gloo on the CPU), with
+    `threads` intra-op threads if given. A result comes back pickled:
+    tensors in it should be on the CPU. If a rank fails, or `deadline_s`
+    passes first, every rank still running is killed and this raises: it
+    never returns with fewer ranks.
+
+    Under torchrun (RANK and WORLD_SIZE set) this process is one rank: it
+    joins the group torchrun describes (env://, on cuda:LOCAL_RANK where
+    there are cards) and returns [its own result]."""
+    given = torchrun_rank()
+    if given is not None:
+        rank, n, local = given
+        if n != world:
+            raise RuntimeError(f"torchrun started {n} ranks; {world} were asked for")
+        cards = torch.cuda.is_available()
+        init_process_group(rank, n, "env://", backend, f"cuda:{local}" if cards else "cpu")
+        try:
+            return [fn(*args)]
+        finally:
+            dist.destroy_process_group()
+
+    if devices is None:
+        cards = torch.cuda.is_available()
+        devices = [f"cuda:{r}" if cards else "cpu" for r in range(world)]
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    procs = [
+        ctx.Process(target=_rank_main, daemon=True, args=(
+            r, world, init_method, backend, str(devices[r]), threads, fn, args, results))
+        for r in range(world)
+    ]
+    for p in procs:
+        p.start()
+    out, failure, dead_since = {}, None, {}
+    end = time.monotonic() + deadline_s
+    try:
+        while len(out) < world and failure is None:
+            try:
+                rank, ok, payload = results.get(timeout=0.2)
+            except queue_mod.Empty:
+                now = time.monotonic()
+                if now > end:
+                    failure = f"the deadline of {deadline_s:.0f} s passed"
+                for r, p in enumerate(procs):
+                    # a rank's report may still be in the pipe when it exits
+                    if r not in out and p.exitcode is not None and (
+                            now - dead_since.setdefault(r, now) > 2.0):
+                        failure = f"rank {r} exited with code {p.exitcode} and no result"
+                continue
+            if ok:
+                out[rank] = pickle.loads(payload)
+            else:
+                failure = f"rank {rank} failed:\n{payload}"
+        for p in procs:
+            p.join(timeout=max(1.0, end - time.monotonic()) if failure is None else 1.0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+        results.close()
+    if failure is not None:
+        raise RuntimeError(f"launch of {world} ranks: {failure}")
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"launch of {world} ranks: exit codes {bad}")
+    return [out[r] for r in range(world)]

@@ -22,10 +22,12 @@ first CUDA device unless the caller passes device='cpu'.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections.abc import Callable
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.models.generator import Vid2VidGenerator
@@ -35,7 +37,15 @@ from vid2vid_tpu_torch.models.temporal import (
     skipped_frames,
     skipped_frames_sparse,
 )
-from vid2vid_tpu_torch.nn.layers import init_weights, update_running_stats
+from vid2vid_tpu_torch.nn.layers import init_weights, sync_batch_norm, update_running_stats
+from vid2vid_tpu_torch.parallel.mesh import (
+    MODEL_AXIS_ITEM,
+    Mesh,
+    all_reduce_mean,
+    make_mesh,
+    replicated,
+    shard_batch,
+)
 from vid2vid_tpu_torch.train.state import (
     Schedule,
     TrainState,
@@ -67,26 +77,72 @@ def zero_flow_fn(real_b: torch.Tensor, real_b_prev: torch.Tensor):
             torch.ones((b, t, 1, h, w), device=real_b.device))
 
 
+def mesh_devices(opt: Options, device: torch.device) -> int:
+    """The devices of --n_devices' mesh, by the JAX Trainer's rule
+    (vid2vid_tpu/train/loop.py:87-98): n = min(n_devices, the devices
+    visible), with its warning. A device is a rank of the initialised
+    process group; without one, a visible card (the CPU takes any number
+    of gloo ranks). Raises NotImplementedError where the mesh,
+    make_mesh(n, data=gcd(batchSize, n)), has a model axis: it is not
+    ported."""
+    if opt.n_devices <= 1:
+        return 1
+    if dist.is_available() and dist.is_initialized():
+        avail = dist.get_world_size()
+    elif device.type == "cuda":
+        avail = torch.cuda.device_count()
+    else:
+        avail = opt.n_devices
+    n = min(opt.n_devices, avail)
+    if n < opt.n_devices:
+        print(f"WARNING: --n_devices {opt.n_devices} requested but only "
+              f"{avail} devices visible; using {n}")
+    data = math.gcd(opt.batchSize, n)
+    if n // data > 1:
+        raise NotImplementedError(
+            f"--n_devices {n} with --batchSize {opt.batchSize} makes a mesh of data "
+            f"{data} x model {n // data}; the model axis is not ported ({MODEL_AXIS_ITEM})")
+    return n
+
+
+def data_mesh(opt: Options, device: torch.device) -> Mesh | None:
+    """The data-axis mesh of --n_devices (`mesh_devices`), or None for one
+    device. Raises for n > 1 without a process group of world n."""
+    n = mesh_devices(opt, device)
+    if n == 1:
+        return None
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"--n_devices {n}: no process group of {n} ranks. Run train_cli with "
+            f"--n_devices {n} (it starts the ranks), or torchrun --nproc_per_node {n}, "
+            "or call vid2vid_tpu_torch.parallel.launch")
+    return make_mesh(n, data=n)
+
+
 class Trainer:
-    """Owns the generator, the loss engine and the schedule."""
+    """Owns the generator, the loss engine and the schedule. With
+    --n_devices N > 1 it is one rank of a data axis of N (`data_mesh`):
+    each rank takes its rows of the global batch it is given."""
 
     def __init__(
         self, opt: Options, flow_fn: Callable | None = None,
         device: torch.device | str = "cuda",
     ):
-        if opt.n_devices > 1:
-            raise NotImplementedError(
-                "--n_devices > 1 (the data / model mesh) is not ported "
-                "(ROADMAP.md, queue 1: tools and multi-device)"
-            )
         self.opt = opt
         self.device = require_device(device)
+        self.mesh = data_mesh(opt, self.device)
+        self.group = None if self.mesh is None else self.mesh.group
         self.gen = Vid2VidGenerator(opt).to(self.device).train()
         self.engine = LossEngine(opt).to(self.device).train()
         # the steps normalize with batch statistics and, as in the JAX
         # package, never update the running ones
         update_running_stats(self.gen, False)
         update_running_stats(self.engine, False)
+        # the data axis: the norms' statistics and the face box span the
+        # global batch
+        sync_batch_norm(self.gen, self.group)
+        sync_batch_norm(self.engine, self.group)
+        self.engine.group = self.group
         self.flow_fn = flow_fn or zero_flow_fn
         self.schedule = Schedule(opt)
         # the last chunk's ClipOutputs (detached) and its (labels, real_b,
@@ -98,11 +154,24 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Weights from a torch.Generator seeded with opt.seed (the
-        reference's weights_init), and fresh optimizers."""
+        reference's weights_init), broadcast from rank 0 on a data axis,
+        and fresh optimizers."""
         gen = torch.Generator().manual_seed(self.opt.seed)
         init_weights(self.gen, gen)
         init_weights(self.engine, gen)
+        if self.group is not None:
+            replicated(self.gen, self.engine, group=self.group)
         return create_train_state(self.opt, self.gen, self.engine)
+
+    def local_rows(self, x: torch.Tensor | None) -> torch.Tensor | None:
+        """This rank's rows of a global batch (all of it without a data
+        axis). A remainder batch that does not divide the data axis stays
+        whole on every rank, as JAX replicates it: the synchronised norms
+        then see each sample once per rank, which leaves the mean and the
+        biased variance as they are."""
+        if x is None or self.mesh is None:
+            return x
+        return shard_batch(x, self.mesh, 0 if x.shape[0] % self.mesh.data == 0 else None)
 
     # ------------------------------------------------------------------ clip
 
@@ -121,6 +190,7 @@ class Trainer:
         opt = self.opt
         tG, t_scales, td = opt.n_frames_G, opt.n_scales_temporal, opt.n_frames_D
         dev = self.device
+        labels, real_b, inst = (self.local_rows(x) for x in (labels, real_b, inst))
         labels, real_b = labels.to(dev), real_b.to(dev, torch.float32)
         inst = None if inst is None else inst.to(dev)
         first_chunk = carry.gen_state is None
@@ -177,6 +247,7 @@ class Trainer:
             carry.fake_prev_first, carry.fake_buf, real_skipped, flow_skipped,
             use_raw_only=use_raw_only, n_frames_bp=self.schedule.n_frames_bp,
             finetune_all=self.schedule.finetune_all, chunk_start=carry.chunk_start,
+            group=self.group,
         )
         outs = aux["outs"]
         self.last_outs = outs
@@ -188,7 +259,8 @@ class Trainer:
 
         # D step
         loss_d, d_losses = d_step(
-            state, opt, enc_a, real_b, outs.fake, None if use_raw_only else outs.raw)
+            state, opt, enc_a, real_b, outs.fake, None if use_raw_only else outs.raw,
+            group=self.group)
 
         # temporal D steps
         dt_losses = []
@@ -196,14 +268,15 @@ class Trainer:
             if real_skipped[s] is None or fake_skipped[s] is None:
                 continue
             _, dtl = dt_step(state, opt, real_skipped[s], fake_skipped[s],
-                             flow_skipped[s], scale=s)
+                             flow_skipped[s], scale=s, group=self.group)
             dt_losses.append(dtl)
 
         carry.chunk_start += n_load
         self.schedule.total_steps += opt.batchSize
 
         # ONE transfer for every loss scalar (the JAX package measured a
-        # per-key readback at 2.7x the whole step's host cost)
+        # per-key readback at 2.7x the whole step's host cost), after one
+        # all-reduce on a data axis: the global batch's means
         out = dict(aux["losses"])
         out["G_grad_norm"] = aux["grad_norm"]
         out.update(d_losses)
@@ -213,8 +286,9 @@ class Trainer:
             out.update({f"{k}{s}": v for k, v in tl.items()})
         out["loss_G_total"] = loss_g
         out["loss_D_total"] = loss_d
-        values = torch.stack([v.float().reshape(()) for v in out.values()]).cpu()
-        return state, carry, dict(zip(out, values.tolist()))
+        values = torch.stack([v.float().reshape(()) for v in out.values()])
+        all_reduce_mean([values], self.group)
+        return state, carry, dict(zip(out, values.cpu().tolist()))
 
     def train_clip(self, state, labels, real_b, inst=None):
         """Every chunk of one clip; returns (state, the last loss dict)."""
@@ -253,7 +327,9 @@ def refresh_batch_stats(
     eval-mode inference: the generator runs forward in train mode, each norm
     updating its running stats (momentum 0.1, unbiased variance), over up to
     `max_windows_per_clip` tG-frame windows of each of `n_batches` clips.
-    `clips` yields (labels, real_b, inst) as train_clip takes them.
+    `clips` yields (labels, real_b, inst) as train_clip takes them. On a
+    data axis every rank runs this on its rows, and the synchronised norms
+    take the global batch's statistics, so the ranks' running stats agree.
     """
     gen, tG = trainer.gen, trainer.opt.n_frames_G
     norms = update_running_stats(gen, True)
@@ -266,6 +342,7 @@ def refresh_batch_stats(
         for count, (labels, real_b, inst) in enumerate(clips):
             if count >= n_batches:
                 break
+            labels, real_b, inst = (trainer.local_rows(x) for x in (labels, real_b, inst))
             enc_full = gen.encode_input(
                 labels.to(dev), None if inst is None else inst.to(dev))
             real_b = real_b.to(dev, torch.float32)

@@ -13,7 +13,9 @@ forward runs on a bfloat16 copy of its parameters, inputs and state
 (steps.py:89-115 of the JAX package), so the gradients land on the f32
 masters through the cast; its outputs are cast to f32 before the losses.
 The steps, forward and backward, run with cuDNN in full f32 for every f32
-convolution (utils/precision.py).
+convolution (utils/precision.py). On a data axis (`group`, parallel/mesh.py)
+each step averages its group's gradients over the ranks before the grad
+norm and Adam.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.models.generator import ClipOutputs
 from vid2vid_tpu_torch.models.loss_engine import LossEngine
 from vid2vid_tpu_torch.models.temporal import skipped_frames, skipped_frames_sparse
+from vid2vid_tpu_torch.parallel.mesh import all_reduce_mean
 from vid2vid_tpu_torch.train.state import TrainState
 from vid2vid_tpu_torch.utils.precision import cudnn_f32
 
@@ -39,13 +42,16 @@ def _param_grad_norm(params: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
 
 
-def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> torch.Tensor:
-    """Gradients of `loss` for every parameter of `optimizer`, its grad
-    norm, and one optimizer step. Returns the grad norm (a device scalar)."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor, group=None) -> torch.Tensor:
+    """Gradients of `loss` for every parameter of `optimizer`, averaged over
+    the ranks of `group` (the data axis: one all-reduce of one bucket), its
+    grad norm, and one optimizer step. Returns the grad norm (a device
+    scalar): the global gradient's, as JAX's over the sharded batch."""
+    params = [p for pg in optimizer.param_groups for p in pg["params"]]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    all_reduce_mean([p.grad for p in params], group)
     norm = _param_grad_norm(params)
     optimizer.step()
     for p in params:
@@ -68,7 +74,7 @@ def g_step(
     fake_buf,                   # past fakes for the temporal groups, or None
     real_skipped: list, flow_skipped: list,
     *, use_raw_only: bool, n_frames_bp: int, finetune_all: bool,
-    chunk_start: int = 0,
+    chunk_start: int = 0, group=None,
 ):
     """Generate the chunk, compute every G-side loss and take one Adam step
     on the generator. Returns (loss_G, aux) with aux: outs (f32), gen_state,
@@ -116,7 +122,7 @@ def g_step(
             if real_skipped[s] is not None and fake_skipped[s] is not None
         ]
         total = LossEngine.total_g_loss(losses, t_losses)
-        grad_norm = _apply(state.opt_g, total)
+        grad_norm = _apply(state.opt_g, total, group)
 
     def detach(x):
         if isinstance(x, dict):
@@ -134,7 +140,7 @@ def g_step(
     return total.detach(), aux
 
 
-def d_step(state: TrainState, opt: Options, enc_a, real_b_all, fake, raw):
+def d_step(state: TrainState, opt: Options, enc_a, real_b_all, fake, raw, group=None):
     """The spatial (and face) D step on detached fakes (raw None under
     use_raw_only). Returns (loss_D, losses with D_grad_norm, the norm of
     netD's and netD_f's gradients)."""
@@ -145,15 +151,16 @@ def d_step(state: TrainState, opt: Options, enc_a, real_b_all, fake, raw):
             None if raw is None else _flat(raw),
         )
         loss = LossEngine.total_d_loss(losses)
-        norm = _apply(state.opt_d, loss)
+        norm = _apply(state.opt_d, loss, group)
     return loss.detach(), {k: v.detach() for k, v in losses.items()} | {"D_grad_norm": norm}
 
 
-def dt_step(state: TrainState, opt: Options, real_groups, fake_groups, flow_groups, *, scale: int):
+def dt_step(state: TrainState, opt: Options, real_groups, fake_groups, flow_groups, *,
+            scale: int, group=None):
     """The temporal D step of one scale. Returns (loss_D_T, losses with
     D_T_grad_norm)."""
     with cudnn_f32():
         losses = state.engine.temporal_d_losses(scale, real_groups, fake_groups, flow_groups)
         loss = (losses["D_T_fake"] + losses["D_T_real"]) * 0.5
-        norm = _apply(state.opt_dt[scale], loss)
+        norm = _apply(state.opt_dt[scale], loss, group)
     return loss.detach(), {k: v.detach() for k, v in losses.items()} | {"D_T_grad_norm": norm}

@@ -20,6 +20,10 @@ from another run's directory (entries of other names or shapes stay at
 init). The reference flow is FlowNet2 with the published weights
 <checkpoints_dir>/flownet2/FlowNet2_checkpoint.pth.tar when present, else
 seeded weights with a warning.
+
+`--n_devices N` trains on the data axis of N ranks (parallel/mesh.py):
+`main` starts them (rank r on cuda:r; with `--gpu_ids -1`, gloo ranks on
+the CPU), or, under torchrun, this process is one of them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from vid2vid_tpu_torch.config import Options, parse_args
 from vid2vid_tpu_torch.data.loader import PrefetchLoader, create_dataset
@@ -39,7 +44,8 @@ from vid2vid_tpu_torch.train.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
 )
-from vid2vid_tpu_torch.train.loop import Trainer, refresh_batch_stats
+from vid2vid_tpu_torch.parallel.mesh import launch, weights_digest
+from vid2vid_tpu_torch.train.loop import Trainer, mesh_devices, refresh_batch_stats
 from vid2vid_tpu_torch.utils.device import require_device
 from vid2vid_tpu_torch.utils.images import flow_to_color, label_to_color, to_image
 from vid2vid_tpu_torch.utils.profiling import device_memory_stats
@@ -49,7 +55,29 @@ FLOWNET2_WEIGHTS = os.path.join("flownet2", "FlowNet2_checkpoint.pth.tar")
 
 
 def main(argv=None):
-    return train(parse_args(argv, is_train=True))
+    """Train in this process, or with --n_devices N > 1 on N ranks: started
+    here through parallel.launch (rank r on cuda:r; with --gpu_ids -1 over
+    gloo on the CPU), or this process as one rank under torchrun. Returns
+    (trainer, state) from one process, each rank's `train_rank` from
+    several."""
+    opt = parse_args(argv, is_train=True)
+    n = mesh_devices(opt, require_device("cuda" if opt.gpu_ids else "cpu"))
+    if n > 1 and not (dist.is_available() and dist.is_initialized()):
+        devices = [f"cuda:{r}" if opt.gpu_ids else "cpu" for r in range(n)]
+        # CPU ranks share the cores: each takes its share of intra-op threads
+        threads = None if opt.gpu_ids else max(1, torch.get_num_threads() // n)
+        return launch(train_rank, n, args=(opt,), devices=devices, threads=threads)
+    return train(opt)
+
+
+def train_rank(opt: Options) -> dict:
+    """One rank of a launched run (parallel.launch has joined the group):
+    its schedule's epoch and steps at the end, and a digest of its weights
+    (every rank's must be the same)."""
+    trainer, _ = train(opt)
+    sched = trainer.schedule
+    return {"epoch": sched.epoch, "total_steps": sched.total_steps,
+            "digest": weights_digest(trainer.gen, trainer.engine)}
 
 
 def train(opt: Options, dataset=None, flow_fn=None):
@@ -57,26 +85,33 @@ def train(opt: Options, dataset=None, flow_fn=None):
 
     `dataset` (default: create_dataset(opt)) yields TemporalDataset's items;
     `flow_fn` (default: FlowNet2, or zero flow under --no_flow) computes
-    the reference flow, as Trainer takes it."""
+    the reference flow, as Trainer takes it. As one rank of a data axis
+    (--n_devices N, a process group of N) it draws the same global batches
+    as one process would and trains on its rows; rank 0 alone prints,
+    plots, writes the visuals and saves, the others wait at a barrier after
+    each save; a resume or warm-start restores every rank."""
     if opt.debug:
         opt = opt.replace(display_freq=1, print_freq=1, nThreads=1)
     device = require_device("cuda" if opt.gpu_ids else "cpu")
     if dataset is None:
         dataset = create_dataset(opt)
     loader = PrefetchLoader(dataset, opt)
-    print(f"#training videos = {len(loader)}")
     if flow_fn is None and not opt.effective_no_flow:
         flow_fn = _build_flow_fn(opt, device)
 
     trainer = Trainer(opt, flow_fn=flow_fn, device=device)
+    lead = trainer.mesh is None or trainer.mesh.rank == 0
+    if lead:
+        print(f"#training videos = {len(loader)}")
     sched = trainer.schedule
     sched.seq_len_max = getattr(dataset, "seq_len_max", 128)
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt) if lead else None
     state = trainer.init_state()
     if opt.continue_train and checkpoint_exists(opt):
         state, sched = restore_checkpoint(opt, state, sched)
-        visualizer.vis_print(
-            f"resumed at epoch {sched.epoch}, n_frames_total {sched.n_frames_total}")
+        if lead:
+            visualizer.vis_print(
+                f"resumed at epoch {sched.epoch}, n_frames_total {sched.n_frames_total}")
     elif opt.load_pretrain:
         state = load_pretrain(opt, state)
 
@@ -89,7 +124,10 @@ def train(opt: Options, dataset=None, flow_fn=None):
     def save(tag: str):
         if recent:
             refresh_batch_stats(trainer, state, recent, n_batches=len(recent))
-        save_checkpoint(opt, state, sched, tag)
+        if lead:
+            save_checkpoint(opt, state, sched, tag)
+        if trainer.mesh is not None:
+            dist.barrier()
 
     total_epochs = opt.niter + opt.niter_decay
     while sched.epoch <= total_epochs:
@@ -105,22 +143,23 @@ def train(opt: Options, dataset=None, flow_fn=None):
             state, losses = trainer.train_clip(state, *clip)
             recent = recent[-3:] + [clip]
 
-            if sched.total_steps % opt.print_freq < opt.batchSize:
+            if lead and sched.total_steps % opt.print_freq < opt.batchSize:
                 visualizer.print_current_errors(epoch, idx, losses, time.time() - iter_start)
                 visualizer.plot_current_errors(losses, sched.total_steps)
-            if sched.total_steps % opt.display_freq < opt.batchSize:
+            if lead and sched.total_steps % opt.display_freq < opt.batchSize:
                 dump_visuals(opt, trainer, visualizer, epoch, sched.total_steps)
             if sched.total_steps % opt.save_latest_freq < opt.batchSize:
                 save("latest")
-            if opt.debug and device.type == "cuda":
+            if lead and opt.debug and device.type == "cuda":
                 index = torch.cuda.current_device() if device.index is None else device.index
                 st = device_memory_stats()[f"cuda:{index}"]
                 print(f"  {device}: {st['bytes_in_use'] / 1e9:.2f} / "
                       f"{st['bytes_limit'] / 1e9:.2f} GB")
 
-        visualizer.vis_print(
-            f"End of epoch {epoch} / {total_epochs} \t "
-            f"Time Taken: {time.time() - epoch_start:.0f} sec")
+        if lead:
+            visualizer.vis_print(
+                f"End of epoch {epoch} / {total_epochs} \t "
+                f"Time Taken: {time.time() - epoch_start:.0f} sec")
         save("latest")
         if epoch % opt.save_epoch_freq == 0:
             save(str(epoch))
