@@ -122,7 +122,21 @@ non-zero):
      state after chunk 1); ms a chunk per rank, each gradient bucket's
      all-reduce ms and bytes, peak memory per rank; the ranks send their
      launch counts and kernel call shapes back for 3b. Two ranks on one
-     card give no scaling figure.
+     card give no scaling figure;
+  13. the model axis for serving (parallel/halo.py, --n_devices 2 on
+     InferenceEngine): the flagship configuration at its full 2048x1024
+     width on two gloo ranks on this one card, each on its 1024 columns,
+     through generate_clip_raw and the step loop on a 6-frame clip: the
+     ranks' whole frames within SHARD_TOL of the unsharded engine's (same
+     seed) and equal to each other bit for bit; every respair, conv7 and
+     warp_blend launch of the frames in its column-halo mode (45 / 21 / 3 a
+     frame a rank), their calls sent back for 3b; each mode bit for bit
+     with the unsharded call on the whole tensor at two flagship shapes
+     (one for the warp) and both timed; ms a frame per rank of both entry
+     points, the halo exchanges and gathers and their bytes a frame, the
+     ms of one exchange and one gather at three flagship shapes, peak
+     memory per rank, and tools/shard_serve_bench.py's A / B / C (2 ranks
+     on this card). Two ranks on one card give no scaling figure.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -133,6 +147,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -172,7 +187,7 @@ from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator  # noqa: E40
 from vid2vid_tpu_torch.models.inference import InferenceEngine  # noqa: E402
 from vid2vid_tpu_torch.nn.layers import ReflectConv7, init_weights  # noqa: E402
 from vid2vid_tpu_torch.nn.pix2pixhd import LocalEnhancer  # noqa: E402
-from vid2vid_tpu_torch.parallel import launch, mesh  # noqa: E402
+from vid2vid_tpu_torch.parallel import halo, launch, mesh  # noqa: E402
 from vid2vid_tpu_torch.parallel.workers import deterministic_algorithms, run_chunks  # noqa: E402
 from vid2vid_tpu_torch.ops.conv3 import (  # noqa: E402
     conv3_fused_padded,
@@ -184,6 +199,8 @@ from vid2vid_tpu_torch.ops.conv3 import (  # noqa: E402
 from vid2vid_tpu_torch.ops.conv7 import (  # noqa: E402
     CUDA_CORES,
     TENSOR_CORES,
+    conv7_halo,
+    conv7_halo_plain,
     conv7_padded,
     conv7_plain,
     conv7_reflect,
@@ -213,13 +230,20 @@ from vid2vid_tpu_torch.ops.correlation import (  # noqa: E402
     correlation_taps,
     f2_stagings,
 )
-from vid2vid_tpu_torch.ops.respair import respair, respair_plain  # noqa: E402
+from vid2vid_tpu_torch.ops.respair import (  # noqa: E402
+    respair,
+    respair_halo,
+    respair_halo_plain,
+    respair_plain,
+)
 from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
     flow_warp,
     flow_warp_backward_plain,
     flow_warp_bwd,
     flow_warp_plain,
     warp_blend,
+    warp_blend_at,
+    warp_blend_at_plain,
     warp_blend_backward_plain,
     warp_blend_bwd,
     warp_blend_plain,
@@ -228,7 +252,7 @@ from vid2vid_tpu_torch.train.checkpoints import (  # noqa: E402
     restore_checkpoint,
     schedule_fields,
 )
-from vid2vid_tpu_torch.tools import export, train_ledger  # noqa: E402
+from vid2vid_tpu_torch.tools import export, shard_serve_bench, train_ledger  # noqa: E402
 from vid2vid_tpu_torch.tools.train_ledger import RECIPE as TRAIN_RECIPE  # noqa: E402
 from vid2vid_tpu_torch.train.loop import Trainer  # noqa: E402
 from vid2vid_tpu_torch.utils.profiling import (  # noqa: E402
@@ -370,7 +394,10 @@ PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
          "flow_warp_bwd": flow_warp_backward_plain,
          "conv7": conv7_reflect_plain, "conv3": conv3_plain,
          "conv3_fused": conv3_fused_plain}
-PLAIN_OF = {conv7_padded: conv7_plain}  # the plain version of a second entry
+# the plain versions of second entries: conv7's pre-padded entry, and the
+# column-halo modes of a width shard (phase 13)
+PLAIN_OF = {conv7_padded: conv7_plain, conv7_halo: conv7_halo_plain,
+            respair_halo: respair_halo_plain, warp_blend_at: warp_blend_at_plain}
 # the wrappers that their own module calls, from an autograd backward: the
 # path logs their calls there too (kernel_call_shapes)
 CALLED_IN_THEIR_MODULE = {"correlation_bwd"}
@@ -609,10 +636,31 @@ def case_at(name, shapes, dtype, gen):
     raise NotImplementedError(f"no seeded case for {name}: add one to case_at")
 
 
+def halo_case(fn, shapes, dtype, gen):
+    """Seeded operands of a column-halo mode's call (phase 13) at the
+    shapes and columns a path gave it; None for any other wrapper."""
+    if fn is conv7_halo:  # (x_in, w, bias, xoff, width, edges)
+        (b, ci, h, w_in), co = shapes[0], shapes[1][0]
+        return (*conv7_case(ci, co, h, w_in, dtype, gen, b), *shapes[-3:])
+    if fn is respair_halo:  # (x, x_in, xoff, edges, k0, ab0, k1, ab1)
+        (b, c, h, w), w_in, xoff, edges = shapes[0], shapes[1][3], shapes[2], shapes[3]
+        x_in, k0, ab0, k1, ab1 = respair_case(c, h, w_in, dtype, gen, b)
+        return x_in[..., xoff : xoff + w].contiguous(), x_in, xoff, edges, k0, ab0, k1, ab1
+    if fn is warp_blend_at:  # (raw, prev, flow, weight, x0)
+        (b, c, h, w), wp, x0 = shapes[0], shapes[1][3], shapes[-1]
+        raw, prev, flow, weight = warp_case(h, wp, dtype, gen, b, c)
+        raw, flow, weight = (t[..., x0 : x0 + w].contiguous() for t in (raw, flow, weight))
+        return raw, prev, flow, weight, x0
+    return None
+
+
 def call_key(fn, args) -> tuple:
-    """(wrapper, shapes of the tensor arguments, dtype of the first)."""
+    """(wrapper, shapes of the tensor arguments with the int arguments in
+    their places (a column-halo mode's columns), dtype of the first
+    tensor)."""
     tensors = [a for a in args if torch.is_tensor(a)]
-    return fn, tuple(tuple(t.shape) for t in tensors), tensors[0].dtype
+    return fn, tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args
+                     if torch.is_tensor(a) or type(a) is int), tensors[0].dtype
 
 
 class LoggedCall:
@@ -976,7 +1024,7 @@ def check_path_shapes(path: str, seen: dict, errs: dict, gen: torch.Generator) -
     for (name, fn, shapes, dtype), calls in seen.items():
         if (fn, shapes, dtype) in CHECKED:
             continue
-        args = case_at(name, shapes, dtype, gen)
+        args = halo_case(fn, shapes, dtype, gen) or case_at(name, shapes, dtype, gen)
         e = compare(name, args, dtype, fn, PLAIN_OF.get(fn))
         record_err(errs, name, dtype, e, shapes[0], path=path, calls=calls)
         del args
@@ -2152,6 +2200,281 @@ def ddp_train_path(card: str, seen: dict) -> dict:
         G_grad_norm_one_process=",".join(f"{c['G_grad_norm']:.6g}" for c in ref2["losses"]),
         launches=json.dumps(dict(launches)), scaling="none: two ranks share one card",
         card=repr(card))
+    return {name: launches[name] for name in COUNTERS}
+
+
+# ------------------------------------------------- 13. the model axis (serving)
+
+# phase 13: the flagship served on SHARD_RANKS gloo ranks on this one card
+SHARD_RANKS, SHARD_FRAMES, SHARD_DEADLINE_S = 2, 6, 600.0
+# a flagship frame's launches, on every rank, all in the column-halo modes
+SHARD_PER_FRAME = {"respair": 45, "conv7": 21, "warp_blend": 3}
+# the sharded engine's frames against the unsharded engine's from the same
+# seed: the kernels' column-halo modes are bit for bit with their unsharded
+# calls, but cuDNN picks its own algorithms for the narrower down and up
+# convs, so the frames may differ by bf16 rounding in another order, as
+# generate_clip_raw's against the step loop's: one bf16 ulp of a frame
+SHARD_TOL = CLIP_TOL
+# one flagship shape each at which a column-halo mode is held bit for bit
+# to the unsharded call on the whole tensor, split over SHARD_RANKS, and
+# both timed: respair (C, H, W) at the coarsest trunk and an enhancer's;
+# conv7 (Ci, Co, H, W) at the coarsest scale's label stem and the finest
+# scale's image head; warp_blend (H, W) at the finest scale
+HALO_SHAPES = {"respair": [(1024, 32, 64), (64, 512, 1024)],
+               "conv7": [(108, 128, 256, 512), (32, 3, 1024, 2048)],
+               "warp_blend": [(1024, 2048)]}
+# the column-halo modes' times (halo_kernel_checks), for the kernels' JSON
+HALO_MS: dict = {}
+HALO_WRAPPERS = {"respair": respair_halo, "conv7": conv7_halo, "warp_blend": warp_blend_at}
+
+
+def whole_strips(x: torch.Tensor, sh: halo.WidthShard, left: int, right: int):
+    """What halo.exchange gives shard `sh` of x, cut from the whole x."""
+    lstrip = None if sh.left_edge else x[..., sh.x0 - left : sh.x0]
+    rstrip = None if sh.right_edge else x[..., sh.x0 + sh.width : sh.x0 + sh.width + right]
+    return lstrip, rstrip
+
+
+def halo_calls(name: str, shape, gen) -> tuple:
+    """(the unsharded call, each shard's column-halo call) of a kernel at a
+    flagship shape in bf16, as closures over seeded operands."""
+    n = SHARD_RANKS
+    if name == "respair":
+        c, h, w = shape
+        x, k0, ab0, k1, ab1 = respair_case(c, h, w, torch.bfloat16, gen)
+        packed = (pack_for_kernel(k0), pack_for_kernel(k1))
+        shards = []
+        for sh in (halo.make_shard(i, n, w) for i in range(n)):
+            xl = sh.local(x).contiguous()
+            x_in, xoff = halo.attach(xl, *whole_strips(x, sh, 2, 2))
+            shards.append((sh, functools.partial(respair_halo, xl, x_in, xoff, sh.edges, k0, ab0,
+                                                 k1, ab1, packed=packed)))
+        return functools.partial(respair, x, k0, ab0, k1, ab1, packed=packed), shards
+    if name == "conv7":
+        ci, co, h, w = shape
+        x, wt, bias = conv7_case(ci, co, h, w, torch.bfloat16, gen)
+        packed = pack_for_kernel(wt)
+        shards = []
+        for sh in (halo.make_shard(i, n, w) for i in range(n)):
+            x_in, xoff = halo.attach(sh.local(x).contiguous(), *whole_strips(x, sh, 3, 3))
+            shards.append((sh, functools.partial(conv7_halo, x_in, wt, bias, xoff, sh.width,
+                                                 sh.edges, packed=packed)))
+        return functools.partial(conv7_reflect, x, wt, bias, packed=packed), shards
+    h, w = shape
+    raw, prev, flow, weight = warp_case(h, w, torch.bfloat16, gen)
+    shards = [(sh, functools.partial(warp_blend_at, sh.local(raw).contiguous(), prev,
+                                     sh.local(flow).contiguous(),
+                                     sh.local(weight).contiguous(), sh.x0))
+              for sh in (halo.make_shard(i, n, w) for i in range(n))]
+    return functools.partial(warp_blend, raw, prev, flow, weight), shards
+
+
+def halo_kernel_checks(gen: torch.Generator) -> None:
+    """Phase 13: at each HALO_SHAPES shape, each shard's column-halo call
+    against the unsharded call on the whole tensor, bit for bit (raises
+    otherwise), and the ms of both (CUDA events, time_ms), into HALO_MS."""
+    for name, shapes in HALO_SHAPES.items():
+        for shape in shapes:
+            whole, shards = halo_calls(name, shape, gen)
+            want = whole()
+            for sh, call in shards:
+                if not torch.equal(call(), sh.local(want)):
+                    raise AssertionError(f"{name} {shape}: shard {sh.index}'s column-halo call "
+                                         "differs from the unsharded call")
+            ms_whole = time_ms(lambda: whole(), ())
+            ms_shards = [time_ms(lambda c=call: c(), ()) for _, call in shards]
+            HALO_MS.setdefault(name, []).append(
+                {"shape": list(shape), "ms_unsharded": ms_whole, "ms_shards": ms_shards})
+            say("halo_mode", kernel=name, shape="x".join(map(str, shape)), dtype="bfloat16",
+                shards=SHARD_RANKS, bit_for_bit_with_unsharded=True,
+                ms_unsharded=f"{ms_whole:.4f}",
+                ms_shards=",".join(f"{v:.4f}" for v in ms_shards),
+                shards_over_unsharded=f"{sum(ms_shards) / ms_whole:.4f}")
+            del want, shards, whole
+    torch.cuda.empty_cache()
+
+
+def time_halo_collectives(shard: halo.WidthShard, dev: torch.device, n: int = 20) -> dict:
+    """Phase 13, after the runs: the ms of one halo exchange of a rank's
+    strips at the flagship's coarsest respair (C 1024, 32 rows, 2 + 2
+    columns) and finest label stem (C 108, 1024 rows, 3 + 3 columns), and of
+    one gather of a finest frame's columns, each the mean of n calls
+    between a barrier and a synchronize (bf16)."""
+    cases = {"exchange_respair_1024x32": ((1, 1024, 32, shard.width // 32), 2),
+             "exchange_conv7_108x1024": ((1, 108, 1024, shard.width), 3),
+             "gather_frame_3x1024": ((1, 3, 1024, shard.width), 0)}
+    out = {}
+    for name, (shape, h) in cases.items():
+        x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+        sh = shard.for_width(shape[-1])
+        call = ((lambda: halo.exchange(x, sh, h, h)) if h
+                else (lambda: halo.gather_width(x, sh.n, sh.group)))
+        call()
+        torch.distributed.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - t0) * 1e3 / n
+    return out
+
+
+def shard_rank(labels: np.ndarray, inst: np.ndarray, device: str) -> dict:
+    """One rank of phase 13, in a process started by parallel.launch (this
+    script imported anew): the flagship InferenceEngine with --n_devices
+    the world, rank 0's generator seeded as the parent's and the others'
+    otherwise (the engine broadcasts rank 0's). After a warm-up of both
+    entry points, one counted run of each (launch counts and the model
+    axis's collectives from zero, kernel calls logged by shape; the frames
+    in bf16, which they are before their cast to f32), then both timed in
+    turns (clip, steps, steps, clip) with the peak memory."""
+    dist = torch.distributed
+    dist.barrier()
+    dev = torch.device(device)
+    world = dist.get_world_size()
+    eng = InferenceEngine(Options(**FLAGSHIP, n_devices=world), device=dev)
+    seed_net(eng.gen, 0 if dist.get_rank() == 0 else 1)
+    labels, inst = torch.from_numpy(labels), torch.from_numpy(inst)
+    (h, w), tg = labels.shape[-2:], eng.opt.n_frames_G
+    n = labels.shape[1] - tg + 1
+    zero = eng.initial_state(1, h, w)
+
+    def clip():
+        return eng.generate_clip_raw(labels, inst, zero)[0].fake
+
+    def steps():
+        state, fakes = zero, []
+        for t in range(n):
+            fake, state = eng.step(labels[:, t : t + tg], inst[:, t : t + tg], state)
+            fakes.append(fake)
+        return torch.stack(fakes, 1)
+
+    clip()
+    steps()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    index = {id(fn): i for fns in COUNTERS.values() for i, fn in enumerate(fns)}
+    out = {}
+    for what, run in (("clip", clip), ("steps", steps)):
+        reset_launches()
+        halo.reset_counts()
+        with kernel_call_shapes() as seen:
+            frames = run()
+            torch.cuda.synchronize(dev)
+        out[what] = dict(
+            frames=frames.to("cpu", torch.bfloat16), launches=read_launches(),
+            halo_launches={k: fn.launches for k, fn in HALO_WRAPPERS.items()},
+            counts=dict(halo.COUNTS),
+            seen=[(name, index[id(fn)], shapes, str(dtype), calls)
+                  for (name, fn, shapes, dtype), calls in seen.items()])
+        del frames
+    ms = {"clip": [], "steps": []}
+    for what in ("clip", "steps", "steps", "clip"):
+        t0 = time.perf_counter()
+        (clip if what == "clip" else steps)()
+        torch.cuda.synchronize(dev)
+        ms[what].append((time.perf_counter() - t0) * 1e3 / n)
+    out.update(ms=ms, peak=torch.cuda.max_memory_allocated(dev),
+               columns=(eng.shard(w).x0, eng.shard(w).width),
+               collective_ms=time_halo_collectives(eng.shard(w), dev))
+    return out
+
+
+def shard_serve_path(card: str, seen: dict) -> dict:
+    """Phase 13: the model axis for serving (parallel/halo.py,
+    --n_devices 2 on InferenceEngine): the flagship configuration at its
+    full 2048x1024 width on SHARD_RANKS ranks over gloo on this one card
+    (NCCL refuses two ranks on one device), each on its 1024 columns of
+    every frame, through generate_clip_raw and the step loop on a
+    SHARD_FRAMES-frame clip:
+      - each rank's whole frames within SHARD_TOL of the unsharded engine's
+        from the same seed (run here first), and the ranks' frames equal
+        bit for bit;
+      - every respair, conv7 and warp_blend launch of the ranks' frames in
+        its column-halo mode (45, 21 and 3 a frame a rank), their calls'
+        shapes and columns sent back for 3b, and each mode bit for bit
+        with the unsharded call on the whole tensor at HALO_SHAPES
+        (halo_kernel_checks, with both timed);
+      - ms a frame per rank of both entry points, the model axis's
+        collectives and bytes a frame, peak memory per rank, and
+        tools/shard_serve_bench.py's A / B / C at its own configuration
+        (2 ranks on this card).
+    Two ranks share one card over gloo: the times measure correctness and
+    host overhead, not scaling. Returns the launch counts of both ranks'
+    counted clip runs, summed."""
+    opt = Options(**FLAGSHIP)
+    (h, w), n = CITY_HW, SHARD_FRAMES
+    labels, inst = label_stream(opt, n, h, w)
+    eng = seeded_engine(opt, DEV, seed=0)
+    zero = eng.initial_state(1, h, w)
+    want_clip = eng.generate_clip_raw(labels, inst, zero)[0].fake.cpu()
+    state, fakes = zero, []
+    for t in range(n):
+        fake, state = eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state)
+        fakes.append(fake.cpu())
+    want = {"clip": want_clip, "steps": torch.stack(fakes, 1)}
+    del eng, zero, state, fakes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(shard_rank, SHARD_RANKS, args=(labels.numpy(), inst.numpy(), str(DEV)),
+                   devices=[DEV] * SHARD_RANKS, backend="gloo", deadline_s=SHARD_DEADLINE_S)
+    launch_s = time.perf_counter() - t0
+    errs = {}
+    for what in ("clip", "steps"):
+        first = ranks[0][what]["frames"]
+        check_frames(first.float().unbind(1), (1, 3, h, w), f"shard_serve {what}")
+        for r in ranks[1:]:
+            if not torch.equal(r[what]["frames"], first):
+                raise AssertionError(f"shard_serve {what}: the ranks' frames differ")
+        ref = want[what].float()
+        err = (first.float() - ref).abs()
+        if bool((err > SHARD_TOL["atol"] + SHARD_TOL["rtol"] * ref.abs()).any()):
+            raise AssertionError(f"shard_serve {what}: max abs diff {float(err.max())} from the "
+                                 f"unsharded engine, outside {SHARD_TOL}")
+        errs[what] = float(err.max())
+    launches = collections.Counter()
+    per_frame = SHARD_PER_FRAME
+    for rank in ranks:
+        for what in ("clip", "steps"):
+            got = rank[what]
+            for name, k in per_frame.items():
+                if got["halo_launches"][name] != k * n or got["launches"][name] != k * n:
+                    raise AssertionError(
+                        f"shard_serve {what}: {name} launched {got['launches'][name]} times, "
+                        f"{got['halo_launches'][name]} in its column-halo mode; want {k * n} "
+                        "all in it")
+            for name, i, shapes, dtype, calls in got["seen"]:
+                key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
+                seen[key] = seen.get(key, 0) + calls
+        launches.update(rank["clip"]["launches"])
+    halo_kernel_checks(torch.Generator().manual_seed(13))
+    bench = shard_serve_bench.run(SHARD_RANKS, reps=5, device="cuda",
+                                  ranks_per_card=SHARD_RANKS)
+    if bench["mean_abs_delta"] >= 1e-4 or not bench["ranks_equal"]:
+        raise AssertionError(f"shard_serve_bench: sharded vs single {bench}")
+    counts = [{k: v / n for k, v in r["clip"]["counts"].items()} for r in ranks]
+    say("shard_serve_path", config="label2city 2048x1024 3-scale ngf128 fg bf16 (the "
+        f"flagship), --n_devices {SHARD_RANKS}: data 1 x model {SHARD_RANKS}, gloo ranks on "
+        f"this one card, {n} frames", launch_s=f"{launch_s:.1f}",
+        columns=json.dumps([r["columns"] for r in ranks]),
+        frames_max_abs_diff_vs_unsharded_clip=f"{errs['clip']:.3g}",
+        frames_max_abs_diff_vs_unsharded_steps=f"{errs['steps']:.3g}", bound=SHARD_TOL,
+        ranks_equal_bit_for_bit=True,
+        clip_ms_per_frame_ranks=json.dumps([[round(v, 2) for v in r["ms"]["clip"]]
+                                            for r in ranks]),
+        step_ms_per_frame_ranks=json.dumps([[round(v, 2) for v in r["ms"]["steps"]]
+                                            for r in ranks]),
+        order="clip,steps,steps,clip",
+        collectives_per_frame_ranks=json.dumps(counts),
+        collective_ms_ranks=json.dumps([{k: round(v, 4) for k, v in r["collective_ms"].items()}
+                                        for r in ranks]),
+        peak_mem_gib_ranks=",".join(f"{r['peak'] / 2**30:.3f}" for r in ranks),
+        halo_launches_per_rank=json.dumps(ranks[0]["clip"]["halo_launches"]),
+        scaling="none: two ranks share one card over gloo", card=repr(card))
+    say("shard_serve_bench", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
+                                for k, v in bench.items()},
+        ranks_per_card=SHARD_RANKS, card=repr(card))
     return {name: launches[name] for name in COUNTERS}
 
 
@@ -3459,6 +3782,8 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                       "operands and the cost volume's cast back (forward), the "
                       "cotangent's and the two gradients' (backward), beside the "
                       "kernels at that shape")
+        if name in ("respair", "conv7_bf16", "warp_blend"):  # phase 13, bf16
+            extra["halo_mode_ms"] = HALO_MS.get(name.split("_bf16")[0])
         if name == "conv7":
             extra["max_abs_err_f32_other_body"] = OTHER_BODY_ERRS.get(name)
             extra["bound_ms_ffma"] = bound_ms(*work[name], F32_FLOPS)[0]
@@ -3506,9 +3831,10 @@ def main() -> None:
                       ("face_stream", face_stream_path), ("pose_stream", pose_stream_path),
                       ("pose_train", pose_train_path), ("flow_train", flow_train_path),
                       ("export", export_path), ("ledger", ledger_path),
-                      ("ddp_train", ddp_train_path)):
+                      ("ddp_train", ddp_train_path), ("shard_serve", shard_serve_path)):
         with kernel_call_shapes() as seen:
-            launches[path] = run(card, seen) if path == "ddp_train" else run(card)
+            launches[path] = (run(card, seen) if path in ("ddp_train", "shard_serve")
+                              else run(card))
         torch.cuda.empty_cache()
         check_path_shapes(path, seen, errs, gen)
         torch.cuda.empty_cache()

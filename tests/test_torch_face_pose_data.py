@@ -126,12 +126,12 @@ def test_fill_poly_takes_the_clipped_x_of_an_edge_on_one_row(pts):
 
 
 def test_fill_poly_outside_the_image_differs_only_on_its_border():
-    """With vertices outside the image, the port still fills a few pixels
-    of the image's last column that cv2 leaves (18 of 853,338 here): the
-    stated bound is that every differing pixel lies on the border and that
-    they are under 0.01% of the pixels."""
+    """With vertices outside the image the port equals cv2 pixel for pixel:
+    it differs nowhere, the border included (until the port put an edge
+    clipped at the right border just right of the image past its clipped
+    ends, it filled 18 of these 853,338 pixels in the last column that cv2
+    leaves)."""
     rng = np.random.default_rng(1)
-    n_diff = n_pix = 0
     for _ in range(300):
         h, w = (int(v) for v in rng.integers(6, 100, 2))
         n = int(rng.integers(2, 10))
@@ -139,11 +139,23 @@ def test_fill_poly_outside_the_image_differs_only_on_its_border():
         want = np.zeros((h, w), np.uint8)
         cv2.fillPoly(want, pts=[pts], color=1)
         got = raster.fill_poly(np.zeros((h, w), np.uint8), pts, 1)
-        ys, xs = np.nonzero(got != want)
-        assert np.all((ys == 0) | (ys == h - 1) | (xs == 0) | (xs == w - 1))
-        n_diff += len(ys)
-        n_pix += h * w
-    assert n_diff / n_pix < 1e-4
+        np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w} {pts.tolist()}")
+
+
+@pytest.mark.parametrize("hw,pts", [
+    ((78, 41), [[43, 60], [20, -9]]),
+    ((96, 29), [[55, 30], [44, 121], [21, 57], [-26, 59], [19, 66]]),
+    ((42, 85), [[-4, 4], [-4, -27], [107, 40], [89, 57], [77, -8]]),
+])
+def test_fill_poly_leaves_the_last_column_past_a_right_exit(hw, pts):
+    """An edge that leaves the image through its right border fills
+    nothing in the last column on the rows past its clipped end, where its
+    extrapolated x lies in [w - 1, w - 1/2) (cv2 5.0): those rows' spans
+    end at the border."""
+    pts = np.array(pts, np.int32)
+    want = np.zeros(hw, np.uint8)
+    cv2.fillPoly(want, pts=[pts], color=1)
+    np.testing.assert_array_equal(raster.fill_poly(np.zeros(hw, np.uint8), pts, 1), want)
 
 
 @pytest.mark.parametrize("blur", [False, True])

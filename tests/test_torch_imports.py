@@ -18,10 +18,16 @@ from vid2vid_tpu import config as jax_config
 from vid2vid_tpu.utils import torch_import
 from vid2vid_tpu_torch import config
 from vid2vid_tpu_torch.ops.conv3 import conv3_fused_padded, conv3_padded
-from vid2vid_tpu_torch.ops.conv7 import conv7_padded, conv7_reflect
+from vid2vid_tpu_torch.ops.conv7 import conv7_halo, conv7_padded, conv7_reflect
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_bwd
-from vid2vid_tpu_torch.ops.respair import respair
-from vid2vid_tpu_torch.ops.warp import flow_warp, flow_warp_bwd, warp_blend, warp_blend_bwd
+from vid2vid_tpu_torch.ops.respair import respair, respair_halo
+from vid2vid_tpu_torch.ops.warp import (
+    flow_warp,
+    flow_warp_bwd,
+    warp_blend,
+    warp_blend_at,
+    warp_blend_bwd,
+)
 from vid2vid_tpu_torch.utils import mappings
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,6 +112,7 @@ def test_import_loads_no_jax_pil_or_build():
         "vid2vid_tpu_torch.utils.profiling", "vid2vid_tpu_torch.tools.export",
         "vid2vid_tpu_torch.tools.train_ledger", "vid2vid_tpu_torch.parallel",
         "vid2vid_tpu_torch.parallel.mesh", "vid2vid_tpu_torch.parallel.workers",
+        "vid2vid_tpu_torch.parallel.halo", "vid2vid_tpu_torch.tools.shard_serve_bench",
     ):
         assert name in info["modules"]
     assert info["loaded"] == []
@@ -191,6 +198,27 @@ def test_conv_wrappers_never_take_the_plain_path_off_cpu():
                  lambda: conv3_padded(x, w3), lambda: conv3_fused_padded(x, w3, ab, ab),
                  lambda: conv3_fused_padded(x, w3, ab, ab, torch.zeros(1, 2, 6, 6,
                                                                        device=device), True)):
+        with pytest.raises(ValueError, match="not CUDA"):
+            call()
+    assert [fn.launches for fn in counters] == before
+
+
+def test_halo_modes_never_take_the_plain_path_off_cpu():
+    """The column-halo modes of a width shard (conv7_halo, respair_halo,
+    warp_blend_at) on a non-CPU tensor go to the operators' checks, which
+    reject a non-CUDA device; no launch is counted."""
+    device = "meta"
+    x, x_in = torch.zeros(1, 4, 6, 8, device=device), torch.zeros(1, 4, 6, 16, device=device)
+    w7, k = torch.zeros(2, 4, 7, 7, device=device), torch.zeros(4, 4, 3, 3, device=device)
+    ab = (torch.ones(4, device=device), torch.zeros(4, device=device))
+    img = torch.zeros(1, 3, 6, 8, device=device)
+    counters = (conv7_halo, respair_halo, warp_blend_at)
+    before = [fn.launches for fn in counters]
+    for call in (lambda: conv7_halo(x_in, w7, ab[0][:2], 8, 8, 3),
+                 lambda: respair_halo(x, x_in, 8, 2, k, ab, k, ab),
+                 lambda: warp_blend_at(img, torch.zeros(1, 3, 6, 16, device=device),
+                                       torch.zeros(1, 2, 6, 8, device=device),
+                                       torch.zeros(1, 1, 6, 8, device=device), 8)):
         with pytest.raises(ValueError, match="not CUDA"):
             call()
     assert [fn.launches for fn in counters] == before

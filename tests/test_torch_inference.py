@@ -122,13 +122,15 @@ def test_bf16_policy(engines):
 
 
 def test_unported_first_frame_strategies_raise():
-    """--n_devices > 1 is still unported; the single-image generator (the
-    label2city 512 registry: GlobalGenerator, ngf 64, 3 downsamples) now
-    builds, in f32 and eval mode on the engine's device."""
+    """--n_devices > 1 is ported (the model axis): without a process group
+    of that many ranks the engine raises and says how to start them; the
+    single-image generator (the label2city 512 registry: GlobalGenerator,
+    ngf 64, 3 downsamples) builds, in f32 and eval mode on the engine's
+    device."""
     eng = InferenceEngine(OPT, device="cpu")
     g = eng.build_single_g()
     assert type(g).__name__ == "GlobalGenerator" and not eng.single_needs_feat
     assert not g.training and next(g.parameters()).dtype == torch.float32
     assert g.model[1].weight.shape == (64, OPT.label_nc, 7, 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(OPT.replace(n_devices=2))
+    with pytest.raises(RuntimeError, match="no process group of 2 ranks.*torchrun"):
+        InferenceEngine(OPT.replace(n_devices=2), device="cpu")

@@ -1,5 +1,6 @@
-"""Entry functions for the ranks that tests/test_torch_parallel.py and
-tests/test_torch_cuda.py start through vid2vid_tpu_torch.parallel.launch.
+"""Entry functions for the ranks that tests/test_torch_parallel.py,
+tests/test_torch_shard_serve.py and tests/test_torch_cuda.py start through
+vid2vid_tpu_torch.parallel.launch.
 
 A spawned rank imports the module of the function it runs, so this one
 imports torch and the port and nothing of JAX (a test module does). Each
@@ -10,6 +11,8 @@ function takes numpy arrays or CPU tensors and returns CPU values.
   - `batch_norm_rows`: one synchronised BatchNorm2d forward and backward on
     this rank's rows;
   - `train_cli_rank`: train_cli's rank (train_cli.train_rank);
+  - `shard_serve`: the width-sharded InferenceEngine (the model axis)
+    through generate_clip_raw and the step loop, and the test CLI's rank;
   - `loaded_packages`: what the rank has imported;
   - `run_all`: several of these in one launch, in order.
 
@@ -18,7 +21,11 @@ test can show that its bounds see it: `unsynced_norms` (batch norm on the
 rank's rows alone), `summed_gradients` (the gradients summed over the ranks
 instead of averaged: train/steps.py's `all_reduce_mean` replaced for the
 call), `face_box_per_rank` (each rank crops the face at its own box) and,
-for the CLI, `rank0_rows` (every rank trains on rank 0's rows).
+for the CLI, `rank0_rows` (every rank trains on rank 0's rows). The model
+axis's (`SHARD_FAULTS`): `halo_wrong_side` (each rank sends its neighbours
+the edge columns of its other side), `reflect_inner_edges` (every shard
+reflects at its inner sides as at the image's edges) and `warp_no_offset`
+(the warp samples the whole previous frame at the shard's local columns).
 """
 
 from __future__ import annotations
@@ -29,15 +36,18 @@ import sys
 import torch
 import torch.distributed as dist
 
-from vid2vid_tpu_torch import train_cli
+from vid2vid_tpu_torch import test_cli, train_cli
 from vid2vid_tpu_torch.config import Options
+from vid2vid_tpu_torch.models.inference import InferenceEngine
+from vid2vid_tpu_torch.nn import composite
 from vid2vid_tpu_torch.nn.layers import BatchNorm2d, sync_batch_norm
-from vid2vid_tpu_torch.parallel import mesh
+from vid2vid_tpu_torch.parallel import halo, mesh
 from vid2vid_tpu_torch.parallel.workers import deterministic_algorithms, run_chunks
 from vid2vid_tpu_torch.train import steps
 from vid2vid_tpu_torch.train.loop import Trainer
 
 FAULTS = ("unsynced_norms", "summed_gradients", "face_box_per_rank")
+SHARD_FAULTS = ("halo_wrong_side", "reflect_inner_edges", "warp_no_offset")
 
 
 def stub_flow(cur: torch.Tensor, prev: torch.Tensor):
@@ -124,6 +134,60 @@ def train_cli_rank(opt: Options, fault: str | None = None) -> dict:
 
         Trainer.local_rows = rank0_rows
     return train_cli.train_rank(opt)
+
+
+def _shard_fault(fault: str) -> None:
+    """Apply one of SHARD_FAULTS in this rank."""
+    if fault == "halo_wrong_side":
+        def wrong_side(x, left, right):
+            w = x.shape[-1]
+            return torch.cat([x[..., w - right:], x[..., :left]], -1).contiguous()
+
+        halo.edge_strips = wrong_side
+    elif fault == "reflect_inner_edges":
+        halo.WidthShard.edges = property(lambda self: halo.BOTH_EDGES)
+    elif fault == "warp_no_offset":
+        at = composite.warp_blend_at
+        composite.warp_blend_at = lambda raw, prev, flow, weight, x0: at(
+            raw, prev, flow, weight, 0)
+    else:
+        raise ValueError(f"unknown shard fault {fault!r}; one of {SHARD_FAULTS}")
+
+
+def shard_serve(opt_kwargs: dict, weights: dict, labels, inst=None, *,
+                fault: str | None = None) -> dict:
+    """A width-sharded InferenceEngine of Options(**opt_kwargs) (its
+    n_devices this launch's world) on the CPU, with the generator's
+    `weights` on rank 0 only (the engine broadcasts them), serving the clip
+    (labels, inst) of T + tG - 1 frames from a zero state: generate_clip_raw
+    ("clip": fake, raw, flow, weight and the state, with the model axis's
+    collectives counted), the step loop over its windows ("steps") and
+    generate_clip on the encoded clip ("encoded": its frames)."""
+    if fault is not None:
+        _shard_fault(fault)
+    eng = InferenceEngine(Options(**opt_kwargs), device="cpu")
+    if torch.distributed.get_rank() == 0:
+        eng.load_state_dict({k: _tensor(v) for k, v in weights.items()})
+    labels, inst = _tensor(labels), _tensor(inst)
+    b, _, h, w = labels.shape[:2] + labels.shape[-2:]
+    tg = eng.opt.n_frames_G
+    halo.reset_counts()
+    outs, state = eng.generate_clip_raw(labels, inst, eng.initial_state(b, h, w))
+    counts = dict(halo.COUNTS)
+    steps, st = [], eng.initial_state(b, h, w)
+    for t in range(labels.shape[1] - tg + 1):
+        frame, st = eng.step(labels[:, t : t + tg], None if inst is None else inst[:, t : t + tg],
+                             st)
+        steps.append(frame)
+    encoded = eng.generate_clip(eng.encode(labels, inst), eng.initial_state(b, h, w))[0].fake
+    return {"clip": outs._asdict(), "state": state, "steps": torch.stack(steps, 1),
+            "encoded": encoded, "counts": counts,
+            "columns": (eng.shard(w).x0, eng.shard(w).width)}
+
+
+def test_cli_rank(opt: Options) -> int:
+    """test_cli's rank (test_cli.run_rank)."""
+    return test_cli.run_rank(opt)
 
 
 def loaded_packages() -> list[str]:

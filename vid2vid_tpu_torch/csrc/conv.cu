@@ -45,32 +45,39 @@
 #include "conv_wgmma.cuh"
 
 // 7x7 conv with an optional bias (f32, nullable) -> (B, Co, H, W). reflect:
-// x is (B, Ci, H, W) and reflect-padded by 3 in the addressing; else x is
-// pre-padded, (B, Ci, H+6, W+6). On the tensor cores (every bf16 call; f32
+// x is reflect-padded by 3 in the addressing, its rows w_in long, output
+// column x at input column x + xoff, the columns reflected only on the
+// sides `edges` marks as the image's (common.cuh::Cols; the unsharded call
+// is x (B, Ci, H, W): xoff 0, w_in W, edges 3; a width shard's input
+// carries 3 or more neighbour columns on an inner side); else x is
+// pre-padded, (B, Ci, H+6, W+6), and xoff, w_in, edges are not read. On the tensor cores (every bf16 call; f32
 // with body = kTensorCores) it takes wpk, the packed layout of ops/conv7.py::
 // pack_conv7_weight (bf16) or pack_taps_3xtf32 (f32), and does not read w;
 // on the CUDA cores (f32, body = kCudaCores) w (OIHW).
 extern "C" int v2v_conv7(const void* x, const void* w, const void* wpk,
                          const float* bias, void* out, int B, int Ci, int Co,
-                         int H, int W, int reflect, int dtype, int body,
-                         void* stream) {
+                         int H, int W, int reflect, int xoff, int w_in,
+                         int edges, int dtype, int body, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const v2v::Cols cols =
+      reflect ? v2v::Cols{xoff, w_in, W, edges} : v2v::whole(W, W + 6);
   if (body == v2v::kTensorCores) {
     if (wpk == nullptr) return (int)cudaErrorInvalidValue;
     if (dtype == v2v::kFloat32)
       return v2v::cw::conv7_tf32x3(reflect, x, wpk, bias, out, B, Ci, Co, H, W,
-                                   s);
-    return reflect
-               ? v2v::cw::conv7<false, true>(x, wpk, bias, out, B, Ci, Co, H, W, s)
-               : v2v::cw::conv7<false, false>(x, wpk, bias, out, B, Ci, Co, H, W, s);
+                                   cols, s);
+    return reflect ? v2v::cw::conv7<false, true>(x, wpk, bias, out, B, Ci, Co,
+                                                 H, W, cols, s)
+                   : v2v::cw::conv7<false, false>(x, wpk, bias, out, B, Ci, Co,
+                                                  H, W, cols, s);
   }
   if (body != v2v::kCudaCores || dtype != v2v::kFloat32)
     return (int)cudaErrorInvalidValue;
   if (reflect)
     return v2v::conv<7, true>(x, w, nullptr, bias, nullptr, out, B, Ci, Co, H,
-                              W, 0, dtype, s);
+                              W, cols, 0, dtype, s);
   return v2v::conv<7, false>(x, w, nullptr, bias, nullptr, out, B, Ci, Co, H,
-                             W, 0, dtype, s);
+                             W, cols, 0, dtype, s);
 }
 
 // VALID 3x3 conv of a pre-padded (B, Ci, H+2, W+2) input -> (B, Co, H, W),
@@ -83,12 +90,13 @@ extern "C" int v2v_conv3_fused(const void* xp, const void* w,
                                int Co, int H, int W, int relu, int dtype,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const v2v::Cols cols = v2v::whole(W, W + 2);
   if (dtype == v2v::kFloat32)
     return v2v::cw::conv3_tf32x3(false, xp, w, scale, offset, residual, out, B,
-                                 Ci, Co, H, W, relu, s);
+                                 Ci, Co, H, W, cols, relu, s);
   if (dtype != v2v::kBFloat16) return (int)cudaErrorInvalidValue;
   return v2v::cw::conv3<false, false>(xp, w, scale, offset, residual, out, B,
-                                      Ci, Co, H, W, relu, s);
+                                      Ci, Co, H, W, cols, relu, s);
 }
 
 // The no-epilogue entry.

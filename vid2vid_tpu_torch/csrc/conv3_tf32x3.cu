@@ -10,12 +10,12 @@ namespace cw {
 
 int conv3_tf32x3(bool reflect, const void* in, const void* wpk,
                  const float* scale, const float* offset, const void* residual,
-                 void* out, int B, int Ci, int Co, int H, int W, int relu,
-                 cudaStream_t stream) {
+                 void* out, int B, int Ci, int Co, int H, int W, Cols cols,
+                 int relu, cudaStream_t stream) {
   return reflect ? conv3<true, true>(in, wpk, scale, offset, residual, out, B,
-                                     Ci, Co, H, W, relu, stream)
+                                     Ci, Co, H, W, cols, relu, stream)
                  : conv3<true, false>(in, wpk, scale, offset, residual, out, B,
-                                      Ci, Co, H, W, relu, stream);
+                                      Ci, Co, H, W, cols, relu, stream);
 }
 
 }  // namespace cw

@@ -10,9 +10,10 @@ namespace cw {
 
 int conv7_tf32x3(bool reflect, const void* in, const void* wpk,
                  const float* bias, void* out, int B, int Ci, int Co, int H,
-                 int W, cudaStream_t stream) {
-  return reflect ? conv7<true, true>(in, wpk, bias, out, B, Ci, Co, H, W, stream)
-                 : conv7<true, false>(in, wpk, bias, out, B, Ci, Co, H, W, stream);
+                 int W, Cols cols, cudaStream_t stream) {
+  return reflect
+             ? conv7<true, true>(in, wpk, bias, out, B, Ci, Co, H, W, cols, stream)
+             : conv7<true, false>(in, wpk, bias, out, B, Ci, Co, H, W, cols, stream);
 }
 
 }  // namespace cw

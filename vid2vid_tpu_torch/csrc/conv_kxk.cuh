@@ -17,7 +17,10 @@
 // in[refl(y+ky-K/2), refl(x+kx-K/2)] from an unpadded (H, W) input, the
 // reflect pad folded into the load addressing (i < 0 -> -i, i >= N ->
 // 2N-2-i) so no padded copy is made; otherwise in is pre-padded,
-// (H+K-1, W+K-1), and read at (y+ky, x+kx).
+// (H+K-1, W+K-1), and read at (y+ky, x+kx). With REFLECT the columns may
+// be a width shard's (common.cuh::Cols): input rows of cols.w_in, output
+// column x at input column x + cols.xoff, reflected only at the image's
+// edges (the unsharded call: common.cuh::whole).
 //
 // Each block stages a CI_CHUNK-deep slab of the input halo tile and the
 // matching weights in shared memory (as f32), and every thread keeps a
@@ -65,7 +68,7 @@ __device__ __forceinline__ void conv_kxk(
     const T* __restrict__ in, const T* __restrict__ w,
     const float* __restrict__ scale, const float* __restrict__ offset,
     const T* __restrict__ residual, T* __restrict__ out, int Ci, int Co,
-    int H, int W, int tiles_x, int relu) {
+    int H, int W, Cols cols, int tiles_x, int relu) {
   using TL = Tile<K>;
   constexpr int R_CO = TCO / CO_GROUPS;  // output channels per thread
   constexpr int P = K / 2;
@@ -86,7 +89,7 @@ __device__ __forceinline__ void conv_kxk(
   const int col0 = (pg % (TW / R_PX)) * R_PX;
 
   const int h_in = REFLECT ? H : H + K - 1;
-  const int w_in = REFLECT ? W : W + K - 1;
+  const int w_in = REFLECT ? cols.w_in : W + K - 1;
   const size_t hw_in = (size_t)h_in * w_in;
   const T* in_b = in + (size_t)b * Ci * hw_in;
 
@@ -110,7 +113,7 @@ __device__ __forceinline__ void conv_kxk(
         int gy, gx;
         if (REFLECT) {
           gy = reflect_clamp(ty0 + r - P, H);
-          gx = reflect_clamp(tx0 + cc - P, W);
+          gx = reflect_col(tx0 + cc - P, W, cols);
         } else {
           gy = min(ty0 + r, h_in - 1);
           gx = min(tx0 + cc, w_in - 1);
@@ -197,15 +200,16 @@ template <typename T, int TCO, bool REFLECT>
 __global__ void __launch_bounds__(NTHREADS)
 conv7x7_kernel(const T* in, const T* w, const float* scale,
                const float* offset, const T* residual, T* out, int Ci, int Co,
-               int H, int W, int tiles_x, int relu) {
+               int H, int W, Cols cols, int tiles_x, int relu) {
   conv_kxk<T, 7, TCO, REFLECT>(in, w, scale, offset, residual, out, Ci, Co, H,
-                               W, tiles_x, relu);
+                               W, cols, tiles_x, relu);
 }
 
 template <typename T, int K, int TCO, bool REFLECT>
 void launch_tile(const void* in, const void* w, const float* scale,
                  const float* offset, const void* residual, void* out, int B,
-                 int Ci, int Co, int H, int W, int relu, cudaStream_t stream) {
+                 int Ci, int Co, int H, int W, Cols cols, int relu,
+                 cudaStream_t stream) {
   static_assert(K == 7, "the CUDA-core body's entry is the 7x7");
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
@@ -213,26 +217,27 @@ void launch_tile(const void* in, const void* w, const float* scale,
   conv7x7_kernel<T, TCO, REFLECT><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const T*>(in), static_cast<const T*>(w), scale, offset,
       static_cast<const T*>(residual), static_cast<T*>(out), Ci, Co, H, W,
-      tiles_x, relu);
+      cols, tiles_x, relu);
 }
 
 // the smallest output-channel tile that covers Co, up to 32
 template <typename T, int K, bool REFLECT>
 void launch(const void* in, const void* w, const float* scale,
             const float* offset, const void* residual, void* out, int B,
-            int Ci, int Co, int H, int W, int relu, cudaStream_t stream) {
+            int Ci, int Co, int H, int W, Cols cols, int relu,
+            cudaStream_t stream) {
   if (Co <= 4) {
     launch_tile<T, K, 4, REFLECT>(in, w, scale, offset, residual, out, B, Ci,
-                                  Co, H, W, relu, stream);
+                                  Co, H, W, cols, relu, stream);
   } else if (Co <= 8) {
     launch_tile<T, K, 8, REFLECT>(in, w, scale, offset, residual, out, B, Ci,
-                                  Co, H, W, relu, stream);
+                                  Co, H, W, cols, relu, stream);
   } else if (Co <= 16) {
     launch_tile<T, K, 16, REFLECT>(in, w, scale, offset, residual, out, B, Ci,
-                                   Co, H, W, relu, stream);
+                                   Co, H, W, cols, relu, stream);
   } else {
     launch_tile<T, K, 32, REFLECT>(in, w, scale, offset, residual, out, B, Ci,
-                                   Co, H, W, relu, stream);
+                                   Co, H, W, cols, relu, stream);
   }
 }
 
@@ -241,10 +246,11 @@ void launch(const void* in, const void* w, const float* scale,
 template <int K, bool REFLECT>
 int conv(const void* in, const void* w, const float* scale,
          const float* offset, const void* residual, void* out, int B, int Ci,
-         int Co, int H, int W, int relu, int dtype, cudaStream_t stream) {
+         int Co, int H, int W, Cols cols, int relu, int dtype,
+         cudaStream_t stream) {
   if (dtype != kFloat32) return (int)cudaErrorInvalidValue;
   launch<float, K, REFLECT>(in, w, scale, offset, residual, out, B, Ci, Co, H,
-                            W, relu, stream);
+                            W, cols, relu, stream);
   return (int)cudaGetLastError();
 }
 

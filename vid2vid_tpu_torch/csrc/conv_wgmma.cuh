@@ -15,6 +15,15 @@
 // -i, i >= N -> 2N-2-i); otherwise in is pre-padded, (H+K-1, W+K-1), and
 // read at (y+ky, x+kx).
 //
+// The column-halo mode of a width shard (parallel/halo.py; `Cols`): the
+// input rows hold w_in columns, output column x reads input column x +
+// xoff (+ kx - P), and the output rows are ldo long (the residual's too).
+// With REFLECT a column is reflected only on a side that `edges` marks as
+// the image's edge (bit 0 left, bit 1 right: about the output's first or
+// last column); elsewhere the input carries that side's neighbour columns
+// (a halo of P or more). The unsharded call is xoff 0, w_in W (pre-padded:
+// W + K - 1), ldo W, both edges: the same instructions on the same values.
+//
 // An implicit GEMM, M = output pixels, N = Co, K*K * Ci deep, on `wgmma`
 // (operands from shared memory, f32 accumulators in registers). A block
 // owns TH = 2 * RW output rows x 64 columns x BN output channels and runs
@@ -413,7 +422,8 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 // ------------------------------------------------------------- kernel
 
 // Stage chunk c's input rows into a staging slot, [halo row][CH channels]
-// [SW columns from x0 - 8], with V-byte cp.asyncs (V = 4, 8), or
+// [SW columns from xs - 8] (xs: the input column of the tile's first
+// output column), with V-byte cp.asyncs (V = 4, 8), or
 // element by element (V = 2, bf16, synchronous) where the rows are not
 // aligned (the tensor map's path, when the rows are 16-byte aligned, is in
 // `produce`). Channels past Ci and columns outside the input are left as
@@ -423,7 +433,7 @@ template <bool F32, int K, int HR, int V, bool REFLECT>
 __device__ __forceinline__ void fill(const typename Elem<F32>::S* __restrict__ in_b,
                                      typename Elem<F32>::S* stg, int c, int Ci,
                                      int H, int h_in, int w_in, size_t plane,
-                                     int y0, int x0, int pt) {
+                                     int y0, int xs, int pt) {
   constexpr int CH = Elem<F32>::CH;
   constexpr int E = V / Elem<F32>::BYTES;      // elements per copy
   constexpr int NC = SW / E;                   // copies per staged row
@@ -441,7 +451,7 @@ __device__ __forceinline__ void fill(const typename Elem<F32>::S* __restrict__ i
 #pragma unroll
     for (int k = 0; k < PASSES; ++k) {
       const int q = lane % LPR + k * LPR;
-      const int x = x0 - 8 + q * E;
+      const int x = xs - 8 + q * E;
       if (q >= NC || x < 0 || x + E > w_in) continue;
       if constexpr (V == 2)
         stg[rr * SW + q * E] = __ldg(src + x);
@@ -537,18 +547,20 @@ struct SplitTranspose {
 };
 
 // With the reflect pad, the halo's x = -k and x = W - 1 + k, k = 1 .. P
-// (zeros or stale where they were staged; staged column 8 is x0) take
-// x = k and x = W - 1 - k: P 16-byte entries per (part, channel group,
-// halo row, side), after every transposed store. A tile reads columns up
-// to x0 + TW - 1 + P, so the right side is reflected where W - x0 <=
-// TW - 1 + P.
+// (zeros or stale where they were staged; staged column 8 is output
+// column x0) take x = k and x = W - 1 - k: P 16-byte entries per (part,
+// channel group, halo row, side), after every transposed store, on the
+// sides that `edges` marks as the image's (a shard's inner side reads its
+// halo as staged). A tile reads columns up to x0 + TW - 1 + P, so the
+// right side is reflected where W - x0 <= TW - 1 + P.
 template <int K, int HR, int PARTS>
 __device__ __forceinline__ void reflect_columns(uint8_t* sa, int W, int x0,
-                                                int pt) {
+                                                int edges, int pt) {
   constexpr int P = K / 2;
   constexpr int ROWS = PARTS * 2 * HR;  // (part, group, halo row)
   static_assert(2 * ROWS <= 128, "one producer thread per row and side");
-  const bool left = x0 == 0, right = W - x0 <= TW - 1 + P;
+  const bool left = (edges & kLeftEdge) && x0 == 0;
+  const bool right = (edges & kRightEdge) && W - x0 <= TW - 1 + P;
   if (!left && !right) return;  // an interior tile
   producers_sync();
   if (pt < 2 * ROWS) {
@@ -571,14 +583,15 @@ __device__ __forceinline__ void produce(
     const typename Elem<F32>::S* __restrict__ in, const CUtensorMap* imap,
     const CUtensorMap* wmap, uint8_t* stages, typename Elem<F32>::S* staging,
     uint64_t* full, uint64_t* empty, uint64_t* landed, int n_stages,
-    int n_stg, int vbytes, int Ci, int H, int W, int y0, int x0, int co0,
-    int b, uint32_t rank) {
+    int n_stg, int vbytes, int Ci, int H, int W, Cols cols, int y0, int x0,
+    int co0, int b, uint32_t rank) {
   using C = Cfg<F32, K, BN, RW>;
   constexpr int HR = C::HR, CH = C::E::CH, PARTS = C::E::PARTS;
   const int pt = threadIdx.x - 128 * N_CONSUMERS;
   const int n_chunks = (Ci + CH - 1) / CH;
   const int h_in = REFLECT ? H : H + K - 1;
-  const int w_in = REFLECT ? W : W + K - 1;
+  const int w_in = cols.w_in;
+  const int xs = x0 + cols.xoff;  // the input column of output column x0
   const size_t plane = (size_t)h_in * w_in;
   const auto* in_b = in + (size_t)b * Ci * plane;
 
@@ -590,7 +603,7 @@ __device__ __forceinline__ void produce(
         for (int r = 0; r < HR; ++r) {
           const int gy = REFLECT ? reflect_clamp(y0 - C::P + r, H)
                                  : min(y0 + r, h_in - 1);
-          tma_load_4d(stg + r * CH * SW, imap, x0 - 8, gy, c * CH, b,
+          tma_load_4d(stg + r * CH * SW, imap, xs - 8, gy, c * CH, b,
                       &landed[d]);
         }
       }
@@ -599,16 +612,16 @@ __device__ __forceinline__ void produce(
     switch (vbytes) {
       case 8:
         fill<F32, K, HR, 8, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane,
-                                     y0, x0, pt);
+                                     y0, xs, pt);
         break;
       case 4:
         fill<F32, K, HR, 4, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane,
-                                     y0, x0, pt);
+                                     y0, xs, pt);
         break;
       default:
         if constexpr (!F32)
           fill<F32, K, HR, 2, REFLECT>(in_b, stg, c, Ci, H, h_in, w_in, plane,
-                                       y0, x0, pt);
+                                       y0, xs, pt);
     }
     if (vbytes >= 4)
       mbar_arrive_cp_async(&landed[d]);
@@ -637,7 +650,7 @@ __device__ __forceinline__ void produce(
     const int d = c % n_stg;
     mbar_wait(&landed[d], (c / n_stg) & 1);
     transpose(staging + d * C::STG_ELEMS, sa, c, Ci, pt);
-    if (REFLECT) reflect_columns<K, HR, PARTS>(sa, W, x0, pt);
+    if (REFLECT) reflect_columns<K, HR, PARTS>(sa, W, x0, cols.edges, pt);
     fence_proxy_async();
     mbar_arrive(&full[s]);
     producers_sync();  // every producer thread is done with slot d
@@ -666,7 +679,7 @@ __device__ __forceinline__ void consume(
     const float* __restrict__ scale, const float* __restrict__ offset,
     const typename Elem<F32>::T* __restrict__ residual,
     typename Elem<F32>::T* __restrict__ out, int Ci, int Co, int H, int W,
-    int y0, int x0, int co0, int b, int relu, int vec, uint32_t rank) {
+    int ldo, int y0, int x0, int co0, int b, int relu, int vec, uint32_t rank) {
   using C = Cfg<F32, K, BN, RW>;
   using T = typename Elem<F32>::T;
   const int wg = threadIdx.x / 128;
@@ -783,7 +796,7 @@ __device__ __forceinline__ void consume(
         res[i][v] = make_uint4(0, 0, 0, 0);
         if (vec && residual != nullptr && co < Co && y < H && x + 8 <= W)
           res[i][v] = __ldg(reinterpret_cast<const uint4*>(
-                                residual + (((size_t)b * Co + co) * H + y) * W + x) +
+                                residual + (((size_t)b * Co + co) * H + y) * ldo + x) +
                             v);
       }
     }
@@ -799,7 +812,7 @@ __device__ __forceinline__ void consume(
       const float so = scale != nullptr ? scale[co] : 1.f;
       const float oo = offset != nullptr ? offset[co] : 0.f;
       const float* src = tile + n * C::OUT_STRIDE + tr * TW + (x - x0);
-      const size_t base = (((size_t)b * Co + co) * H + y) * W + x;
+      const size_t base = (((size_t)b * Co + co) * H + y) * ldo + x;
       if (vec && x + 8 <= W) {
         const float4 lo = reinterpret_cast<const float4*>(src)[0];
         const float4 hi = reinterpret_cast<const float4*>(src)[1];
@@ -863,8 +876,8 @@ conv_wgmma_kernel(const typename Elem<F32>::T* __restrict__ in,
                   const float* __restrict__ offset,
                   const typename Elem<F32>::T* __restrict__ residual,
                   typename Elem<F32>::T* __restrict__ out, int Ci, int Co,
-                  int H, int W, int tiles_x, int n_stages, int n_stg,
-                  int vbytes, int relu, int vec) {
+                  int H, int W, Cols cols, int tiles_x, int n_stages,
+                  int n_stg, int vbytes, int relu, int vec) {
   using C = Cfg<F32, K, BN, RW>;
   using S = typename Elem<F32>::S;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -900,11 +913,11 @@ conv_wgmma_kernel(const typename Elem<F32>::T* __restrict__ in,
     produce<F32, K, BN, RW, REFLECT, CL>(reinterpret_cast<const S*>(in), &imap,
                                          &wmap, stages, staging, full, empty,
                                          landed, n_stages, n_stg, vbytes, Ci, H,
-                                         W, y0, x0, co0, b, rank);
+                                         W, cols, y0, x0, co0, b, rank);
   else
     consume<F32, K, BN, RW, REFLECT, CL>(stages, full, empty, n_stages, scale,
                                          offset, residual, out, Ci, Co, H, W,
-                                         y0, x0, co0, b, relu, vec, rank);
+                                         cols.ldo, y0, x0, co0, b, relu, vec, rank);
   if constexpr (CL == 2)
     cluster_sync();  // the other block arrives on our barriers until here
 }
@@ -1012,8 +1025,8 @@ void rings(int n_chunks, int* n_stages, int* n_stg, int* smem) {
 template <bool F32, int K, int BN, int RW, bool REFLECT, int CL>
 int launch_tile(const void* in, const void* wpk, const float* scale,
                 const float* offset, const void* residual, void* out, int B,
-                int Ci, int Co, int H, int W, int relu, int vbytes, int vec,
-                cudaStream_t stream) {
+                int Ci, int Co, int H, int W, Cols cols, int relu, int vbytes,
+                int vec, cudaStream_t stream) {
   using C = Cfg<F32, K, BN, RW>;
   using T = typename Elem<F32>::T;
   int n_stages, n_stg, smem;
@@ -1022,8 +1035,7 @@ int launch_tile(const void* in, const void* wpk, const float* scale,
   CUtensorMap imap{}, wmap;
   if (!weight_map<F32>(&wmap, wpk, Ci, Co, C::TAPS, BN, CL == 2 ? 1 : 2) ||
       (vbytes == 0 &&
-       !input_map<F32>(&imap, in, B, Ci, REFLECT ? H : H + K - 1,
-                       REFLECT ? W : W + K - 1)))
+       !input_map<F32>(&imap, in, B, Ci, REFLECT ? H : H + K - 1, cols.w_in)))
     return (int)cudaErrorNotSupported;
   const auto kernel = conv_wgmma_kernel<F32, K, BN, RW, REFLECT, CL>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1048,7 +1060,7 @@ int launch_tile(const void* in, const void* wpk, const float* scale,
   return (int)cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(in), imap, wmap, scale, offset,
       static_cast<const T*>(residual), static_cast<T*>(out), Ci, Co, H, W,
-      tiles_x, n_stages, n_stg, vbytes, relu, vec);
+      cols, tiles_x, n_stages, n_stg, vbytes, relu, vec);
 }
 
 inline bool aligned(const void* p, int bytes) {
@@ -1056,13 +1068,19 @@ inline bool aligned(const void* p, int bytes) {
 }
 
 // How the input of a launch is staged: by the tensor map (0) where every
-// row (w_in elements of `size` bytes) is 16-byte aligned, else by
-// cp.asyncs of 8 or 4 bytes, else (bf16) element by element (2).
-inline int staging_bytes(const void* in, int w_in, int size) {
-  int vbytes = 16;
-  while (vbytes > size && ((size * w_in) % vbytes != 0 || !aligned(in, vbytes)))
+// row (w_in elements of `size` bytes) and the column of output column 0
+// (xoff) are 16-byte aligned (a tensor-map load from a column that is not
+// faults on the H100: an illegal instruction), else by cp.asyncs of 8 or 4
+// bytes (which the rows and xoff must be aligned to), else (bf16) element
+// by element (2).
+inline int staging_bytes(const void* in, int w_in, int xoff, int size) {
+  if ((size * w_in) % 16 == 0 && (size * xoff) % 16 == 0 && aligned(in, 16))
+    return 0;
+  int vbytes = 8;
+  while (vbytes > size && ((size * w_in) % vbytes != 0 ||
+                           (size * xoff) % vbytes != 0 || !aligned(in, vbytes)))
     vbytes /= 2;
-  return vbytes == 16 ? 0 : vbytes;
+  return vbytes;
 }
 
 inline int sm_count() {
@@ -1097,12 +1115,12 @@ inline long long grid_blocks(int B, int Co, int H, int W, int bn, int rw) {
 template <bool F32, bool REFLECT>
 int conv3(const void* in, const void* wpk, const float* scale,
           const float* offset, const void* residual, void* out, int B, int Ci,
-          int Co, int H, int W, int relu, cudaStream_t stream) {
+          int Co, int H, int W, Cols cols, int relu, cudaStream_t stream) {
   constexpr int SIZE = Elem<F32>::BYTES;
   if (!aligned(wpk, 16)) return (int)cudaErrorMisalignedAddress;
-  const int vec = W % 8 == 0 && aligned(out, 16) &&
+  const int vec = cols.ldo % 8 == 0 && aligned(out, 16) &&
                   (residual == nullptr || aligned(residual, 16));
-  const int vbytes = staging_bytes(in, REFLECT ? W : W + 2, SIZE);
+  const int vbytes = staging_bytes(in, cols.w_in, cols.xoff, SIZE);
   const int sms = sm_count();
   auto blocks = [&](int bn, int rw) { return grid_blocks(B, Co, H, W, bn, rw); };
   const long long fill = sms * 9LL / 10;
@@ -1121,7 +1139,7 @@ int conv3(const void* in, const void* wpk, const float* scale,
 #define V2V_C3_LAUNCH(BN_, RW_, CL_)                                          \
   launch_tile<F32, 3, BN_, RW_, REFLECT, CL_>(in, wpk, scale, offset,         \
                                               residual, out, B, Ci, Co, H, W, \
-                                              relu, vbytes, vec, stream)
+                                              cols, relu, vbytes, vec, stream)
   const bool pairs = Ci >= 128;
   switch (bn) {
     case 16: return rw2 ? V2V_C3_LAUNCH(16, 2, 1) : V2V_C3_LAUNCH(16, 1, 1);
@@ -1159,17 +1177,18 @@ int conv3(const void* in, const void* wpk, const float* scale,
 // Returns the launch's error.
 template <bool F32, bool REFLECT>
 int conv7(const void* in, const void* wpk, const float* bias, void* out,
-          int B, int Ci, int Co, int H, int W, cudaStream_t stream) {
+          int B, int Ci, int Co, int H, int W, Cols cols, cudaStream_t stream) {
   if (!aligned(wpk, 16)) return (int)cudaErrorMisalignedAddress;
-  const int vec = W % 8 == 0 && aligned(out, 16);
-  const int vbytes = staging_bytes(in, REFLECT ? W : W + 6, Elem<F32>::BYTES);
+  const int vec = cols.ldo % 8 == 0 && aligned(out, 16);
+  const int vbytes =
+      staging_bytes(in, cols.w_in, cols.xoff, Elem<F32>::BYTES);
   const int bn = Co <= 8 ? 8 : Co <= 16 ? 16 : 32;
   const bool rw4 =
       !F32 && grid_blocks(B, Co, H, W, bn, 4) >= sm_count() * 9LL / 10;
 #define V2V_C7_LAUNCH(BN_, RW_)                                               \
   launch_tile<F32, 7, BN_, RW_, REFLECT, 1>(in, wpk, nullptr, bias, nullptr, \
-                                            out, B, Ci, Co, H, W, 0, vbytes, \
-                                            vec, stream)
+                                            out, B, Ci, Co, H, W, cols, 0,   \
+                                            vbytes, vec, stream)
   if constexpr (F32) {
     switch (bn) {
       case 8: return V2V_C7_LAUNCH(8, 2);
@@ -1191,11 +1210,11 @@ int conv7(const void* in, const void* wpk, const float* bias, void* out,
 // bf16 ones: conv3<true, reflect> and conv7<true, reflect>.
 int conv3_tf32x3(bool reflect, const void* in, const void* wpk,
                  const float* scale, const float* offset, const void* residual,
-                 void* out, int B, int Ci, int Co, int H, int W, int relu,
-                 cudaStream_t stream);
+                 void* out, int B, int Ci, int Co, int H, int W, Cols cols,
+                 int relu, cudaStream_t stream);
 int conv7_tf32x3(bool reflect, const void* in, const void* wpk,
                  const float* bias, void* out, int B, int Ci, int Co, int H,
-                 int W, cudaStream_t stream);
+                 int W, Cols cols, cudaStream_t stream);
 
 }  // namespace cw
 }  // namespace v2v

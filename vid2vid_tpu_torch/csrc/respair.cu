@@ -46,28 +46,55 @@
 //
 // Unlike the TPU kernel, any C, H >= 2 and W >= 2 are taken: ragged tiles
 // are masked, so no C % 128 or block-divisibility rule carries over.
+//
+// A width shard's block (the model axis, parallel/halo.py) runs the same
+// two launches in the body's column-halo mode: x with two neighbour
+// columns on each inner side, h computed wider there (9 columns more on an
+// inner left side, 1 on an inner right: within the 64-column tile at the
+// flagship's 32-column trunk on two ranks, a ninth tile at 512 columns),
+// so one exchange of x serves both convs.
 
 #include "conv_wgmma.cuh"
 
-// The residual block: x -> h -> out. h is caller-allocated scratch of x's
-// shape and dtype. k0, k1: the packed layout of ops/conv3.py::
+// The residual block: x -> h -> out. x (B, C, H, W) is the residual; the
+// first conv reads x_in, whose rows are w_in long with x's column j at
+// x_in column j + xoff (the unsharded call: x_in = x, xoff 0, w_in W).
+// `edges` marks the sides that are the image's (common.cuh::Cols): there
+// both convs reflect; on a width shard's inner side x_in carries 2 columns
+// of the neighbour, h is computed beyond x there, and the second conv
+// reads h's column next to x, so both launches read columns of the
+// neighbour and no second exchange is needed. On the right h takes one
+// more column; on the left kLeftH = 8 (only the last is read): the tensor
+// maps stage from 16-byte aligned columns (conv_wgmma.cuh::staging_bytes),
+// so each launch's input column of its output column 0 is a multiple of 8
+// (x_in from xoff = 8, h from column 8). h is caller-allocated scratch of
+// (B, C, H, ldh), ldh >= W + its extra columns (the unsharded call: x's
+// shape, ldh W). k0, k1: the packed layout of ops/conv3.py::
 // pack_conv3_weight (bf16) or ops/conv7.py::pack_taps_3xtf32 (f32).
-extern "C" int v2v_respair(const void* x, const void* k0, const float* a0,
+extern "C" int v2v_respair(const void* x, const void* x_in, int xoff, int w_in,
+                           int edges, const void* k0, const float* a0,
                            const float* c0, const void* k1, const float* a1,
-                           const float* c1, void* h, void* out, int B, int C,
-                           int H, int W, int dtype, void* stream) {
+                           const float* c1, void* h, int ldh, void* out, int B,
+                           int C, int H, int W, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // h's extra columns on the inner sides
+  constexpr int kLeftH = 8;
+  const int hl = edges & v2v::kLeftEdge ? 0 : kLeftH;
+  const int hr = edges & v2v::kRightEdge ? 0 : 1;
+  const v2v::Cols first{xoff - hl, w_in, ldh, edges};
+  const v2v::Cols second{hl, ldh, W, edges};
+  const int wh = W + hl + hr;
   if (dtype == v2v::kBFloat16) {
-    const int err = v2v::cw::conv3<false, true>(x, k0, a0, c0, nullptr, h, B,
-                                                C, C, H, W, 1, s);
+    const int err = v2v::cw::conv3<false, true>(x_in, k0, a0, c0, nullptr, h, B,
+                                                C, C, H, wh, first, 1, s);
     if (err != 0) return err;
     return v2v::cw::conv3<false, true>(h, k1, a1, c1, x, out, B, C, C, H, W,
-                                       0, s);
+                                       second, 0, s);
   }
   if (dtype != v2v::kFloat32) return (int)cudaErrorInvalidValue;
-  const int err = v2v::cw::conv3_tf32x3(true, x, k0, a0, c0, nullptr, h, B, C,
-                                        C, H, W, 1, s);
+  const int err = v2v::cw::conv3_tf32x3(true, x_in, k0, a0, c0, nullptr, h, B,
+                                        C, C, H, wh, first, 1, s);
   if (err != 0) return err;
-  return v2v::cw::conv3_tf32x3(true, h, k1, a1, c1, x, out, B, C, C, H, W, 0,
-                               s);
+  return v2v::cw::conv3_tf32x3(true, h, k1, a1, c1, x, out, B, C, C, H, W,
+                               second, 0, s);
 }

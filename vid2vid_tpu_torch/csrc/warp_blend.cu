@@ -13,7 +13,11 @@
 // w: (B, 1, H, W). Every output pixel samples prev at (x + dx, y + dy) with
 // the floor / clamp semantics of flow_warp_ref (warp.py:57-82): corner
 // indices clamped to the image, fractional weights from the unclamped
-// coordinate, all coordinate and weight math in f32.
+// coordinate, all coordinate and weight math in f32. A width shard's blend
+// (the model axis, parallel/halo.py) takes the whole previous frame,
+// (B, C, H, Wp), with raw, flow, w and out at its W columns from column x0
+// of the frame: it samples prev at (x0 + x + dx, y + dy), clamped to the
+// whole frame's border. x0 = 0 with Wp = W is the unsharded call.
 //
 // What bounds it on the H100: memory. Per pixel it reads flow, w, C values
 // of raw and four gathered taps of prev per channel (mostly L1/L2 hits for
@@ -149,13 +153,14 @@ template <typename T, bool BLEND, bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
 warp_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
             const T* __restrict__ flow, const T* __restrict__ weight,
-            T* __restrict__ out, int C, int H, int W) {
+            T* __restrict__ out, int C, int H, int W, int Wp, int xs) {
   constexpr int N = PIX;
   const int y = blockIdx.y, b = blockIdx.z;
   const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * N;
   if (x0 >= W) return;
   const int n = min(N, W - x0);
   const int plane = H * W;
+  const int pplane = H * Wp;  // prev's
   const int pix = y * W + x0;  // in a channel plane
   const T* fl = flow + (size_t)b * 2 * plane + pix;
   float fx[N], fy[N], wb[N];
@@ -165,15 +170,16 @@ warp_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
   Taps taps[N];
 #pragma unroll
   for (int e = 0; e < N; ++e)
-    taps[e] = bilinear_taps((float)(x0 + e) + fx[e], (float)y + fy[e], H, W);
+    taps[e] = bilinear_taps((float)(xs + x0 + e) + fx[e], (float)y + fy[e], H, Wp);
 
   for (int ch = 0; ch < C; ++ch) {
     const size_t base = ((size_t)b * C + ch) * plane;
+    const T* p = prev + ((size_t)b * C + ch) * pplane;
     float v[N];
     if constexpr (BLEND) load_row<T, VEC>(raw + base + pix, n, v);
 #pragma unroll
     for (int e = 0; e < N; ++e) {
-      const float warped = sample(prev + base, taps[e]);
+      const float warped = sample(p, taps[e]);
       if constexpr (BLEND)
         v[e] = v[e] * wb[e] + warped * (1.f - wb[e]);
       else
@@ -330,8 +336,8 @@ int dispatch_bwd(const void* raw, const void* prev, const void* flow,
 // pixels are aligned: W a multiple of PIX and aligned pointers.
 template <typename T, bool BLEND>
 void launch(const void* raw, const void* prev, const void* flow,
-            const void* weight, void* out, int B, int C, int H, int W,
-            cudaStream_t stream) {
+            const void* weight, void* out, int B, int C, int H, int W, int Wp,
+            int xs, cudaStream_t stream) {
   constexpr int N = PIX;
   const int per_row = (W + N - 1) / N;
   const int threads = std::min(NTHREADS, (per_row + 31) / 32 * 32);
@@ -345,20 +351,22 @@ void launch(const void* raw, const void* prev, const void* flow,
   kernel<<<grid, threads, 0, stream>>>(
       static_cast<const T*>(raw), static_cast<const T*>(prev),
       static_cast<const T*>(flow), static_cast<const T*>(weight),
-      static_cast<T*>(out), C, H, W);
+      static_cast<T*>(out), C, H, W, Wp, xs);
 }
 
 template <bool BLEND>
 int dispatch(const void* raw, const void* prev, const void* flow,
-             const void* weight, void* out, int B, int C, int H, int W,
-             int dtype, void* stream) {
+             const void* weight, void* out, int B, int C, int H, int W, int Wp,
+             int xs, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B * H * W == 0) return (int)cudaSuccess;  // nothing to launch
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;  // grid y, z
+  if (xs < 0 || xs + W > Wp) return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32) {
-    launch<float, BLEND>(raw, prev, flow, weight, out, B, C, H, W, s);
+    launch<float, BLEND>(raw, prev, flow, weight, out, B, C, H, W, Wp, xs, s);
   } else if (dtype == kBFloat16) {
-    launch<__nv_bfloat16, BLEND>(raw, prev, flow, weight, out, B, C, H, W, s);
+    launch<__nv_bfloat16, BLEND>(raw, prev, flow, weight, out, B, C, H, W, Wp,
+                                 xs, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -368,19 +376,21 @@ int dispatch(const void* raw, const void* prev, const void* flow,
 }  // namespace
 }  // namespace v2v
 
+// prev: (B, C, H, Wp), the whole frame; raw, flow, weight, out: W columns
+// from the frame's column x0 (the unsharded call: Wp = W, x0 = 0).
 extern "C" int v2v_warp_blend(const void* raw, const void* prev,
                               const void* flow, const void* weight, void* out,
-                              int B, int C, int H, int W, int dtype,
-                              void* stream) {
-  return v2v::dispatch<true>(raw, prev, flow, weight, out, B, C, H, W, dtype,
-                             stream);
+                              int B, int C, int H, int W, int Wp, int x0,
+                              int dtype, void* stream) {
+  return v2v::dispatch<true>(raw, prev, flow, weight, out, B, C, H, W, Wp, x0,
+                             dtype, stream);
 }
 
 extern "C" int v2v_flow_warp(const void* image, const void* flow, void* out,
                              int B, int C, int H, int W, int dtype,
                              void* stream) {
   return v2v::dispatch<false>(nullptr, image, flow, nullptr, out, B, C, H, W,
-                              dtype, stream);
+                              W, 0, dtype, stream);
 }
 
 // dimage in the dtype; splat: f32 scratch of the same shape, which the

@@ -119,6 +119,9 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color: int) -> np.ndarray:
     h, w = img.shape[:2]
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
     edges = []  # (y0, x, dx, y1) in 16.16 fixed point
+    # an edge clipped at the right border: (its clipped rows' first, last);
+    # elsewhere (h, -1)
+    exits = []
     p0 = pts[-1]
     for p1 in pts:
         ys, xs = line_pixels(w, h, p0, p1)
@@ -129,12 +132,16 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color: int) -> np.ndarray:
         t0, t1 = p0, p1
         c0 = (p0[0] << XY_SHIFT, p0[1])
         c1 = (p1[0] << XY_SHIFT, p1[1])
+        exit_rows = (h, -1)
         if not all(0 <= x < w and 0 <= y < h for x, y in (t0, t1)):
-            t0, t1, _ = clip_line(w, h, t0, t1)
+            t0, t1, ok = clip_line(w, h, t0, t1)
             one_row = t0[1] == t1[1]
             c0 = (t0[0] << XY_SHIFT, p0[1] if one_row else t0[1])
             c1 = (t1[0] << XY_SHIFT, p1[1] if one_row else t1[1])
+            if ok and not one_row and w - 1 in (t0[0], t1[0]):
+                exit_rows = (min(t0[1], t1[1]), max(t0[1], t1[1]))
         if p0[1] != p1[1]:
+            exits.append(exit_rows)
             dx = _tdiv(c1[0] - c0[0], c1[1] - c0[1])
             if p0[1] < p1[1]:
                 edges.append((p0[1], c0[0] + (p0[1] - c0[1]) * dx, dx, p1[1]))
@@ -150,11 +157,18 @@ def fill_poly(img: np.ndarray, pts: np.ndarray, color: int) -> np.ndarray:
             or min(x0.min(), x_end.min()) >= (w << XY_SHIFT)):
         return img
     # an edge is active on rows y0 <= y < y1, where its x is x0 + (y - y0) dx
-    # (cv2 adds dx row by row: the same integers); sorted by x, the active
-    # edges pair up into the spans [round(x_left), floor(x_right)]
+    # (cv2 adds dx row by row: the same integers), except that an edge
+    # clipped at the right border lies just right of the image (x = w) on
+    # rows past its clipped ends where its x is past the last column (cv2
+    # 5.0 fills nothing there; the extrapolated x in [w - 1, w - 1/2) would
+    # round into the last column); sorted by x, the active edges pair up
+    # into the spans [round(x_left), floor(x_right)]
+    ex_lo, ex_hi = np.array(exits, np.int64).T
     for y in range(max(int(y0.min()), 0), min(int(y1.max()), h)):
         act = (y0 <= y) & (y < y1)
-        xs = np.sort(x0[act] + (y - y0[act]) * dx[act])
+        xv = x0[act] + (y - y0[act]) * dx[act]
+        past = ((y < ex_lo[act]) | (y > ex_hi[act])) & (ex_lo[act] <= ex_hi[act])
+        xs = np.sort(np.where(past & (xv > (w - 1) << XY_SHIFT), w << XY_SHIFT, xv))
         for xl, xr in zip(xs[0::2], xs[1::2]):
             a, b = (int(xl) + (XY_ONE >> 1)) >> XY_SHIFT, int(xr) >> XY_SHIFT
             if a < w and b >= 0:

@@ -15,6 +15,18 @@ Two clip entry points: `generate_clip` takes a clip that is already
 encoded (the training steps' path); `generate_clip_streaming` takes the raw
 labels and encodes one frame per step into a window kept on the
 generator's device, so the clip's encoded pyramid never exists whole.
+
+On the model axis (`shard`, a parallel/halo.py::WidthShard of the finest
+level: the engine's --n_devices N) each rank holds its columns of every
+level. It encodes its columns of the raw labels with a margin
+(`encode_shard`: one column a side for the instance edges, and 2**L
+columns on the left for the L = n_scales - 1 pyramid pools, which read one
+column to the left a level; none past the image's edges, so the pools'
+border divisors stay right), runs the scales on its columns under `halo.sharded` (the
+layers exchange their halos), and after each scale gathers the whole frame
+(one all_gather) into the previous frames, which every rank keeps whole:
+the warp reads the whole previous frame, the previous-frame trunk its
+columns of it, and the finest frame is whole for the caller.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ from vid2vid_tpu_torch.ops.encode import (
     label_one_hot,
 )
 from vid2vid_tpu_torch.ops.pool import build_pyramid_video
+from vid2vid_tpu_torch.parallel import halo
+from vid2vid_tpu_torch.parallel.halo import WidthShard
 
 State = tuple[torch.Tensor, ...]
 
@@ -99,6 +113,44 @@ class Vid2VidGenerator(nn.Module):
             enc = torch.cat([enc, instance_edges(inst).unsqueeze(2)], dim=2)
         return enc
 
+    def shard_pyramid(self, enc: torch.Tensor, start: int, shard: WidthShard) -> list:
+        """The shard's columns of each pyramid level of an encoded clip
+        (B, T, C, H, w) whose columns start at the image's column `start` =
+        max(0, x0 - 2**L) (`shard_margin`) and end at the shard's last.
+        Each 3x3/s2 pool reads one column to the left of its window: a
+        level-l window's first column reads the one before `start`, which
+        is missing, so it is cropped away; 2**L columns of margin leave
+        2**(L-l) >= 1 at every level. `start` is a multiple of 2**L, so the
+        levels stay column-aligned."""
+        pyr = build_pyramid_video(enc, self.n_scales)
+        out = []
+        for level, p in enumerate(pyr):
+            sh = shard.at(level)
+            first = sh.x0 - (start >> level)
+            out.append(p[..., first : first + sh.width])
+        return out
+
+    def shard_margin(self, shard: WidthShard) -> int:
+        """The image column from which a shard's pyramid is built
+        (`shard_pyramid`)."""
+        return max(0, shard.x0 - 2 ** (self.n_scales - 1))
+
+    def encode_shard(self, labels: torch.Tensor, inst: torch.Tensor | None,
+                     shard: WidthShard, device, compute_dtype=None) -> list:
+        """`encode_input` + the pyramid of the shard's columns of raw labels
+        and instance maps (whole width, any device): the columns from
+        `shard_margin` to the shard's last, plus one a side (inside the
+        image) for the instance edges, encoded on `device`, cast to
+        `compute_dtype` and pooled (`shard_pyramid`)."""
+        start = self.shard_margin(shard)
+        lo, hi = max(0, start - 1), min(shard.total, shard.x0 + shard.width + 1)
+        enc = self.encode_input(
+            labels[..., lo:hi].to(device), None if inst is None else inst[..., lo:hi].to(device))
+        enc = enc[..., start - lo : shard.x0 + shard.width - lo]
+        if compute_dtype is not None:
+            enc = enc.to(compute_dtype)
+        return self.shard_pyramid(enc, start, shard)
+
     # ------------------------------------------------------------------ state
 
     def state_from_frames(self, frames: torch.Tensor) -> State:
@@ -122,7 +174,7 @@ class Vid2VidGenerator(nn.Module):
     def generate_clip(
         self, enc_a: torch.Tensor, state: State, *, use_raw_only: bool = False,
         train: bool = False, n_frames_bp: int = 1, finetune_all: bool = True,
-        params: list[dict] | None = None,
+        params: list[dict] | None = None, shard: WidthShard | None = None,
     ) -> tuple[ClipOutputs, State]:
         """T frames, in order, from T+tG-1 encoded inputs (B, T+tG-1, C, H, W)
         and the per-level ring buffers. Returns (ClipOutputs, new state).
@@ -135,11 +187,16 @@ class Vid2VidGenerator(nn.Module):
         forward is recomputed in the backward (torch.utils.checkpoint).
         `params`, one dict per scale, replaces the scales' parameters for
         the call (the training steps' bf16 copies of the f32 masters). The
-        new state is detached: it crosses the chunk boundary.
+        new state is detached: it crosses the chunk boundary. With `shard`
+        (inference) this rank runs its columns of the whole encoded clip.
         """
         tG, n_scales = self.tG, self.n_scales
         n_frames = enc_a.shape[1] - (tG - 1)
-        a_pyr = build_pyramid_video(enc_a, n_scales)
+        if shard is None:
+            a_pyr = build_pyramid_video(enc_a, n_scales)
+        else:
+            start = self.shard_margin(shard)
+            a_pyr = self.shard_pyramid(enc_a[..., start : shard.x0 + shard.width], start, shard)
         bufs = tuple(stack_time(s) for s in state)
         ys = []
         for t in range(n_frames):
@@ -148,15 +205,16 @@ class Vid2VidGenerator(nn.Module):
             bufs, y = self._frame_pass(
                 wins, bufs, use_raw_only, detach_prev=detach,
                 detach_coarse=train and not finetune_all,
-                remat=train and self.opt.remat, params=params,
+                remat=train and self.opt.remat, params=params, shard=shard,
             )
             ys.append(y)
-        return self._clip_result(ys, bufs)
+        return self._clip_result(ys, bufs, shard)
 
     @torch.no_grad()
     def generate_clip_streaming(
         self, labels: torch.Tensor, inst: torch.Tensor | None, state: State, *,
         use_raw_only: bool = False, compute_dtype: torch.dtype | None = None,
+        shard: WidthShard | None = None,
     ) -> tuple[ClipOutputs, State]:
         """Inference clip from the RAW conditioning, encoding one frame per
         step: the same frames as `encode_input` + `generate_clip`, without
@@ -171,13 +229,18 @@ class Vid2VidGenerator(nn.Module):
         encoded frames live in a ring of 2 tG slots on the device: frame k
         is written to slots k % tG and k % tG + tG, so the window of frames
         k-tG+1..k is the contiguous slice from slot (k+1) % tG and no frame
-        is copied again. Inference only (no BPTT).
+        is copied again. Inference only (no BPTT). With `shard` the rings
+        hold this rank's columns (`encode_shard`).
         """
         tG, n_scales = self.tG, self.n_scales
         device = next(self.parameters()).device
         n_frames = labels.shape[1] - (tG - 1)
 
         def encode_frame(t: int) -> list[torch.Tensor]:
+            if shard is not None:
+                return self.encode_shard(
+                    labels[:, t : t + 1], None if inst is None else inst[:, t : t + 1],
+                    shard, device, compute_dtype)
             enc = self.encode_input(
                 labels[:, t : t + 1].to(device),
                 None if inst is None else inst[:, t : t + 1].to(device),
@@ -204,17 +267,22 @@ class Vid2VidGenerator(nn.Module):
         bufs = tuple(stack_time(s) for s in state)
         ys = []
         for t in range(n_frames):
-            bufs, y = self._frame_pass(push(t + tG - 1), bufs, use_raw_only)
+            bufs, y = self._frame_pass(push(t + tG - 1), bufs, use_raw_only, shard=shard)
             ys.append(y)
-        return self._clip_result(ys, bufs)
+        return self._clip_result(ys, bufs, shard)
 
-    def _clip_result(self, ys: list, bufs: tuple) -> tuple[ClipOutputs, State]:
+    def _clip_result(self, ys: list, bufs: tuple,
+                     shard: WidthShard | None = None) -> tuple[ClipOutputs, State]:
         """The frame passes' outputs stacked over time, and the new state
-        (detached: it crosses the chunk boundary)."""
+        (detached: it crosses the chunk boundary). On a shard the frames
+        come whole; raw, flow and weight are gathered here, once a clip."""
         fake, raw, flow, weight = (
             None if ys[0][i] is None else torch.stack([y[i] for y in ys], 1)
             for i in range(4)
         )
+        if shard is not None:
+            raw, flow, weight = (None if t is None else halo.gather_width(t, shard.n, shard.group)
+                                 for t in (raw, flow, weight))
         new_state = tuple(unstack_time(b, self.tG - 1).detach() for b in bufs)
         return ClipOutputs(fake, raw, flow, weight), new_state
 
@@ -225,13 +293,16 @@ class Vid2VidGenerator(nn.Module):
 
     def _frame_pass(
         self, wins, bufs, use_raw_only, *, detach_prev=False,
-        detach_coarse=False, remat=False, params=None,
+        detach_coarse=False, remat=False, params=None, shard=None,
     ):
         """One frame through the coarse-to-fine scale stack.
 
         wins: per-level (B, tG, C, H, W) encoded windows, finest first;
         bufs: per-level channel-stacked (B, (tG-1)*3, H, W) ring buffers.
-        Returns (new bufs, (fake, raw, flow, weight)).
+        Returns (new bufs, (fake, raw, flow, weight)). With `shard` the
+        windows are this rank's columns and the buffers whole: each scale
+        runs under halo.sharded, and its frame is gathered whole (the fake
+        returned is whole; raw, flow and weight are this rank's columns).
         """
         opt = self.opt
         tG, n_scales = self.tG, self.n_scales
@@ -251,11 +322,15 @@ class Vid2VidGenerator(nn.Module):
             if remat:
                 out = checkpoint(self._apply_scale, s, p, *args, use_reentrant=False)
             else:
-                out = self._apply_scale(s, p, *args)
+                with halo.sharded(shard):
+                    out = self._apply_scale(s, p, *args)
             if detach_coarse and s != n_scales - 1:
                 out = CompositeOut(*(None if x is None else x.detach() for x in out))
             coarse = out
+            frame = out.img_final
+            if shard is not None:  # the whole frame, for the ring and the caller
+                frame = halo.gather_width(frame, shard.n, shard.group)
             # ring buffer: drop the oldest frame, append this one (the
             # stored, gradient-connected frames)
-            new_bufs[si] = torch.cat([bufs[si][:, c_out:], out.img_final], 1)
-        return tuple(new_bufs), (coarse.img_final, coarse.img_raw, coarse.flow, coarse.weight)
+            new_bufs[si] = torch.cat([bufs[si][:, c_out:], frame], 1)
+        return tuple(new_bufs), (frame, coarse.img_raw, coarse.flow, coarse.weight)

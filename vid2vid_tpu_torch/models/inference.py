@@ -15,6 +15,17 @@ entry; the frames it returns are float32, the state stays in the compute
 dtype. The single-image nets run in float32 whatever the compute dtype,
 with cuDNN's TF32 off (`utils/precision.py::cudnn_f32`); only their
 frames, on entering the state, take the compute dtype.
+
+--n_devices N > 1 serves on the model axis, as the JAX engine does
+(make_mesh(n, data=1)): this process is one of N ranks of a
+torch.distributed group, and `step` / `generate_clip_raw` /
+`generate_clip` run its columns of every frame (a parallel/halo.py::
+WidthShard; the layers exchange their halos) and return the whole frames
+on every rank. The weights are replicated (broadcast from rank 0 whenever
+any rank's have changed since the last call); the state, the seeding and
+the first frames stay whole on every rank. The width must split into
+whole, even-aligned columns at every level (halo.check_geometry, which
+raises ValueError otherwise; JAX pads uneven shards).
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import copy
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from vid2vid_tpu_torch.config import Options
@@ -35,6 +47,8 @@ from vid2vid_tpu_torch.nn.pix2pixhd import (
     GlobalWithFeatures,
     LocalEnhancer,
 )
+from vid2vid_tpu_torch.parallel import halo
+from vid2vid_tpu_torch.parallel.mesh import Mesh, make_mesh, replicated, visible_devices
 from vid2vid_tpu_torch.utils.device import require_device
 from vid2vid_tpu_torch.utils.precision import cudnn_f32
 
@@ -64,18 +78,31 @@ def make_single_image_generator(opt: Options) -> tuple[nn.Module, bool]:
     raise ValueError(f"no single-image generator for dataroot {opt.dataroot!r}")
 
 
+def serving_mesh(opt: Options, device: torch.device) -> Mesh | None:
+    """The model-axis mesh of --n_devices: n = min(n_devices, the devices
+    visible) with the JAX package's warning, then make_mesh(n, data=1); None
+    for one device. Raises for n > 1 without a process group of world n."""
+    n = visible_devices(getattr(opt, "n_devices", 1), device)
+    if n == 1:
+        return None
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"--n_devices {n}: no process group of {n} ranks. Run test_cli with "
+            f"--n_devices {n} (it starts the ranks), or torchrun --nproc_per_node {n}, "
+            "or build the engine in each rank of vid2vid_tpu_torch.parallel.launch")
+    return make_mesh(n, data=1)
+
+
 class InferenceEngine:
     """Inference wrapper around a Vid2VidGenerator on one device: the first
-    CUDA device unless the caller passes device='cpu'."""
+    CUDA device unless the caller passes device='cpu'. With --n_devices N >
+    1, one rank of a model axis of N (`serving_mesh`)."""
 
     def __init__(self, opt: Options, device: torch.device | str = "cuda"):
-        if getattr(opt, "n_devices", 1) > 1:
-            raise NotImplementedError(
-                "--n_devices > 1 (width-sharded serving) is not ported "
-                "(ROADMAP.md, queue 1: tools and multi-device)"
-            )
         self.opt = opt
         self.device = require_device(device)
+        self.mesh = serving_mesh(opt, self.device)
+        self._synced: list | None = None  # version_key of gen at the last broadcast
         self.compute_dtype = (
             torch.bfloat16 if (opt.bf16 or opt.fp16) else torch.float32
         )
@@ -104,6 +131,37 @@ class InferenceEngine:
             self._compute_gen = (
                 key, copy.deepcopy(self.gen).to(self.compute_dtype).eval())
         return self._compute_gen[1]
+
+    # -------------------------------------------------------------- model axis
+
+    def shard(self, width: int) -> halo.WidthShard | None:
+        """This rank's columns of a frame `width` wide (None without a model
+        axis); raises ValueError for a width the ranks cannot split
+        (halo.check_geometry)."""
+        if self.mesh is None:
+            return None
+        opt, n = self.opt, self.mesh.model
+        halo.check_geometry(width, n, 2 ** (opt.n_scales_spatial - 1), 2**opt.n_downsample_G)
+        return halo.make_shard(self.mesh.model_index, n, width, self.mesh.model_group)
+
+    def replicate_weights(self) -> None:
+        """Broadcast the generator's weights from rank 0 of the model axis
+        when any rank's have changed since the last broadcast (one small
+        all_reduce a call to learn it)."""
+        key = version_key(state_tensors(self.gen))
+        changed = torch.tensor([float(key != self._synced)], device=self.device)
+        dist.all_reduce(changed, op=dist.ReduceOp.MAX, group=self.mesh.model_group)
+        if changed.item():
+            replicated(self.gen, group=self.mesh.model_group)
+            self._synced = version_key(state_tensors(self.gen))
+
+    def _sharded(self, width: int) -> halo.WidthShard | None:
+        """The shard of a call on frames `width` wide, the weights
+        replicated first."""
+        shard = self.shard(width)
+        if shard is not None:
+            self.replicate_weights()
+        return shard
 
     # ----------------------------------------------------------------- encode
 
@@ -251,10 +309,11 @@ class InferenceEngine:
     ) -> tuple[ClipOutputs, State]:
         """(B, T+tG-1, C, H, W) encoded labels -> (ClipOutputs in f32, state)."""
         dt = self.compute_dtype
+        shard = self._sharded(enc_a.shape[-1])
         outs, new_state = self.compute_generator().generate_clip(
             enc_a.to(self.device, dt),
             tuple(s.to(self.device, dt) for s in state),
-            use_raw_only=use_raw_only,
+            use_raw_only=use_raw_only, shard=shard,
         )
         return (
             ClipOutputs(*(None if o is None else o.float() for o in outs)),
@@ -271,11 +330,13 @@ class InferenceEngine:
         `Vid2VidGenerator.generate_clip_streaming` on the compute-dtype
         generator. The labels may stay on the host (one frame a step moves
         to the card). Returns (ClipOutputs in f32, state in the compute
-        dtype)."""
+        dtype). With a model axis each rank encodes and runs its columns;
+        the outputs are whole on every rank."""
         dt = self.compute_dtype
+        shard = self._sharded(labels.shape[-1])
         outs, new_state = self.compute_generator().generate_clip_streaming(
             labels, inst, tuple(s.to(self.device, dt) for s in state),
-            use_raw_only=use_raw_only, compute_dtype=dt,
+            use_raw_only=use_raw_only, compute_dtype=dt, shard=shard,
         )
         return (
             ClipOutputs(*(None if o is None else o.float() for o in outs)),
@@ -294,8 +355,14 @@ class InferenceEngine:
     ) -> tuple[torch.Tensor, State]:
         """One frame from a raw (B, tG, H, W) label window and the state.
 
-        Returns the (B, 3, H, W) float32 frame and the new state.
+        Returns the (B, 3, H, W) float32 frame and the new state. With a
+        model axis it is `generate_clip_raw` of the window (each rank
+        encodes its columns); the frame is whole on every rank.
         """
+        if self.mesh is not None:
+            outs, new_state = self.generate_clip_raw(labels_window, inst_window, state,
+                                                     use_raw_only)
+            return outs.fake[:, 0], new_state
         enc = self.encode(labels_window, inst_window)
         outs, new_state = self.generate_clip(enc, state, use_raw_only)
         return outs.fake[:, 0], new_state

@@ -7,7 +7,9 @@ trunk, and its indices are the checkpoint's names. `ResnetBlock` is a
 module, as in the reference, with its `conv_block` Sequential. Every 7x7
 stem and head is a `reflect_conv7`: in eval mode it runs the conv7 kernel
 (the composite generators of nn/composite.py and the single-image nets of
-nn/pix2pixhd.py alike).
+nn/pix2pixhd.py alike). On a width shard (parallel/halo.py) the eval
+layers take their neighbours' columns first (nn/layers.py); the eval
+`ResnetBlock` runs respair's column-halo mode.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 
 from vid2vid_tpu_torch.nn.layers import (
     conv_transpose,
+    down_conv,
     eval_affine,
     eval_cached,
     norm_layer,
@@ -24,9 +27,11 @@ from vid2vid_tpu_torch.nn.layers import (
     reflect_conv,
     reflect_conv7,
     state_tensors,
+    unsharded_in_training,
 )
 from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel
-from vid2vid_tpu_torch.ops.respair import respair
+from vid2vid_tpu_torch.ops.respair import respair, respair_halo
+from vid2vid_tpu_torch.parallel import halo
 
 
 def conv_stem(cin: int, cout: int, norm: str) -> list[nn.Module]:
@@ -37,8 +42,7 @@ def conv_stem(cin: int, cout: int, norm: str) -> list[nn.Module]:
 
 def down_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
     """Conv3x3 stride 2, zero padding 1, + norm + ReLU (3 entries)."""
-    return [nn.Conv2d(cin, cout, 3, stride=2, padding=1), norm_layer(norm, cout),
-            nn.ReLU(True)]
+    return [down_conv(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
 
 
 def up_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
@@ -70,7 +74,8 @@ class ResnetBlock(nn.Module):
     parameter or buffer of the block changes (its version counter, storage,
     dtype or device) or x's dtype or device does (`nn.layers.eval_cached`);
     with gradients on they are rebuilt on each call, so the weights keep
-    their gradient.
+    their gradient. On a width shard it takes two columns of each
+    neighbour and runs `ops.respair_halo` (one exchange for both convs).
     """
 
     def __init__(self, dim: int, norm: str = "batch"):
@@ -98,6 +103,7 @@ class ResnetBlock(nn.Module):
         return k0, ab0, k1, ab1, packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unsharded_in_training(self, x)
         if self.training:
             return x + self.conv_block(x)
         if torch.is_grad_enabled():
@@ -105,4 +111,9 @@ class ResnetBlock(nn.Module):
         else:
             k0, ab0, k1, ab1, packed = eval_cached(
                 self, x, lambda: state_tensors(self.conv_block), self._respair_args)
-        return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)
+        shard = halo.active(x)
+        if shard is None:
+            return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)
+        x = x.contiguous()
+        x_in, xoff = halo.attach(x, *halo.exchange(x, shard, 2, 2))
+        return respair_halo(x, x_in, xoff, shard.edges, k0, ab0, k1, ab1, packed=packed)

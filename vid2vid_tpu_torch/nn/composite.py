@@ -16,6 +16,12 @@ published checkpoint loads with `load_state_dict`. Every branch runs its own
 convolutions: the JAX package's TPU-only regrouping of branches into fused
 block kernels (FusedConv7, _FusedResPair, ...) computes the same math and
 has no counterpart here.
+
+On a width shard (parallel/halo.py, set by the generator around a frame)
+`prev_frames` stays the whole previous frames: the previous-frame trunk
+takes this shard's columns of them, and the warp samples the whole frame
+at the shard's column offset (`ops.warp_blend_at`), so the flow needs no
+halo however far it reaches.
 """
 
 from __future__ import annotations
@@ -33,7 +39,15 @@ from vid2vid_tpu_torch.nn.blocks import (
     tanh_head,
     up_block,
 )
-from vid2vid_tpu_torch.ops.warp import warp_blend
+from vid2vid_tpu_torch.ops.warp import warp_blend, warp_blend_at
+from vid2vid_tpu_torch.parallel import halo
+
+
+def local_columns(prev_frames: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This shard's columns of the whole previous frames, at the level of
+    `like` (prev_frames itself unsharded)."""
+    shard = halo.active(like)
+    return prev_frames if shard is None else shard.local(prev_frames)
 
 
 class CompositeOut(NamedTuple):
@@ -93,7 +107,12 @@ class _Heads(nn.Module):
             img_final = img_raw
         else:
             prev = prev_frames[:, -img_raw.shape[1]:].contiguous()
-            img_final = warp_blend(img_raw, prev, flow.contiguous(), weight)
+            shard = halo.active(img_raw)
+            if shard is None:
+                img_final = warp_blend(img_raw, prev, flow.contiguous(), weight)
+            else:
+                img_final = warp_blend_at(img_raw.contiguous(), prev, flow.contiguous(),
+                                          weight.contiguous(), shard.x0)
         if self.use_fg:
             img_fg = self.indv_final(fg_feat)
             img_final = img_fg * mask + img_final * (1.0 - mask)
@@ -156,7 +175,8 @@ class CompositeGenerator(_Heads):
         mask: torch.Tensor | None = None,
         use_raw_only: bool = False,
     ) -> CompositeOut:
-        d = self.model_down_seg(labels) + self.model_down_img(prev_frames)
+        d = (self.model_down_seg(labels)
+             + self.model_down_img(local_columns(prev_frames, labels)))
         img_feat = self.model_up_img(self.model_res_img(d))
         flow_feat = None
         if not self.no_flow:
@@ -217,7 +237,8 @@ class CompositeLocalGenerator(_Heads):
         mask: torch.Tensor | None = None,
         use_raw_only: bool = False,
     ) -> CompositeOut:
-        d = self.model_down_seg(labels) + self.model_down_img(prev_frames)
+        d = (self.model_down_seg(labels)
+             + self.model_down_img(local_columns(prev_frames, labels)))
         img_feat = self.model_up_img(d + coarse.img_feat)
         flow_feat = None
         if not self.no_flow:

@@ -9,7 +9,8 @@ lists that callers splice into their Sequentials, padding layers included.
     reflect_conv7 the same 7x7 pair, run in eval mode as one conv7 op
     (the hand-written kernel on the card) with the pad folded in, its
     kernel arguments kept between calls (`version_key`).
-  - conv_transpose: ConvTranspose2d(3, 2, padding=1, output_padding=1).
+  - down_conv: Conv2d(3, stride 2, padding 1); conv_transpose:
+    ConvTranspose2d(3, 2, padding=1, output_padding=1).
   - norm_layer('batch'): BatchNorm2d; eval mode normalizes with the
     running stats.
   - norm_layer('instance'): InstanceNorm2d(affine=False,
@@ -27,6 +28,15 @@ generator and the discriminators. On a data axis of several ranks
 (parallel/mesh.py) `sync_batch_norm(module, group)` makes batch norm's
 train mode take the global batch's statistics, as JAX's norms do over a
 sharded batch; instance norm stays per sample.
+
+On the model axis (a frame's columns split over ranks: parallel/halo.py,
+set by the generator around a frame) the eval layers that read across
+columns take their neighbours' columns first: the 7x7 (`ReflectConv7`,
+through conv7's column-halo mode), the down convs (`DownConv2d`: one
+column on the left, zeros at the image's edge) and the transposed convs
+(`UpConvTranspose2d`: one on the right). The eval norms normalise by their
+running stats, pointwise; a norm that would take statistics over the width
+raises under a shard, as does any layer in train mode.
 """
 
 from __future__ import annotations
@@ -35,8 +45,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vid2vid_tpu_torch.ops.conv7 import TENSOR_CORES, conv7_body, conv7_reflect, pack_for_kernel
-from vid2vid_tpu_torch.parallel.mesh import all_reduce_sum, group_size
+from vid2vid_tpu_torch.ops.conv7 import (
+    TENSOR_CORES,
+    conv7_body,
+    conv7_halo,
+    conv7_reflect,
+    pack_for_kernel,
+)
+from vid2vid_tpu_torch.parallel import halo
+from vid2vid_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM, all_reduce_sum, group_size
+
+
+def unsharded_in_training(module: nn.Module, x: torch.Tensor) -> None:
+    """Raise if `module` is in train mode on a width shard: training's
+    model axis (the backward halos, the statistics over the width) is not
+    ported."""
+    if module.training and halo.active(x) is not None:
+        raise NotImplementedError(
+            f"{type(module).__name__} in train mode on a width shard: {MODEL_AXIS_ITEM}")
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -49,6 +75,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unsharded_in_training(self, x)
         if self.training and group_size(self.group) > 1:
             return self._synced(x)
         if not self.training or self.update_stats:
@@ -91,6 +118,11 @@ class InstanceNorm2d(nn.InstanceNorm2d):
     update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unsharded_in_training(self, x)
+        if not self.track_running_stats and halo.active(x) is not None:
+            raise NotImplementedError(
+                "InstanceNorm2d without running stats normalises over the width: it "
+                "cannot run on a width shard")
         if not self.training or self.update_stats:
             return super().forward(x)
         return F.instance_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -219,6 +251,7 @@ class ReflectConv7(nn.Conv2d):
         return w, self.bias.float(), packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unsharded_in_training(self, x)
         if self.training:
             return super().forward(x)
         if torch.is_grad_enabled():
@@ -226,7 +259,11 @@ class ReflectConv7(nn.Conv2d):
         else:
             w, bias, packed = eval_cached(self, x, lambda: (self.weight, self.bias),
                                           self._kernel_args)
-        return conv7_reflect(x.contiguous(), w, bias, packed=packed)
+        shard = halo.active(x)
+        if shard is None:
+            return conv7_reflect(x.contiguous(), w, bias, packed=packed)
+        x_in, xoff = halo.attach(x, *halo.exchange(x, shard, 3, 3))
+        return conv7_halo(x_in, w, bias, xoff, x.shape[-1], shard.edges, packed=packed)
 
 
 def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
@@ -235,9 +272,45 @@ def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
     return [FoldedReflectionPad2d(), ReflectConv7(cin, cout)]
 
 
-def conv_transpose(cin: int, cout: int) -> nn.ConvTranspose2d:
+class DownConv2d(nn.Conv2d):
+    """Conv2d(3, stride 2, zero padding 1). On a width shard (eval) its
+    output column j reads the shard's columns 2j - 1 .. 2j + 1: the left
+    neighbour's last column first (zeros at the image's left edge)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unsharded_in_training(self, x)
+        shard = halo.active(x)
+        if shard is None:
+            return super().forward(x)
+        lstrip, _ = halo.exchange(x, shard, 1, 0)
+        xp = halo.with_halo_plain(x, lstrip, None, shard, "zeros", (1, 0))
+        return F.conv2d(xp, self.weight, self.bias, 2, (1, 0))
+
+
+def down_conv(cin: int, cout: int) -> DownConv2d:
+    """Conv2d(3, stride 2, padding 1): H / 2, W / 2."""
+    return DownConv2d(cin, cout, 3, stride=2, padding=1)
+
+
+class UpConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d(3, stride 2, padding 1, output_padding 1). On a
+    width shard (eval) its last two output columns take the right
+    neighbour's first column (zeros past the image's right edge)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        unsharded_in_training(self, x)
+        shard = halo.active(x)
+        if shard is None:
+            return super().forward(x)
+        _, rstrip = halo.exchange(x, shard, 0, 1)
+        xp = halo.with_halo_plain(x, None, rstrip, shard, "zeros", (0, 1))
+        out = F.conv_transpose2d(xp, self.weight, self.bias, 2, 1, output_padding=(1, 0))
+        return out[..., : 2 * x.shape[-1]]
+
+
+def conv_transpose(cin: int, cout: int) -> UpConvTranspose2d:
     """ConvTranspose2d(3, stride 2, padding 1, output_padding 1): 2x H, W."""
-    return nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1)
+    return UpConvTranspose2d(cin, cout, 3, stride=2, padding=1, output_padding=1)
 
 
 def norm_layer(kind: str, channels: int) -> nn.Module:

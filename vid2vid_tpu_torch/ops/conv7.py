@@ -18,6 +18,11 @@ dispatch (`on_tpu`, h*w >= 256**2, `_pick_blocks`) is a Mosaic tiling
 constraint. The gradient is the plain version's autograd, as the JAX
 backward is the XLA conv's VJP.
 
+`conv7_halo` is the kernel's column-halo mode for a width shard (the
+model axis, parallel/halo.py): the input carries the neighbours' columns
+on its inner sides and is reflected only at the image's edges;
+`conv7_halo_plain` is its plain version.
+
 In f32 the kernel runs on the tensor cores as 3xTF32 (`pack_taps_3xtf32`
 is that body's weight layout, two tf32 parts of each weight) or, for the
 narrow shapes where `conv7_body`'s fixed rule picks them, on the CUDA cores
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
 from vid2vid_tpu_torch.ops import library
+from vid2vid_tpu_torch.parallel.halo import BOTH_EDGES, LEFT_EDGE, RIGHT_EDGE, columns
 
 K = 7
 PAD = K // 2
@@ -56,6 +62,18 @@ def conv7_reflect_plain(
 ) -> torch.Tensor:
     """ReflectionPad(3) + conv7_plain."""
     return conv7_plain(F.pad(x, (PAD,) * 4, mode="reflect"), w, bias)
+
+
+def conv7_halo_plain(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, xoff: int, width: int,
+    edges: int,
+) -> torch.Tensor:
+    """`conv7_halo` in plain PyTorch: the rows reflect-padded, the columns
+    of the output's `width` read from x from column xoff on, reflected on
+    the image's edges (`edges`) and from x's halo elsewhere
+    (parallel/halo.py::columns)."""
+    xc = columns(x, xoff, width, -PAD, width + PAD, edges)
+    return conv7_plain(F.pad(xc, (0, 0, PAD, PAD), mode="reflect"), w, bias)
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
@@ -217,8 +235,10 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _conv7_cuda(x, w, bias, packed, reflect: bool) -> torch.Tensor:
-    """The operator's CUDA implementation: one launch of the kernel."""
+def _conv7_cuda(x, w, bias, packed, reflect: bool, xoff: int = 0, width: int = 0,
+                edges: int = BOTH_EDGES) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel (with a
+    width, in the column-halo mode)."""
     code = build.require_cuda_operands("conv7", x.device, x.dtype, x=x, w=w)
     if bias is not None:
         build.require_cuda_operands("conv7", x.device, torch.float32, bias=bias)
@@ -231,28 +251,38 @@ def _conv7_cuda(x, w, bias, packed, reflect: bool) -> torch.Tensor:
     elif body != TENSOR_CORES:
         packed = None
     h, wd = (x.shape[2], x.shape[3]) if reflect else (x.shape[2] - 2 * PAD, x.shape[3] - 2 * PAD)
-    fn = build.function("v2v_conv7", [_VOID] * 5 + [_INT] * 8 + [_VOID])
+    if width:
+        wd = width
+    fn = build.function("v2v_conv7", [_VOID] * 5 + [_INT] * 11 + [_VOID])
     out = torch.empty((x.shape[0], co, h, wd), dtype=x.dtype, device=x.device)
     err = build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
                        None if packed is None else packed.data_ptr(),
                        None if bias is None else bias.data_ptr(), out.data_ptr(),
-                       x.shape[0], ci, co, h, wd, int(reflect), code, body)
+                       x.shape[0], ci, co, h, wd, int(reflect), xoff, x.shape[3], edges,
+                       code, body)
     build.check(err, "conv7 kernel launch")
-    (conv7_reflect if reflect else conv7_padded).launches += 1
+    (conv7_halo if width else conv7_reflect if reflect else conv7_padded).launches += 1
     return out
 
 
-def _conv7_plain(x, w, bias, packed, reflect: bool) -> torch.Tensor:
+def _conv7_plain(x, w, bias, packed, reflect: bool, xoff: int = 0, width: int = 0,
+                 edges: int = BOTH_EDGES) -> torch.Tensor:
+    if width:
+        return conv7_halo_plain(x, w, bias, xoff, width, edges)
     return (conv7_reflect_plain if reflect else conv7_plain)(x, w, bias)
 
 
-def _conv7_fake(x, w, bias, packed, reflect: bool) -> torch.Tensor:
+def _conv7_fake(x, w, bias, packed, reflect: bool, xoff: int = 0, width: int = 0,
+                edges: int = BOTH_EDGES) -> torch.Tensor:
     pad = 0 if reflect else 2 * PAD
-    return x.new_empty((x.shape[0], w.shape[0], x.shape[2] - pad, x.shape[3] - pad))
+    return x.new_empty((x.shape[0], w.shape[0], x.shape[2] - pad,
+                        width or x.shape[3] - pad))
 
 
+# width > 0: the column-halo mode (`conv7_halo`), reflect only
 CONV7_OP = library.define(
-    "conv7", "(Tensor x, Tensor w, Tensor? bias, Tensor? packed, bool reflect) -> Tensor",
+    "conv7", "(Tensor x, Tensor w, Tensor? bias, Tensor? packed, bool reflect, "
+    f"int xoff=0, int width=0, int edges={BOTH_EDGES}) -> Tensor",
     cpu=_conv7_plain, cuda=_conv7_cuda, fake=_conv7_fake,
 )
 
@@ -316,5 +346,29 @@ def conv7_padded(
     return _conv7(xp, w, bias, False, packed)
 
 
+def conv7_halo(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None, xoff: int, width: int,
+    edges: int, packed: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """`conv7_reflect` of a width shard: (B, Ci, H, w_in) -> (B, Co, H,
+    width), output column j from x's column j + xoff. x carries at least 3
+    neighbour columns on each inner side (parallel/halo.py::attach); the
+    sides that `edges` marks as the image's (parallel/halo.py::LEFT_EDGE,
+    RIGHT_EDGE) are reflected. With xoff 0, width W and both edges it is
+    conv7_reflect of x, bit for bit on the card. Inference only (no
+    gradient); a CPU tensor takes `conv7_halo_plain`."""
+    _check(x, w, bias, True)
+    if wants_grad(x, w, bias):
+        raise NotImplementedError("conv7_halo carries no gradient: training's model axis "
+                                  "is not ported")
+    need_l = 0 if edges & LEFT_EDGE else PAD
+    need_r = 0 if edges & RIGHT_EDGE else PAD
+    if width < 1 or xoff < need_l or x.shape[3] < xoff + width + need_r:
+        raise ValueError(f"conv7_halo: {x.shape[3]} input columns cannot hold {width} from "
+                         f"column {xoff} with the halos of edges {edges}")
+    return CONV7_OP(x, w, bias, packed, True, xoff, width, edges)
+
+
 conv7_reflect.launches = 0
 conv7_padded.launches = 0
+conv7_halo.launches = 0

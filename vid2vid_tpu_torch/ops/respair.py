@@ -15,6 +15,11 @@ pack_taps_3xtf32 in f32): a caller that runs the block often packs them
 once and passes them as `packed` (nn/blocks.py::ResnetBlock); otherwise
 they are packed on each call. The gradient is the plain version's autograd (on the
 unpacked weights), as the JAX package differentiates its plain block.
+
+`respair_halo` is the block of a width shard (the model axis,
+parallel/halo.py), the kernel's column-halo mode: x with two neighbour
+columns on each inner side, h computed wider there, reflected only at the
+image's edges; `respair_halo_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from vid2vid_tpu_torch.kernels import build
 from vid2vid_tpu_torch.ops import library
 from vid2vid_tpu_torch.ops.conv7 import check_packed, pack_for_kernel, plain_vjp, wants_grad
+from vid2vid_tpu_torch.parallel.halo import ALIGN, BOTH_EDGES, LEFT_EDGE, RIGHT_EDGE, columns
 
 Affine = tuple[torch.Tensor, torch.Tensor]
 
@@ -44,6 +50,27 @@ def respair_plain(
     a1, c1 = (v.to(dt).view(1, -1, 1, 1) for v in ab1)
     h = torch.relu(_conv3_reflect(x, k0.to(dt)) * a0 + c0)
     return _conv3_reflect(h, k1.to(dt)) * a1 + c1 + x
+
+
+def respair_halo_plain(
+    x: torch.Tensor, x_in: torch.Tensor, xoff: int, edges: int, k0: torch.Tensor,
+    ab0: Affine, k1: torch.Tensor, ab1: Affine,
+) -> torch.Tensor:
+    """`respair_halo` in plain PyTorch, in x's dtype: h on x's columns and
+    one more on each inner side (parallel/halo.py::columns of x_in), then
+    the second conv on h's columns, reflected on the image's edges."""
+    dt, w = x.dtype, x.shape[3]
+    a0, c0 = (v.to(dt).view(1, -1, 1, 1) for v in ab0)
+    a1, c1 = (v.to(dt).view(1, -1, 1, 1) for v in ab1)
+    hl = 0 if edges & LEFT_EDGE else 1
+    hr = 0 if edges & RIGHT_EDGE else 1
+
+    def conv(t, xo, lo, hi, k):
+        tc = columns(t, xo, w, lo, hi, edges)
+        return F.conv2d(F.pad(tc, (0, 0, 1, 1), mode="reflect"), k.to(dt))
+
+    h = torch.relu(conv(x_in, xoff, -hl - 1, w + hr + 1, k0) * a0 + c0)
+    return conv(h, hl, -1, w + 1, k1) * a1 + c1 + x
 
 
 def _check_shapes(x, k0, ab0, k1, ab1) -> None:
@@ -70,8 +97,10 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _respair_cuda(x, k0, a0, c0, k1, a1, c1, packed0, packed1) -> torch.Tensor:
-    """The operator's CUDA implementation: one launch of the kernel."""
+def _respair_cuda(x, k0, a0, c0, k1, a1, c1, packed0, packed1, x_in=None, xoff=0,
+                  edges=BOTH_EDGES) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel (with
+    x_in, in the column-halo mode)."""
     code = build.require_cuda_operands(
         "respair", x.device, x.dtype, x=x, k0=k0, k1=k1
     )
@@ -84,28 +113,41 @@ def _respair_cuda(x, k0, a0, c0, k1, a1, c1, packed0, packed1) -> torch.Tensor:
         packed0, packed1 = pack_for_kernel(k0), pack_for_kernel(k1)
     b, c, h, w = x.shape
     fn = build.function(
-        "v2v_respair", [_VOID] * 9 + [_INT] * 5 + [_VOID]
+        "v2v_respair",
+        [_VOID, _VOID, _INT, _INT, _INT] + [_VOID] * 7 + [_INT, _VOID] + [_INT] * 5 + [_VOID],
     )
-    hbuf = torch.empty_like(x)
+    if x_in is None:
+        x_in, ldh = x, w
+    else:  # h wider on the inner sides (csrc/respair.cu: 8 left, 1 right), rows aligned
+        build.require_cuda_operands("respair", x.device, x.dtype, x_in=x_in)
+        wh = w + (0 if edges & LEFT_EDGE else ALIGN) + (0 if edges & RIGHT_EDGE else 1)
+        ldh = -(-wh // ALIGN) * ALIGN
+    hbuf = x.new_empty((b, c, h, ldh))
     out = torch.empty_like(x)
     err = build.launch(
-        fn, x.device, x.data_ptr(), packed0.data_ptr(), a0.data_ptr(), c0.data_ptr(),
+        fn, x.device, x.data_ptr(), x_in.data_ptr(), xoff, x_in.shape[3], edges,
+        packed0.data_ptr(), a0.data_ptr(), c0.data_ptr(),
         packed1.data_ptr(), a1.data_ptr(), c1.data_ptr(),
-        hbuf.data_ptr(), out.data_ptr(), b, c, h, w, code,
+        hbuf.data_ptr(), ldh, out.data_ptr(), b, c, h, w, code,
     )
     build.check(err, "respair kernel launch")
-    respair.launches += 1
+    (respair if x_in is x else respair_halo).launches += 1
     return out
 
 
-def _respair_plain_flat(x, k0, a0, c0, k1, a1, c1, packed0=None, packed1=None):
+def _respair_plain_flat(x, k0, a0, c0, k1, a1, c1, packed0=None, packed1=None, x_in=None,
+                        xoff=0, edges=BOTH_EDGES):
+    if x_in is not None:
+        return respair_halo_plain(x, x_in, xoff, edges, k0, (a0, c0), k1, (a1, c1))
     return respair_plain(x, k0, (a0, c0), k1, (a1, c1))
 
 
+# x_in given: the column-halo mode (`respair_halo`)
 RESPAIR_OP = library.define(
     "respair",
     "(Tensor x, Tensor k0, Tensor a0, Tensor c0, Tensor k1, Tensor a1, Tensor c1, "
-    "Tensor? packed0, Tensor? packed1) -> Tensor",
+    f"Tensor? packed0, Tensor? packed1, Tensor? x_in=None, int xoff=0, int edges={BOTH_EDGES}"
+    ") -> Tensor",
     cpu=_respair_plain_flat, cuda=_respair_cuda,
     fake=lambda x, *args: torch.empty_like(x),
 )
@@ -145,4 +187,34 @@ def respair(
     return RESPAIR_OP(x, k0, a0, c0, k1, a1, c1, packed0, packed1)
 
 
+def respair_halo(
+    x: torch.Tensor, x_in: torch.Tensor, xoff: int, edges: int, k0: torch.Tensor,
+    ab0: Affine, k1: torch.Tensor, ab1: Affine,
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One eval residual block of a width shard: x (B, C, H, W) its columns,
+    x_in (B, C, H, w_in) the same with at least two neighbour columns on
+    each inner side, x's column j at x_in's column j + xoff
+    (parallel/halo.py::attach); `edges` the sides that are the image's
+    (parallel/halo.py::LEFT_EDGE, RIGHT_EDGE), reflected there. One
+    exchange serves both convs: h is computed one column beyond x on each
+    inner side. With x_in = x, xoff 0 and both edges it is `respair`, bit
+    for bit on the card. Inference only (no gradient); a CPU tensor takes
+    `respair_halo_plain`."""
+    _check_shapes(x, k0, ab0, k1, ab1)
+    (a0, c0), (a1, c1) = ab0, ab1
+    if wants_grad(x, x_in, k0, a0, c0, k1, a1, c1):
+        raise NotImplementedError("respair_halo carries no gradient: training's model axis "
+                                  "is not ported")
+    need_l = 0 if edges & LEFT_EDGE else 2
+    need_r = 0 if edges & RIGHT_EDGE else 2
+    if (x_in.shape[:3] != x.shape[:3] or xoff < need_l
+            or x_in.shape[3] < xoff + x.shape[3] + need_r):
+        raise ValueError(f"respair_halo: x_in {tuple(x_in.shape)} cannot hold x "
+                         f"{tuple(x.shape)} from column {xoff} with the halos of edges {edges}")
+    packed0, packed1 = packed or (None, None)
+    return RESPAIR_OP(x, k0, a0, c0, k1, a1, c1, packed0, packed1, x_in, xoff, edges)
+
+
 respair.launches = 0
+respair_halo.launches = 0

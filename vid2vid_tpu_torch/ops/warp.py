@@ -12,6 +12,12 @@ align_corners=True)` over a normalized [-1, 1] meshgrid plus the
 normalized flow, up to the rounding of the normalization round trip
 (tests/test_torch_ops.py holds the two together).
 
+`warp_blend_at(raw, prev, flow, weight, x0)` is the blend of a width
+shard (the model axis, parallel/halo.py): prev is the whole previous
+frame, raw, flow and weight the shard's columns from the frame's column
+x0, sampled at (x0 + x + u, y + v) and clamped to the whole frame's border
+(the same kernel; `warp_blend_at_plain`).
+
 `warp_blend(raw, prev, flow, weight)` is the composite generator's blend
 `raw * w + flow_warp(prev, flow) * (1 - w)` (vid2vid_tpu/nn/composite.py::
 _blend), through the operator `torch.ops.v2v.warp_blend` (ops/library.py),
@@ -87,11 +93,20 @@ def flow_warp_plain(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy), in
     plain PyTorch (gathers)."""
     _check_flow(image, flow)
-    b, c, h, w = image.shape
+    return _sample_plain(image, flow, 0)
+
+
+def _sample_plain(image: torch.Tensor, flow: torch.Tensor, x0: int) -> torch.Tensor:
+    """(B, C, H, Wp) image sampled at (x0 + x + u, y + v) for the (B, 2, H,
+    W) flow's pixels, clamped to the image's border."""
+    b, c, h, wp = image.shape
+    w = flow.shape[3]
     ct = _work_dtype(flow)
     flow = flow.to(ct)
     ys = torch.arange(h, dtype=ct, device=image.device).view(1, h, 1)
     xs = torch.arange(w, dtype=ct, device=image.device).view(1, 1, w)
+    if x0:
+        xs = xs + x0
     x = xs + flow[:, 0]
     y = ys + flow[:, 1]
     x0 = torch.floor(x)
@@ -99,15 +114,15 @@ def flow_warp_plain(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     wx = (x - x0).unsqueeze(1).to(image.dtype)
     wy = (y - y0).unsqueeze(1).to(image.dtype)
     # clamp before the int conversion: indices clamp to the same texels
-    x0i = x0.clamp(-1, w).long()
+    x0i = x0.clamp(-1, wp).long()
     y0i = y0.clamp(-1, h).long()
-    x0c, x1c = x0i.clamp(0, w - 1), (x0i + 1).clamp(0, w - 1)
+    x0c, x1c = x0i.clamp(0, wp - 1), (x0i + 1).clamp(0, wp - 1)
     y0c, y1c = y0i.clamp(0, h - 1), (y0i + 1).clamp(0, h - 1)
 
-    flat = image.reshape(b, c, h * w)
+    flat = image.reshape(b, c, h * wp)
 
     def tap(yi, xi):
-        idx = (yi * w + xi).view(b, 1, h * w).expand(b, c, h * w)
+        idx = (yi * wp + xi).view(b, 1, h * w).expand(b, c, h * w)
         return flat.gather(2, idx).view(b, c, h, w)
 
     top = tap(y0c, x0c) * (1.0 - wx) + tap(y0c, x1c) * wx
@@ -120,6 +135,15 @@ def warp_blend_plain(
 ) -> torch.Tensor:
     """raw * w + flow_warp(prev, flow) * (1 - w) in plain PyTorch."""
     return raw * weight + flow_warp_plain(prev, flow) * (1.0 - weight)
+
+
+def warp_blend_at_plain(
+    raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor, weight: torch.Tensor,
+    x0: int,
+) -> torch.Tensor:
+    """`warp_blend_at` in plain PyTorch: prev the whole frame, the others
+    its columns from x0."""
+    return raw * weight + _sample_plain(prev, flow, x0) * (1.0 - weight)
 
 
 def _clip_grad(u: torch.Tensor) -> torch.Tensor:
@@ -289,26 +313,36 @@ def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 flow_warp.launches = 0
 
 
-def _warp_blend_cuda(raw, prev, flow, weight) -> torch.Tensor:
-    """The operator's CUDA implementation: one launch of the kernel."""
+def _warp_blend_cuda(raw, prev, flow, weight, x0=-1) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the kernel (with
+    x0 >= 0, at that column offset)."""
     code = build.require_cuda_operands(
         "warp_blend", prev.device, prev.dtype,
         raw=raw, prev=prev, flow=flow, weight=weight,
     )
-    fn = build.function("v2v_warp_blend", [_VOID] * 5 + [_INT] * 5 + [_VOID])
-    b, c, h, w = prev.shape
-    out = torch.empty_like(prev)
+    fn = build.function("v2v_warp_blend", [_VOID] * 5 + [_INT] * 7 + [_VOID])
+    b, c, h, w = raw.shape
+    out = torch.empty_like(raw)
     err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
-                       weight.data_ptr(), out.data_ptr(), b, c, h, w, code)
+                       weight.data_ptr(), out.data_ptr(), b, c, h, w, prev.shape[3],
+                       max(x0, 0), code)
     build.check(err, "warp_blend kernel launch")
-    warp_blend.launches += 1
+    (warp_blend if x0 < 0 else warp_blend_at).launches += 1
     return out
 
 
+def _warp_blend_plain(raw, prev, flow, weight, x0=-1) -> torch.Tensor:
+    if x0 < 0:
+        return warp_blend_plain(raw, prev, flow, weight)
+    return warp_blend_at_plain(raw, prev, flow, weight, x0)
+
+
+# x0 >= 0: a width shard's blend at that column of the whole previous
+# frame (`warp_blend_at`)
 WARP_BLEND_OP = library.define(
-    "warp_blend", "(Tensor raw, Tensor prev, Tensor flow, Tensor weight) -> Tensor",
-    cpu=warp_blend_plain, cuda=_warp_blend_cuda,
-    fake=lambda raw, prev, flow, weight: torch.empty_like(prev),
+    "warp_blend", "(Tensor raw, Tensor prev, Tensor flow, Tensor weight, int x0=-1) -> Tensor",
+    cpu=_warp_blend_plain, cuda=_warp_blend_cuda,
+    fake=lambda raw, prev, flow, weight, x0=-1: torch.empty_like(raw),
 )
 
 
@@ -372,4 +406,27 @@ def warp_blend(
     return WARP_BLEND_OP(raw, prev, flow, weight)
 
 
+def warp_blend_at(
+    raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor, weight: torch.Tensor,
+    x0: int,
+) -> torch.Tensor:
+    """The blend of a width shard: prev (B, C, H, Wp) the whole previous
+    frame, raw (B, C, H, W), flow (B, 2, H, W) and weight (B, 1, H, W) its
+    columns from the frame's column x0: raw * w + warp * (1 - w), the warp
+    sampling prev at (x0 + x + u, y + v), clamped to the whole frame's
+    border. At x0 = 0 with Wp = W it is `warp_blend`, bit for bit on the
+    card. Inference only (no gradient); a CPU tensor takes
+    `warp_blend_at_plain`."""
+    b, c, h, w = raw.shape
+    if (prev.shape[:3] != raw.shape[:3] or flow.shape != (b, 2, h, w)
+            or weight.shape != (b, 1, h, w) or not 0 <= x0 <= prev.shape[3] - w):
+        raise ValueError(f"warp_blend_at: raw {tuple(raw.shape)}, prev {tuple(prev.shape)}, "
+                         f"flow {tuple(flow.shape)}, weight {tuple(weight.shape)}, x0 {x0}")
+    if wants_grad(raw, prev, flow, weight):
+        raise NotImplementedError("warp_blend_at carries no gradient: training's model axis "
+                                  "is not ported")
+    return WARP_BLEND_OP(raw, prev, flow, weight, x0)
+
+
 warp_blend.launches = 0
+warp_blend_at.launches = 0

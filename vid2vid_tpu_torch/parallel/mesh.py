@@ -1,4 +1,5 @@
-"""The data axis of the device mesh, on torch.distributed.
+"""The device mesh on torch.distributed: the data axis, and the model axis
+for serving.
 
 The port of vid2vid_tpu/parallel/mesh.py. The JAX package runs one process
 over a ('data', 'model') mesh and lets GSPMD shard the batch over 'data'
@@ -14,8 +15,12 @@ one torch.distributed group, and the data axis is written out:
     (`all_reduce_mean`) before the grad norms and Adam
     (train/steps.py::_apply),
 so a step on N ranks computes what one process computes on the whole
-batch. The model axis (width sharding with halo exchanges) is not ported:
-a mesh with model > 1 is refused by its callers (ROADMAP.md, queue 1).
+batch. The model axis shards the width: a mesh of data 1 x model N serves
+a frame with each rank on its columns (models/inference.py), the layers
+exchanging halos (parallel/halo.py) and `all_gather_width` putting each
+scale's frame back together. Training's model axis (the backward halos,
+the norms' and losses' reductions over the width) is not ported: the
+Trainer refuses a mesh with model > 1 (MODEL_AXIS_ITEM).
 
 `launch` starts the ranks of one group as processes; `init_process_group`
 joins one. Nothing here starts a process or opens a socket at import.
@@ -37,21 +42,25 @@ from collections.abc import Callable, Sequence
 import torch
 import torch.distributed as dist
 
-# the ROADMAP item a mesh with model > 1 waits for
-MODEL_AXIS_ITEM = "ROADMAP.md, queue 1: the model axis (width sharding with halo exchanges)"
+from vid2vid_tpu_torch.parallel import halo
+
+# the ROADMAP item that training on a mesh with model > 1 waits for
+MODEL_AXIS_ITEM = ("ROADMAP.md, queue 1: training's model axis (the backward halos, "
+                   "the norms' and losses' reductions over the width)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ('data', 'model') mesh over the ranks of one group: this rank's
-    place in it and the data axis's group (None with data 1: nothing to
-    reduce)."""
+    place in it, the data axis's group (None with data 1: nothing to
+    reduce) and the model axis's (None with model 1)."""
 
     data: int
     model: int
     rank: int = 0
     world: int = 1
     group: object = None
+    model_group: object = None
 
     @property
     def shape(self) -> dict:
@@ -62,6 +71,11 @@ class Mesh:
         """This rank's row block on the data axis (ranks are laid out
         data-major, as JAX's device array is reshaped (data, model))."""
         return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's column block on the model axis."""
+        return self.rank % self.model
 
 
 def make_mesh(n_devices: int | None = None, data: int | None = None) -> Mesh:
@@ -78,7 +92,45 @@ def make_mesh(n_devices: int | None = None, data: int | None = None) -> Mesh:
     assert data * model == n, f"{data}x{model} != {n} devices"
     rank = dist.get_rank() if initialised else 0
     group = dist.group.WORLD if initialised and data > 1 else None
-    return Mesh(data, model, rank, world, group)
+    model_group = None
+    if initialised and model > 1:
+        if data == 1:
+            model_group = dist.group.WORLD
+        else:  # every rank makes every row's group, as new_group asks
+            for row in range(data):
+                g = dist.new_group(list(range(row * model, (row + 1) * model)))
+                if row == rank // model:
+                    model_group = g
+    return Mesh(data, model, rank, world, group, model_group)
+
+
+def visible_devices(n_devices: int, device: torch.device) -> int:
+    """The devices of an --n_devices mesh, by the JAX package's rule: n =
+    min(n_devices, the devices visible), with its warning. A device is a
+    rank of the initialised process group; without one, a visible card (the
+    CPU takes any number of gloo ranks)."""
+    if n_devices <= 1:
+        return 1
+    if dist.is_available() and dist.is_initialized():
+        avail = dist.get_world_size()
+    elif torch.device(device).type == "cuda":
+        avail = torch.cuda.device_count()
+    else:
+        avail = n_devices
+    n = min(n_devices, avail)
+    if n < n_devices:
+        print(f"WARNING: --n_devices {n_devices} requested but only "
+              f"{avail} devices visible; using {n}")
+    return n
+
+
+def all_gather_width(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole width of a tensor whose last dim is split over the model
+    axis, in rank order, on every rank of it (x itself with model 1): one
+    all_gather."""
+    if mesh.model == 1:
+        return x
+    return halo.gather_width(x, mesh.model, mesh.model_group)
 
 
 def shard_batch(x: torch.Tensor, mesh: Mesh, batch_axis: int | None = 0) -> torch.Tensor:

@@ -23,6 +23,12 @@ make_single_image_generator), whose reference-named weights are
 `edge2face_single/G.pth`, `E.pth` and the clusters `features.npy` for
 faces; missing files give a warning and a seeded initialization (empty
 clusters), as for the generator.
+
+`--n_devices N > 1` serves each frame width-sharded on N ranks (the
+model axis: models/inference.py), started here through parallel.launch:
+rank r on cuda:r, or with `--gpu_ids -1` gloo ranks on the CPU; under
+torchrun this process is one rank. Every rank reads the stream and gets
+the whole frames; rank 0 alone writes them.
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ from collections.abc import Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vid2vid_tpu_torch.config import Options, parse_args
 from vid2vid_tpu_torch.data.loader import create_test_stream
 from vid2vid_tpu_torch.models.inference import InferenceEngine
 from vid2vid_tpu_torch.nn.layers import init_weights
+from vid2vid_tpu_torch.parallel.mesh import launch, visible_devices
+from vid2vid_tpu_torch.utils.device import require_device
 from vid2vid_tpu_torch.utils.images import label_to_color, to_image
 from vid2vid_tpu_torch.utils.visualizer import Visualizer
 
@@ -181,28 +190,46 @@ def save_frame(visualizer: Visualizer, save_dir: str, opt: Options, item: dict,
 
 
 def main(argv=None) -> int:
-    """Run the CLI; returns the number of frames written."""
+    """Run the CLI; returns the number of frames written (with --n_devices
+    N > 1, rank 0's count)."""
     opt = parse_args(argv, is_train=False, save=False)
     opt = opt.replace(
         phase="test" if opt.phase == "train" else opt.phase,
         nThreads=1, serial_batches=True, no_flip=True, isTrain=False,
         dataset_mode="test" if opt.dataset_mode == "temporal" else opt.dataset_mode,
     )
+    n = visible_devices(opt.n_devices, require_device("cuda" if opt.gpu_ids else "cpu"))
+    if n > 1 and not (dist.is_available() and dist.is_initialized()):
+        devices = [f"cuda:{r}" if opt.gpu_ids else "cpu" for r in range(n)]
+        # CPU ranks share the cores: each takes its share of intra-op threads
+        threads = None if opt.gpu_ids else max(1, torch.get_num_threads() // n)
+        return launch(run_rank, n, args=(opt,), devices=devices, threads=threads)[0]
+    return run_rank(opt)
+
+
+def run_rank(opt: Options) -> int:
+    """The CLI in this process, or as one rank of --n_devices' model axis
+    (the group joined): every rank streams, rank 0 alone writes. Returns
+    the number of frames streamed."""
+    writer = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
     eng = InferenceEngine(opt, device="cuda" if opt.gpu_ids else "cpu")
     stream = create_test_stream(opt)
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt) if writer else None
     load_weights(opt, eng)
     if opt.use_single_G:
         load_single_g(opt, eng)
     save_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.which_epoch}")
-    os.makedirs(save_dir, exist_ok=True)
+    if writer:
+        os.makedirs(save_dir, exist_ok=True)
     count = 0
     for item, frame in stream_frames(opt, eng, stream):
-        save_frame(visualizer, save_dir, opt, item, frame)
+        if writer:
+            save_frame(visualizer, save_dir, opt, item, frame)
         count += 1
-        if count % 10 == 0:
+        if writer and count % 10 == 0:
             print(f"processed {count} frames -> {save_dir}")
-    print(f"done: {count} frames written to {save_dir}")
+    if writer:
+        print(f"done: {count} frames written to {save_dir}")
     return count
 
 

@@ -45,6 +45,7 @@ from vid2vid_tpu_torch.parallel.mesh import (
     make_mesh,
     replicated,
     shard_batch,
+    visible_devices,
 )
 from vid2vid_tpu_torch.train.state import (
     Schedule,
@@ -79,29 +80,17 @@ def zero_flow_fn(real_b: torch.Tensor, real_b_prev: torch.Tensor):
 
 def mesh_devices(opt: Options, device: torch.device) -> int:
     """The devices of --n_devices' mesh, by the JAX Trainer's rule
-    (vid2vid_tpu/train/loop.py:87-98): n = min(n_devices, the devices
-    visible), with its warning. A device is a rank of the initialised
-    process group; without one, a visible card (the CPU takes any number
-    of gloo ranks). Raises NotImplementedError where the mesh,
-    make_mesh(n, data=gcd(batchSize, n)), has a model axis: it is not
+    (vid2vid_tpu/train/loop.py:87-98): parallel.mesh.visible_devices, with
+    its warning. Raises NotImplementedError where the mesh, make_mesh(n,
+    data=gcd(batchSize, n)), has a model axis: training's model axis is not
     ported."""
-    if opt.n_devices <= 1:
-        return 1
-    if dist.is_available() and dist.is_initialized():
-        avail = dist.get_world_size()
-    elif device.type == "cuda":
-        avail = torch.cuda.device_count()
-    else:
-        avail = opt.n_devices
-    n = min(opt.n_devices, avail)
-    if n < opt.n_devices:
-        print(f"WARNING: --n_devices {opt.n_devices} requested but only "
-              f"{avail} devices visible; using {n}")
+    n = visible_devices(opt.n_devices, device)
     data = math.gcd(opt.batchSize, n)
     if n // data > 1:
         raise NotImplementedError(
             f"--n_devices {n} with --batchSize {opt.batchSize} makes a mesh of data "
-            f"{data} x model {n // data}; the model axis is not ported ({MODEL_AXIS_ITEM})")
+            f"{data} x model {n // data}; training's model axis is not ported "
+            f"({MODEL_AXIS_ITEM}); serving's is (InferenceEngine, test_cli)")
     return n
 
 

@@ -34,17 +34,26 @@ import time
 import torch
 
 from vid2vid_tpu_torch.ops.conv3 import conv3_fused_padded, conv3_padded
-from vid2vid_tpu_torch.ops.conv7 import conv7_padded, conv7_reflect
+from vid2vid_tpu_torch.ops.conv7 import conv7_halo, conv7_padded, conv7_reflect
 from vid2vid_tpu_torch.ops.correlation import correlation, correlation_bwd
-from vid2vid_tpu_torch.ops.respair import respair
-from vid2vid_tpu_torch.ops.warp import flow_warp, flow_warp_bwd, warp_blend, warp_blend_bwd
+from vid2vid_tpu_torch.ops.respair import respair, respair_halo
+from vid2vid_tpu_torch.ops.warp import (
+    flow_warp,
+    flow_warp_bwd,
+    warp_blend,
+    warp_blend_at,
+    warp_blend_bwd,
+)
 
-# the launch counters of each kernel (conv7 has two entries)
+# the launch counters of each kernel: one per entry (conv7 has three; the
+# column-halo modes of a width shard are respair_halo, warp_blend_at and
+# conv7_halo)
 COUNTERS = {
-    "respair": (respair,), "warp_blend": (warp_blend,), "flow_warp": (flow_warp,),
+    "respair": (respair, respair_halo), "warp_blend": (warp_blend, warp_blend_at),
+    "flow_warp": (flow_warp,),
     "correlation": (correlation,), "correlation_bwd": (correlation_bwd,),
     "warp_blend_bwd": (warp_blend_bwd,), "flow_warp_bwd": (flow_warp_bwd,),
-    "conv7": (conv7_reflect, conv7_padded), "conv3": (conv3_padded,),
+    "conv7": (conv7_reflect, conv7_padded, conv7_halo), "conv3": (conv3_padded,),
     "conv3_fused": (conv3_fused_padded,),
 }
 
