@@ -136,7 +136,22 @@ non-zero):
      points, the halo exchanges and gathers and their bytes a frame, the
      ms of one exchange and one gather at three flagship shapes, peak
      memory per rank, and tools/shard_serve_bench.py's A / B / C (2 ranks
-     on this card). Two ranks on one card give no scaling figure.
+     on this card). Two ranks on one card give no scaling figure;
+  14. training's model axis (parallel/halo.py, --n_devices 2 at batch 1 on
+     Trainer and train_cli: data 1 x model 2): the 512x256 training recipe
+     of phase 7 at its full width on two gloo ranks on this one card, each
+     on its 256 columns of every frame, one clip of 3 chunks: chunk 1
+     within the training bounds of the unsharded Trainer (same seeds), the
+     ranks' weights equal bit for bit after every chunk; every blend of
+     the ranks' generator at its column offset forward and backward
+     (warp_blend_at, warp_blend_at_bwd: v2v_warp_blend_bwd with Wp and x0),
+     their calls sent back for 3b; the offset backward against its plain
+     version, the unsharded call (x0 = 0) and the whole frame's columns and
+     d_prev, both timed; ms a chunk a rank against the unsharded Trainer
+     in turns, the exchanges and gathers a chunk forward and backward with
+     their bytes, the G gradients' reduction ms and bytes, peak memory a
+     rank; then train_cli.train for one epoch on both ranks (equal weights,
+     `latest` written once). Two ranks on one card give no scaling figure.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -243,6 +258,8 @@ from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
     flow_warp_plain,
     warp_blend,
     warp_blend_at,
+    warp_blend_at_backward_plain,
+    warp_blend_at_bwd,
     warp_blend_at_plain,
     warp_blend_backward_plain,
     warp_blend_bwd,
@@ -395,12 +412,13 @@ PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
          "conv7": conv7_reflect_plain, "conv3": conv3_plain,
          "conv3_fused": conv3_fused_plain}
 # the plain versions of second entries: conv7's pre-padded entry, and the
-# column-halo modes of a width shard (phase 13)
+# column-halo modes of a width shard (phases 13 and 14)
 PLAIN_OF = {conv7_padded: conv7_plain, conv7_halo: conv7_halo_plain,
-            respair_halo: respair_halo_plain, warp_blend_at: warp_blend_at_plain}
+            respair_halo: respair_halo_plain, warp_blend_at: warp_blend_at_plain,
+            warp_blend_at_bwd: warp_blend_at_backward_plain}
 # the wrappers that their own module calls, from an autograd backward: the
 # path logs their calls there too (kernel_call_shapes)
-CALLED_IN_THEIR_MODULE = {"correlation_bwd"}
+CALLED_IN_THEIR_MODULE = {"correlation_bwd", "warp_blend_at_bwd"}
 # phase 9's times of the f32 casts around the correlation kernels under
 # bf16, and of the kernels at the same shape (the correlation JSON row)
 FLOW_TRAIN_CASTS: dict = {}
@@ -651,6 +669,11 @@ def halo_case(fn, shapes, dtype, gen):
         raw, prev, flow, weight = warp_case(h, wp, dtype, gen, b, c)
         raw, flow, weight = (t[..., x0 : x0 + w].contiguous() for t in (raw, flow, weight))
         return raw, prev, flow, weight, x0
+    if fn is warp_blend_at_bwd:  # (raw, prev, flow, weight, g, x0)
+        (b, c, h, w), wp, x0 = shapes[0], shapes[1][3], shapes[-1]
+        raw, prev, flow, weight, g = bwd_case("warp_blend_bwd", (b, c, h, wp), dtype, gen)
+        raw, flow, weight, g = (t[..., x0 : x0 + w].contiguous() for t in (raw, flow, weight, g))
+        return raw, prev, flow, weight, g, x0
     return None
 
 
@@ -818,13 +841,16 @@ def call_and_device_ms(fn, args, n: int = 200, fills: bool = False,
 # ------------------------------------------------ library calls and bounds
 
 
-def sampling_grid(flow: torch.Tensor) -> torch.Tensor:
+def sampling_grid(flow: torch.Tensor, x0: int = 0, wp: int | None = None) -> torch.Tensor:
     """The normalized [-1, 1] grid of flow_warp for F.grid_sample
-    (align_corners=True): pixel (x + u, y + v) of (B, 2, H, W) flow."""
+    (align_corners=True): pixel (x + u, y + v) of (B, 2, H, W) flow; with
+    x0, pixel (x0 + x + u, y + v) of an image wp columns wide (a shard's
+    warp_blend_at)."""
     b, _, h, w = flow.shape
+    wp = w if wp is None else wp
     ys = torch.arange(h, device=flow.device, dtype=torch.float32).view(1, h, 1)
-    xs = torch.arange(w, device=flow.device, dtype=torch.float32).view(1, 1, w)
-    gx = (xs + flow[:, 0].float()) * (2.0 / (w - 1)) - 1.0
+    xs = torch.arange(x0, x0 + w, device=flow.device, dtype=torch.float32).view(1, 1, w)
+    gx = (xs + flow[:, 0].float()) * (2.0 / (wp - 1)) - 1.0
     gy = (ys + flow[:, 1].float()) * (2.0 / (h - 1)) - 1.0
     return torch.stack([gx, gy], -1).to(flow.dtype)
 
@@ -839,11 +865,12 @@ def grid_sample_blend(raw, prev, grid, weight):
     return raw * weight + grid_sample(prev, grid) * (1.0 - weight)
 
 
-def grid_sample_backward(image, flow, g):
+def grid_sample_backward(image, flow, g, x0: int = 0):
     """A function running F.grid_sample's autograd backward (the image's and
-    the grid's gradients) for the cotangent g, on a graph built once."""
+    the grid's gradients) for the cotangent g, on a graph built once; with
+    x0, at that column offset of the whole image (sampling_grid)."""
     img = image.detach().clone().requires_grad_()
-    grid = sampling_grid(flow).requires_grad_()
+    grid = sampling_grid(flow, x0, image.shape[3]).requires_grad_()
     out = grid_sample(img, grid)
     return lambda: torch.autograd.grad(out, (img, grid), g, retain_graph=True)
 
@@ -2011,16 +2038,16 @@ def displacement_then_load(path: str | None, init: dict, stats: dict):
     return after
 
 
-def time_gradient_reduces(state, group, dev: torch.device) -> list[tuple[float, int]]:
+def time_gradient_reduces(buckets, group, dev: torch.device) -> list[tuple[float, int]]:
     """(ms between two synchronizes, bucket bytes) of one all_reduce_mean
-    of a bucket the size of each optimizer's gradients (the G, D and each
-    D_T step's, as train/steps.py::_apply reduces them), the ranks started
-    together by a barrier; nothing without a group."""
+    over `group` of a bucket the size of each list of parameters in
+    `buckets` (as train/steps.py::_apply reduces a step's gradients), the
+    ranks started together by a barrier; nothing without a group."""
     out = []
     if mesh.group_size(group) == 1:
         return out
-    for opt in (state.opt_g, state.opt_d, *state.opt_dt):
-        grads = [torch.zeros_like(p) for pg in opt.param_groups for p in pg["params"]]
+    for params in buckets:
+        grads = [torch.zeros_like(p) for p in params]
         torch.distributed.barrier()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2066,7 +2093,9 @@ def ddp_rank(labels: np.ndarray, frames: np.ndarray, device: str,
     index = {id(fn): i for fns in COUNTERS.values() for i, fn in enumerate(fns)}
     out.update(
         launches=launches, peak=peak, displacement=displacement,
-        reduces=time_gradient_reduces(state, trainer.group, dev),
+        reduces=time_gradient_reduces(
+            [[p for pg in opt.param_groups for p in pg["params"]]
+             for opt in (state.opt_g, state.opt_d, *state.opt_dt)], trainer.group, dev),
         nondeterministic=sorted({str(w.message)[:120] for w in caught
                                  if "deterministic" in str(w.message)}),
         seen=[(name, index[id(fn)], shapes, str(dtype), calls)
@@ -2475,6 +2504,325 @@ def shard_serve_path(card: str, seen: dict) -> dict:
     say("shard_serve_bench", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                                 for k, v in bench.items()},
         ranks_per_card=SHARD_RANKS, card=repr(card))
+    return {name: launches[name] for name in COUNTERS}
+
+
+# ------------------------------------------------- 14. the model axis (training)
+
+# phase 14: the 512x256 training recipe of phase 7 (recipes/street/
+# train_512.sh: batch 1 on 8 devices, data 1 x model 8) cut to
+# SHARD_TRAIN_RANKS gloo ranks sharing this one card, data 1 x model 2, its
+# widths not cut: each rank holds 256 of the 512 columns (32 of the 64 at
+# the trunk). One clip of SHARD_TRAIN_FRAMES frames: 3 chunks of 2. The
+# training bounds hold chunk 1 against the unsharded Trainer with the
+# generator in f32 (chunks 2 and 3 run the recipe's bf16): in bf16 chunk 1
+# read 1.8e-3 apart (D_fake) and the G grad norm 5.9e-3 (NVIDIA H100
+# 80GB HBM3, 700 W): the ranks' half-width
+# convs and their norms' f32 sums round to bf16 apart on a few elements a
+# layer, and the random-init generator amplifies them, as it amplifies
+# f32's on the CPU (tests/test_torch_shard_train.py holds a clip without
+# norms bit for bit). The bf16 chunks are the recipe's path, timed.
+SHARD_TRAIN_RANKS, SHARD_TRAIN_FRAMES, SHARD_TRAIN_DEADLINE_S = 2, 8, 900.0
+# (B, C, H, W) of the G step's blend a frame at the recipe's width: the
+# offset mode's backward is held to its plain version and to the unsharded
+# call there, in bf16 (the recipe's G) and f32
+SHARD_BWD_SHAPE = (1, 3, 256, 512)
+# the offset mode's checks and times (shard_bwd_checks), for the kernels' JSON
+SHARD_BWD: dict = {}
+
+
+def shard_train_clip() -> tuple[np.ndarray, np.ndarray]:
+    """Phase 7's clip: labels (1, T, H, W) (the instance map too) and
+    frames (1, T, 3, H, W) of the moving square, T = SHARD_TRAIN_FRAMES."""
+    h, w = TRAIN_HW
+    return moving_square_clip(np.random.default_rng(0), SHARD_TRAIN_FRAMES, h, w, 35)
+
+
+def shard_train_chunks(trainer: Trainer, labels, frames, on_bf16=None) -> dict:
+    """run_chunks from fresh seeded weights (init_state) over the clip in
+    chunks of the recipe's 2 frames (on every mesh: the schedule's
+    n_frames_load grows with --n_devices), under deterministic algorithms
+    and PyTorch's default TF32 flags: chunk 1 with the generator in f32
+    (the training bounds' comparison), the later ones in the recipe's bf16
+    (its path, timed and counted), `on_bf16(k)` called after each chunk
+    k (run_chunks' after_chunk, once the next chunk's precision is set)."""
+    recipe = trainer.opt
+    trainer.opt = recipe.replace(bf16=False)
+
+    def after(k, tr, carry):
+        tr.opt = recipe
+        if on_bf16 is not None:
+            on_bf16(k)
+
+    labels, frames = torch.from_numpy(labels), torch.from_numpy(frames)
+    state = trainer.init_state()
+    try:
+        with torch_default_tf32(), deterministic_algorithms():
+            return run_chunks(trainer, state, labels, frames, labels,
+                              TRAIN_RECIPE["max_frames_per_gpu"], after_chunk=after)
+    finally:
+        trainer.opt = recipe
+
+
+def shard_train_reference(trainer: Trainer, labels: np.ndarray, frames: np.ndarray) -> dict:
+    """Phase 14's unsharded Trainer (one process, the card) over the clip
+    (shard_train_chunks): run_chunks' losses, digests and ms a chunk, the
+    peak memory of its bf16 chunks and the seconds it took."""
+    t0 = time.perf_counter()
+    out = shard_train_chunks(trainer, labels, frames,
+                             lambda k: k == 0 and torch.cuda.reset_peak_memory_stats())
+    torch.cuda.synchronize()
+    out.update(peak=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
+    return out
+
+
+def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: str) -> dict:
+    """One rank of phase 14, in a process started by parallel.launch (this
+    script imported anew): the recipe's Trainer with --n_devices the world
+    at batch 1 (data 1 x model world), phase 7's seeded weights and flow,
+    over the clip chunk by chunk (shard_train_chunks: chunk 1 in f32, the
+    rest in bf16), its kernel calls logged by shape; the launch counts, the
+    model axis's collectives a chunk and the peak memory of the bf16
+    chunks; the G gradients' reduction over every rank timed
+    (time_gradient_reduces); then
+    train_cli.train for one epoch of one SquareClips clip at the same
+    options (the schedule's chunks of 2 x max_frames_per_gpu = 4 frames:
+    one), `latest` written by rank 0 under `root`."""
+    dist = torch.distributed
+    dist.barrier()
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    world = dist.get_world_size()
+    est = seeded_flow_estimator(dev, seed=3, tf32_seen=[])
+    trainer = Trainer(Options(**TRAIN_RECIPE, n_devices=world, batchSize=1), flow_fn=est,
+                      device=dev)
+    seconds = {"setup": time.perf_counter() - t0}
+    counts = []
+
+    def on_bf16(k):
+        if k:
+            counts.append(dict(halo.COUNTS))
+        else:  # the bf16 chunks' launches, collectives and peak from zero
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+        halo.reset_counts()
+
+    index = {id(fn): i for fns in COUNTERS.values() for i, fn in enumerate(fns)}
+    t1 = time.perf_counter()
+    with kernel_call_shapes() as seen:
+        out = shard_train_chunks(trainer, labels, frames, on_bf16)
+        torch.cuda.synchronize(dev)
+    seconds["chunks"] = time.perf_counter() - t1
+    out.update(
+        launches=read_launches(), counts=counts,
+        offset_launches={"warp_blend_at": warp_blend_at.launches,
+                         "warp_blend_at_bwd": warp_blend_at_bwd.launches,
+                         "warp_blend": warp_blend.launches,
+                         "warp_blend_bwd": warp_blend_bwd.launches},
+        seen=[(name, index[id(fn)], shapes, str(dtype), calls)
+              for (name, fn, shapes, dtype), calls in seen.items()],
+        columns=(trainer.shard(labels.shape[-1]).x0, trainer.shard(labels.shape[-1]).width),
+        mesh=trainer.mesh.shape, peak=torch.cuda.max_memory_allocated(dev))
+    (out["g_reduce_ms"], out["g_reduce_bytes"]), = time_gradient_reduces(
+        [list(trainer.gen.parameters())], trainer.world_group, dev)
+    del trainer
+    torch.cuda.empty_cache()
+    # the training CLI on the model axis: one epoch of one clip
+    cli_opt = Options(**{**TRAIN_RECIPE, **TRAIN_CLI, "name": "shard_train_cli"},
+                      checkpoints_dir=root, n_devices=world, batchSize=1)
+    dataset = SquareClips(*TRAIN_HW)
+    dataset.clips = dataset.clips[:1]
+    chunk_ms = []
+    t1 = time.perf_counter()
+    with torch_default_tf32(), timed(Trainer, "train_chunk", chunk_ms):
+        cli_trainer, _ = train_cli.train(cli_opt, dataset=dataset, flow_fn=est)
+        torch.cuda.synchronize(dev)
+    seconds["cli"] = time.perf_counter() - t1
+    sched = cli_trainer.schedule
+    out["cli"] = dict(chunk_ms=chunk_ms, epoch=sched.epoch, total_steps=sched.total_steps,
+                      digest=mesh.weights_digest(cli_trainer.gen, cli_trainer.engine))
+    out["seconds"] = seconds
+    return out
+
+
+def shard_bwd_checks(gen: torch.Generator) -> None:
+    """Phase 14: v2v_warp_blend_bwd at a column offset at SHARD_BWD_SHAPE on
+    SHARD_TRAIN_RANKS shards, in bf16 and f32: each shard against its plain
+    version (compare, warp_blend_bwd's TOL); x0 = 0 with the whole
+    width against the unsharded entry (d_raw, d_flow, d_weight bit for bit;
+    d_prev, which sums with atomics, within TOL); the shards' d_raw,
+    d_flow, d_weight bit for bit with the unsharded call's columns and their
+    d_prev (each over the whole frame) summed against its d_prev (f32,
+    within TOL); and the times of the shards' calls against the unsharded
+    call's (bf16: CUDA events), their plain versions' and grid_sample's
+    backward at the shard's grid (SHARD_BWD)."""
+    n = SHARD_TRAIN_RANKS
+    for dtype in (torch.bfloat16, torch.float32):
+        raw, prev, flow, weight, g = args = bwd_case("warp_blend_bwd", SHARD_BWD_SHAPE, dtype, gen)
+        want = warp_blend_bwd(*args)
+        at0 = warp_blend_at_bwd(*args, 0)
+        tol = TOL[("warp_blend_bwd", dtype)]
+        if not all(torch.equal(a, b) for k, (a, b) in enumerate(zip(at0, want)) if k != 1):
+            raise AssertionError(f"warp_blend_at_bwd {dtype} at x0 = 0: differs from the "
+                                 "unsharded call")
+        if not torch.allclose(at0[1].float(), want[1].float(), **tol):
+            raise AssertionError(f"warp_blend_at_bwd {dtype} at x0 = 0: d_prev off the "
+                                 "unsharded call's")
+        shards, dprev, err = [], torch.zeros(prev.shape, device=DEV), 0.0
+        for sh in (halo.make_shard(i, n, SHARD_BWD_SHAPE[3]) for i in range(n)):
+            local = [sh.local(t).contiguous() for t in (raw, flow, weight, g)]
+            call = (local[0], prev, local[1], local[2], local[3], sh.x0)
+            err = max(err, compare("warp_blend_bwd", call, dtype, warp_blend_at_bwd,
+                                   warp_blend_at_backward_plain))
+            got = warp_blend_at_bwd(*call)
+            for k in (0, 2, 3):
+                if not torch.equal(got[k], sh.local(want[k])):
+                    raise AssertionError(f"warp_blend_at_bwd {dtype} shard {sh.index}: output "
+                                         f"{k} differs from the unsharded call's columns")
+            dprev += got[1].float()
+            shards.append((sh, call))
+        if dtype == torch.float32 and not torch.allclose(dprev, want[1], **tol):
+            raise AssertionError("warp_blend_at_bwd: the shards' d_prev summed is off the "
+                                 f"unsharded call's by {float((dprev - want[1]).abs().max())}")
+        ms_whole = time_ms(warp_blend_bwd, args)
+        ms_shards = [time_ms(warp_blend_at_bwd, call) for _, call in shards]
+        plain = [time_ms(warp_blend_at_backward_plain, call) for _, call in shards]
+        lib = [time_ms(grid_sample_backward(prev, call[2], call[4], sh.x0), ())
+               for sh, call in shards]
+        # read g, raw, flow, w at the shard's columns and prev's whole
+        # frame; write d_raw, d_flow, d_w there and d_prev's whole frame
+        b, c, h, w = SHARD_BWD_SHAPE
+        size = torch.tensor([], dtype=dtype).element_size()
+        nb = sum((2 * c + 3 + c + 2 + 1) * b * h * sh.width * size + 2 * c * b * h * w * size
+                 for sh, _ in shards)
+        nop = 40 * b * c * h * w
+        SHARD_BWD[dtype] = dict(ms=sum(ms_shards), ms_shards=ms_shards, ms_unsharded=ms_whole,
+                                plain_ms=sum(plain), library_ms=sum(lib), bytes=nb, ops=nop,
+                                max_abs_err=err)
+        say("halo_mode", kernel="warp_blend_at_bwd", shape="x".join(map(str, SHARD_BWD_SHAPE)),
+            dtype=str(dtype)[6:], shards=n, x0=",".join(str(sh.x0) for sh, _ in shards),
+            max_abs_err=f"{err:.3g}",
+            columns_bit_for_bit_with_unsharded=True, x0_0_bit_for_bit_but_d_prev=True,
+            ms_unsharded=f"{ms_whole:.4f}", ms_shards=",".join(f"{v:.4f}" for v in ms_shards),
+            shards_over_unsharded=f"{sum(ms_shards) / ms_whole:.4f}",
+            plain_ms_shards=",".join(f"{v:.4f}" for v in plain),
+            grid_sample_backward_ms_shards=",".join(f"{v:.4f}" for v in lib))
+        del args, want, at0, shards, dprev
+    torch.cuda.empty_cache()
+
+
+def shard_train_path(card: str, seen: dict) -> dict:
+    """Phase 14: training's model axis (--n_devices 2 at batch 1: data 1 x
+    model 2) at the 512x256 recipe's full width, on SHARD_TRAIN_RANKS gloo
+    ranks on this one card (NCCL refuses two ranks on one device):
+      - the unsharded Trainer here first, from the same seeded weights and
+        flow, and again after the ranks (their chunk times in turns);
+      - the ranks' chunk 1 with the generator in f32 against the unsharded
+        one's within the training bounds (out_of_bounds); the recipe's
+        bf16 chunk 2's differences printed; the ranks' losses and weights
+        equal bit for bit after every chunk;
+      - every blend of the ranks' generator, forward and backward, at its
+        column offset (warp_blend_at, warp_blend_at_bwd; no unsharded
+        warp_blend call), their calls sent back for 3b; the offset
+        backward checked and timed against the unsharded call
+        (shard_bwd_checks);
+      - ms a chunk a rank, the exchanges and gathers a chunk forward and
+        backward with their bytes, the G gradients' reduction ms and
+        bytes, peak memory a rank;
+      - train_cli.train on both ranks for one epoch of one clip: equal
+        weights, `latest` written once.
+    Two ranks share one card: no scaling figure. Returns the launch counts
+    of both ranks' counted runs, summed."""
+    labels, frames = shard_train_clip()
+    trainer = Trainer(Options(**TRAIN_RECIPE),
+                      flow_fn=seeded_flow_estimator(DEV, seed=3, tf32_seen=[]), device=DEV)
+    ref = shard_train_reference(trainer, labels, frames)
+    root = tempfile.mkdtemp(prefix="chip_smoke_shard_train_")
+    try:
+        t0 = time.perf_counter()
+        ranks = launch(shard_train_rank, SHARD_TRAIN_RANKS,
+                       args=(labels, frames, str(DEV), root), devices=[DEV] * SHARD_TRAIN_RANKS,
+                       backend="gloo", deadline_s=SHARD_TRAIN_DEADLINE_S)
+        launch_s = time.perf_counter() - t0
+        cli_files = sorted(os.listdir(os.path.join(root, "shard_train_cli")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    again = shard_train_reference(trainer, labels, frames)
+    del trainer
+    torch.cuda.empty_cache()
+    first = ranks[0]
+    keys = sorted(ref["losses"][0])
+    bf16_rel = {k: abs(first["losses"][1][k] - ref["losses"][1][k])
+                / max(abs(ref["losses"][1][k]), 1e-12) for k in sorted(ref["losses"][1])}
+    n = len(first["counts"])
+    per_chunk = {k: sum(c[k] for c in first["counts"]) / n for k in first["counts"][0]}
+    say("shard_train_path", config="label2city 512x256 ngf128 fg bf16 remat, FlowNet2 f32 "
+        f"(recipes/street/train_512.sh), --n_devices {SHARD_TRAIN_RANKS} --batchSize 1: data 1 x "
+        f"model {SHARD_TRAIN_RANKS} (recipe: model 8), gloo ranks on this one card, one clip of "
+        f"{SHARD_TRAIN_FRAMES} frames (3 chunks of 2: chunk 1 with the "
+        "generator in f32, the rest in the recipe's bf16, timed and counted); deterministic "
+        "algorithms",
+        launch_s=f"{launch_s:.1f}", reference_s=f"{ref['seconds']:.1f}",
+        reference_after_s=f"{again['seconds']:.1f}",
+        rank_s=json.dumps([{k: round(v, 1) for k, v in r["seconds"].items()} for r in ranks]),
+        columns=json.dumps([r["columns"] for r in ranks]),
+        ms_per_chunk_unsharded_before=",".join(f"{v:.1f}" for v in ref["ms"]),
+        ms_per_chunk_ranks=json.dumps([[round(v, 1) for v in r["ms"]] for r in ranks]),
+        ms_per_chunk_unsharded_after=",".join(f"{v:.1f}" for v in again["ms"]),
+        ms_is="chunk 1 f32, the others bf16",
+        order="unsharded,sharded,unsharded",
+        collectives_per_chunk_rank0=json.dumps(per_chunk),
+        g_reduce_ms_ranks=",".join(f"{r['g_reduce_ms']:.1f}" for r in ranks),
+        g_reduce_bytes=first["g_reduce_bytes"],
+        peak_mem_gib_ranks=",".join(f"{r['peak'] / 2**30:.3f}" for r in ranks),
+        peak_mem_gib_unsharded=f"{ref['peak'] / 2**30:.3f}",
+        f32_chunk1=json.dumps({k: [first["losses"][0][k], ref["losses"][0][k]] for k in keys}),
+        bf16_chunk2_rel_diff=json.dumps({k: float(f"{v:.3g}") for k, v in bf16_rel.items()}),
+        loss_G_total=",".join(f"{c['loss_G_total']:.6g}" for c in first["losses"]),
+        loss_G_total_unsharded=",".join(f"{c['loss_G_total']:.6g}" for c in ref["losses"]),
+        G_grad_norm=",".join(f"{c['G_grad_norm']:.6g}" for c in first["losses"]),
+        G_grad_norm_unsharded=",".join(f"{c['G_grad_norm']:.6g}" for c in ref["losses"]),
+        offset_launches_per_rank=json.dumps(first["offset_launches"]),
+        cli_ms_per_chunk=",".join(f"{v:.1f}" for v in first["cli"]["chunk_ms"]),
+        cli_files=",".join(cli_files), scaling="none: two ranks share one card over gloo",
+        card=repr(card))
+    for r in ranks[1:]:
+        if r["digests"] != first["digests"] or r["losses"] != first["losses"]:
+            raise AssertionError("shard_train: the ranks' weights or losses differ")
+        if r["cli"]["digest"] != first["cli"]["digest"]:
+            raise AssertionError("shard_train: the CLI's ranks end with different weights")
+    if len(first["digests"]) != 3 or first["mesh"] != {"data": 1, "model": SHARD_TRAIN_RANKS}:
+        raise AssertionError(f"shard_train: {len(first['digests'])} chunks on {first['mesh']}")
+    bad = out_of_bounds(first["losses"][:1], ref["losses"][:1], keys)
+    if bad:
+        raise AssertionError(f"shard_train: f32 chunk 1 against the unsharded Trainer: {bad}")
+    for c in first["losses"]:
+        if not all(math.isfinite(v) for v in c.values()):
+            raise AssertionError(f"shard_train: non-finite loss {c}")
+    if (first["cli"]["epoch"], first["cli"]["total_steps"]) != (2, 1) or not any(
+            f.endswith("net_G0.pth") for f in cli_files):
+        raise AssertionError(f"shard_train CLI: schedule {first['cli']}, files {cli_files}")
+    launches = collections.Counter()
+    for rank in ranks:
+        at = rank["offset_launches"]
+        if at["warp_blend_at"] == 0 or at["warp_blend_at_bwd"] == 0 or at["warp_blend"] or \
+                at["warp_blend_bwd"]:
+            raise AssertionError(f"shard_train: the blend's launches {at}: want every one at "
+                                 "its column offset")
+        for name in ("flow_warp", "flow_warp_bwd", "correlation"):
+            if rank["launches"][name] == 0:
+                raise AssertionError(f"shard_train: a rank never launched {name}")
+        launches.update(rank["launches"])
+        for name, i, shapes, dtype, calls in rank["seen"]:
+            key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
+            seen[key] = seen.get(key, 0) + calls
+    SHARD_BWD["launches"] = sum(r["offset_launches"]["warp_blend_at_bwd"] for r in ranks)
+    t0 = time.perf_counter()
+    shard_bwd_checks(torch.Generator().manual_seed(14))
+    say("shard_train_checks", f32_chunk1_within_training_bounds=True,
+        ranks_equal_bit_for_bit=True, cli_ranks_equal=True,
+        blends_at_their_offset=True, bwd_checks_s=f"{time.perf_counter() - t0:.1f}",
+        launches=json.dumps(dict(launches)))
     return {name: launches[name] for name in COUNTERS}
 
 
@@ -3796,6 +4144,26 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
             "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": ms[name][2], "ms_is": ms_is, **extra,
         })
+    # the warp backward at a column offset (phase 14): its own row, from
+    # that phase's checks and times
+    at = SHARD_BWD[torch.bfloat16]
+    b_ms, b_by = bound_ms(at["bytes"], at["ops"], F32_FLOPS)
+    kernels.append({
+        "name": "warp_blend_at_bwd", "route": "cuda",
+        "source": "vid2vid_tpu_torch/csrc/warp_blend.cu", "replaces": "vid2vid_tpu/ops/warp.py:300",
+        "launches": SHARD_BWD["launches"],
+        "launches_by_path": {p: launches[p]["warp_blend_bwd"] for p in launches},
+        "max_abs_err": SHARD_BWD[torch.float32]["max_abs_err"],
+        "max_abs_err_bf16": at["max_abs_err"],
+        "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": at["library_ms"], "ms_unsharded_call": at["ms_unsharded"],
+        "ms_is": f"bf16, v2v_warp_blend_bwd at a column offset: the {SHARD_TRAIN_RANKS} shards' "
+                 f"calls at {SHARD_BWD_SHAPE} summed (each over the whole previous frame), "
+                 "events per call; ms_unsharded_call: the unsharded entry on the whole frame; "
+                 "library: F.grid_sample's backward at each shard's grid, summed; launches: "
+                 "the two ranks' counted run of phase 14 (launches_by_path: the "
+                 "warp_blend_bwd counter, both entries)",
+    })
     return kernels
 
 
@@ -3831,9 +4199,11 @@ def main() -> None:
                       ("face_stream", face_stream_path), ("pose_stream", pose_stream_path),
                       ("pose_train", pose_train_path), ("flow_train", flow_train_path),
                       ("export", export_path), ("ledger", ledger_path),
-                      ("ddp_train", ddp_train_path), ("shard_serve", shard_serve_path)):
+                      ("ddp_train", ddp_train_path), ("shard_serve", shard_serve_path),
+                      ("shard_train", shard_train_path)):
         with kernel_call_shapes() as seen:
-            launches[path] = (run(card, seen) if path in ("ddp_train", "shard_serve")
+            launches[path] = (run(card, seen)
+                              if path in ("ddp_train", "shard_serve", "shard_train")
                               else run(card))
         torch.cuda.empty_cache()
         check_path_shapes(path, seen, errs, gen)

@@ -47,6 +47,9 @@ from vid2vid_tpu_torch.ops.warp import (
     flow_warp_bwd,
     flow_warp_plain,
     warp_blend,
+    warp_blend_at,
+    warp_blend_at_backward_plain,
+    warp_blend_at_bwd,
     warp_blend_backward_plain,
     warp_blend_bwd,
     warp_blend_plain,
@@ -200,6 +203,47 @@ def test_warp_blend_backward_kernel_any_shape(cuda, dtype, b, c, h, w, scale):
     for gt, wt, ref in zip(got, want, (raw, prev, flow, weight)):
         assert gt.dtype == dtype and gt.shape == ref.shape
         _close("warp_bwd", gt, wt, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w,n", [(2, 3, 5, 14, 2), (1, 4, 17, 64, 4)])
+def test_warp_blend_backward_kernel_at_a_column_offset(cuda, dtype, b, c, h, w, n):
+    """v2v_warp_blend_bwd with Wp and x0 (training's model axis): each of n
+    shards against its plain version; d_raw, d_flow and d_weight bit for
+    bit with the unsharded call's columns, x0 = 0 with the whole width the
+    unsharded call but for d_prev's atomics; the shards' d_prev (each over
+    the whole frame) summed against the whole frame's in f32; and the
+    autograd of warp_blend_at launches it."""
+    prev, flow, cot = _warp_bwd_case(b, c, h, w, 6.0, h, cuda, dtype)
+    g = torch.Generator().manual_seed(w)
+    raw = torch.randn((b, c, h, w), generator=g).to(cuda, dtype)
+    weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=g)).to(cuda, dtype)
+    args = (raw, prev, flow, weight, cot)
+    whole = warp_blend_bwd(*args)
+    at0 = warp_blend_at_bwd(*args, 0)
+    for k in (0, 2, 3):
+        assert torch.equal(at0[k], whole[k])
+    _close("warp_bwd", at0[1].float(), whole[1].float(), dtype)
+    dprev = torch.zeros(prev.shape, device=cuda)
+    sw = w // n
+    for x0 in range(0, w, sw):
+        local = [t[..., x0 : x0 + sw].contiguous() for t in (raw, flow, weight, cot)]
+        before = warp_blend_at_bwd.launches
+        got = warp_blend_at_bwd(local[0], prev, local[1], local[2], local[3], x0)
+        assert warp_blend_at_bwd.launches == before + 1
+        want = warp_blend_at_backward_plain(
+            *(t.float() for t in (local[0], prev, local[1], local[2], local[3])), x0)
+        for gt, wt, ref in zip(got, want, (local[0], prev, local[1], local[2])):
+            assert gt.dtype == dtype and gt.shape == ref.shape
+            _close("warp_bwd", gt, wt, dtype)
+        for k in (0, 2, 3):
+            assert torch.equal(got[k], whole[k][..., x0 : x0 + sw])
+        dprev += got[1].float()
+        leaves = [t.clone().requires_grad_() for t in (local[0], prev, local[1], local[2])]
+        warp_blend_at(*leaves, x0).backward(local[3])
+        assert warp_blend_at_bwd.launches == before + 2
+    if dtype == torch.float32:
+        _close("warp_bwd", dprev, whole[1], dtype)
 
 
 def test_warp_autograd_launches_the_backward_kernels(cuda):

@@ -26,6 +26,7 @@ from vid2vid_tpu_torch.ops.warp import (
     flow_warp_bwd,
     warp_blend,
     warp_blend_at,
+    warp_blend_at_bwd,
     warp_blend_bwd,
 )
 from vid2vid_tpu_torch.utils import mappings
@@ -222,6 +223,23 @@ def test_halo_modes_never_take_the_plain_path_off_cpu():
         with pytest.raises(ValueError, match="not CUDA"):
             call()
     assert [fn.launches for fn in counters] == before
+
+
+def test_the_warp_at_an_offset_never_takes_the_plain_path_off_cpu_with_a_gradient():
+    """Training's model axis: warp_blend_at with an input that requires a
+    gradient, and its backward warp_blend_at_bwd, on a non-CPU tensor go
+    to the operator's and the kernel's checks, which reject a non-CUDA
+    device; no launch is counted."""
+    device = "meta"
+    raw, weight = torch.zeros(1, 3, 6, 8, device=device), torch.zeros(1, 1, 6, 8, device=device)
+    prev = torch.zeros(1, 3, 6, 16, device=device, requires_grad=True)
+    flow = torch.zeros(1, 2, 6, 8, device=device)
+    before = (warp_blend_at.launches, warp_blend_at_bwd.launches)
+    with pytest.raises(ValueError, match="not CUDA"):
+        warp_blend_at(raw, prev, flow, weight, 8)
+    with pytest.raises(ValueError, match="not CUDA"):
+        warp_blend_at_bwd(raw, prev.detach(), flow, weight, raw, 8)
+    assert (warp_blend_at.launches, warp_blend_at_bwd.launches) == before
 
 
 # ------------------------------------------------------- the port's copies

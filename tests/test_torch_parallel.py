@@ -13,8 +13,8 @@ package's, on the CPU: ranks are processes joined over gloo.
     unsynced, gradients summed, the face box per rank) leave the bounds;
   - train_cli --n_devices 2 --gpu_ids -1: the losses rank 0 logs against
     one process at batchSize 2 (and every rank on rank 0's rows out of
-    those bounds), --continue_train on both ranks, and the model axis
-    refused;
+    those bounds), --continue_train on both ranks, and at batchSize 1 the
+    model axis (data 1 x model 2) against one process at batchSize 1;
   - a rank that raises, and ranks past their deadline, fail the launch;
     kernels/build.py runs one nvcc build when two ranks call it at once.
 
@@ -138,7 +138,8 @@ def runs(tmp_path_factory):
     trains two chunks here from the same weights: one 2-rank launch of
     torch_ranks.run_all for the Trainer and batch-norm cases, the training
     CLI's three (train, --continue_train, and train with every rank on rank
-    0's rows) and two failing ones."""
+    0's rows) and two failing ones; then the CLI's fourth (train at batch 1
+    on the model axis) and its one-process reference."""
     root = tmp_path_factory.mktemp("cli")
     write_temporal_dataset(str(root), n_seqs=2, n_frames=6)  # 4 frames + tG - 1
     _noise_frames(root)
@@ -168,6 +169,14 @@ def runs(tmp_path_factory):
             resumed = train_cli.main(_cli_flags(root, 2, "--continue_train"))
             return first, saved, resumed
 
+        def cli_model_axis():
+            flags = _cli_flags(root, 2, name="model2", batch=1)
+            ranks = train_cli.main(flags)
+            one = root / "ckpt" / "model1"
+            train_cli.main(_cli_flags(root, 1, name="model1", batch=1))
+            return (ranks, _checkpoint(root / "ckpt" / "model2"), _scalars(root / "ckpt" / "model2"),
+                    _checkpoint(one), _scalars(one))
+
         def cli_fault():
             opt = parse_args(_cli_flags(root, 2, name="ddp2_rank0_rows"), is_train=True)
             launch(torch_ranks.train_cli_rank, 2, args=(opt, "rank0_rows"),
@@ -192,6 +201,9 @@ def runs(tmp_path_factory):
                        cli_ranks=cli_ranks.result(), cli_one=cli_one.result()[0],
                        cli_broken=cli_broken.result(),
                        failed=failed.result(), hung=hung.result())
+            # the model axis's CLI runs alone after the others: each launch
+            # keeps this file's deadline on a machine the other test files share
+            out["cli_model"] = cli_model_axis()
     return out
 
 
@@ -329,11 +341,11 @@ def test_ranks_past_their_deadline_are_killed(runs):
 
 
 def test_the_trainer_refuses_several_devices_without_a_group():
-    """--n_devices 2 in one process never trains alone: it needs 2 ranks."""
-    with pytest.raises(RuntimeError, match="no process group of 2 ranks"):
-        Trainer(Options(**{**tp.CONFIG, "batchSize": 2, "n_devices": 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="model axis"):
-        Trainer(Options(**{**tp.CONFIG, "batchSize": 1, "n_devices": 2}), device="cpu")
+    """--n_devices 2 in one process never trains alone: it needs 2 ranks,
+    on the data axis (batch 2) as on the model axis (batch 1)."""
+    for batch in (2, 1):
+        with pytest.raises(RuntimeError, match="no process group of 2 ranks"):
+            Trainer(Options(**{**tp.CONFIG, "batchSize": batch, "n_devices": 2}), device="cpu")
 
 
 def test_a_rank_imports_no_jax(runs):
@@ -374,7 +386,7 @@ def test_one_process_builds_the_kernels(tmp_path, monkeypatch):
 # ------------------------------------------------------- the training CLI
 
 
-def _cli_flags(root, n_devices: int, *extra, name: str | None = None):
+def _cli_flags(root, n_devices: int, *extra, name: str | None = None, batch: int = 2):
     """n_frames_load = n_devices * max_frames_per_gpu = 4 = n_frames_total in
     both runs: each epoch trains one chunk of one global batch, the same in
     both, and logs its losses (--tf_log: scalars.tsv, unrounded)."""
@@ -384,7 +396,7 @@ def _cli_flags(root, n_devices: int, *extra, name: str | None = None):
         "--loadSize", "64", "--fineSize", "64", "--resize_or_crop", "scaleWidth",
         "--ngf", "8", "--ndf", "8", "--n_blocks", "1", "--n_downsample_G", "2",
         "--n_scales_spatial", "1", "--n_frames_G", "3", "--norm", "batch", "--no_flow",
-        "--gpu_ids", "-1", "--batchSize", "2", "--n_devices", str(n_devices),
+        "--gpu_ids", "-1", "--batchSize", str(batch), "--n_devices", str(n_devices),
         "--n_frames_total", "4", "--max_frames_per_gpu", str(4 // n_devices),
         "--num_D", "1", "--n_layers_D", "2", "--n_frames_D", "3",
         "--n_scales_temporal", "1", "--no_vgg", "--niter", "2", "--niter_decay", "0",
@@ -437,10 +449,15 @@ def test_train_cli_on_two_ranks(runs):
     assert resumed[0]["digest"] == resumed[1]["digest"] != ranks[0]["digest"]
 
 
-def test_train_cli_refuses_the_model_axis(tmp_path):
-    """--batchSize 1 --n_devices 2 is JAX's data 1 x model 2 mesh: width
-    sharding, not ported; refused before any rank starts."""
-    flags = _cli_flags(tmp_path, 2)
-    flags[flags.index("--batchSize") + 1] = "1"
-    with pytest.raises(NotImplementedError, match="model axis"):
-        train_cli.main(flags)
+def test_train_cli_on_the_model_axis(runs):
+    """--batchSize 1 --n_devices 2 is JAX's data 1 x model 2 mesh: each of
+    the two ranks runs the generator on half of every frame's columns.
+    Both end with the same weights, rank 0 alone writes the checkpoint,
+    and its logged losses and grad norms are the one-process CLI's at
+    batch 1 within the training bounds."""
+    ranks, ck2, log2, ck1, log1 = runs["cli_model"]
+    assert [r["epoch"] for r in ranks] == [3, 3] and ranks[0]["total_steps"] == 4  # 2 epochs of 2
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    assert ck2.keys() == ck1.keys() and len(ck2) > 0
+    assert len(log2) == len(log1) == 4
+    assert tp.losses_within(log2, log1) == []

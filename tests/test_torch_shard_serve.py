@@ -57,6 +57,7 @@ from vid2vid_tpu_torch.ops.pool import build_pyramid_video
 from vid2vid_tpu_torch.ops.respair import respair_halo, respair_halo_plain, respair_plain
 from vid2vid_tpu_torch.ops.warp import warp_blend_at, warp_blend_plain
 from vid2vid_tpu_torch.parallel import halo, launch
+from vid2vid_tpu_torch.parallel.collectives import LocalGroup
 from vid2vid_tpu_torch.utils.from_jax import generator_state_dict
 
 DEADLINE_S = 120.0
@@ -166,12 +167,35 @@ def test_the_layers_run_their_shards_in_one_process(width, monkeypatch):
                                            msg=f"{type(layer).__name__} shard {sh.index}")
 
 
-def test_a_layer_in_train_mode_refuses_a_shard():
-    layer = DownConv2d(2, 2, 3, stride=2, padding=1).train()
-    x = torch.zeros(1, 2, 4, 8)
-    with halo.sharded(halo.make_shard(0, 2, 16)), pytest.raises(NotImplementedError,
-                                                                 match="model axis"):
-        layer(x)
+def test_a_train_mode_down_conv_on_two_shards_equals_the_whole():
+    """A train-mode DownConv2d on two shards, each on a thread of one
+    LocalGroup (its halo exchanged through halo.padded, differentiable):
+    the shards' outputs and input gradients are the whole conv's columns,
+    their weight gradients sum to its (tests/test_torch_shard_train.py
+    holds every train-mode layer so)."""
+    layer = DownConv2d(2, 3, 3, stride=2, padding=1).train()
+    init_weights(layer, torch.Generator().manual_seed(0))
+    x = _seeded(1, 2, 4, 16)
+    xw = x.clone().requires_grad_(True)
+    y = layer(xw)
+    cot = _seeded(*y.shape, seed=1)
+    want = torch.autograd.grad((y * cot).sum(), [xw, layer.weight, layer.bias])
+    group = LocalGroup(2)
+
+    def shard(i):
+        sh = halo.make_shard(i, 2, 16, group)
+        xl = sh.local(x).clone().requires_grad_(True)
+        with group.member(i), halo.sharded(sh):
+            yl = layer(xl)
+            cols = slice(sh.x0 // 2, (sh.x0 + sh.width) // 2)
+            assert torch.equal(yl, y.detach()[..., cols])
+            return torch.autograd.grad((yl * cot[..., cols]).sum(), [xl, layer.weight, layer.bias])
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        got = list(pool.map(shard, range(2)))
+    torch.testing.assert_close(torch.cat([g[0] for g in got], -1), want[0], rtol=0, atol=1e-7)
+    for k in (1, 2):
+        torch.testing.assert_close(got[0][k] + got[1][k], want[k], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("width", [64, 96])

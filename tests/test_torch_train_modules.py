@@ -269,8 +269,9 @@ def test_learning_rates_match_jax(ttur):
 
 def test_unported_training_options_raise():
     """The face discriminator is ported (max(1, num_D - 2) scales, in the D
-    optimizer's group); the device mesh belongs to the multi-device slice
-    and raises, naming ROADMAP."""
+    optimizer's group); the device mesh is ported too (the data and model
+    axes), and --n_devices 2 in one process without its ranks raises,
+    naming the ways to start them."""
     from vid2vid_tpu_torch.models.loss_engine import LossEngine
     from vid2vid_tpu_torch.train.loop import Trainer
 
@@ -282,5 +283,5 @@ def test_unported_training_options_raise():
         group = tstate.create_train_state(engine.opt, torch.nn.Linear(1, 1), engine).opt_d
         assert len(group.param_groups[0]["params"]) == len(list(engine.netD.parameters())) \
             + len(list(engine.netD_f.parameters()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no process group of 2 ranks"):
         Trainer(Options(**small, n_devices=2), device="cpu")

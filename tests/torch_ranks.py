@@ -25,7 +25,10 @@ for the CLI, `rank0_rows` (every rank trains on rank 0's rows). The model
 axis's (`SHARD_FAULTS`): `halo_wrong_side` (each rank sends its neighbours
 the edge columns of its other side), `reflect_inner_edges` (every shard
 reflects at its inner sides as at the image's edges) and `warp_no_offset`
-(the warp samples the whole previous frame at the shard's local columns).
+(the warp samples the whole previous frame at the shard's local columns);
+in training (`TRAIN_SHARD_FAULTS`), `halo_grad_dropped` (the exchanges'
+backward keeps each rank's own columns' gradient and drops the halos',
+on every rank).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from vid2vid_tpu_torch.train.loop import Trainer
 
 FAULTS = ("unsynced_norms", "summed_gradients", "face_box_per_rank")
 SHARD_FAULTS = ("halo_wrong_side", "reflect_inner_edges", "warp_no_offset")
+TRAIN_SHARD_FAULTS = ("halo_grad_dropped",)
 
 
 def stub_flow(cur: torch.Tensor, prev: torch.Tensor):
@@ -63,7 +67,7 @@ def _tensor(x):
     return None if x is None else torch.as_tensor(x)
 
 
-def _all_reduce_sum_in_place(tensors, group) -> None:
+def _all_reduce_sum_in_place(tensors, group, divisor=None) -> None:
     """The `summed_gradients` fault: all_reduce_mean without the mean."""
     if mesh.group_size(group) > 1:
         for t in tensors:
@@ -72,14 +76,25 @@ def _all_reduce_sum_in_place(tensors, group) -> None:
 
 def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
                  device: str = "cpu", weights: tuple | None = None,
-                 fault: str | None = None, deterministic: bool = False) -> dict:
+                 fault: str | None = None, deterministic: bool = False,
+                 n_frames_bp: int | None = None) -> dict:
     """A Trainer of Options(**opt_kwargs) on `device` with the stub flow,
     with `weights` ((generator, engine) state dicts) if given, trained on
     the global clip (labels, frames, inst) chunk by chunk (`run_chunks`,
-    under `deterministic_algorithms` if asked)."""
-    if fault is not None and fault not in FAULTS:
-        raise ValueError(f"unknown fault {fault!r}; one of {FAULTS}")
+    under `deterministic_algorithms` if asked), its BPTT cadence
+    `n_frames_bp` if given."""
+    if fault is not None and fault not in FAULTS + TRAIN_SHARD_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}; one of {FAULTS + TRAIN_SHARD_FAULTS}")
+    exchange_backward = halo._Exchange.backward
+    if fault == "halo_grad_dropped":
+        def local_part(ctx, g):
+            w = g.shape[-1] - ctx.left - ctx.right
+            return g[..., ctx.left : ctx.left + w], None, None, None
+
+        halo._Exchange.backward = staticmethod(local_part)
     trainer = Trainer(Options(**opt_kwargs), flow_fn=stub_flow, device=device)
+    if n_frames_bp is not None:
+        trainer.schedule.n_frames_bp = n_frames_bp
     state = trainer.init_state()
     if weights is not None:
         trainer.gen.load_state_dict({k: _tensor(v) for k, v in weights[0].items()})
@@ -97,6 +112,7 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
                               _tensor(inst), n_load)
     finally:
         steps.all_reduce_mean = mesh.all_reduce_mean
+        halo._Exchange.backward = staticmethod(exchange_backward)
 
 
 def batch_norm_rows(x, weight, bias, grad_out, update_stats: bool) -> dict:

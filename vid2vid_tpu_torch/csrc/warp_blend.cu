@@ -58,7 +58,14 @@
 // scattered ones (independent flows) each take their own L2 operation.
 // One thread per pixel, looping over C, keeps the flow, weight and the
 // per-pixel sums in registers; the grid is columns x rows x batch, as the
-// forward's, so the indices need no division. One call of the entry is the
+// forward's, so the indices need no division. A width shard's blend
+// backward (v2v_warp_blend_bwd with Wp, x0: the model axis in training)
+// takes the whole previous frame (B, C, H, Wp) as the forward does: the
+// shard's W columns of raw, flow, w, g, d_raw, d_flow, d_w from the frame's
+// column x0, samples at (x0 + x + dx, y + dy) with the floor clipped to
+// [0, Wp - 2], and splats d_prev over the whole frame, so the shards'
+// d_prev sum to the whole frame's. x0 = 0 with Wp = W is the unsharded
+// call, the same instructions. One call of the entry is the
 // whole backward (zeroing, kernel, cast): the wrapper makes one ctypes call
 // and no other device operation. A splat through a shared-memory tile with
 // a halo was tried and was slower on smooth flows; it is not kept. H and W
@@ -220,17 +227,18 @@ warp_bwd_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
                 const T* __restrict__ flow, const T* __restrict__ weight,
                 const T* __restrict__ g, T* __restrict__ draw,
                 float* __restrict__ dprev, T* __restrict__ dflow,
-                T* __restrict__ dweight, int C, int H, int W) {
+                T* __restrict__ dweight, int C, int H, int W, int Wp, int xs) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= W) return;
   const int y = blockIdx.y, b = blockIdx.z;
   const int plane = H * W;
+  const int pplane = H * Wp;  // prev's and dprev's
   const int pix = y * W + x;  // in a channel plane
   const T* fl = flow + (size_t)b * 2 * plane + pix;
-  const float sx = (float)x + to_f(fl[0]);
+  const float sx = (float)(xs + x) + to_f(fl[0]);
   const float sy = (float)y + to_f(fl[plane]);
   float ux, uy;
-  const Taps t = patch_taps(sx, sy, H, W, &ux, &uy);
+  const Taps t = patch_taps(sx, sy, H, Wp, &ux, &uy);
   const float wx = t.wx, wy = t.wy;
   const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
   const float w10 = (1.f - wx) * wy, w11 = wx * wy;
@@ -239,7 +247,8 @@ warp_bwd_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
   float dwx = 0.f, dwy = 0.f, dw = 0.f;
   for (int ch = 0; ch < C; ++ch) {
     const size_t base = ((size_t)b * C + ch) * plane;
-    const T* p = prev + base;
+    const size_t pbase = ((size_t)b * C + ch) * pplane;
+    const T* p = prev + pbase;
     const float v00 = to_f(p[t.i00]), v01 = to_f(p[t.i01]);
     const float v10 = to_f(p[t.i10]), v11 = to_f(p[t.i11]);
     const float top = v00 * (1.f - wx) + v01 * wx;
@@ -253,7 +262,7 @@ warp_bwd_kernel(const T* __restrict__ raw, const T* __restrict__ prev,
     }
     dwx += gc * ((v01 - v00) * (1.f - wy) + (v11 - v10) * wy);
     dwy += gc * (bot - top);
-    float* d = dprev + base;
+    float* d = dprev + pbase;
     atomicAdd(d + t.i00, gc * w00);
     atomicAdd(d + t.i01, gc * w01);
     atomicAdd(d + t.i10, gc * w10);
@@ -281,15 +290,16 @@ splat_to_bf16_kernel(const float* __restrict__ splat, __nv_bfloat16* __restrict_
   }
 }
 
-// One backward call: zero the f32 splat on the stream, run the kernel on a
-// grid of columns x rows x batch (as the forward's), and, in bf16, round
-// the splat into dprev_out; in f32 the splat is dprev_out itself.
+// One backward call: zero the f32 splat (the whole (B, C, H, Wp) frame) on
+// the stream, run the kernel on a grid of the shard's columns x rows x
+// batch (as the forward's), and, in bf16, round the splat into dprev_out;
+// in f32 the splat is dprev_out itself.
 template <typename T, bool BLEND>
 int launch_bwd(const void* raw, const void* prev, const void* flow,
                const void* weight, const void* g, void* draw, void* dprev_out,
                void* splat, void* dflow, void* dweight, int B, int C, int H, int W,
-               cudaStream_t stream) {
-  const size_t n = (size_t)B * C * H * W;
+               int Wp, int xs, cudaStream_t stream) {
+  const size_t n = (size_t)B * C * H * Wp;
   cudaError_t err = cudaMemsetAsync(splat, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
   const int threads = std::min(NTHREADS, (W + 31) / 32 * 32);
@@ -299,7 +309,7 @@ int launch_bwd(const void* raw, const void* prev, const void* flow,
       static_cast<const T*>(flow), static_cast<const T*>(weight),
       static_cast<const T*>(g), static_cast<T*>(draw),
       static_cast<float*>(splat), static_cast<T*>(dflow),
-      static_cast<T*>(dweight), C, H, W);
+      static_cast<T*>(dweight), C, H, W, Wp, xs);
   if (sizeof(T) == 2 && n > 0) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -315,19 +325,20 @@ template <bool BLEND>
 int dispatch_bwd(const void* raw, const void* prev, const void* flow,
                  const void* weight, const void* g, void* draw, void* dprev_out,
                  void* splat, void* dflow, void* dweight, int B, int C, int H,
-                 int W, int dtype, void* stream) {
+                 int W, int Wp, int xs, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H < 2 || W < 2 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (H < 2 || Wp < 2 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (W < 1 || xs < 0 || xs + W > Wp) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;  // nothing to launch
   if (dtype == kFloat32) {
     if (splat != dprev_out) return (int)cudaErrorInvalidValue;
     return launch_bwd<float, BLEND>(raw, prev, flow, weight, g, draw, dprev_out,
-                                    splat, dflow, dweight, B, C, H, W, s);
+                                    splat, dflow, dweight, B, C, H, W, Wp, xs, s);
   }
   if (dtype == kBFloat16)
     return launch_bwd<__nv_bfloat16, BLEND>(raw, prev, flow, weight, g, draw,
                                             dprev_out, splat, dflow, dweight, B, C,
-                                            H, W, s);
+                                            H, W, Wp, xs, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -400,17 +411,21 @@ extern "C" int v2v_flow_warp_bwd(const void* image, const void* flow,
                                  void* dflow, int B, int C, int H, int W,
                                  int dtype, void* stream) {
   return v2v::dispatch_bwd<false>(nullptr, image, flow, nullptr, g, nullptr,
-                                  dimage, splat, dflow, nullptr, B, C, H, W,
-                                  dtype, stream);
+                                  dimage, splat, dflow, nullptr, B, C, H, W, W,
+                                  0, dtype, stream);
 }
 
-// draw, dprev, dflow, dweight in the dtype; splat as v2v_flow_warp_bwd's.
+// prev, dprev, splat: (B, C, H, Wp), the whole frame; raw, flow, weight, g,
+// draw, dflow, dweight: W columns from the frame's column x0 (the unsharded
+// call: Wp = W, x0 = 0). draw, dprev, dflow, dweight in the dtype; splat
+// as v2v_flow_warp_bwd's.
 extern "C" int v2v_warp_blend_bwd(const void* raw, const void* prev,
                                   const void* flow, const void* weight,
                                   const void* g, void* draw, void* dprev,
                                   void* splat, void* dflow, void* dweight,
-                                  int B, int C, int H, int W, int dtype,
-                                  void* stream) {
+                                  int B, int C, int H, int W, int Wp, int x0,
+                                  int dtype, void* stream) {
   return v2v::dispatch_bwd<true>(raw, prev, flow, weight, g, draw, dprev, splat,
-                                 dflow, dweight, B, C, H, W, dtype, stream);
+                                 dflow, dweight, B, C, H, W, Wp, x0, dtype,
+                                 stream);
 }

@@ -17,8 +17,8 @@ labels and encodes one frame per step into a window kept on the
 generator's device, so the clip's encoded pyramid never exists whole.
 
 On the model axis (`shard`, a parallel/halo.py::WidthShard of the finest
-level: the engine's --n_devices N) each rank holds its columns of every
-level. It encodes its columns of the raw labels with a margin
+level: the engine's or the trainer's --n_devices N) each rank holds its
+columns of every level. It encodes its columns of the raw labels with a margin
 (`encode_shard`: one column a side for the instance edges, and 2**L
 columns on the left for the L = n_scales - 1 pyramid pools, which read one
 column to the left a level; none past the image's edges, so the pools'
@@ -26,16 +26,22 @@ border divisors stay right), runs the scales on its columns under `halo.sharded`
 layers exchange their halos), and after each scale gathers the whole frame
 (one all_gather) into the previous frames, which every rank keeps whole:
 the warp reads the whole previous frame, the previous-frame trunk its
-columns of it, and the finest frame is whole for the caller.
+columns of it, and the finest frame is whole for the caller. In training
+the gathers and the exchanges carry the gradient back (parallel/halo.py's
+gradient invariant), and under remat each scale's recompute in the
+backward runs under the shard too, making the same exchanges in the same
+order on every rank.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import contextlib
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.nn.composite import CompositeOut
@@ -188,7 +194,9 @@ class Vid2VidGenerator(nn.Module):
         `params`, one dict per scale, replaces the scales' parameters for
         the call (the training steps' bf16 copies of the f32 masters). The
         new state is detached: it crosses the chunk boundary. With `shard`
-        (inference) this rank runs its columns of the whole encoded clip.
+        this rank runs its columns of the whole encoded clip, and the
+        outputs come whole (gathered: in training their gradient keeps this
+        rank's columns).
         """
         tG, n_scales = self.tG, self.n_scales
         n_frames = enc_a.shape[1] - (tG - 1)
@@ -280,16 +288,22 @@ class Vid2VidGenerator(nn.Module):
             None if ys[0][i] is None else torch.stack([y[i] for y in ys], 1)
             for i in range(4)
         )
-        if shard is not None:
+        if shard is not None:  # differentiable: the gradient keeps this rank's columns
             raw, flow, weight = (None if t is None else halo.gather_width(t, shard.n, shard.group)
                                  for t in (raw, flow, weight))
         new_state = tuple(unstack_time(b, self.tG - 1).detach() for b in bufs)
         return ClipOutputs(fake, raw, flow, weight), new_state
 
-    def _apply_scale(self, s: int, params: dict | None, *args) -> CompositeOut:
-        if params is None:
-            return self.scale(s)(*args)
-        return torch.func.functional_call(self.scale(s), params, args)
+    def _apply_scale(self, s: int, params: dict | None, shard: WidthShard | None,
+                     *args) -> CompositeOut:
+        """Scale s on args, with `params` in place of its parameters if
+        given, its layers reading `shard` (halo.sharded). The shard is set
+        here, inside what remat checkpoints, so that the recompute in the
+        backward (which may run on autograd's device thread) sees it too."""
+        with halo.sharded(shard):
+            if params is None:
+                return self.scale(s)(*args)
+            return torch.func.functional_call(self.scale(s), params, args)
 
     def _frame_pass(
         self, wins, bufs, use_raw_only, *, detach_prev=False,
@@ -303,6 +317,7 @@ class Vid2VidGenerator(nn.Module):
         windows are this rank's columns and the buffers whole: each scale
         runs under halo.sharded, and its frame is gathered whole (the fake
         returned is whole; raw, flow and weight are this rank's columns).
+        The gathers are differentiable (halo.gather_width).
         """
         opt = self.opt
         tG, n_scales = self.tG, self.n_scales
@@ -320,10 +335,14 @@ class Vid2VidGenerator(nn.Module):
             args = (lab, bufs_in[si]) + ((coarse,) if s else ()) + (mask, use_raw_only)
             p = None if params is None else params[s]
             if remat:
-                out = checkpoint(self._apply_scale, s, p, *args, use_reentrant=False)
+                # on a shard the recompute runs the whole scale: an early
+                # stop at the last saved tensor could leave collectives out
+                with (set_checkpoint_early_stop(False) if shard is not None
+                      else contextlib.nullcontext()):
+                    out = checkpoint(self._apply_scale, s, p, shard, *args,
+                                     use_reentrant=False)
             else:
-                with halo.sharded(shard):
-                    out = self._apply_scale(s, p, *args)
+                out = self._apply_scale(s, p, shard, *args)
             if detach_coarse and s != n_scales - 1:
                 out = CompositeOut(*(None if x is None else x.detach() for x in out))
             coarse = out

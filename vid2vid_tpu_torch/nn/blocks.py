@@ -7,9 +7,10 @@ trunk, and its indices are the checkpoint's names. `ResnetBlock` is a
 module, as in the reference, with its `conv_block` Sequential. Every 7x7
 stem and head is a `reflect_conv7`: in eval mode it runs the conv7 kernel
 (the composite generators of nn/composite.py and the single-image nets of
-nn/pix2pixhd.py alike). On a width shard (parallel/halo.py) the eval
-layers take their neighbours' columns first (nn/layers.py); the eval
-`ResnetBlock` runs respair's column-halo mode.
+nn/pix2pixhd.py alike). On a width shard (parallel/halo.py) the layers
+take their neighbours' columns first (nn/layers.py); the eval
+`ResnetBlock` runs respair's column-halo mode, the train-mode one its
+plain layers, whose two reflection pads exchange a column a side each.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from vid2vid_tpu_torch.nn.layers import (
     reflect_conv,
     reflect_conv7,
     state_tensors,
-    unsharded_in_training,
 )
 from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel
 from vid2vid_tpu_torch.ops.respair import respair, respair_halo
@@ -74,8 +74,9 @@ class ResnetBlock(nn.Module):
     parameter or buffer of the block changes (its version counter, storage,
     dtype or device) or x's dtype or device does (`nn.layers.eval_cached`);
     with gradients on they are rebuilt on each call, so the weights keep
-    their gradient. On a width shard it takes two columns of each
-    neighbour and runs `ops.respair_halo` (one exchange for both convs).
+    their gradient. On a width shard, eval takes two columns of each
+    neighbour and runs `ops.respair_halo` (one exchange for both convs);
+    train mode's two pads take one each (nn/layers.py::ReflectionPad2d).
     """
 
     def __init__(self, dim: int, norm: str = "batch"):
@@ -103,7 +104,6 @@ class ResnetBlock(nn.Module):
         return k0, ab0, k1, ab1, packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        unsharded_in_training(self, x)
         if self.training:
             return x + self.conv_block(x)
         if torch.is_grad_enabled():

@@ -20,8 +20,11 @@ has no counterpart here.
 On a width shard (parallel/halo.py, set by the generator around a frame)
 `prev_frames` stays the whole previous frames: the previous-frame trunk
 takes this shard's columns of them, and the warp samples the whole frame
-at the shard's column offset (`ops.warp_blend_at`), so the flow needs no
-halo however far it reaches.
+at the shard's column offset (`ops.warp_blend_at`, with its gradient), so
+the flow needs no halo however far it reaches. The warp reads the whole
+frame at a place of its own on every rank, so it reads it through
+`halo.shared`, whose backward sums the gradient over the ranks (the
+gradient invariant of parallel/halo.py).
 """
 
 from __future__ import annotations
@@ -111,8 +114,8 @@ class _Heads(nn.Module):
             if shard is None:
                 img_final = warp_blend(img_raw, prev, flow.contiguous(), weight)
             else:
-                img_final = warp_blend_at(img_raw.contiguous(), prev, flow.contiguous(),
-                                          weight.contiguous(), shard.x0)
+                img_final = warp_blend_at(img_raw.contiguous(), halo.shared(prev, shard),
+                                          flow.contiguous(), weight.contiguous(), shard.x0)
         if self.use_fg:
             img_fg = self.indv_final(fg_feat)
             img_final = img_fg * mask + img_final * (1.0 - mask)

@@ -30,13 +30,18 @@ train mode take the global batch's statistics, as JAX's norms do over a
 sharded batch; instance norm stays per sample.
 
 On the model axis (a frame's columns split over ranks: parallel/halo.py,
-set by the generator around a frame) the eval layers that read across
-columns take their neighbours' columns first: the 7x7 (`ReflectConv7`,
-through conv7's column-halo mode), the down convs (`DownConv2d`: one
-column on the left, zeros at the image's edge) and the transposed convs
-(`UpConvTranspose2d`: one on the right). The eval norms normalise by their
-running stats, pointwise; a norm that would take statistics over the width
-raises under a shard, as does any layer in train mode.
+set by the generator around a frame) the layers that read across columns
+take their neighbours' columns first: the eval 7x7 (`ReflectConv7`,
+through conv7's column-halo mode), the reflection pads of the train-mode
+convs (`FoldedReflectionPad2d`, `ReflectionPad2d`: the neighbours' columns
+on inner sides, reflection only at the image's edges), the down convs
+(`DownConv2d`: one column on the left, zeros at the image's edge) and the
+transposed convs (`UpConvTranspose2d`: one on the right), in both modes
+through the differentiable `halo.padded`. The eval norms normalise by
+their running stats, pointwise; in train mode batch norm takes its
+statistics over its `group`, which the trainer sets to every rank of the
+mesh (the data axis's samples and the model axis's columns), and instance
+norm each sample's over the model axis (the shard's group).
 """
 
 from __future__ import annotations
@@ -53,29 +58,24 @@ from vid2vid_tpu_torch.ops.conv7 import (
     pack_for_kernel,
 )
 from vid2vid_tpu_torch.parallel import halo
-from vid2vid_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM, all_reduce_sum, group_size
-
-
-def unsharded_in_training(module: nn.Module, x: torch.Tensor) -> None:
-    """Raise if `module` is in train mode on a width shard: training's
-    model axis (the backward halos, the statistics over the width) is not
-    ported."""
-    if module.training and halo.active(x) is not None:
-        raise NotImplementedError(
-            f"{type(module).__name__} in train mode on a width shard: {MODEL_AXIS_ITEM}")
+from vid2vid_tpu_torch.parallel.collectives import group_size
+from vid2vid_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train mode leaves the running stats alone while
     `update_stats` is False, and takes the statistics of the global batch
-    while `group` (a torch.distributed group of the data axis) holds more
-    than one rank (`sync_batch_norm`)."""
+    while `group` (a torch.distributed group: the data axis's ranks, and
+    for the generator every rank of the mesh, whose model axis splits the
+    width) holds more than one rank (`sync_batch_norm`)."""
 
     update_stats = True
     group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        unsharded_in_training(self, x)
+        if self.training and group_size(self.group) == 1 and halo.active(x) is not None:
+            raise ValueError("BatchNorm2d in train mode on a width shard takes its statistics "
+                             "over the model axis: give it a group (sync_batch_norm)")
         if self.training and group_size(self.group) > 1:
             return self._synced(x)
         if not self.training or self.update_stats:
@@ -83,8 +83,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over the group's global batch, in f32: the mean from
-        an all-reduced per-channel sum (and count), the biased variance
+        """Train mode over the group's global batch, in f32 (on a width
+        shard, over the columns of every shard too): the mean from an
+        all-reduced per-channel sum (and count), the biased variance
         from an all-reduced per-channel sum of squared deviations, both
         differentiable; the running stats, while `update_stats`, take the
         global count's unbiased variance (what F.batch_norm does on the
@@ -113,19 +114,43 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class InstanceNorm2d(nn.InstanceNorm2d):
     """nn.InstanceNorm2d(track_running_stats=True) whose train mode leaves
-    the running stats alone while `update_stats` is False."""
+    the running stats alone while `update_stats` is False. On a width
+    shard, where it normalises by the sample's statistics (train mode, or
+    no running stats), it takes them over the whole width (`_synced`)."""
 
     update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        unsharded_in_training(self, x)
-        if not self.track_running_stats and halo.active(x) is not None:
-            raise NotImplementedError(
-                "InstanceNorm2d without running stats normalises over the width: it "
-                "cannot run on a width shard")
+        shard = halo.active(x)
+        if shard is not None and (self.training or not self.track_running_stats):
+            return self._synced(x, shard)
         if not self.training or self.update_stats:
             return super().forward(x)
         return F.instance_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor, shard) -> torch.Tensor:
+        """Each sample's per-channel statistics over the whole width, in
+        f32: the mean from the sums over this shard's columns all-reduced
+        over the model axis (the shard's group), the biased variance from
+        the all-reduced sums of squared deviations, both differentiable;
+        the running stats, while `update_stats` in train mode, take the
+        batch's mean of them with the unbiased variance (what
+        F.instance_norm does on the whole width)."""
+        xf = x.float()
+        n = x.shape[2] * shard.total
+        mean = all_reduce_sum(xf.sum((2, 3)), shard.group) / n
+        dev = xf - mean[:, :, None, None]
+        var = all_reduce_sum((dev * dev).sum((2, 3)), shard.group) / n
+        y = dev * torch.rsqrt(var + self.eps)[:, :, None, None]
+        if self.affine:
+            y = y * self.weight.float().view(1, -1, 1, 1) + self.bias.float().view(1, -1, 1, 1)
+        if self.training and self.update_stats and self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var.detach() * (n / (n - 1))
+                self.running_mean.mul_(1 - m).add_(mean.detach().mean(0), alpha=m)
+                self.running_var.mul_(1 - m).add_(unbiased.mean(0), alpha=m)
+        return y.to(x.dtype)
 
 
 def update_running_stats(module: nn.Module, on: bool) -> list[nn.Module]:
@@ -140,27 +165,47 @@ def update_running_stats(module: nn.Module, on: bool) -> list[nn.Module]:
 def sync_batch_norm(module: nn.Module, group) -> None:
     """Every BatchNorm2d of `module` takes its train-mode statistics over
     the ranks of `group` (None: this process's batch alone). Instance norm
-    stays per sample."""
+    stays per sample (over the model axis on a width shard)."""
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
             m.group = group
 
 
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """F.pad(x, (p, p, p, p), mode="reflect"); on a width shard its columns
+    come from the neighbours on the inner sides (`halo.padded`, which
+    carries the gradient back to them) and the reflection only at the
+    image's edges, then the rows are reflected."""
+    shard = halo.active(x)
+    if shard is None:
+        return F.pad(x, (p, p, p, p), mode="reflect")
+    return F.pad(halo.padded(x, shard, p, p, "reflect"), (0, 0, p, p), mode="reflect")
+
+
+class ReflectionPad2d(nn.ReflectionPad2d):
+    """nn.ReflectionPad2d(p) (equal sides) that reads across a width shard
+    (`reflect_pad`). It has no parameters: the Sequential indices, and so
+    the state-dict names, stay the reference's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_pad(x, self.padding[0])
+
+
 def reflect_conv(cin: int, cout: int, kernel: int) -> list[nn.Module]:
     """ReflectionPad2d(kernel // 2) + Conv2d(cin, cout, kernel)."""
-    return [nn.ReflectionPad2d(kernel // 2), nn.Conv2d(cin, cout, kernel)]
+    return [ReflectionPad2d(kernel // 2), nn.Conv2d(cin, cout, kernel)]
 
 
 class FoldedReflectionPad2d(nn.ReflectionPad2d):
     """ReflectionPad2d(3) ahead of a `ReflectConv7`: it pads in train mode
-    and passes its input through in eval mode, where the conv folds the
-    reflection into its kernel's load addressing."""
+    (`reflect_pad`) and passes its input through in eval mode, where the
+    conv folds the reflection into its kernel's load addressing."""
 
     def __init__(self):
         super().__init__(3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x) if self.training else x
+        return reflect_pad(x, 3) if self.training else x
 
 
 def version_key(tensors) -> list:
@@ -251,8 +296,7 @@ class ReflectConv7(nn.Conv2d):
         return w, self.bias.float(), packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        unsharded_in_training(self, x)
-        if self.training:
+        if self.training:  # x is padded: no shard's width
             return super().forward(x)
         if torch.is_grad_enabled():
             w, bias, packed = self._kernel_args(x)
@@ -273,17 +317,16 @@ def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
 
 
 class DownConv2d(nn.Conv2d):
-    """Conv2d(3, stride 2, zero padding 1). On a width shard (eval) its
-    output column j reads the shard's columns 2j - 1 .. 2j + 1: the left
-    neighbour's last column first (zeros at the image's left edge)."""
+    """Conv2d(3, stride 2, zero padding 1). On a width shard its output
+    column j reads the shard's columns 2j - 1 .. 2j + 1: the left
+    neighbour's last column first (zeros at the image's left edge;
+    `halo.padded`, differentiable)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        unsharded_in_training(self, x)
         shard = halo.active(x)
         if shard is None:
             return super().forward(x)
-        lstrip, _ = halo.exchange(x, shard, 1, 0)
-        xp = halo.with_halo_plain(x, lstrip, None, shard, "zeros", (1, 0))
+        xp = halo.padded(x, shard, 1, 0, "zeros")
         return F.conv2d(xp, self.weight, self.bias, 2, (1, 0))
 
 
@@ -294,16 +337,15 @@ def down_conv(cin: int, cout: int) -> DownConv2d:
 
 class UpConvTranspose2d(nn.ConvTranspose2d):
     """ConvTranspose2d(3, stride 2, padding 1, output_padding 1). On a
-    width shard (eval) its last two output columns take the right
-    neighbour's first column (zeros past the image's right edge)."""
+    width shard its last two output columns take the right neighbour's
+    first column (zeros past the image's right edge; `halo.padded`,
+    differentiable)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        unsharded_in_training(self, x)
         shard = halo.active(x)
         if shard is None:
             return super().forward(x)
-        _, rstrip = halo.exchange(x, shard, 0, 1)
-        xp = halo.with_halo_plain(x, None, rstrip, shard, "zeros", (0, 1))
+        xp = halo.padded(x, shard, 0, 1, "zeros")
         out = F.conv_transpose2d(xp, self.weight, self.bias, 2, 1, output_padding=(1, 0))
         return out[..., : 2 * x.shape[-1]]
 

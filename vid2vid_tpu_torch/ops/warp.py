@@ -16,7 +16,10 @@ normalized flow, up to the rounding of the normalization round trip
 shard (the model axis, parallel/halo.py): prev is the whole previous
 frame, raw, flow and weight the shard's columns from the frame's column
 x0, sampled at (x0 + x + u, y + v) and clamped to the whole frame's border
-(the same kernel; `warp_blend_at_plain`).
+(the same kernel; `warp_blend_at_plain`). Its backward (`warp_blend_at_bwd`,
+`warp_blend_at_backward_plain`) gives d_raw, d_flow and d_weight at the
+shard's columns and d_prev over the whole frame (the shard's splat: the
+ranks' d_prev sum to the whole frame's, parallel/halo.py::shared).
 
 `warp_blend(raw, prev, flow, weight)` is the composite generator's blend
 `raw * w + flow_warp(prev, flow) * (1 - w)` (vid2vid_tpu/nn/composite.py::
@@ -36,8 +39,10 @@ fractional weights clipped to [0, 1].
     gradient there instead; the port follows the JAX package's flow_warp.
 The backward is the kernel `v2v_flow_warp_bwd` / `v2v_warp_blend_bwd` on a
 CUDA tensor (one ctypes call: the entry zeroes its f32 splat and, in bf16,
-rounds it into d/dimage itself) and `flow_warp_backward_plain` /
-`warp_blend_backward_plain` on a CPU tensor. It needs H and W of at least 2.
+rounds it into d/dimage itself; the blend's at a column offset, `Wp` and
+`x0`, as its forward) and `flow_warp_backward_plain` /
+`warp_blend_backward_plain` / `warp_blend_at_backward_plain` on a CPU
+tensor. It needs H and W (of the whole frame) of at least 2.
 """
 
 from __future__ import annotations
@@ -154,23 +159,26 @@ def _clip_grad(u: torch.Tensor) -> torch.Tensor:
     return inside + 0.5 * tie
 
 
-def _patch_backward(image, flow, g):
+def _patch_backward(image, flow, g, x0: int = 0):
     """The patch formulation's backward in the work dtype (f32, or f64 for
-    f64 operands): returns (d/dimage (B, C, H, W), d/dflow (B, 2, H, W), the
-    warped image (B, C, H, W)). `g` is the cotangent of the warp's output."""
-    b, c, h, w = image.shape
+    f64 operands): returns (d/dimage (B, C, H, Wp), d/dflow (B, 2, H, W),
+    the warped image (B, C, H, W)) for the (B, C, H, Wp) image sampled at
+    (x0 + x + u, y + v) for the (B, 2, H, W) flow's pixels (x0 = 0 with Wp
+    = W: the unsharded warp). `g` is the cotangent of the warp's output."""
+    b, c, h, wp = image.shape
+    w = flow.shape[3]
     dev = image.device
     ct = _work_dtype(image, flow, g)
     flow, img, gf = flow.to(ct), image.to(ct), g.to(ct)
     sy = torch.arange(h, dtype=ct, device=dev).view(1, h, 1) + flow[:, 1]
-    sx = torch.arange(w, dtype=ct, device=dev).view(1, 1, w) + flow[:, 0]
+    sx = torch.arange(x0, x0 + w, dtype=ct, device=dev).view(1, 1, w) + flow[:, 0]
     y0 = torch.floor(sy).clamp(0, h - 2)
-    x0 = torch.floor(sx).clamp(0, w - 2)
-    uy, ux = sy - y0, sx - x0  # the fractional weights before their clip
+    xf = torch.floor(sx).clamp(0, wp - 2)
+    uy, ux = sy - y0, sx - xf  # the fractional weights before their clip
     wy, wx = uy.clamp(0, 1).unsqueeze(1), ux.clamp(0, 1).unsqueeze(1)
-    base = (y0.long() * w + x0.long()).view(b, 1, h * w)
-    flat = img.reshape(b, c, h * w)
-    offsets = (0, 1, w, w + 1)
+    base = (y0.long() * wp + xf.long()).view(b, 1, h * w)
+    flat = img.reshape(b, c, h * wp)
+    offsets = (0, 1, wp, wp + 1)
     v00, v01, v10, v11 = (
         flat.gather(2, (base + o).expand(b, c, h * w)).view(b, c, h, w)
         for o in offsets
@@ -185,12 +193,12 @@ def _patch_backward(image, flow, g):
 
     # the splat: every output pixel adds g * tap weight to its four taps
     taps_w = ((1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy)
-    rows = (torch.arange(b, device=dev) * (h * w)).view(b, 1)
-    acc = torch.zeros(b * h * w, c, dtype=ct, device=dev)
+    rows = (torch.arange(b, device=dev) * (h * wp)).view(b, 1)
+    acc = torch.zeros(b * h * wp, c, dtype=ct, device=dev)
     for o, tw in zip(offsets, taps_w):
         idx = (rows + base.view(b, h * w) + o).reshape(-1)
         acc.index_add_(0, idx, (gf * tw).permute(0, 2, 3, 1).reshape(-1, c))
-    dimage = acc.view(b, h, w, c).permute(0, 3, 1, 2)
+    dimage = acc.view(b, h, wp, c).permute(0, 3, 1, 2)
     return dimage, dflow, warped
 
 
@@ -214,9 +222,25 @@ def warp_blend_backward_plain(
     warp's backward of g * (1 - w) for prev and flow."""
     _check_blend(raw, prev, flow, weight)
     _check_backward(prev)
+    return _blend_backward(raw, prev, flow, weight, g, 0)
+
+
+def warp_blend_at_backward_plain(
+    raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor,
+    weight: torch.Tensor, g: torch.Tensor, x0: int,
+) -> tuple[torch.Tensor, ...]:
+    """(d_raw, d_prev, d_flow, d_weight) of warp_blend_at for the cotangent
+    g, in plain PyTorch: d_prev over the whole (B, C, H, Wp) frame, the
+    others at the shard's columns."""
+    _check_at(raw, prev, flow, weight, x0)
+    _check_backward(prev)
+    return _blend_backward(raw, prev, flow, weight, g, x0)
+
+
+def _blend_backward(raw, prev, flow, weight, g, x0: int) -> tuple[torch.Tensor, ...]:
     ct = _work_dtype(raw, prev, flow, weight, g)
     gf, wf = g.to(ct), weight.to(ct)
-    dprev, dflow, warped = _patch_backward(prev, flow, gf * (1 - wf))
+    dprev, dflow, warped = _patch_backward(prev, flow, gf * (1 - wf), x0)
     draw = gf * wf
     dweight = (gf * (raw.to(ct) - warped)).sum(1, keepdim=True)
     return (draw.to(raw.dtype), dprev.to(prev.dtype), dflow.to(flow.dtype),
@@ -346,6 +370,27 @@ WARP_BLEND_OP = library.define(
 )
 
 
+def _warp_blend_bwd_cuda(raw, prev, flow, weight, g, x0: int, counter) -> tuple:
+    """One call of the kernel's entry `v2v_warp_blend_bwd` (at column
+    offset x0 of the whole (B, C, H, Wp) prev), counted on `counter`."""
+    code = build.require_cuda_operands(
+        counter.__name__, prev.device, prev.dtype,
+        raw=raw, prev=prev, flow=flow, weight=weight, g=g,
+    )
+    fn = build.function("v2v_warp_blend_bwd", [_VOID] * 10 + [_INT] * 7 + [_VOID])
+    b, c, h, w = raw.shape
+    dprev, splat = _splat_buffers(prev)
+    draw, dflow, dweight = (torch.empty_like(t) for t in (raw, flow, weight))
+    err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
+                       weight.data_ptr(), g.data_ptr(), draw.data_ptr(), dprev.data_ptr(),
+                       splat.data_ptr(), dflow.data_ptr(), dweight.data_ptr(), b, c, h, w,
+                       prev.shape[3], x0, code)
+    build.check(err, f"{counter.__name__} kernel launch")
+    counter.launches += 1
+    counter.second_kernels += prev.dtype == torch.bfloat16 and prev.numel() > 0  # the splat's cast
+    return draw, dprev, dflow, dweight
+
+
 def warp_blend_bwd(
     raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor,
     weight: torch.Tensor, g: torch.Tensor,
@@ -357,26 +402,31 @@ def warp_blend_bwd(
     _check_backward(prev)
     if prev.device.type == "cpu":
         return warp_blend_backward_plain(raw, prev, flow, weight, g)
-    code = build.require_cuda_operands(
-        "warp_blend_bwd", prev.device, prev.dtype,
-        raw=raw, prev=prev, flow=flow, weight=weight, g=g,
-    )
-    fn = build.function("v2v_warp_blend_bwd", [_VOID] * 10 + [_INT] * 5 + [_VOID])
-    b, c, h, w = prev.shape
-    dprev, splat = _splat_buffers(prev)
-    draw, dflow, dweight = (torch.empty_like(t) for t in (raw, flow, weight))
-    err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
-                       weight.data_ptr(), g.data_ptr(), draw.data_ptr(), dprev.data_ptr(),
-                       splat.data_ptr(), dflow.data_ptr(), dweight.data_ptr(), b, c, h, w,
-                       code)
-    build.check(err, "warp_blend backward kernel launch")
-    warp_blend_bwd.launches += 1
-    warp_blend_bwd.second_kernels += prev.dtype == torch.bfloat16 and prev.numel() > 0  # the splat's cast
-    return draw, dprev, dflow, dweight
+    return _warp_blend_bwd_cuda(raw, prev, flow, weight, g, 0, warp_blend_bwd)
 
 
 warp_blend_bwd.launches = 0
 warp_blend_bwd.second_kernels = 0  # the casts of the f32 splat to bf16
+
+
+def warp_blend_at_bwd(
+    raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor,
+    weight: torch.Tensor, g: torch.Tensor, x0: int,
+) -> tuple[torch.Tensor, ...]:
+    """(d_raw, d_prev, d_flow, d_weight) of warp_blend_at for the cotangent
+    g: the kernel `v2v_warp_blend_bwd` at column offset x0 on a CUDA tensor
+    (all five in one dtype, f32 or bf16, contiguous; d_prev over the whole
+    frame), `warp_blend_at_backward_plain` on a CPU tensor. At x0 = 0 with
+    Wp = W it is `warp_blend_bwd`, bit for bit on the card."""
+    _check_at(raw, prev, flow, weight, x0)
+    _check_backward(prev)
+    if prev.device.type == "cpu":
+        return warp_blend_at_backward_plain(raw, prev, flow, weight, g, x0)
+    return _warp_blend_bwd_cuda(raw, prev, flow, weight, g, x0, warp_blend_at_bwd)
+
+
+warp_blend_at_bwd.launches = 0
+warp_blend_at_bwd.second_kernels = 0  # the casts of the f32 splat to bf16
 
 
 class _WarpBlend(torch.autograd.Function):
@@ -406,6 +456,26 @@ def warp_blend(
     return WARP_BLEND_OP(raw, prev, flow, weight)
 
 
+def _check_at(raw, prev, flow, weight, x0: int) -> None:
+    b, c, h, w = raw.shape
+    if (prev.shape[:3] != raw.shape[:3] or flow.shape != (b, 2, h, w)
+            or weight.shape != (b, 1, h, w) or not 0 <= x0 <= prev.shape[3] - w):
+        raise ValueError(f"warp_blend_at: raw {tuple(raw.shape)}, prev {tuple(prev.shape)}, "
+                         f"flow {tuple(flow.shape)}, weight {tuple(weight.shape)}, x0 {x0}")
+
+
+class _WarpBlendAt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, raw, prev, flow, weight, x0):
+        ctx.save_for_backward(raw, prev, flow, weight)
+        ctx.x0 = x0
+        return WARP_BLEND_OP(raw, prev, flow, weight, x0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*warp_blend_at_bwd(*ctx.saved_tensors, g.contiguous(), ctx.x0), None)
+
+
 def warp_blend_at(
     raw: torch.Tensor, prev: torch.Tensor, flow: torch.Tensor, weight: torch.Tensor,
     x0: int,
@@ -415,16 +485,11 @@ def warp_blend_at(
     columns from the frame's column x0: raw * w + warp * (1 - w), the warp
     sampling prev at (x0 + x + u, y + v), clamped to the whole frame's
     border. At x0 = 0 with Wp = W it is `warp_blend`, bit for bit on the
-    card. Inference only (no gradient); a CPU tensor takes
-    `warp_blend_at_plain`."""
-    b, c, h, w = raw.shape
-    if (prev.shape[:3] != raw.shape[:3] or flow.shape != (b, 2, h, w)
-            or weight.shape != (b, 1, h, w) or not 0 <= x0 <= prev.shape[3] - w):
-        raise ValueError(f"warp_blend_at: raw {tuple(raw.shape)}, prev {tuple(prev.shape)}, "
-                         f"flow {tuple(flow.shape)}, weight {tuple(weight.shape)}, x0 {x0}")
+    card. A CPU tensor takes `warp_blend_at_plain`. The gradient is
+    `warp_blend_at_bwd`."""
+    _check_at(raw, prev, flow, weight, x0)
     if wants_grad(raw, prev, flow, weight):
-        raise NotImplementedError("warp_blend_at carries no gradient: training's model axis "
-                                  "is not ported")
+        return _WarpBlendAt.apply(raw, prev, flow, weight, x0)
     return WARP_BLEND_OP(raw, prev, flow, weight, x0)
 
 

@@ -1,5 +1,6 @@
 """The device mesh on torch.distributed (the port of vid2vid_tpu/parallel):
-the data axis, and the model axis for serving (halo.py)."""
+the data axis, and the model axis (halo.py) for serving and training;
+collectives.py holds the collectives and their one-process version."""
 
 from vid2vid_tpu_torch.parallel.mesh import (
     Mesh,

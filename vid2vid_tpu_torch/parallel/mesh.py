@@ -1,26 +1,31 @@
-"""The device mesh on torch.distributed: the data axis, and the model axis
-for serving.
+"""The device mesh on torch.distributed: the data axis and the model axis.
 
 The port of vid2vid_tpu/parallel/mesh.py. The JAX package runs one process
 over a ('data', 'model') mesh and lets GSPMD shard the batch over 'data'
-(and the width over 'model'). Here each device is a process (a rank) of
-one torch.distributed group, and the data axis is written out:
+and the width over 'model'. Here each device is a process (a rank) of one
+torch.distributed group, ranks laid out data-major (rank = data index x
+model + model index), and both axes are written out:
 
   - every rank holds the same weights (`replicated`: a broadcast from rank
     0) and takes its rows of the global batch (`shard_batch`);
-  - train-mode batch norm takes the global batch's statistics
-    (nn/layers.py::BatchNorm2d, through `all_reduce_sum`), the face box
-    the global batch's extents (models/loss_engine.py::face_region);
-  - the gradients are averaged over the ranks in one flat f32 bucket
-    (`all_reduce_mean`) before the grad norms and Adam
-    (train/steps.py::_apply),
-so a step on N ranks computes what one process computes on the whole
-batch. The model axis shards the width: a mesh of data 1 x model N serves
-a frame with each rank on its columns (models/inference.py), the layers
-exchanging halos (parallel/halo.py) and `all_gather_width` putting each
-scale's frame back together. Training's model axis (the backward halos,
-the norms' and losses' reductions over the width) is not ported: the
-Trainer refuses a mesh with model > 1 (MODEL_AXIS_ITEM).
+  - the data axis: the loss engine's train-mode batch norms take the
+    global batch's statistics (nn/layers.py::BatchNorm2d, through
+    `all_reduce_sum` over `Mesh.group`, the data axis of this rank's model
+    index), the face box the global batch's extents
+    (models/loss_engine.py::face_region);
+  - the model axis (parallel/halo.py): each rank of a row (`Mesh.
+    model_group`) runs the generator on its columns of every frame, the
+    layers exchanging halos and each scale's frame gathered whole; the
+    generator's batch norms take their statistics over both axes
+    (`Mesh.world_group`);
+  - the gradients (train/steps.py::_apply) are reduced in one flat f32
+    bucket over the world before the grad norms and Adam: the generator's
+    summed over the model axis (each rank's is its columns' share) and
+    averaged over the data axis, the discriminators' (equal on the ranks
+    of a row) averaged over every rank,
+so a step on a data x model mesh computes what one process computes on
+the whole batch at the whole width. Serving takes a mesh of data 1 x
+model N (models/inference.py).
 
 `launch` starts the ranks of one group as processes; `init_process_group`
 joins one. Nothing here starts a process or opens a socket at import.
@@ -43,17 +48,16 @@ import torch
 import torch.distributed as dist
 
 from vid2vid_tpu_torch.parallel import halo
-
-# the ROADMAP item that training on a mesh with model > 1 waits for
-MODEL_AXIS_ITEM = ("ROADMAP.md, queue 1: training's model axis (the backward halos, "
-                   "the norms' and losses' reductions over the width)")
+from vid2vid_tpu_torch.parallel.collectives import all_reduce, group_size
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ('data', 'model') mesh over the ranks of one group: this rank's
-    place in it, the data axis's group (None with data 1: nothing to
-    reduce) and the model axis's (None with model 1)."""
+    place in it; the groups of this rank's data axis (its column of the
+    mesh: the ranks of its model index; None with data 1: nothing to
+    reduce), of its model axis (its row; None with model 1) and of every
+    rank (None for one rank)."""
 
     data: int
     model: int
@@ -61,6 +65,7 @@ class Mesh:
     world: int = 1
     group: object = None
     model_group: object = None
+    world_group: object = None
 
     @property
     def shape(self) -> dict:
@@ -91,17 +96,16 @@ def make_mesh(n_devices: int | None = None, data: int | None = None) -> Mesh:
     model = n // data
     assert data * model == n, f"{data}x{model} != {n} devices"
     rank = dist.get_rank() if initialised else 0
-    group = dist.group.WORLD if initialised and data > 1 else None
-    model_group = None
-    if initialised and model > 1:
-        if data == 1:
-            model_group = dist.group.WORLD
-        else:  # every rank makes every row's group, as new_group asks
-            for row in range(data):
-                g = dist.new_group(list(range(row * model, (row + 1) * model)))
-                if row == rank // model:
-                    model_group = g
-    return Mesh(data, model, rank, world, group, model_group)
+    if not initialised or n == 1:
+        return Mesh(data, model, rank, world)
+    whole = dist.group.WORLD
+    # every rank makes every row's and column's group, in one order, as
+    # new_group asks
+    rows = [whole if data == 1 else dist.new_group(list(range(r * model, (r + 1) * model)))
+            for r in range(data)] if model > 1 else [None] * data
+    cols = [whole if model == 1 else dist.new_group(list(range(c, n, model)))
+            for c in range(model)] if data > 1 else [None] * model
+    return Mesh(data, model, rank, world, cols[rank % model], rows[rank // model], whole)
 
 
 def visible_devices(n_devices: int, device: torch.device) -> int:
@@ -158,11 +162,6 @@ def weights_digest(*modules: torch.nn.Module) -> str:
     return h.hexdigest()
 
 
-def group_size(group) -> int:
-    """The ranks of `group` (1 for None: no group)."""
-    return 1 if group is None else dist.get_world_size(group)
-
-
 def replicated(*modules: torch.nn.Module, group=None) -> None:
     """Every parameter and buffer of `modules` broadcast from rank 0 of
     `group` (default: the whole world), in place: one broadcast of one flat
@@ -188,17 +187,18 @@ def replicated(*modules: torch.nn.Module, group=None) -> None:
                 offset += t.numel()
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> None:
-    """Each tensor replaced, in place, by its mean over the ranks of
-    `group`: one all-reduce of one flat f32 bucket (not one per tensor).
-    Nothing with no group or a group of one."""
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group, divisor: int | None = None) -> None:
+    """Each tensor replaced, in place, by its sum over the ranks of `group`
+    divided by `divisor` (default: the group's size, the mean): one
+    all-reduce of one flat f32 bucket (not one per tensor). Nothing with no
+    group or a group of one."""
     n = group_size(group)
     if n == 1 or not tensors:
         return
     with torch.no_grad():
         bucket = torch.cat([t.reshape(-1).float() for t in tensors])
-        dist.all_reduce(bucket, group=group)
-        bucket.div_(n)
+        all_reduce(bucket, group)
+        bucket.div_(n if divisor is None else divisor)
         offset = 0
         for t in tensors:
             t.copy_(bucket[offset : offset + t.numel()].view_as(t))
@@ -213,13 +213,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        all_reduce(out, group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
+        all_reduce(g, ctx.group)
         return g, None
 
 
@@ -245,6 +245,10 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
 
 # the collectives' timeout: a rank that waits longer for another raises
 TIMEOUT_S = 600.0
+# how long a rank that has sent its result may take to exit, whatever is
+# left of the deadline (the interpreter's teardown takes seconds on a
+# loaded machine)
+EXIT_GRACE_S = 30.0
 
 
 def init_process_group(
@@ -367,7 +371,8 @@ def launch(
             else:
                 failure = f"rank {rank} failed:\n{payload}"
         for p in procs:
-            p.join(timeout=max(1.0, end - time.monotonic()) if failure is None else 1.0)
+            p.join(timeout=max(EXIT_GRACE_S, end - time.monotonic()) if failure is None
+                   else 1.0)
     finally:
         for p in procs:
             if p.is_alive():

@@ -1,5 +1,5 @@
-"""Running one training chunk by chunk on the ranks of a data axis, so that
-its ranks can be held to one another and to one process.
+"""Running one training chunk by chunk on the ranks of a mesh, so that its
+ranks can be held to one another and to one process.
 
   - `run_chunks`: every chunk of one global clip through
     Trainer.train_chunk (which keeps this rank's rows), with the per-chunk

@@ -17,6 +17,14 @@ frames (B, T, 3, H, W) in [-1, 1], flows (B, T, 2, H, W). `flow_fn(cur,
 prev)` returns (flow, confidence) for two equal frame stacks, as
 `models/flownet2/wrapper.py::FlowEstimator` does. The Trainer runs on the
 first CUDA device unless the caller passes device='cpu'.
+
+With --n_devices N it is one rank of the JAX Trainer's mesh, data =
+gcd(batchSize, N) x model = N / data (parallel/mesh.py): it keeps its data
+rows of each global batch, and on a model axis it runs the generator on
+its columns of every frame (a parallel/halo.py::WidthShard of the finest
+level; `shard`), whose outputs come whole, so that the reference flow,
+the discriminators, VGG and the losses run on whole frames, the same on
+every rank of a row. Sharding those is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,8 +46,8 @@ from vid2vid_tpu_torch.models.temporal import (
     skipped_frames_sparse,
 )
 from vid2vid_tpu_torch.nn.layers import init_weights, sync_batch_norm, update_running_stats
+from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.parallel.mesh import (
-    MODEL_AXIS_ITEM,
     Mesh,
     all_reduce_mean,
     make_mesh,
@@ -81,22 +89,15 @@ def zero_flow_fn(real_b: torch.Tensor, real_b_prev: torch.Tensor):
 def mesh_devices(opt: Options, device: torch.device) -> int:
     """The devices of --n_devices' mesh, by the JAX Trainer's rule
     (vid2vid_tpu/train/loop.py:87-98): parallel.mesh.visible_devices, with
-    its warning. Raises NotImplementedError where the mesh, make_mesh(n,
-    data=gcd(batchSize, n)), has a model axis: training's model axis is not
-    ported."""
-    n = visible_devices(opt.n_devices, device)
-    data = math.gcd(opt.batchSize, n)
-    if n // data > 1:
-        raise NotImplementedError(
-            f"--n_devices {n} with --batchSize {opt.batchSize} makes a mesh of data "
-            f"{data} x model {n // data}; training's model axis is not ported "
-            f"({MODEL_AXIS_ITEM}); serving's is (InferenceEngine, test_cli)")
-    return n
+    its warning."""
+    return visible_devices(opt.n_devices, device)
 
 
-def data_mesh(opt: Options, device: torch.device) -> Mesh | None:
-    """The data-axis mesh of --n_devices (`mesh_devices`), or None for one
-    device. Raises for n > 1 without a process group of world n."""
+def train_mesh(opt: Options, device: torch.device) -> Mesh | None:
+    """The mesh of --n_devices (`mesh_devices`), as the JAX Trainer builds
+    it: make_mesh(n, data=gcd(batchSize, n)), the remaining devices on the
+    model axis; None for one device. Raises for n > 1 without a process
+    group of world n."""
     n = mesh_devices(opt, device)
     if n == 1:
         return None
@@ -105,13 +106,14 @@ def data_mesh(opt: Options, device: torch.device) -> Mesh | None:
             f"--n_devices {n}: no process group of {n} ranks. Run train_cli with "
             f"--n_devices {n} (it starts the ranks), or torchrun --nproc_per_node {n}, "
             "or call vid2vid_tpu_torch.parallel.launch")
-    return make_mesh(n, data=n)
+    return make_mesh(n, data=math.gcd(opt.batchSize, n))
 
 
 class Trainer:
     """Owns the generator, the loss engine and the schedule. With
-    --n_devices N > 1 it is one rank of a data axis of N (`data_mesh`):
-    each rank takes its rows of the global batch it is given."""
+    --n_devices N > 1 it is one rank of the mesh of N (`train_mesh`): each
+    rank takes its data rows of the global batch it is given and, on a
+    model axis, runs the generator on its columns (`shard`)."""
 
     def __init__(
         self, opt: Options, flow_fn: Callable | None = None,
@@ -119,17 +121,22 @@ class Trainer:
     ):
         self.opt = opt
         self.device = require_device(device)
-        self.mesh = data_mesh(opt, self.device)
+        self.mesh = train_mesh(opt, self.device)
+        # the data axis's group (the engine's norms and face box, the
+        # losses' mean) and every rank's (the generator's norms, the
+        # gradients' reduction)
         self.group = None if self.mesh is None else self.mesh.group
+        self.world_group = None if self.mesh is None else self.mesh.world_group
         self.gen = Vid2VidGenerator(opt).to(self.device).train()
         self.engine = LossEngine(opt).to(self.device).train()
         # the steps normalize with batch statistics and, as in the JAX
         # package, never update the running ones
         update_running_stats(self.gen, False)
         update_running_stats(self.engine, False)
-        # the data axis: the norms' statistics and the face box span the
-        # global batch
-        sync_batch_norm(self.gen, self.group)
+        # the generator's norms take their statistics over the global batch
+        # at the whole width, the engine's (on whole frames) and the face
+        # box over the global batch
+        sync_batch_norm(self.gen, self.world_group)
         sync_batch_norm(self.engine, self.group)
         self.engine.group = self.group
         self.flow_fn = flow_fn or zero_flow_fn
@@ -143,21 +150,32 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Weights from a torch.Generator seeded with opt.seed (the
-        reference's weights_init), broadcast from rank 0 on a data axis,
-        and fresh optimizers."""
+        reference's weights_init), broadcast from rank 0 on a mesh, and
+        fresh optimizers."""
         gen = torch.Generator().manual_seed(self.opt.seed)
         init_weights(self.gen, gen)
         init_weights(self.engine, gen)
-        if self.group is not None:
-            replicated(self.gen, self.engine, group=self.group)
+        if self.mesh is not None:
+            replicated(self.gen, self.engine, group=self.world_group)
         return create_train_state(self.opt, self.gen, self.engine)
 
+    def shard(self, width: int) -> halo.WidthShard | None:
+        """This rank's columns of frames `width` wide on the model axis (None
+        without one); raises ValueError for a width the shards cannot hold
+        (halo.check_geometry)."""
+        if self.mesh is None or self.mesh.model == 1:
+            return None
+        opt, n = self.opt, self.mesh.model
+        halo.check_geometry(width, n, 2 ** (opt.n_scales_spatial - 1), 2**opt.n_downsample_G,
+                            user="training on the model axis")
+        return halo.make_shard(self.mesh.model_index, n, width, self.mesh.model_group)
+
     def local_rows(self, x: torch.Tensor | None) -> torch.Tensor | None:
-        """This rank's rows of a global batch (all of it without a data
-        axis). A remainder batch that does not divide the data axis stays
-        whole on every rank, as JAX replicates it: the synchronised norms
-        then see each sample once per rank, which leaves the mean and the
-        biased variance as they are."""
+        """This rank's data rows of a global batch (all of it without a
+        data axis; the ranks of a row share them). A remainder batch that
+        does not divide the data axis stays whole on every rank, as JAX
+        replicates it: the synchronised norms then see each sample once per
+        rank, which leaves the mean and the biased variance as they are."""
         if x is None or self.mesh is None:
             return x
         return shard_batch(x, self.mesh, 0 if x.shape[0] % self.mesh.data == 0 else None)
@@ -236,7 +254,8 @@ class Trainer:
             carry.fake_prev_first, carry.fake_buf, real_skipped, flow_skipped,
             use_raw_only=use_raw_only, n_frames_bp=self.schedule.n_frames_bp,
             finetune_all=self.schedule.finetune_all, chunk_start=carry.chunk_start,
-            group=self.group,
+            group=self.world_group, divisor=None if self.mesh is None else self.mesh.data,
+            shard=self.shard(w),
         )
         outs = aux["outs"]
         self.last_outs = outs
@@ -249,7 +268,7 @@ class Trainer:
         # D step
         loss_d, d_losses = d_step(
             state, opt, enc_a, real_b, outs.fake, None if use_raw_only else outs.raw,
-            group=self.group)
+            group=self.world_group)
 
         # temporal D steps
         dt_losses = []
@@ -257,7 +276,7 @@ class Trainer:
             if real_skipped[s] is None or fake_skipped[s] is None:
                 continue
             _, dtl = dt_step(state, opt, real_skipped[s], fake_skipped[s],
-                             flow_skipped[s], scale=s, group=self.group)
+                             flow_skipped[s], scale=s, group=self.world_group)
             dt_losses.append(dtl)
 
         carry.chunk_start += n_load
@@ -265,7 +284,8 @@ class Trainer:
 
         # ONE transfer for every loss scalar (the JAX package measured a
         # per-key readback at 2.7x the whole step's host cost), after one
-        # all-reduce on a data axis: the global batch's means
+        # all-reduce on a data axis: the global batch's means (the ranks of
+        # a model axis computed the same ones)
         out = dict(aux["losses"])
         out["G_grad_norm"] = aux["grad_norm"]
         out.update(d_losses)
@@ -317,8 +337,9 @@ def refresh_batch_stats(
     updating its running stats (momentum 0.1, unbiased variance), over up to
     `max_windows_per_clip` tG-frame windows of each of `n_batches` clips.
     `clips` yields (labels, real_b, inst) as train_clip takes them. On a
-    data axis every rank runs this on its rows, and the synchronised norms
-    take the global batch's statistics, so the ranks' running stats agree.
+    mesh every rank runs this on its rows (and columns, on a model axis),
+    and the synchronised norms take the global batch's statistics at the
+    whole width, so the ranks' running stats agree.
     """
     gen, tG = trainer.gen, trainer.opt.n_frames_G
     norms = update_running_stats(gen, True)
@@ -337,9 +358,10 @@ def refresh_batch_stats(
             real_b = real_b.to(dev, torch.float32)
             n_win = max(1, real_b.shape[1] - tG + 1)
             stride = max(1, -(-n_win // max_windows_per_clip))
+            shard = trainer.shard(real_b.shape[-1])
             for t0 in range(0, n_win, stride):
                 gen_state = gen.state_from_frames(real_b[:, t0 : t0 + tG - 1])
-                gen.generate_clip(enc_full[:, t0 : t0 + tG], gen_state)
+                gen.generate_clip(enc_full[:, t0 : t0 + tG], gen_state, shard=shard)
     finally:
         update_running_stats(gen, False)
         gen.train(was_training)

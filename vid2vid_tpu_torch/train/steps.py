@@ -13,9 +13,12 @@ forward runs on a bfloat16 copy of its parameters, inputs and state
 (steps.py:89-115 of the JAX package), so the gradients land on the f32
 masters through the cast; its outputs are cast to f32 before the losses.
 The steps, forward and backward, run with cuDNN in full f32 for every f32
-convolution (utils/precision.py). On a data axis (`group`, parallel/mesh.py)
-each step averages its group's gradients over the ranks before the grad
-norm and Adam.
+convolution (utils/precision.py). On a mesh (`group`: every rank,
+parallel/mesh.py) each step reduces its gradients over the ranks before
+the grad norm and Adam: the generator's, each rank's share of its columns
+on a model axis (`shard`), summed over the model axis and averaged over
+the data axis (`divisor`: the data axis's size); the discriminators'
+averaged over every rank.
 """
 
 from __future__ import annotations
@@ -42,16 +45,18 @@ def _param_grad_norm(params: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
 
 
-def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor, group=None) -> torch.Tensor:
-    """Gradients of `loss` for every parameter of `optimizer`, averaged over
-    the ranks of `group` (the data axis: one all-reduce of one bucket), its
-    grad norm, and one optimizer step. Returns the grad norm (a device
-    scalar): the global gradient's, as JAX's over the sharded batch."""
+def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor, group=None,
+           divisor: int | None = None) -> torch.Tensor:
+    """Gradients of `loss` for every parameter of `optimizer`, summed over
+    the ranks of `group` and divided by `divisor` (default: the group's
+    size, the mean; one all-reduce of one bucket), its grad norm, and one
+    optimizer step. Returns the grad norm (a device scalar): the global
+    gradient's, as JAX's over the sharded batch and width."""
     params = [p for pg in optimizer.param_groups for p in pg["params"]]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
-    all_reduce_mean([p.grad for p in params], group)
+    all_reduce_mean([p.grad for p in params], group, divisor)
     norm = _param_grad_norm(params)
     optimizer.step()
     for p in params:
@@ -74,10 +79,12 @@ def g_step(
     fake_buf,                   # past fakes for the temporal groups, or None
     real_skipped: list, flow_skipped: list,
     *, use_raw_only: bool, n_frames_bp: int, finetune_all: bool,
-    chunk_start: int = 0, group=None,
+    chunk_start: int = 0, group=None, divisor: int | None = None, shard=None,
 ):
-    """Generate the chunk, compute every G-side loss and take one Adam step
-    on the generator. Returns (loss_G, aux) with aux: outs (f32), gen_state,
+    """Generate the chunk (on `shard`'s columns, the model axis; the
+    outputs come whole), compute every G-side loss and take one Adam step
+    on the generator, its gradients reduced over `group` by `divisor`
+    (`_apply`). Returns (loss_G, aux) with aux: outs (f32), gen_state,
     losses, t_losses, fake_buf, fake_skipped (both detached), grad_norm."""
     gen, engine = state.gen, state.engine
     tG, td, t_scales = opt.n_frames_G, opt.n_frames_D, opt.n_scales_temporal
@@ -93,6 +100,7 @@ def g_step(
         outs, new_gen_state = gen.generate_clip(
             enc, gs, use_raw_only=use_raw_only, train=True,
             n_frames_bp=n_frames_bp, finetune_all=finetune_all, params=params,
+            shard=shard,
         )
         if _bf16(opt):
             outs = ClipOutputs(*(None if o is None else o.float() for o in outs))
@@ -122,7 +130,7 @@ def g_step(
             if real_skipped[s] is not None and fake_skipped[s] is not None
         ]
         total = LossEngine.total_g_loss(losses, t_losses)
-        grad_norm = _apply(state.opt_g, total, group)
+        grad_norm = _apply(state.opt_g, total, group, divisor)
 
     def detach(x):
         if isinstance(x, dict):

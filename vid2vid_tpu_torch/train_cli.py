@@ -21,9 +21,13 @@ init). The reference flow is FlowNet2 with the published weights
 <checkpoints_dir>/flownet2/FlowNet2_checkpoint.pth.tar when present, else
 seeded weights with a warning.
 
-`--n_devices N` trains on the data axis of N ranks (parallel/mesh.py):
-`main` starts them (rank r on cuda:r; with `--gpu_ids -1`, gloo ranks on
-the CPU), or, under torchrun, this process is one of them.
+`--n_devices N` trains on N ranks, on the JAX Trainer's mesh of data =
+gcd(batchSize, N) x model = N / data (parallel/mesh.py; train/loop.py:
+batch 1 on 2 devices is data 1 x model 2, each rank on half of every
+frame's columns): `main` starts them whatever the mesh (rank r on cuda:r;
+with `--gpu_ids -1`, gloo ranks on the CPU), or, under torchrun, this
+process is one of them. Rank 0 alone writes checkpoints, logs and
+visuals.
 """
 
 from __future__ import annotations
@@ -85,9 +89,10 @@ def train(opt: Options, dataset=None, flow_fn=None):
 
     `dataset` (default: create_dataset(opt)) yields TemporalDataset's items;
     `flow_fn` (default: FlowNet2, or zero flow under --no_flow) computes
-    the reference flow, as Trainer takes it. As one rank of a data axis
+    the reference flow, as Trainer takes it. As one rank of a mesh
     (--n_devices N, a process group of N) it draws the same global batches
-    as one process would and trains on its rows; rank 0 alone prints,
+    as one process would and trains on its rows (and, on a model axis, its
+    generator columns); rank 0 alone prints,
     plots, writes the visuals and saves, the others wait at a barrier after
     each save; a resume or warm-start restores every rank."""
     if opt.debug:

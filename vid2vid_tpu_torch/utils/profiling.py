@@ -42,17 +42,18 @@ from vid2vid_tpu_torch.ops.warp import (
     flow_warp_bwd,
     warp_blend,
     warp_blend_at,
+    warp_blend_at_bwd,
     warp_blend_bwd,
 )
 
 # the launch counters of each kernel: one per entry (conv7 has three; the
 # column-halo modes of a width shard are respair_halo, warp_blend_at and
-# conv7_halo)
+# conv7_halo, and warp_blend_at_bwd the blend's backward at a column offset)
 COUNTERS = {
     "respair": (respair, respair_halo), "warp_blend": (warp_blend, warp_blend_at),
     "flow_warp": (flow_warp,),
     "correlation": (correlation,), "correlation_bwd": (correlation_bwd,),
-    "warp_blend_bwd": (warp_blend_bwd,), "flow_warp_bwd": (flow_warp_bwd,),
+    "warp_blend_bwd": (warp_blend_bwd, warp_blend_at_bwd), "flow_warp_bwd": (flow_warp_bwd,),
     "conv7": (conv7_reflect, conv7_padded, conv7_halo), "conv3": (conv3_padded,),
     "conv3_fused": (conv3_fused_padded,),
 }
