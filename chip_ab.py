@@ -1,6 +1,7 @@
-"""Time the correlation backward, FlowNetC's training step, or the flagship
-streamed frame, of several checkouts of this repository on one card, in
-turns, so that two commits compare on one machine.
+"""Time the correlation backward, FlowNetC's training step, the warp
+forwards, the FlowEstimator call, or the flagship streamed frame, of
+several checkouts of this repository on one card, in turns, so that two
+commits compare on one machine.
 
 Each checkout runs in its own process, through its own chip_smoke.py's
 helpers, and builds its own kernels under its own build/ the first time:
@@ -11,6 +12,18 @@ helpers, and builds its own kernels under its own build/ the first time:
     and bf16, 5 warm-up and 10 timed steps each, ms a step (host clock);
     then one profiled step (`profile_by_family`): its kernels' device ms
     and the correlation backward's;
+  - `--warp`: phase 6's warp forward cases, `warp_blend` at the flagship
+    frame's three shapes and `flow_warp` at FlowNet2's (2, 3, 1024, 2048),
+    each in bf16 and f32, on both flow kinds (`iid`: 8 px a pixel;
+    `smooth`: 8 px every 16 pixels, upsampled bilinearly), drawn here from
+    one seed so every checkout warps the same inputs; ms a call (events
+    over 200 back-to-back calls) and device ms (the profiler), by
+    `call_and_device_ms`;
+  - `--flow-estimator`: phase 5b's FlowEstimator (FlowNet2, f32, on (1,
+    2) pairs of 1024x2048 frames, `seeded_flow_estimator`, `frame_pairs`,
+    PyTorch's default TF32 flags), 2 warm-up and 10 timed calls, ms a call
+    (host clock around torch.cuda.synchronize()), then one profiled call:
+    its kernels' device ms by family (`profile_by_family`);
   - `--frame`: phase 5's flagship frame, label2city 2048x1024 bf16
     (`seeded_engine`, `label_stream`, FLAGSHIP), through
     InferenceEngine.step: 3 warm-up and 20 timed frames, ms a frame (host
@@ -26,6 +39,8 @@ build/parent:
     python3 chip_ab.py build/parent . . build/parent
     python3 chip_ab.py --flow-train build/parent . . build/parent
     python3 chip_ab.py --frame build/parent . . build/parent
+    python3 chip_ab.py --warp build/parent . . build/parent
+    python3 chip_ab.py --flow-estimator build/parent . . build/parent
 
 One JSON line per run ({"root", "ms": ...}) (with --frame, then one with
 the three routes' microseconds a call), then the card's name and power
@@ -78,6 +93,61 @@ for mode, mixed in (("f32", False), ("bf16", True)):
     del harness
     torch.cuda.empty_cache()
 print(json.dumps(ms))
+"""
+CHILD_WARP = """
+import json
+import torch
+import torch.nn.functional as F
+import chip_smoke as cs
+
+def flow(kind, b, h, w, gen):
+    if kind == "iid":
+        return 8.0 * torch.randn((b, 2, h, w), generator=gen)
+    coarse = 8.0 * torch.randn((b, 2, h // 16 + 2, w // 16 + 2), generator=gen)
+    return F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=True)
+
+ms = {}
+cases = [("warp_blend", (1, 3, h, w)) for h, w in ((256, 512), (512, 1024), (1024, 2048))]
+cases.append(("flow_warp", (2, 3, 1024, 2048)))
+for kind in ("iid", "smooth"):
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (b, c, h, w) in cases:
+            gen = torch.Generator().manual_seed(0)
+            image = torch.randn((b, c, h, w), generator=gen)
+            fl = flow(kind, b, h, w, gen)
+            if name == "warp_blend":
+                raw = torch.randn((b, c, h, w), generator=gen)
+                weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=gen))
+                args, fn = (raw, image, fl, weight), cs.warp_blend
+            else:
+                args, fn = (image, fl), cs.flow_warp
+            args = tuple(t.to(cs.DEV, dtype) for t in args)
+            key = " ".join((name, str(dtype)[6:], "x".join(map(str, (b, c, h, w))), kind))
+            ms[key] = cs.call_and_device_ms(fn, args)
+            del args
+print(json.dumps(ms))
+"""
+CHILD_FLOW_ESTIMATOR = """
+import json, statistics, time
+import torch
+import chip_smoke as cs
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+est = cs.seeded_flow_estimator(cs.DEV, seed=0, tf32_seen=[])
+im1, im2 = (t.to(cs.DEV) for t in cs.frame_pairs(2, 1024, 2048, seed=0))
+times = []
+with cs.torch_default_tf32():
+    for _ in range(12):
+        t1 = time.perf_counter()
+        est(im1, im2)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+timed = times[2:]
+with cs.torch_default_tf32():
+    fams, busy, wall = cs.profile_by_family(lambda: est(im1, im2), "FlowEstimator call")
+print(json.dumps({"median": statistics.median(timed), "min": min(timed), "max": max(timed),
+                  "calls": [round(v, 3) for v in timed], "kernel_ms": busy,
+                  "families_ms": {f: t for f, t, _ in fams}}))
 """
 CHILD_FRAME = """
 import json, statistics, time
@@ -135,7 +205,8 @@ def run(root: str, child: str) -> dict:
 
 
 def main(args: list[str]) -> None:
-    modes = {"--flow-train": CHILD_FLOW_TRAIN, "--frame": CHILD_FRAME}
+    modes = {"--flow-train": CHILD_FLOW_TRAIN, "--frame": CHILD_FRAME, "--warp": CHILD_WARP,
+             "--flow-estimator": CHILD_FLOW_ESTIMATOR}
     roots = [a for a in args if a not in modes]
     if not roots:
         raise SystemExit(__doc__)

@@ -14,7 +14,10 @@ non-zero):
      spills there, or with a bf16 CUDA-core 3x3 left; one line for each
      correlation kernel, forward and backward (registers, spills, shared
      memory, blocks an SM), which fails on spills or on fewer blocks an SM
-     than its plan assumes;
+     than its plan assumes; one line for each instantiation of the warp
+     forward (csrc/warp_blend.cu::warp_kernel: registers, spills, its own
+     shared memory and the plan's box budget a block at 1024x2048, blocks
+     an SM);
   3. kernels vs their plain PyTorch versions at the paths' shapes, with
      the tolerances below: respair and warp_blend (label2city) in f32 and
      bf16, correlation and its backward (FlowNetC, f32, at FlowNetC's
@@ -27,7 +30,10 @@ non-zero):
      at the label2city path's 3x3 stride-1 convs, in f32 and bf16; and
      every f32 respair and conv7 shape of the single-image paths on each
      f32 body (tensor cores, CUDA cores) forced in turn, both max abs errs
-     printed;
+     printed; the warp forwards at their path shapes on a smooth flow too,
+     each also under the staged tile (forced), the direct tile and the
+     staged tile with the largest budget: all bit for bit, and the tiles
+     each staged equal to ops/warp.py::staged_tiles's count;
   3b. after each path below: each kernel against its plain version again,
      on seeded operands, at every (shapes, dtype) that path gave it and no
      earlier check held (the paths' calls are logged by shape);
@@ -86,6 +92,9 @@ non-zero):
      share of the bound;
      the warps' device time (profiler) and per-call time (events over 200
      back-to-back calls) beside grid_sample's, alone and with the blend,
+     on an i.i.d. flow (8 px a pixel) and on a smooth one (8 px every 16
+     pixels, upsampled: tools/warp_plans.py::smooth_flow), with the bound,
+     its share and the share of tiles staged (staged_tiles);
      and the warp backward's the same way (its memset and cast counted);
      the correlation per shape with TFLOP/s, the share of its FFMA bound
      (one FMA per tap inside the image), the f2 stagings per value and its
@@ -264,12 +273,19 @@ from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
     warp_blend_backward_plain,
     warp_blend_bwd,
     warp_blend_plain,
+    MAX_BOX_BYTES,
+    plan_threads,
+    staged_tiles,
+    tile_plan,
+    warp_forward_cuda,
+    warp_forward_plan,
 )
 from vid2vid_tpu_torch.train.checkpoints import (  # noqa: E402
     restore_checkpoint,
     schedule_fields,
 )
 from vid2vid_tpu_torch.tools import export, shard_serve_bench, train_ledger  # noqa: E402
+from vid2vid_tpu_torch.tools.warp_plans import iid_flow, smooth_flow  # noqa: E402
 from vid2vid_tpu_torch.tools.train_ledger import RECIPE as TRAIN_RECIPE  # noqa: E402
 from vid2vid_tpu_torch.train.loop import Trainer  # noqa: E402
 from vid2vid_tpu_torch.utils.profiling import (  # noqa: E402
@@ -574,19 +590,24 @@ def respair_case(c, h, w, dtype, gen, b=1):
     return x, k0, ab0, k1, ab1
 
 
-def warp_case(h, w, dtype, gen, b=1, c=3):
+# the warp forward's flow kinds: 8 px a pixel, i.i.d. (the yardstick the
+# rows' history was timed on), or 8 px every 16 pixels, upsampled
+# bilinearly (smooth, as the paths' flows are); both run past the borders
+WARP_FLOWS = {"iid": iid_flow, "smooth": smooth_flow}
+
+
+def warp_case(h, w, dtype, gen, b=1, c=3, flow="iid"):
     raw = torch.randn((b, c, h, w), generator=gen)
     prev = torch.randn((b, c, h, w), generator=gen)
-    # flows of several pixels, so the samples also run past the borders
-    flow = 8.0 * torch.randn((b, 2, h, w), generator=gen)
+    flow = WARP_FLOWS[flow](b, h, w, gen)
     weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=gen))
     return tuple(t.to(DEV, dtype) for t in (raw, prev, flow, weight))
 
 
-def flow_warp_case(dtype, gen, shape=FLOW_WARP_SHAPE):
+def flow_warp_case(dtype, gen, shape=FLOW_WARP_SHAPE, flow="iid"):
     b, c, h, w = shape
     image = torch.randn((b, c, h, w), generator=gen)
-    flow = 8.0 * torch.randn((b, 2, h, w), generator=gen)  # past the borders too
+    flow = WARP_FLOWS[flow](b, h, w, gen)
     return tuple(t.to(DEV, dtype) for t in (image, flow))
 
 
@@ -1062,8 +1083,8 @@ def check_kernels(gen: torch.Generator) -> dict:
     returns the max abs errors by kernel and dtype."""
     errs = {name: {} for name in KERNELS}
 
-    def record(name, dtype, e, shape):
-        record_err(errs, name, dtype, e, shape)
+    def record(name, dtype, e, shape, **where):
+        record_err(errs, name, dtype, e, shape, **where)
 
     for dtype in (torch.float32, torch.bfloat16):
         for c, h, w in [POSE_RESPAIR] + [shape[:3] for shape in RESPAIR_SHAPES]:
@@ -1075,6 +1096,7 @@ def check_kernels(gen: torch.Generator) -> dict:
         args = flow_warp_case(dtype, gen)
         record("flow_warp", dtype, compare("flow_warp", args, dtype), FLOW_WARP_SHAPE)
         del args
+        warp_forward_checks(gen, dtype, record)
     for shape in [CORR_TRAIN_SHAPE] + CORR_SHAPES + CORR_EDGE_SHAPES:
         args = corr_case(shape, gen)
         record("correlation", torch.float32,
@@ -1116,6 +1138,49 @@ def check_kernels(gen: torch.Generator) -> dict:
         del args, plain_args, relu_args, res_args, x, xp
     check_f32_bodies(gen, errs)
     return errs
+
+
+def warp_forward_checks(gen: torch.Generator, dtype, record) -> None:
+    """Phase 3, the warp forwards' two paths at their path shapes: on a
+    smooth flow against the plain version (`record`), then on both flow
+    kinds under the plan, under the staged tile (tile_plan: 32 KB), the
+    direct tile (no budget) and the staged tile with the largest budget:
+    the four outputs bit for bit, and each launch's staged tiles equal to
+    staged_tiles's count."""
+    cases = [("warp_blend", (1, 3, h, w)) for h, w in WARP_SHAPES]
+    cases.append(("flow_warp", FLOW_WARP_SHAPE))
+    for name, (b, c, h, w) in cases:
+        for kind in WARP_FLOWS:
+            if name == "warp_blend":
+                raw, prev, flow, weight = args = warp_case(h, w, dtype, gen, b, c, kind)
+            else:
+                prev, flow = args = flow_warp_case(dtype, gen, (b, c, h, w), kind)
+                raw = weight = None
+            if kind == "smooth":
+                record(name, dtype, compare(name, args, dtype), (c, h, w), flow=kind)
+            plan = warp_forward_plan(c, dtype, h, w, w)
+            tile = tile_plan(dtype, staged=True)
+            outs, counts = [], []
+            for p in (plan, tile, tile_plan(dtype, staged=False),
+                      tile._replace(smem_bytes=MAX_BOX_BYTES)):
+                staged = torch.zeros(1, dtype=torch.int32, device=DEV)
+                outs.append(warp_forward_cuda(prev, flow, raw, weight, -1, p, staged))
+                counts.append((int(staged), staged_tiles(flow, p, c)))
+            tiles = b * math.ceil(h / tile.rows) * math.ceil(w / tile.cols)
+            if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                raise AssertionError(f"{name} {(b, c, h, w)} {dtype} {kind}: the staged "
+                                     "and the direct paths disagree")
+            if any(k != m for k, m in counts) or counts[2][0] != 0:
+                raise AssertionError(f"{name} {(b, c, h, w)} {dtype} {kind}: staged tiles "
+                                     f"(kernel, staged_tiles) {counts}")
+            say("check", kernel=name, check="staged_vs_direct", flow=kind,
+                shape="x".join(map(str, (b, c, h, w))), dtype=str(dtype)[6:],
+                plan=f"{plan.rows}x{plan.cols}x{plan.pix}/{plan.smem_bytes}",
+                plan_staged=counts[0][0],
+                staged_tile=f"{tile.rows}x{tile.cols}x{tile.pix}/{tile.smem_bytes}",
+                tiles=tiles, staged=counts[1][0], staged_at_226KB=counts[3][0],
+                bit_for_bit=True, ok=True)
+            del args, prev, flow, raw, weight, outs
 
 
 def check_f32_bodies(gen: torch.Generator, errs: dict) -> None:
@@ -1245,6 +1310,31 @@ def correlation_build_line(regs: dict, kernel: str, smem: int, threads: int,
                              f"{blocks_per_sm} blocks an SM ({by_regs}, {by_smem})")
 
 
+def warp_build_lines(regs: dict) -> None:
+    """Phase 2: each instantiation of the warp forward (csrc/warp_blend.cu::
+    warp_kernel<T, BLEND, VEC, STAGED>): registers, spills, its own shared
+    memory, and under its tile (tile_plan: the staged one with a box budget
+    of 32 KB, the direct one with none) its threads and blocks an SM by
+    registers and by shared memory (None where the library was built by an
+    earlier run)."""
+    pattern = r"warp_kernelI(f|13__nv_bfloat16)Lb(\d)ELb(\d)ELb(\d)E"
+    found = sorted((m.groups(), n) for n in regs if (m := re.search(pattern, n)))
+    if not found:
+        say("build_kernel", kernel="warp_kernel", registers=None)
+    for (t, blend, vec, staged), name in found:
+        dtype = torch.float32 if t == "f" else torch.bfloat16
+        plan = tile_plan(dtype, staged=staged == "1")
+        threads = plan_threads(plan)
+        own = 16 if plan.smem_bytes else 0  # the staged kernel's box limits
+        r, st, ld = regs[name]
+        say("build_kernel", kernel=f"warp_kernel<{str(dtype)[6:]}, blend={blend == '1'}, "
+            f"vec={vec == '1'}, staged={staged == '1'}>", pix=plan.pix, registers=r,
+            spill_store_bytes=st, spill_load_bytes=ld, static_smem_bytes=own,
+            plan=f"{plan.rows}x{plan.cols}", threads=threads, dyn_smem_bytes=plan.smem_bytes,
+            blocks_per_sm_by_registers=65536 // (threads * -(-r // 8) * 8) if threads else None,
+            blocks_per_sm_by_smem=233472 // (plan.smem_bytes + own + 1024))
+
+
 def build_phase() -> None:
     """Phase 2: build the kernels; one line per kernel of the tensor-core
     body (csrc/conv_wgmma.cuh: bf16 and f32 as 3xTF32, K = 3 and 7) with its
@@ -1280,6 +1370,7 @@ def build_phase() -> None:
     old = [n for n in hgmma if "conv3x3_kernel" in n]
     if old:
         raise AssertionError(f"build: CUDA-core 3x3 kernels remain: {old}")
+    warp_build_lines(regs)
     correlation_build_line(regs, "correlation_kernel", TILE_SMEM_BYTES, TILE_THREADS,
                            TILE_BLOCKS_PER_SM)
     correlation_build_line(regs, "correlation_bwd_kernel", BWD_SMEM_BYTES, BWD_THREADS,
@@ -3653,45 +3744,7 @@ def kernel_times(gen: torch.Generator) -> tuple[dict, dict]:
     ms = {name: [0.0, 0.0, 0.0] for name in KERNELS}  # kernel, plain, library
     work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, operations
     respair_times(gen, ms, work)
-    # the warps' device ms (profiler) beside the per-call ms above, and
-    # grid_sample's, alone and followed by the blend in PyTorch: {kernel:
-    # [device ms, grid_sample ms, its device ms, with the blend ms, device]}
-    ms["warp_device"] = {"warp_blend": [0.0] * 5, "flow_warp": [0.0] * 3}
-    for dtype in (torch.bfloat16, torch.float32):
-        for h, w in WARP_SHAPES:
-            raw, prev, flow, weight = args = warp_case(h, w, dtype, gen)
-            grid = sampling_grid(flow)
-            (k, k_dev), p = call_and_device_ms(warp_blend, args), time_ms(warp_blend_plain, args)
-            lib, lib_dev = call_and_device_ms(grid_sample, (prev, grid))
-            blend, blend_dev = call_and_device_ms(grid_sample_blend, (raw, prev, grid, weight))
-            if dtype == torch.bfloat16:
-                for i, v in enumerate((k, p, lib)):
-                    ms["warp_blend"][i] += v
-                for i, v in enumerate((k_dev, lib, lib_dev, blend, blend_dev)):
-                    ms["warp_device"]["warp_blend"][i] += v
-                nb, nop = warp_work((1, 3, h, w), dtype, 9, 3, 12)
-                work["warp_blend"][0] += nb
-                work["warp_blend"][1] += nop
-            say("time", kernel="warp_blend", shape=f"3x{h}x{w}", dtype=str(dtype)[6:],
-                ms_per_call=f"{k:.4f}", device_ms=f"{k_dev:.4f}", plain_ms=f"{p:.4f}",
-                grid_sample_ms_per_call=f"{lib:.4f}", grid_sample_device_ms=f"{lib_dev:.4f}",
-                grid_sample_blend_ms_per_call=f"{blend:.4f}",
-                grid_sample_blend_device_ms=f"{blend_dev:.4f}",
-                per_call_over_grid_sample=f"{k / lib:.3f}",
-                device_over_grid_sample=f"{k_dev / lib_dev:.3f}", calls_per_frame=1)
-        image, flow = args = flow_warp_case(dtype, gen)
-        (k, k_dev), p = call_and_device_ms(flow_warp, args), time_ms(flow_warp_plain, args)
-        lib, lib_dev = call_and_device_ms(grid_sample, (image, sampling_grid(flow)))
-        if dtype == torch.float32:
-            ms["flow_warp"] = [5 * k, 5 * p, 5 * lib]
-            ms["warp_device"]["flow_warp"] = [5 * k_dev, 5 * lib, 5 * lib_dev]
-            nb, nop = warp_work(FLOW_WARP_SHAPE, dtype, 5, 3, 10)
-            work["flow_warp"] = [5 * nb, 5 * nop]
-        say("time", kernel="flow_warp", shape="x".join(map(str, FLOW_WARP_SHAPE)),
-            dtype=str(dtype)[6:], ms_per_call=f"{k:.4f}", device_ms=f"{k_dev:.4f}",
-            plain_ms=f"{p:.4f}", grid_sample_ms_per_call=f"{lib:.4f}",
-            grid_sample_device_ms=f"{lib_dev:.4f}", calls_per_flow_call=5)
-        del args, image, flow
+    warp_times(gen, ms, work)
     for i, shape in enumerate(CORR_SHAPES + [CORR_TRAIN_SHAPE]):
         args = corr_case(shape, gen)
         k, p = time_ms(correlation, args), time_ms(correlation_plain, args)
@@ -3760,6 +3813,74 @@ def corr_bwd_counts() -> dict:
                 fmas_per_smem_word=round(fmas / (4 * g_loads + f_words), 3),
                 wavefronts_per_warp_f_row=f"{g_loads + f_words}-{4 * g_loads + f_words}",
                 fma_clocks_per_warp_f_row=fmas // 4)
+
+
+def warp_times(gen: torch.Generator, ms: dict, work: dict) -> None:
+    """Phase 6, the warp forwards at their path shapes on both flow kinds:
+    per-call ms (events) and device ms (profiler) beside grid_sample's,
+    alone and (the blend) followed by the blend in PyTorch, the plain
+    version's ms, the bound and its share, and the share of tiles the plan
+    stages (staged_tiles). The kernels' JSON rows keep the i.i.d. flow's
+    numbers, their history's yardstick: ms["warp_device"] = {kernel:
+    [device ms, grid_sample ms, its device ms, with the blend ms, device]};
+    ms["warp_smooth"] the smooth flow's, per frame (3 blends, bf16) and per
+    FlowEstimator call (5 warps, f32)."""
+    ms["warp_device"] = {"warp_blend": [0.0] * 5, "flow_warp": [0.0] * 3}
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "library_with_blend_ms", "library_with_blend_device_ms", "bound_ms")
+    ms["warp_smooth"] = {"warp_blend": dict.fromkeys(keys, 0.0),
+                         "flow_warp": dict.fromkeys(keys[:5] + keys[-1:], 0.0)}
+    for kind in WARP_FLOWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = [("warp_blend", (1, 3, h, w), 1) for h, w in WARP_SHAPES]
+            cases.append(("flow_warp", FLOW_WARP_SHAPE, 5))
+            for name, (b, c, h, w), n in cases:
+                if name == "warp_blend":
+                    raw, prev, flow, weight = args = warp_case(h, w, dtype, gen, b, c, kind)
+                    nb, nop = warp_work((b, c, h, w), dtype, 9, 3, 12)
+                else:
+                    prev, flow = args = flow_warp_case(dtype, gen, (b, c, h, w), kind)
+                    nb, nop = warp_work((b, c, h, w), dtype, 5, 3, 10)
+                grid = sampling_grid(flow)
+                (k, k_dev), p = call_and_device_ms(KERNELS[name], args), time_ms(PLAIN[name], args)
+                lib, lib_dev = call_and_device_ms(grid_sample, (prev, grid))
+                blend, blend_dev = (call_and_device_ms(grid_sample_blend, (raw, prev, grid, weight))
+                                    if name == "warp_blend" else (None, None))
+                b_ms, b_by = bound_ms(nb, nop, F32_FLOPS)
+                plan = warp_forward_plan(c, dtype, h, w, w)
+                tiles = b * math.ceil(h / plan.rows) * math.ceil(w / plan.cols)
+                staged = staged_tiles(flow, plan, c)
+                # the JSON rows: the flagship frame's bf16 blends, FlowNet2's f32 warps
+                if (name, dtype) in (("warp_blend", torch.bfloat16), ("flow_warp", torch.float32)):
+                    got = (k, k_dev, p, lib, lib_dev, blend, blend_dev, b_ms)
+                    if kind == "iid":
+                        for i, v in enumerate((k, p, lib)):
+                            ms[name][i] += n * v
+                        dev = ms["warp_device"][name]
+                        for i, v in enumerate((k_dev, lib, lib_dev, blend, blend_dev)[:len(dev)]):
+                            dev[i] += n * v
+                        work[name][0] += n * nb
+                        work[name][1] += n * nop
+                    else:
+                        for key, v in zip(keys, got):
+                            if key in ms["warp_smooth"][name]:
+                                ms["warp_smooth"][name][key] += n * v
+                extra = {} if blend is None else dict(
+                    grid_sample_blend_ms_per_call=f"{blend:.4f}",
+                    grid_sample_blend_device_ms=f"{blend_dev:.4f}")
+                say("time", kernel=name, flow=kind, shape="x".join(map(str, (b, c, h, w))),
+                    dtype=str(dtype)[6:], ms_per_call=f"{k:.4f}", device_ms=f"{k_dev:.4f}",
+                    plain_ms=f"{p:.4f}", grid_sample_ms_per_call=f"{lib:.4f}",
+                    grid_sample_device_ms=f"{lib_dev:.4f}", **extra,
+                    per_call_over_grid_sample=f"{k / lib:.3f}",
+                    device_over_grid_sample=f"{k_dev / lib_dev:.3f}",
+                    bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                    device_share_of_bound=f"{b_ms / k_dev:.3f}",
+                    plan=f"{plan.rows}x{plan.cols}/{plan.smem_bytes}",
+                    staged_share=f"{staged / tiles:.4f}",
+                    **{"calls_per_frame" if name == "warp_blend" else "calls_per_flow_call": n})
+                del args, prev, flow, grid
+                raw = weight = None
 
 
 def correlation_bwd_times(gen: torch.Generator, ms: dict, work: dict) -> None:
@@ -4045,15 +4166,17 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                     "library: two cuDNN 3x3 convs (zero padding)"),
         "warp_blend": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
                        "vid2vid_tpu/ops/warp.py:271", "label2city", F32_FLOPS,
-                       "bf16, summed over one 2048x1024 label2city frame's 3 calls; ms: "
+                       "bf16, summed over one 2048x1024 label2city frame's 3 calls, on "
+                       "an i.i.d. flow of 8 px a pixel (smooth_flow: the same on a smooth "
+                       "flow, tools/warp_plans.py::smooth_flow); ms: "
                        "per call (events over 200 back-to-back calls, the wrapper "
                        "included), device_ms: the profiler's kernel time; library: "
                        "F.grid_sample alone, without the blend, timed both ways"),
         "flow_warp": ("vid2vid_tpu_torch/csrc/warp_blend.cu",
                       "vid2vid_tpu/ops/warp.py:271", "flownet2", F32_FLOPS,
                       "f32, summed over one FlowEstimator call's 5 launches at "
-                      "(2, 3, 1024, 2048); ms per call and device_ms as warp_blend's; "
-                      "library: F.grid_sample"),
+                      "(2, 3, 1024, 2048), flows and smooth_flow as warp_blend's; ms per "
+                      "call and device_ms as warp_blend's; library: F.grid_sample"),
         "correlation": ("vid2vid_tpu_torch/csrc/correlation.cu",
                         "vid2vid_tpu/ops/correlation_pallas.py:35", "flownet2", F32_FLOPS,
                         "f32, one FlowEstimator call's one launch at "
@@ -4120,6 +4243,8 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
             extra.update(zip(("device_ms", "library_ms_per_call", "library_device_ms",
                               "library_with_blend_ms_per_call",
                               "library_with_blend_device_ms"), ms["warp_device"][name]))
+        if name in ms["warp_smooth"]:
+            extra["smooth_flow"] = ms["warp_smooth"][name]
         if name in ("respair", "conv7"):  # the f32 calls: per seeding call
             extra["f32"] = {p: f32_block(name, p, ms, work)
                             for p in ("edge2face_single", "label2city_single")}

@@ -46,14 +46,21 @@ from vid2vid_tpu_torch.ops.warp import (
     flow_warp_backward_plain,
     flow_warp_bwd,
     flow_warp_plain,
+    MAX_BOX_BYTES,
+    staged_tiles,
+    tile_plan,
     warp_blend,
     warp_blend_at,
     warp_blend_at_backward_plain,
     warp_blend_at_bwd,
+    warp_blend_at_plain,
     warp_blend_backward_plain,
     warp_blend_bwd,
     warp_blend_plain,
+    warp_forward_cuda,
+    warp_forward_plan,
 )
+from vid2vid_tpu_torch.tools.warp_plans import iid_flow, smooth_flow
 
 pytestmark = pytest.mark.cuda
 
@@ -687,13 +694,13 @@ def test_reflect_conv7_cache_on_the_card(cuda):
 
 
 # The warp forward takes two adjacent pixels of a row per thread, with one
-# vector load or store per stream where W is even and the operands are
-# aligned, element by element otherwise: even and odd W, rows over several
-# blocks, B = 2, and operands that start one element past an aligned
-# address.
+# a 16-byte load or store per stream where W is a multiple of 16 bytes and
+# the operands are aligned, element by element otherwise: such a W and
+# even and odd ones that are not, rows over several tiles, B = 2, and
+# operands that start one element past an aligned address.
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,c,h,w", [(2, 3, 7, 514), (2, 3, 7, 515), (1, 3, 5, 1026),
-                                     (2, 1, 3, 2)])
+                                     (2, 1, 3, 2), (2, 3, 37, 512)])
 def test_warp_kernels_vector_and_scalar_rows(cuda, dtype, b, c, h, w):
     test_warp_blend_kernel_any_shape(cuda, dtype, b, c, h, w, 6.0)
     test_flow_warp_kernel_any_shape(cuda, dtype, b, c, h, w, 6.0)
@@ -714,6 +721,99 @@ def test_warp_kernels_on_misaligned_operands(cuda, dtype):
     _close("warp", warp_blend(raw, prev, flow, weight),
            warp_blend_plain(*(t.float() for t in (raw, prev, flow, weight))), dtype)
     _close("warp", flow_warp(prev, flow), flow_warp_plain(prev.float(), flow.float()), dtype)
+
+
+# The forward's two paths (csrc/warp_blend.cu): a tile whose box of prev
+# fits the plan's budget is staged in shared memory, any other gathers from
+# device memory. Flows that stage every tile (zero), none (60 px i.i.d.:
+# every box spans most of the frame), a mix (smooth above, 60 px below),
+# and a smooth one (8 px on a 1/16 grid, bilinearly upsampled: mostly
+# staged); an aligned shape and ragged ones (W not a multiple of 16 bytes,
+# odd H and W: element-by-element streams and copies).
+def _forward_flows(b, h, w, g):
+    smooth = smooth_flow(b, h, w, g)
+    far = iid_flow(b, h, w, g, scale=60.0)
+    return {"zero": torch.zeros(b, 2, h, w), "smooth": smooth, "far": far,
+            "mix": torch.cat([smooth[:, :, : h // 2], far[:, :, h // 2 :]], 2)}
+
+
+def _forward_paths(cuda, prev, flow, raw=None, weight=None, x0=-1):
+    """(the staged tile, (out under it, its staged tiles, out under the
+    direct tile, its staged tiles (0), out with every box that fits 226 KB
+    staged, its staged tiles)), each one launch of the entry: the staged
+    tile is warp_forward_plan's for large frames (tile_plan), forced here.
+    The plan's own out, and the staged tile's with a budget under every box
+    (each tile takes the staged kernel's direct branch), must equal them."""
+    c, h, w = prev.shape[1], flow.shape[2], flow.shape[3]
+    plan = tile_plan(prev.dtype, staged=True)
+    outs = []
+    for p in (plan, tile_plan(prev.dtype, staged=False),
+              plan._replace(smem_bytes=MAX_BOX_BYTES)):
+        staged = torch.zeros(1, dtype=torch.int32, device=cuda)
+        outs += [warp_forward_cuda(prev, flow, raw, weight, x0, p, staged), int(staged)]
+    assert outs[3] == 0
+    staged = torch.zeros(1, dtype=torch.int32, device=cuda)
+    under = warp_forward_cuda(prev, flow, raw, weight, x0, plan._replace(smem_bytes=1), staged)
+    assert int(staged) == 0 and torch.equal(under, outs[0])
+    own = warp_forward_plan(c, prev.dtype, h, w, prev.shape[3])
+    assert torch.equal(warp_forward_cuda(prev, flow, raw, weight, x0, own), outs[0])
+    return plan, outs
+
+
+@pytest.mark.parametrize("kind", ["zero", "smooth", "far", "mix"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w", [(2, 3, 96, 320), (1, 3, 37, 150), (1, 1, 33, 131)])
+def test_warp_forward_staged_and_direct_tiles(cuda, kind, dtype, b, c, h, w):
+    """Both entries under the staged tile: held to the plain versions; the
+    staged tiles those of staged_tiles; the staged path bit for bit with
+    the direct tile (no budget), with every box that fits 226 KB staged,
+    with no box staged, and with the plan's own tile."""
+    g = torch.Generator().manual_seed(h + w)
+    raw, prev = (torch.randn((b, c, h, w), generator=g) for _ in range(2))
+    weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=g))
+    flow = _forward_flows(b, h, w, g)[kind]
+    raw, prev, flow, weight = (t.to(cuda, dtype) for t in (raw, prev, flow, weight))
+    for blend in (False, True):
+        args = (raw, weight) if blend else (None, None)
+        plan, (out, staged, direct, _, most, staged_most) = _forward_paths(
+            cuda, prev, flow, *args)
+        tiles = b * math.ceil(h / plan.rows) * math.ceil(w / plan.cols)
+        want = (warp_blend_plain(raw.float(), prev.float(), flow.float(), weight.float())
+                if blend else flow_warp_plain(prev.float(), flow.float()))
+        _close("warp", out, want, dtype)
+        assert staged == staged_tiles(flow, plan, c)
+        assert staged_most == staged_tiles(flow, plan._replace(smem_bytes=MAX_BOX_BYTES), c)
+        assert torch.equal(out, direct) and torch.equal(most, direct)
+        if kind == "zero":
+            assert staged == tiles
+        if kind == "far" and (h, w) == (96, 320):
+            assert staged == 0
+        if kind == "mix" and (h, w) == (96, 320):
+            assert 0 < staged < tiles
+
+
+@pytest.mark.parametrize("x0", [0, 5, 64])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_warp_blend_forward_at_a_column_offset(cuda, dtype, x0):
+    """The model axis's blend: 128 columns from column x0 of a frame 260
+    wide (its rows 16-byte aligned in f32, not in bf16), a mixed flow:
+    held to warp_blend_at_plain, the staged tiles those of staged_tiles,
+    the staged path bit for bit with the direct one."""
+    b, c, h, w, wp = 2, 3, 40, 128, 260
+    g = torch.Generator().manual_seed(x0)
+    prev = torch.randn((b, c, h, wp), generator=g)
+    raw = torch.randn((b, c, h, w), generator=g)
+    weight = torch.sigmoid(torch.randn((b, 1, h, w), generator=g))
+    flow = _forward_flows(b, h, w, g)["mix"]
+    raw, prev, flow, weight = (t.to(cuda, dtype) for t in (raw, prev, flow, weight))
+    before = warp_blend_at.launches
+    plan, (out, staged, direct, _, most, _) = _forward_paths(cuda, prev, flow, raw, weight, x0)
+    assert warp_blend_at.launches == before + 5
+    want = warp_blend_at_plain(*(t.float() for t in (raw, prev, flow, weight)), x0)
+    _close("warp", out, want, dtype)
+    assert staged == staged_tiles(flow, plan, c, wp, x0)
+    assert torch.equal(out, direct) and torch.equal(most, direct)
+    assert torch.equal(out, warp_blend_at(raw, prev, flow, weight, x0))
 
 
 # The f32 body on the tensor cores (csrc/conv_wgmma.cuh as 3xTF32: 8-channel

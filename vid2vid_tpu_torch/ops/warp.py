@@ -43,11 +43,20 @@ rounds it into d/dimage itself; the blend's at a column offset, `Wp` and
 `x0`, as its forward) and `flow_warp_backward_plain` /
 `warp_blend_backward_plain` / `warp_blend_at_backward_plain` on a CPU
 tensor. It needs H and W (of the whole frame) of at least 2.
+
+The forward kernel takes 2-D tiles of the output and stages each tile's
+bounding box of prev in shared memory where it fits a budget, else gathers
+from device memory (csrc/warp_blend.cu). `warp_forward_plan(C, dtype, H, W,
+Wp)` chooses the tile and the budget, and the wrappers pass it to the entry;
+`staged_tiles` mirrors each block's choice over a flow.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -253,20 +262,167 @@ _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
+# csrc/warp_blend.cu's forward: a thread takes 4 adjacent pixels of a row
+# on a staged tile (a budget), 2 on a direct one, a block at most
+# FWD_THREADS threads (whole warps); a staged box at most MAX_BOX_BYTES of
+# shared memory, its left edge and width whole groups of BOX_ALIGN_BYTES
+FWD_THREADS = 256
+MAX_BOX_BYTES = 226 * 1024
+BOX_ALIGN_BYTES = 16
+
+
+class WarpPlan(NamedTuple):
+    rows: int  # a tile's rows
+    cols: int  # a tile's columns
+    smem_bytes: int  # the box budget a block (the launch's dynamic shared memory)
+    align: int  # columns in 16 bytes: the box's left edge and width are multiples
+
+    @property
+    def pix(self) -> int:
+        """Adjacent pixels a thread of a row: 4 on a staged tile, 2 on a
+        direct one (the kernel's rule)."""
+        return 4 if self.smem_bytes else 2
+
+
+def plan_threads(plan: WarpPlan) -> int:
+    """The threads of the kernel's block under `plan`, or 0 where the entry
+    refuses it: columns whole threads of `plan.pix` pixels, 32 to
+    FWD_THREADS threads in whole warps."""
+    if plan.cols % plan.pix or plan.rows < 1:
+        return 0
+    threads = plan.rows * plan.cols // plan.pix
+    return threads if 32 <= threads <= FWD_THREADS and threads % 32 == 0 else 0
+
+
+# an image's C planes of prev from which the forward stages boxes: a third
+# of the H100's 50 MB L2
+STAGE_FROM_BYTES = 16 * 2**20
+
+
+@functools.lru_cache(maxsize=256)
+def warp_forward_plan(c: int, dtype: torch.dtype, h: int, w: int, wp: int) -> WarpPlan:
+    """The forward kernel's tile and box budget for C channels of `dtype`
+    sampled from an H x Wp frame at W output columns (the blend of a width
+    shard: Wp > W; else Wp = W).
+
+    Tile rows are 128 bytes of each stream (32 f32 or 64 bf16 columns).
+    Where an image's C planes of prev take less than STAGE_FROM_BYTES, the
+    gathers hit L2 and no box is staged: tiles of 512 pixels (16 x 32 in
+    f32, 8 x 64 in bf16), 2 pixels a thread. From that size on, boxes are
+    staged: tiles of 1024 pixels (32 x 32, 16 x 64), 4 pixels a thread, a
+    budget of 32 KB (never more than the whole frame's C planes take).
+
+    Chosen by `python -m vid2vid_tpu_torch.tools.warp_plans` on an H100
+    (tiles from 1 x 512 to 32 x 64, budgets of 0 to 48 KB, i.i.d. and
+    smooth flows, at the paths' shapes; PERF.md): staging paid only
+    at FlowNet2's f32 warps, 2 x 25 MB of prev: by 2% on FlowNet2's own
+    flows (`--flownet2`, the two plans in turns) and by 1-4% on the drawn
+    smooth flow, against a 7% loss on the i.i.d. one; at the bf16 blends
+    (12.6 MB at 1024 x 2048) the direct tiles matched or beat every staged
+    one. A budget held by every block shrinks L1 and the blocks an SM
+    holds, which the direct tiles of an incoherent flow pay for. Row strips
+    (1 x 512, the layout before the tiles) lost or tied at every shape; no
+    tile of this body recovers the parent's row strips at 256 x 512 bf16
+    on a smooth flow (2-6% behind there)."""
+    size = dtype.itemsize
+    if c * h * wp * size < STAGE_FROM_BYTES:
+        return tile_plan(dtype, staged=False)
+    plan = tile_plan(dtype, staged=True)
+    frame = c * h * math.ceil(wp / plan.align) * plan.align * size
+    return plan._replace(smem_bytes=min(plan.smem_bytes, frame))
+
+
+def tile_plan(dtype: torch.dtype, staged: bool) -> WarpPlan:
+    """warp_forward_plan's two tiles in `dtype`, rows of 128 bytes: direct
+    (512 pixels, 2 a thread, no budget) or staged (1024 pixels, 4 a
+    thread, a budget of 32 KB)."""
+    size = dtype.itemsize
+    cols = 128 // size
+    pixels, budget = (1024, 32 * 1024) if staged else (512, 0)
+    return WarpPlan(pixels // cols, cols, budget, BOX_ALIGN_BYTES // size)
+
+
+def staged_tiles(flow: torch.Tensor, plan: WarpPlan, c: int, wp: int | None = None,
+                 x0: int = 0) -> int:
+    """How many of the kernel's tiles take the staged path for this (B, 2,
+    H, W) flow under `plan`, C channels sampled from an H x Wp frame from
+    column x0: each tile's corners (clamped as the sample clamps them)
+    reduced to their box, its left edge aligned down and its width rounded
+    up to `plan.align` columns, staged where C planes of it fit
+    `plan.smem_bytes`. A plain mirror of the block's decision, the same
+    f32 arithmetic."""
+    b, _, h, w = flow.shape
+    wp = w if wp is None else wp
+    f = flow.detach().to("cpu", torch.float32)
+    sx = torch.arange(x0, x0 + w, dtype=torch.float32).view(1, 1, w) + f[:, 0]
+    sy = torch.arange(h, dtype=torch.float32).view(1, h, 1) + f[:, 1]
+    xi = torch.floor(sx).clamp(-1, wp).long()
+    yi = torch.floor(sy).clamp(-1, h).long()
+    ty, tx = math.ceil(h / plan.rows), math.ceil(w / plan.cols)
+
+    def tiles(v, pad, reduce):
+        v = torch.nn.functional.pad(v, (0, tx * plan.cols - w, 0, ty * plan.rows - h),
+                                    value=pad)
+        return reduce(v.view(b, ty, plan.rows, tx, plan.cols), dim=(2, 4))
+
+    big = 1 << 40
+    xmin = tiles(xi.clamp(0, wp - 1), big, torch.amin)
+    xmax = tiles((xi + 1).clamp(0, wp - 1), -1, torch.amax)
+    ymin = tiles(yi.clamp(0, h - 1), big, torch.amin)
+    ymax = tiles((yi + 1).clamp(0, h - 1), -1, torch.amax)
+    a = plan.align
+    bx0 = xmin // a * a
+    sw = (xmax + 1 - bx0 + a - 1) // a * a
+    box = c * (ymax + 1 - ymin) * sw * (BOX_ALIGN_BYTES // a)
+    return int((box <= plan.smem_bytes).sum())
+
+
+_FLOW_WARP_ARGS = [_VOID] * 3 + [_INT] * 7 + [_VOID, _INT, _VOID]
+_WARP_BLEND_ARGS = [_VOID] * 5 + [_INT] * 9 + [_VOID, _INT, _VOID]
+
+
+def warp_forward_cuda(prev: torch.Tensor, flow: torch.Tensor, raw: torch.Tensor | None = None,
+                      weight: torch.Tensor | None = None, x0: int = -1,
+                      plan: WarpPlan | None = None,
+                      staged: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the forward kernel on CUDA tensors: `v2v_flow_warp`
+    (no raw), else `v2v_warp_blend` (x0 >= 0: at that column of the whole
+    prev), under `plan` (default: warp_forward_plan's). `staged`, an int32
+    tensor of one element, adds the launch's staged tiles. Counted on the
+    wrapper whose entry it is (flow_warp, warp_blend, warp_blend_at)."""
+    out_like = prev if raw is None else raw
+    b, c, h, w = out_like.shape
+    wp = prev.shape[3]
+    plan = plan or warp_forward_plan(c, prev.dtype, h, w, wp)
+    tensors = dict(prev=prev, flow=flow) if raw is None else dict(
+        raw=raw, prev=prev, flow=flow, weight=weight)
+    what = "flow_warp" if raw is None else "warp_blend"
+    code = build.require_cuda_operands(what, prev.device, prev.dtype, **tensors)
+    if staged is not None and (staged.dtype != torch.int32 or staged.device != prev.device):
+        raise ValueError(f"{what}: the staged count must be an int32 tensor on {prev.device}")
+    out = torch.empty_like(out_like)
+    count = staged.data_ptr() if staged is not None else None
+    tile = (plan.rows, plan.cols, plan.smem_bytes, count, code)
+    if raw is None:
+        fn = build.function("v2v_flow_warp", _FLOW_WARP_ARGS)
+        err = build.launch(fn, prev.device, prev.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                           b, c, h, w, *tile)
+        counter = flow_warp
+    else:
+        fn = build.function("v2v_warp_blend", _WARP_BLEND_ARGS)
+        err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
+                           weight.data_ptr(), out.data_ptr(), b, c, h, w, wp, max(x0, 0),
+                           *tile)
+        counter = warp_blend if x0 < 0 else warp_blend_at
+    build.check(err, f"{what} kernel launch")
+    counter.launches += 1
+    return out
+
+
 def _flow_warp_forward(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if image.device.type == "cpu":
         return flow_warp_plain(image, flow)
-    code = build.require_cuda_operands(
-        "flow_warp", image.device, image.dtype, image=image, flow=flow
-    )
-    fn = build.function("v2v_flow_warp", [_VOID] * 3 + [_INT] * 5 + [_VOID])
-    b, c, h, w = image.shape
-    out = torch.empty_like(image)
-    err = build.launch(fn, image.device, image.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                       b, c, h, w, code)
-    build.check(err, "flow_warp kernel launch")
-    flow_warp.launches += 1
-    return out
+    return warp_forward_cuda(image, flow)
 
 
 def _splat_buffers(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -340,19 +496,7 @@ flow_warp.launches = 0
 def _warp_blend_cuda(raw, prev, flow, weight, x0=-1) -> torch.Tensor:
     """The operator's CUDA implementation: one launch of the kernel (with
     x0 >= 0, at that column offset)."""
-    code = build.require_cuda_operands(
-        "warp_blend", prev.device, prev.dtype,
-        raw=raw, prev=prev, flow=flow, weight=weight,
-    )
-    fn = build.function("v2v_warp_blend", [_VOID] * 5 + [_INT] * 7 + [_VOID])
-    b, c, h, w = raw.shape
-    out = torch.empty_like(raw)
-    err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
-                       weight.data_ptr(), out.data_ptr(), b, c, h, w, prev.shape[3],
-                       max(x0, 0), code)
-    build.check(err, "warp_blend kernel launch")
-    (warp_blend if x0 < 0 else warp_blend_at).launches += 1
-    return out
+    return warp_forward_cuda(prev, flow, raw, weight, x0)
 
 
 def _warp_blend_plain(raw, prev, flow, weight, x0=-1) -> torch.Tensor:

@@ -39,7 +39,8 @@ import hashlib
 import os
 import pickle
 import queue as queue_mod
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from collections.abc import Callable, Sequence
@@ -269,13 +270,6 @@ def init_process_group(
     )
 
 
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def torchrun_rank() -> tuple[int, int, int] | None:
     """(RANK, WORLD_SIZE, LOCAL_RANK) when torchrun started this process,
     else None."""
@@ -312,7 +306,9 @@ def launch(
 
     The ranks are processes started with the spawn method (fn and args are
     pickled by reference and value: fn must be importable without the
-    caller's test modules), joined over tcp://127.0.0.1:<a free port>; rank
+    caller's test modules), joined through a file store in a new temporary
+    directory (file://; no port to race other launches for), removed when
+    they are done; rank
     r runs on devices[r] (default: cuda:r where there are cards, else the
     CPU), over `backend` (default: nccl on cards, gloo on the CPU), with
     `threads` intra-op threads if given. A result comes back pickled:
@@ -342,17 +338,18 @@ def launch(
         raise ValueError(f"{len(devices)} devices for {world} ranks")
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    init_method = f"tcp://127.0.0.1:{free_port()}"
+    rendezvous = tempfile.mkdtemp(prefix="v2v_launch_")
+    init_method = "file://" + os.path.join(rendezvous, "store")
     procs = [
         ctx.Process(target=_rank_main, daemon=True, args=(
             r, world, init_method, backend, str(devices[r]), threads, fn, args, results))
         for r in range(world)
     ]
-    for p in procs:
-        p.start()
     out, failure, dead_since = {}, None, {}
     end = time.monotonic() + deadline_s
     try:
+        for p in procs:
+            p.start()
         while len(out) < world and failure is None:
             try:
                 rank, ok, payload = results.get(timeout=0.2)
@@ -379,6 +376,7 @@ def launch(
                 p.kill()
                 p.join(5.0)
         results.close()
+        shutil.rmtree(rendezvous, ignore_errors=True)
     if failure is not None:
         raise RuntimeError(f"launch of {world} ranks: {failure}")
     bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
