@@ -135,13 +135,15 @@ non-zero):
   13. the model axis for serving (parallel/halo.py, --n_devices 2 on
      InferenceEngine): the flagship configuration at its full 2048x1024
      width on two gloo ranks on this one card, each on its 1024 columns,
-     through generate_clip_raw and the step loop on a 6-frame clip: the
-     ranks' whole frames within SHARD_TOL of the unsharded engine's (same
-     seed) and equal to each other bit for bit; every respair, conv7 and
-     warp_blend launch of the frames in its column-halo mode (45 / 21 / 3 a
-     frame a rank), their calls sent back for 3b; each mode bit for bit
-     with the unsharded call on the whole tensor at two flagship shapes
-     (one for the warp) and both timed; ms a frame per rank of both entry
+     through generate_clip_raw and the step loop on a 3-frame clip, and a
+     3-frame clip at 1024x1440 (the coarsest trunk's 45 columns split 22 /
+     23): the ranks' whole frames within SHARD_TOL of the unsharded
+     engine's (same seed) and equal to each other bit for bit; every
+     respair, conv7 and warp_blend launch of the frames in its column-halo
+     mode (45 / 21 / 3 a frame a rank), their calls sent back for 3b; each
+     mode bit for bit with the unsharded call on the whole tensor and
+     within TOL of its plain version at flagship shapes, odd local widths
+     and 1-column shards on 8, and timed; ms a frame per rank of both entry
      points, the halo exchanges and gathers and their bytes a frame, the
      ms of one exchange and one gather at three flagship shapes, peak
      memory per rank, and tools/shard_serve_bench.py's A / B / C (2 ranks
@@ -149,15 +151,17 @@ non-zero):
   14. training's model axis (parallel/halo.py, --n_devices 2 at batch 1 on
      Trainer and train_cli: data 1 x model 2): the 512x256 training recipe
      of phase 7 at its full width on two gloo ranks on this one card, each
-     on its 256 columns of every frame, one clip of 3 chunks: chunk 1
+     on its 256 columns of every frame, one clip of 2 chunks, and one f32
+     chunk at 256x520 (the trunk's 65 columns split 32 / 33): chunk 1
      within the training bounds of the unsharded Trainer (same seeds), the
      ranks' weights equal bit for bit after every chunk; every blend of
      the ranks' generator at its column offset forward and backward
      (warp_blend_at, warp_blend_at_bwd: v2v_warp_blend_bwd with Wp and x0),
      their calls sent back for 3b; the offset backward against its plain
      version, the unsharded call (x0 = 0) and the whole frame's columns and
-     d_prev, both timed; ms a chunk a rank against the unsharded Trainer
-     in turns, the exchanges and gathers a chunk forward and backward with
+     d_prev, both timed (and untimed at odd and 1-column widths); ms a
+     chunk a rank against the unsharded Trainer run before, the exchanges
+     and gathers a chunk forward and backward with
      their bytes, the G gradients' reduction ms and bytes, peak memory a
      rank; then train_cli.train for one epoch on both ranks (equal weights,
      `latest` written once). Two ranks on one card give no scaling figure.
@@ -2326,7 +2330,11 @@ def ddp_train_path(card: str, seen: dict) -> dict:
 # ------------------------------------------------- 13. the model axis (serving)
 
 # phase 13: the flagship served on SHARD_RANKS gloo ranks on this one card
-SHARD_RANKS, SHARD_FRAMES, SHARD_DEADLINE_S = 2, 6, 600.0
+SHARD_RANKS, SHARD_FRAMES, SHARD_DEADLINE_S = 2, 3, 600.0
+# the uneven run of phase 13: the flagship at 1024x1440 on the same ranks,
+# a clip through generate_clip_raw; its coarsest trunk's 45 columns split
+# 22 / 23 (level SHARD_UNEVEN_TRUNK: 3 pyramid levels, 3 downsamples)
+SHARD_UNEVEN_HW, SHARD_UNEVEN_FRAMES, SHARD_UNEVEN_TRUNK = (1024, 1440), 3, 5
 # a flagship frame's launches, on every rank, all in the column-halo modes
 SHARD_PER_FRAME = {"respair": 45, "conv7": 21, "warp_blend": 3}
 # the sharded engine's frames against the unsharded engine's from the same
@@ -2335,82 +2343,98 @@ SHARD_PER_FRAME = {"respair": 45, "conv7": 21, "warp_blend": 3}
 # convs, so the frames may differ by bf16 rounding in another order, as
 # generate_clip_raw's against the step loop's: one bf16 ulp of a frame
 SHARD_TOL = CLIP_TOL
-# one flagship shape each at which a column-halo mode is held bit for bit
-# to the unsharded call on the whole tensor, split over SHARD_RANKS, and
-# both timed: respair (C, H, W) at the coarsest trunk and an enhancer's;
-# conv7 (Ci, Co, H, W) at the coarsest scale's label stem and the finest
-# scale's image head; warp_blend (H, W) at the finest scale
-HALO_SHAPES = {"respair": [(1024, 32, 64), (64, 512, 1024)],
-               "conv7": [(108, 128, 256, 512), (32, 3, 1024, 2048)],
-               "warp_blend": [(1024, 2048)]}
+# the shapes at which a column-halo mode is held bit for bit to the
+# unsharded call on the whole tensor, split over n shards, and to its plain
+# version, and both timed: (shape, n). Flagship shapes on SHARD_RANKS:
+# respair (C, H, W) at the coarsest trunk and an enhancer's; conv7 (Ci,
+# Co, H, W) at the coarsest scale's label stem and the finest scale's
+# image head; warp_blend (H, W) at the finest scale. Then the uneven ones:
+# the coarsest trunk of a 1440-wide frame (45 columns: 22 / 23, odd local
+# widths), and 1-column shards on 8, whose halos span two ranks (respair's
+# 2) or three (conv7's 3) and whose edge shards reflect into their
+# neighbours' columns
+HALO_SHAPES = {"respair": [((1024, 32, 64), 2), ((64, 512, 1024), 2), ((1024, 32, 45), 2),
+                           ((1024, 32, 8), 8)],
+               "conv7": [((108, 128, 256, 512), 2), ((32, 3, 1024, 2048), 2),
+                         ((128, 3, 64, 45), 2), ((128, 3, 64, 8), 8)],
+               "warp_blend": [((1024, 2048), 2), ((64, 45), 2), ((64, 8), 8)]}
 # the column-halo modes' times (halo_kernel_checks), for the kernels' JSON
 HALO_MS: dict = {}
 HALO_WRAPPERS = {"respair": respair_halo, "conv7": conv7_halo, "warp_blend": warp_blend_at}
 
 
 def whole_strips(x: torch.Tensor, sh: halo.WidthShard, left: int, right: int):
-    """What halo.exchange gives shard `sh` of x, cut from the whole x."""
-    lstrip = None if sh.left_edge else x[..., sh.x0 - left : sh.x0]
-    rstrip = None if sh.right_edge else x[..., sh.x0 + sh.width : sh.x0 + sh.width + right]
+    """What halo.exchange gives shard `sh` of x: its strips of the whole x
+    reflect-padded, None on a side that is the image's edge."""
+    p = max(left, right)
+    xp = F.pad(x, (p, p, 0, 0), mode="reflect")
+    x0, x1 = sh.x0 + p, sh.x1 + p
+    lstrip = None if sh.left_edge else xp[..., x0 - left : x0]
+    rstrip = None if sh.right_edge else xp[..., x1 : x1 + right]
     return lstrip, rstrip
 
 
-def halo_calls(name: str, shape, gen) -> tuple:
-    """(the unsharded call, each shard's column-halo call) of a kernel at a
-    flagship shape in bf16, as closures over seeded operands."""
-    n = SHARD_RANKS
+def halo_calls(name: str, shape, n: int, gen) -> tuple:
+    """(the unsharded call, [(shard, its column-halo wrapper, its args)] for
+    each shard with columns) of a kernel at `shape` in bf16 on n shards,
+    over seeded operands."""
+    shards = [sh for sh in (halo.make_shard(i, n, shape[-1]) for i in range(n)) if sh.width]
     if name == "respair":
         c, h, w = shape
         x, k0, ab0, k1, ab1 = respair_case(c, h, w, torch.bfloat16, gen)
         packed = (pack_for_kernel(k0), pack_for_kernel(k1))
-        shards = []
-        for sh in (halo.make_shard(i, n, w) for i in range(n)):
+        calls = []
+        for sh in shards:
             xl = sh.local(x).contiguous()
             x_in, xoff = halo.attach(xl, *whole_strips(x, sh, 2, 2))
-            shards.append((sh, functools.partial(respair_halo, xl, x_in, xoff, sh.edges, k0, ab0,
-                                                 k1, ab1, packed=packed)))
-        return functools.partial(respair, x, k0, ab0, k1, ab1, packed=packed), shards
+            calls.append((sh, functools.partial(respair_halo, packed=packed),
+                          (xl, x_in, xoff, sh.edges, k0, ab0, k1, ab1)))
+        return functools.partial(respair, x, k0, ab0, k1, ab1, packed=packed), calls
     if name == "conv7":
         ci, co, h, w = shape
         x, wt, bias = conv7_case(ci, co, h, w, torch.bfloat16, gen)
         packed = pack_for_kernel(wt)
-        shards = []
-        for sh in (halo.make_shard(i, n, w) for i in range(n)):
+        calls = []
+        for sh in shards:
             x_in, xoff = halo.attach(sh.local(x).contiguous(), *whole_strips(x, sh, 3, 3))
-            shards.append((sh, functools.partial(conv7_halo, x_in, wt, bias, xoff, sh.width,
-                                                 sh.edges, packed=packed)))
-        return functools.partial(conv7_reflect, x, wt, bias, packed=packed), shards
+            calls.append((sh, functools.partial(conv7_halo, packed=packed),
+                          (x_in, wt, bias, xoff, sh.width, sh.edges)))
+        return functools.partial(conv7_reflect, x, wt, bias, packed=packed), calls
     h, w = shape
     raw, prev, flow, weight = warp_case(h, w, torch.bfloat16, gen)
-    shards = [(sh, functools.partial(warp_blend_at, sh.local(raw).contiguous(), prev,
-                                     sh.local(flow).contiguous(),
-                                     sh.local(weight).contiguous(), sh.x0))
-              for sh in (halo.make_shard(i, n, w) for i in range(n))]
-    return functools.partial(warp_blend, raw, prev, flow, weight), shards
+    calls = [(sh, warp_blend_at, (sh.local(raw).contiguous(), prev, sh.local(flow).contiguous(),
+                                  sh.local(weight).contiguous(), sh.x0)) for sh in shards]
+    return functools.partial(warp_blend, raw, prev, flow, weight), calls
 
 
 def halo_kernel_checks(gen: torch.Generator) -> None:
     """Phase 13: at each HALO_SHAPES shape, each shard's column-halo call
-    against the unsharded call on the whole tensor, bit for bit (raises
+    against the unsharded call on the whole tensor, bit for bit, and
+    against its plain version (compare, the kernel's TOL; raises
     otherwise), and the ms of both (CUDA events, time_ms), into HALO_MS."""
-    for name, shapes in HALO_SHAPES.items():
-        for shape in shapes:
-            whole, shards = halo_calls(name, shape, gen)
+    for name, cases in HALO_SHAPES.items():
+        for shape, n in cases:
+            whole, calls = halo_calls(name, shape, n, gen)
             want = whole()
-            for sh, call in shards:
-                if not torch.equal(call(), sh.local(want)):
-                    raise AssertionError(f"{name} {shape}: shard {sh.index}'s column-halo call "
-                                         "differs from the unsharded call")
+            err = 0.0
+            for sh, fn, args in calls:
+                if not torch.equal(fn(*args), sh.local(want)):
+                    raise AssertionError(f"{name} {shape} on {n}: shard {sh.index}'s column-halo "
+                                         "call differs from the unsharded call")
+                wrapper = HALO_WRAPPERS[name]
+                err = max(err, compare(name, args, torch.bfloat16, wrapper, PLAIN_OF[wrapper]))
             ms_whole = time_ms(lambda: whole(), ())
-            ms_shards = [time_ms(lambda c=call: c(), ()) for _, call in shards]
+            ms_shards = [time_ms(fn, args) for _, fn, args in calls]
             HALO_MS.setdefault(name, []).append(
-                {"shape": list(shape), "ms_unsharded": ms_whole, "ms_shards": ms_shards})
+                {"shape": list(shape), "shards": n, "ms_unsharded": ms_whole,
+                 "ms_shards": ms_shards})
             say("halo_mode", kernel=name, shape="x".join(map(str, shape)), dtype="bfloat16",
-                shards=SHARD_RANKS, bit_for_bit_with_unsharded=True,
+                shards=n, widths=",".join(str(sh.width) for sh, _, _ in calls),
+                bit_for_bit_with_unsharded=True, max_abs_err_vs_plain=f"{err:.3g}",
                 ms_unsharded=f"{ms_whole:.4f}",
                 ms_shards=",".join(f"{v:.4f}" for v in ms_shards),
                 shards_over_unsharded=f"{sum(ms_shards) / ms_whole:.4f}")
-            del want, shards, whole
+            del want, calls, whole
     torch.cuda.empty_cache()
 
 
@@ -2420,15 +2444,16 @@ def time_halo_collectives(shard: halo.WidthShard, dev: torch.device, n: int = 20
     columns) and finest label stem (C 108, 1024 rows, 3 + 3 columns), and of
     one gather of a finest frame's columns, each the mean of n calls
     between a barrier and a synchronize (bf16)."""
-    cases = {"exchange_respair_1024x32": ((1, 1024, 32, shard.width // 32), 2),
-             "exchange_conv7_108x1024": ((1, 108, 1024, shard.width), 3),
-             "gather_frame_3x1024": ((1, 3, 1024, shard.width), 0)}
+    cases = {"exchange_respair_1024x32": (1024, 5, 2),
+             "exchange_conv7_108x1024": (108, 0, 3),
+             "gather_frame_3x1024": (3, 0, 0)}
     out = {}
-    for name, (shape, h) in cases.items():
-        x = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
-        sh = shard.for_width(shape[-1])
+    for name, (c, level, h) in cases.items():
+        sh = shard.at(level)
+        x = torch.zeros((1, c, shard.height0 >> level, sh.width), device=dev,
+                        dtype=torch.bfloat16)
         call = ((lambda: halo.exchange(x, sh, h, h)) if h
-                else (lambda: halo.gather_width(x, sh.n, sh.group)))
+                else (lambda: halo.gather_width(x, sh)))
         call()
         torch.distributed.barrier()
         torch.cuda.synchronize(dev)
@@ -2440,15 +2465,30 @@ def time_halo_collectives(shard: halo.WidthShard, dev: torch.device, n: int = 20
     return out
 
 
-def shard_rank(labels: np.ndarray, inst: np.ndarray, device: str) -> dict:
+def counted_run(run, dev, index: dict) -> dict:
+    """One run of a phase-13 rank with the launch counts and the model
+    axis's collectives from zero, its kernel calls logged by shape; the
+    frames in bf16, which they are before their cast to f32."""
+    reset_launches()
+    halo.reset_counts()
+    with kernel_call_shapes() as seen:
+        frames = run()
+        torch.cuda.synchronize(dev)
+    return dict(frames=frames.to("cpu", torch.bfloat16), launches=read_launches(),
+                halo_launches={k: fn.launches for k, fn in HALO_WRAPPERS.items()},
+                counts=dict(halo.COUNTS),
+                seen=[(name, index[id(fn)], shapes, str(dtype), calls)
+                      for (name, fn, shapes, dtype), calls in seen.items()])
+
+
+def shard_rank(labels: np.ndarray, inst: np.ndarray, device: str, uneven: tuple) -> dict:
     """One rank of phase 13, in a process started by parallel.launch (this
     script imported anew): the flagship InferenceEngine with --n_devices
     the world, rank 0's generator seeded as the parent's and the others'
     otherwise (the engine broadcasts rank 0's). After a warm-up of both
-    entry points, one counted run of each (launch counts and the model
-    axis's collectives from zero, kernel calls logged by shape; the frames
-    in bf16, which they are before their cast to f32), then both timed in
-    turns (clip, steps, steps, clip) with the peak memory."""
+    entry points, one counted run of each (counted_run), then both timed
+    in turns (clip, steps, steps, clip) with the peak memory; then one
+    counted clip of the `uneven` (labels, inst) at SHARD_UNEVEN_HW."""
     dist = torch.distributed
     dist.barrier()
     dev = torch.device(device)
@@ -2475,20 +2515,7 @@ def shard_rank(labels: np.ndarray, inst: np.ndarray, device: str) -> dict:
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     index = {id(fn): i for fns in COUNTERS.values() for i, fn in enumerate(fns)}
-    out = {}
-    for what, run in (("clip", clip), ("steps", steps)):
-        reset_launches()
-        halo.reset_counts()
-        with kernel_call_shapes() as seen:
-            frames = run()
-            torch.cuda.synchronize(dev)
-        out[what] = dict(
-            frames=frames.to("cpu", torch.bfloat16), launches=read_launches(),
-            halo_launches={k: fn.launches for k, fn in HALO_WRAPPERS.items()},
-            counts=dict(halo.COUNTS),
-            seen=[(name, index[id(fn)], shapes, str(dtype), calls)
-                  for (name, fn, shapes, dtype), calls in seen.items()])
-        del frames
+    out = {what: counted_run(run, dev, index) for what, run in (("clip", clip), ("steps", steps))}
     ms = {"clip": [], "steps": []}
     for what in ("clip", "steps", "steps", "clip"):
         t0 = time.perf_counter()
@@ -2496,8 +2523,15 @@ def shard_rank(labels: np.ndarray, inst: np.ndarray, device: str) -> dict:
         torch.cuda.synchronize(dev)
         ms[what].append((time.perf_counter() - t0) * 1e3 / n)
     out.update(ms=ms, peak=torch.cuda.max_memory_allocated(dev),
-               columns=(eng.shard(w).x0, eng.shard(w).width),
-               collective_ms=time_halo_collectives(eng.shard(w), dev))
+               columns=(eng.shard(w, h).x0, eng.shard(w, h).width),
+               collective_ms=time_halo_collectives(eng.shard(w, h), dev))
+    labels_u, inst_u = (torch.from_numpy(a) for a in uneven)
+    hu, wu = labels_u.shape[-2:]
+    zero_u = eng.initial_state(1, hu, wu)
+    out["uneven"] = counted_run(
+        lambda: eng.generate_clip_raw(labels_u, inst_u, zero_u)[0].fake, dev, index)
+    sh = eng.shard(wu, hu)
+    out["uneven"]["columns"] = [sh.bounds(sh.index), sh.at(SHARD_UNEVEN_TRUNK).bounds(sh.index)]
     return out
 
 
@@ -2519,7 +2553,13 @@ def shard_serve_path(card: str, seen: dict) -> dict:
       - ms a frame per rank of both entry points, the model axis's
         collectives and bytes a frame, peak memory per rank, and
         tools/shard_serve_bench.py's A / B / C at its own configuration
-        (2 ranks on this card).
+        (2 ranks on this card);
+      - the uneven width: a SHARD_UNEVEN_FRAMES-frame clip at
+        SHARD_UNEVEN_HW on the same ranks, whose coarsest trunk splits its
+        45 columns 22 / 23, within SHARD_TOL of the unsharded engine, the
+        ranks bit for bit, every launch in its column-halo mode, its
+        calls' shapes sent back for 3b (the plain versions at the odd local
+        widths).
     Two ranks share one card over gloo: the times measure correctness and
     host overhead, not scaling. Returns the launch counts of both ranks'
     counted clip runs, summed."""
@@ -2534,16 +2574,23 @@ def shard_serve_path(card: str, seen: dict) -> dict:
         fake, state = eng.step(labels[:, t : t + 3], inst[:, t : t + 3], state)
         fakes.append(fake.cpu())
     want = {"clip": want_clip, "steps": torch.stack(fakes, 1)}
+    hu, wu = SHARD_UNEVEN_HW
+    labels_u, inst_u = label_stream(opt, SHARD_UNEVEN_FRAMES, hu, wu)
+    want["uneven"] = eng.generate_clip_raw(labels_u, inst_u, eng.initial_state(1, hu, wu))[
+        0].fake.cpu()
     del eng, zero, state, fakes
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = launch(shard_rank, SHARD_RANKS, args=(labels.numpy(), inst.numpy(), str(DEV)),
+    ranks = launch(shard_rank, SHARD_RANKS,
+                   args=(labels.numpy(), inst.numpy(), str(DEV),
+                         (labels_u.numpy(), inst_u.numpy())),
                    devices=[DEV] * SHARD_RANKS, backend="gloo", deadline_s=SHARD_DEADLINE_S)
     launch_s = time.perf_counter() - t0
     errs = {}
-    for what in ("clip", "steps"):
+    for what in ("clip", "steps", "uneven"):
         first = ranks[0][what]["frames"]
-        check_frames(first.float().unbind(1), (1, 3, h, w), f"shard_serve {what}")
+        shape = (1, 3, hu, wu) if what == "uneven" else (1, 3, h, w)
+        check_frames(first.float().unbind(1), shape, f"shard_serve {what}")
         for r in ranks[1:]:
             if not torch.equal(r[what]["frames"], first):
                 raise AssertionError(f"shard_serve {what}: the ranks' frames differ")
@@ -2556,13 +2603,13 @@ def shard_serve_path(card: str, seen: dict) -> dict:
     launches = collections.Counter()
     per_frame = SHARD_PER_FRAME
     for rank in ranks:
-        for what in ("clip", "steps"):
-            got = rank[what]
+        for what in ("clip", "steps", "uneven"):
+            got, t = rank[what], SHARD_UNEVEN_FRAMES if what == "uneven" else n
             for name, k in per_frame.items():
-                if got["halo_launches"][name] != k * n or got["launches"][name] != k * n:
+                if got["halo_launches"][name] != k * t or got["launches"][name] != k * t:
                     raise AssertionError(
                         f"shard_serve {what}: {name} launched {got['launches'][name]} times, "
-                        f"{got['halo_launches'][name]} in its column-halo mode; want {k * n} "
+                        f"{got['halo_launches'][name]} in its column-halo mode; want {k * t} "
                         "all in it")
             for name, i, shapes, dtype, calls in got["seen"]:
                 key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
@@ -2580,6 +2627,10 @@ def shard_serve_path(card: str, seen: dict) -> dict:
         columns=json.dumps([r["columns"] for r in ranks]),
         frames_max_abs_diff_vs_unsharded_clip=f"{errs['clip']:.3g}",
         frames_max_abs_diff_vs_unsharded_steps=f"{errs['steps']:.3g}", bound=SHARD_TOL,
+        uneven=f"{hu}x{wu}, {SHARD_UNEVEN_FRAMES} frames through generate_clip_raw",
+        uneven_columns_finest_and_trunk=json.dumps([r["uneven"]["columns"] for r in ranks]),
+        frames_max_abs_diff_vs_unsharded_uneven=f"{errs['uneven']:.3g}",
+        uneven_launches_per_rank=json.dumps(ranks[0]["uneven"]["halo_launches"]),
         ranks_equal_bit_for_bit=True,
         clip_ms_per_frame_ranks=json.dumps([[round(v, 2) for v in r["ms"]["clip"]]
                                             for r in ranks]),
@@ -2604,7 +2655,7 @@ def shard_serve_path(card: str, seen: dict) -> dict:
 # train_512.sh: batch 1 on 8 devices, data 1 x model 8) cut to
 # SHARD_TRAIN_RANKS gloo ranks sharing this one card, data 1 x model 2, its
 # widths not cut: each rank holds 256 of the 512 columns (32 of the 64 at
-# the trunk). One clip of SHARD_TRAIN_FRAMES frames: 3 chunks of 2. The
+# the trunk). One clip of SHARD_TRAIN_FRAMES frames: 2 chunks of 2. The
 # training bounds hold chunk 1 against the unsharded Trainer with the
 # generator in f32 (chunks 2 and 3 run the recipe's bf16): in bf16 chunk 1
 # read 1.8e-3 apart (D_fake) and the G grad norm 5.9e-3 (NVIDIA H100
@@ -2613,20 +2664,27 @@ def shard_serve_path(card: str, seen: dict) -> dict:
 # layer, and the random-init generator amplifies them, as it amplifies
 # f32's on the CPU (tests/test_torch_shard_train.py holds a clip without
 # norms bit for bit). The bf16 chunks are the recipe's path, timed.
-SHARD_TRAIN_RANKS, SHARD_TRAIN_FRAMES, SHARD_TRAIN_DEADLINE_S = 2, 8, 900.0
+SHARD_TRAIN_RANKS, SHARD_TRAIN_FRAMES, SHARD_TRAIN_DEADLINE_S = 2, 6, 900.0
+# the uneven run of phase 14: the recipe at 256x520 on the same ranks, one
+# f32 chunk (4 frames) held to the unsharded Trainer within the training
+# bounds; its trunk's 65 columns split 32 / 33 (level 3: 3 downsamples)
+SHARD_TRAIN_UNEVEN_HW, SHARD_TRAIN_UNEVEN_FRAMES, SHARD_TRAIN_UNEVEN_TRUNK = (256, 520), 4, 3
 # (B, C, H, W) of the G step's blend a frame at the recipe's width: the
 # offset mode's backward is held to its plain version and to the unsharded
 # call there, in bf16 (the recipe's G) and f32
 SHARD_BWD_SHAPE = (1, 3, 256, 512)
+# the uneven shapes at which it is held so too, untimed: (shape, n), odd
+# local widths (45: 22 / 23) and 1-column shards
+SHARD_BWD_UNEVEN = [((1, 3, 64, 45), 2), ((1, 3, 64, 8), 8)]
 # the offset mode's checks and times (shard_bwd_checks), for the kernels' JSON
 SHARD_BWD: dict = {}
 
 
-def shard_train_clip() -> tuple[np.ndarray, np.ndarray]:
+def shard_train_clip(hw=TRAIN_HW, frames: int = SHARD_TRAIN_FRAMES) -> tuple[np.ndarray,
+                                                                               np.ndarray]:
     """Phase 7's clip: labels (1, T, H, W) (the instance map too) and
-    frames (1, T, 3, H, W) of the moving square, T = SHARD_TRAIN_FRAMES."""
-    h, w = TRAIN_HW
-    return moving_square_clip(np.random.default_rng(0), SHARD_TRAIN_FRAMES, h, w, 35)
+    frames (1, T, 3, H, W) of the moving square, T = `frames`."""
+    return moving_square_clip(np.random.default_rng(0), frames, *hw, 35)
 
 
 def shard_train_chunks(trainer: Trainer, labels, frames, on_bf16=None) -> dict:
@@ -2667,7 +2725,8 @@ def shard_train_reference(trainer: Trainer, labels: np.ndarray, frames: np.ndarr
     return out
 
 
-def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: str) -> dict:
+def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: str,
+                     uneven: tuple) -> dict:
     """One rank of phase 14, in a process started by parallel.launch (this
     script imported anew): the recipe's Trainer with --n_devices the world
     at batch 1 (data 1 x model world), phase 7's seeded weights and flow,
@@ -2675,8 +2734,10 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
     rest in bf16), its kernel calls logged by shape; the launch counts, the
     model axis's collectives a chunk and the peak memory of the bf16
     chunks; the G gradients' reduction over every rank timed
-    (time_gradient_reduces); then
-    train_cli.train for one epoch of one SquareClips clip at the same
+    (time_gradient_reduces); then the `uneven` clip (labels, frames) at
+    SHARD_TRAIN_UNEVEN_HW by a new Trainer (shard_train_chunks: its losses
+    and digests, this rank's columns of the finest level and the trunk);
+    then train_cli.train for one epoch of one SquareClips clip at the same
     options (the schedule's chunks of 2 x max_frames_per_gpu = 4 frames:
     one), `latest` written by rank 0 under `root`."""
     dist = torch.distributed
@@ -2712,10 +2773,26 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
                          "warp_blend_bwd": warp_blend_bwd.launches},
         seen=[(name, index[id(fn)], shapes, str(dtype), calls)
               for (name, fn, shapes, dtype), calls in seen.items()],
-        columns=(trainer.shard(labels.shape[-1]).x0, trainer.shard(labels.shape[-1]).width),
+        columns=(trainer.shard(*labels.shape[:-3:-1]).x0,
+                 trainer.shard(*labels.shape[:-3:-1]).width),
         mesh=trainer.mesh.shape, peak=torch.cuda.max_memory_allocated(dev))
     (out["g_reduce_ms"], out["g_reduce_bytes"]), = time_gradient_reduces(
         [list(trainer.gen.parameters())], trainer.world_group, dev)
+    del trainer
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    trainer = Trainer(Options(**TRAIN_RECIPE, n_devices=world, batchSize=1), flow_fn=est,
+                      device=dev)
+    labels_u, frames_u = uneven
+    with kernel_call_shapes() as seen_u:
+        out["uneven"] = shard_train_chunks(trainer, labels_u, frames_u)
+        torch.cuda.synchronize(dev)
+    sh = trainer.shard(*labels_u.shape[:-3:-1])
+    out["uneven"].update(
+        columns=[sh.bounds(sh.index), sh.at(SHARD_TRAIN_UNEVEN_TRUNK).bounds(sh.index)],
+        seen=[(name, index[id(fn)], shapes, str(dtype), calls)
+              for (name, fn, shapes, dtype), calls in seen_u.items()])
+    seconds["uneven"] = time.perf_counter() - t1
     del trainer
     torch.cuda.empty_cache()
     # the training CLI on the model axis: one epoch of one clip
@@ -2736,6 +2813,37 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
     return out
 
 
+def shard_bwd_case(args, n: int, dtype) -> float:
+    """warp_blend_at_bwd on each of n shards (those with columns) of one
+    case: against its plain version (compare), its d_raw, d_flow, d_weight
+    bit for bit with the unsharded call's columns, and (f32) the shards'
+    d_prev summed against the unsharded one's, within TOL; the max abs
+    error against the plain version."""
+    raw, prev, flow, weight, g = args
+    want = warp_blend_bwd(*args)
+    tol = TOL[("warp_blend_bwd", dtype)]
+    dprev, err = torch.zeros(prev.shape, device=DEV), 0.0
+    for sh in (halo.make_shard(i, n, raw.shape[3]) for i in range(n)):
+        if not sh.width:
+            continue
+        local = [sh.local(t).contiguous() for t in (raw, flow, weight, g)]
+        call = (local[0], prev, local[1], local[2], local[3], sh.x0)
+        err = max(err, compare("warp_blend_bwd", call, dtype, warp_blend_at_bwd,
+                               warp_blend_at_backward_plain))
+        got = warp_blend_at_bwd(*call)
+        for k in (0, 2, 3):
+            if not torch.equal(got[k], sh.local(want[k])):
+                raise AssertionError(f"warp_blend_at_bwd {dtype} {tuple(raw.shape)} shard "
+                                     f"{sh.index} of {n}: output {k} differs from the "
+                                     "unsharded call's columns")
+        dprev += got[1].float()
+    if dtype == torch.float32 and not torch.allclose(dprev, want[1], **tol):
+        raise AssertionError(f"warp_blend_at_bwd {tuple(raw.shape)} on {n}: the shards' d_prev "
+                             f"summed is off the unsharded call's by "
+                             f"{float((dprev - want[1]).abs().max())}")
+    return err
+
+
 def shard_bwd_checks(gen: torch.Generator) -> None:
     """Phase 14: v2v_warp_blend_bwd at a column offset at SHARD_BWD_SHAPE on
     SHARD_TRAIN_RANKS shards, in bf16 and f32: each shard against its plain
@@ -2746,7 +2854,15 @@ def shard_bwd_checks(gen: torch.Generator) -> None:
     d_prev (each over the whole frame) summed against its d_prev (f32,
     within TOL); and the times of the shards' calls against the unsharded
     call's (bf16: CUDA events), their plain versions' and grid_sample's
-    backward at the shard's grid (SHARD_BWD)."""
+    backward at the shard's grid (SHARD_BWD); first the same checks,
+    untimed, at SHARD_BWD_UNEVEN (shard_bwd_case)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, n in SHARD_BWD_UNEVEN:
+            args = bwd_case("warp_blend_bwd", shape, dtype, gen)
+            err = shard_bwd_case(args, n, dtype)
+            say("halo_mode", kernel="warp_blend_at_bwd", shape="x".join(map(str, shape)),
+                dtype=str(dtype)[6:], shards=n, max_abs_err=f"{err:.3g}",
+                columns_bit_for_bit_with_unsharded=True)
     n = SHARD_TRAIN_RANKS
     for dtype in (torch.bfloat16, torch.float32):
         raw, prev, flow, weight, g = args = bwd_case("warp_blend_bwd", SHARD_BWD_SHAPE, dtype, gen)
@@ -2807,7 +2923,7 @@ def shard_train_path(card: str, seen: dict) -> dict:
     model 2) at the 512x256 recipe's full width, on SHARD_TRAIN_RANKS gloo
     ranks on this one card (NCCL refuses two ranks on one device):
       - the unsharded Trainer here first, from the same seeded weights and
-        flow, and again after the ranks (their chunk times in turns);
+        flow (at both widths);
       - the ranks' chunk 1 with the generator in f32 against the unsharded
         one's within the training bounds (out_of_bounds); the recipe's
         bf16 chunk 2's differences printed; the ranks' losses and weights
@@ -2817,6 +2933,10 @@ def shard_train_path(card: str, seen: dict) -> dict:
         warp_blend call), their calls sent back for 3b; the offset
         backward checked and timed against the unsharded call
         (shard_bwd_checks);
+      - the uneven width: one f32 chunk at SHARD_TRAIN_UNEVEN_HW (the
+        trunk's 65 columns split 32 / 33) on the same ranks against the
+        unsharded Trainer's within the training bounds, the ranks bit for
+        bit, its calls sent back for 3b;
       - ms a chunk a rank, the exchanges and gathers a chunk forward and
         backward with their bytes, the G gradients' reduction ms and
         bytes, peak memory a rank;
@@ -2825,20 +2945,22 @@ def shard_train_path(card: str, seen: dict) -> dict:
     Two ranks share one card: no scaling figure. Returns the launch counts
     of both ranks' counted runs, summed."""
     labels, frames = shard_train_clip()
+    uneven = shard_train_clip(SHARD_TRAIN_UNEVEN_HW, SHARD_TRAIN_UNEVEN_FRAMES)
     trainer = Trainer(Options(**TRAIN_RECIPE),
                       flow_fn=seeded_flow_estimator(DEV, seed=3, tf32_seen=[]), device=DEV)
     ref = shard_train_reference(trainer, labels, frames)
+    ref_u = shard_train_reference(trainer, *uneven)
     root = tempfile.mkdtemp(prefix="chip_smoke_shard_train_")
     try:
         t0 = time.perf_counter()
         ranks = launch(shard_train_rank, SHARD_TRAIN_RANKS,
-                       args=(labels, frames, str(DEV), root), devices=[DEV] * SHARD_TRAIN_RANKS,
+                       args=(labels, frames, str(DEV), root, uneven),
+                       devices=[DEV] * SHARD_TRAIN_RANKS,
                        backend="gloo", deadline_s=SHARD_TRAIN_DEADLINE_S)
         launch_s = time.perf_counter() - t0
         cli_files = sorted(os.listdir(os.path.join(root, "shard_train_cli")))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    again = shard_train_reference(trainer, labels, frames)
     del trainer
     torch.cuda.empty_cache()
     first = ranks[0]
@@ -2850,18 +2972,16 @@ def shard_train_path(card: str, seen: dict) -> dict:
     say("shard_train_path", config="label2city 512x256 ngf128 fg bf16 remat, FlowNet2 f32 "
         f"(recipes/street/train_512.sh), --n_devices {SHARD_TRAIN_RANKS} --batchSize 1: data 1 x "
         f"model {SHARD_TRAIN_RANKS} (recipe: model 8), gloo ranks on this one card, one clip of "
-        f"{SHARD_TRAIN_FRAMES} frames (3 chunks of 2: chunk 1 with the "
+        f"{SHARD_TRAIN_FRAMES} frames (2 chunks of 2: chunk 1 with the "
         "generator in f32, the rest in the recipe's bf16, timed and counted); deterministic "
         "algorithms",
         launch_s=f"{launch_s:.1f}", reference_s=f"{ref['seconds']:.1f}",
-        reference_after_s=f"{again['seconds']:.1f}",
         rank_s=json.dumps([{k: round(v, 1) for k, v in r["seconds"].items()} for r in ranks]),
         columns=json.dumps([r["columns"] for r in ranks]),
         ms_per_chunk_unsharded_before=",".join(f"{v:.1f}" for v in ref["ms"]),
         ms_per_chunk_ranks=json.dumps([[round(v, 1) for v in r["ms"]] for r in ranks]),
-        ms_per_chunk_unsharded_after=",".join(f"{v:.1f}" for v in again["ms"]),
         ms_is="chunk 1 f32, the others bf16",
-        order="unsharded,sharded,unsharded",
+        order="unsharded,sharded",
         collectives_per_chunk_rank0=json.dumps(per_chunk),
         g_reduce_ms_ranks=",".join(f"{r['g_reduce_ms']:.1f}" for r in ranks),
         g_reduce_bytes=first["g_reduce_bytes"],
@@ -2876,18 +2996,29 @@ def shard_train_path(card: str, seen: dict) -> dict:
         offset_launches_per_rank=json.dumps(first["offset_launches"]),
         cli_ms_per_chunk=",".join(f"{v:.1f}" for v in first["cli"]["chunk_ms"]),
         cli_files=",".join(cli_files), scaling="none: two ranks share one card over gloo",
+        uneven=f"{SHARD_TRAIN_UNEVEN_HW[0]}x{SHARD_TRAIN_UNEVEN_HW[1]}, one f32 chunk",
+        uneven_columns_finest_and_trunk=json.dumps([r["uneven"]["columns"] for r in ranks]),
+        uneven_f32_chunk1=json.dumps({k: [first["uneven"]["losses"][0][k],
+                                          ref_u["losses"][0][k]] for k in keys}),
         card=repr(card))
     for r in ranks[1:]:
         if r["digests"] != first["digests"] or r["losses"] != first["losses"]:
             raise AssertionError("shard_train: the ranks' weights or losses differ")
         if r["cli"]["digest"] != first["cli"]["digest"]:
             raise AssertionError("shard_train: the CLI's ranks end with different weights")
-    if len(first["digests"]) != 3 or first["mesh"] != {"data": 1, "model": SHARD_TRAIN_RANKS}:
+        if r["uneven"]["digests"] != first["uneven"]["digests"] or \
+                r["uneven"]["losses"] != first["uneven"]["losses"]:
+            raise AssertionError("shard_train uneven: the ranks' weights or losses differ")
+    if len(first["digests"]) != 2 or first["mesh"] != {"data": 1, "model": SHARD_TRAIN_RANKS}:
         raise AssertionError(f"shard_train: {len(first['digests'])} chunks on {first['mesh']}")
     bad = out_of_bounds(first["losses"][:1], ref["losses"][:1], keys)
     if bad:
         raise AssertionError(f"shard_train: f32 chunk 1 against the unsharded Trainer: {bad}")
-    for c in first["losses"]:
+    bad = out_of_bounds(first["uneven"]["losses"][:1], ref_u["losses"][:1], keys)
+    if bad:
+        raise AssertionError(f"shard_train uneven {SHARD_TRAIN_UNEVEN_HW}: f32 chunk 1 against "
+                             f"the unsharded Trainer: {bad}")
+    for c in first["losses"] + first["uneven"]["losses"]:
         if not all(math.isfinite(v) for v in c.values()):
             raise AssertionError(f"shard_train: non-finite loss {c}")
     if (first["cli"]["epoch"], first["cli"]["total_steps"]) != (2, 1) or not any(
@@ -2904,7 +3035,7 @@ def shard_train_path(card: str, seen: dict) -> dict:
             if rank["launches"][name] == 0:
                 raise AssertionError(f"shard_train: a rank never launched {name}")
         launches.update(rank["launches"])
-        for name, i, shapes, dtype, calls in rank["seen"]:
+        for name, i, shapes, dtype, calls in rank["seen"] + rank["uneven"]["seen"]:
             key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
             seen[key] = seen.get(key, 0) + calls
     SHARD_BWD["launches"] = sum(r["offset_launches"]["warp_blend_at_bwd"] for r in ranks)
@@ -4293,6 +4424,7 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -4314,7 +4446,7 @@ def main() -> None:
     reference_training()
     reference_single_g()
     reference_flow_train()
-    launches = {}
+    launches, path_s = {}, {"before_paths": time.perf_counter() - t_run}
     for path, run in (("label2city", label2city_path),
                       ("label2city_clip", label2city_clip_path),
                       ("flownet2", flownet2_path),
@@ -4326,6 +4458,7 @@ def main() -> None:
                       ("export", export_path), ("ledger", ledger_path),
                       ("ddp_train", ddp_train_path), ("shard_serve", shard_serve_path),
                       ("shard_train", shard_train_path)):
+        t_path = time.perf_counter()
         with kernel_call_shapes() as seen:
             launches[path] = (run(card, seen)
                               if path in ("ddp_train", "shard_serve", "shard_train")
@@ -4333,7 +4466,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         check_path_shapes(path, seen, errs, gen)
         torch.cuda.empty_cache()
+        path_s[path] = time.perf_counter() - t_path
+        say("path_seconds", path=path, seconds=f"{path_s[path]:.1f}")
     ms, work = kernel_times(gen)
+    path_s["kernel_times"] = time.perf_counter() - t_run - sum(path_s.values())
+    say("run_seconds", seconds=f"{time.perf_counter() - t_run:.1f}",
+        by_part=json.dumps({k: round(v, 1) for k, v in path_s.items()}),
+        limit_s=1200, card=repr(card))
     print(json.dumps({"kernels": kernels_json(errs, ms, work, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

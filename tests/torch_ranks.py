@@ -22,13 +22,14 @@ rank's rows alone), `summed_gradients` (the gradients summed over the ranks
 instead of averaged: train/steps.py's `all_reduce_mean` replaced for the
 call), `face_box_per_rank` (each rank crops the face at its own box) and,
 for the CLI, `rank0_rows` (every rank trains on rank 0's rows). The model
-axis's (`SHARD_FAULTS`): `halo_wrong_side` (each rank sends its neighbours
-the edge columns of its other side), `reflect_inner_edges` (every shard
+axis's (`SHARD_FAULTS`, undone after the call): `halo_wrong_side` (each
+kernel's left halo reads the columns past the shard's right side and its
+right halo those before its left), `reflect_inner_edges` (every shard
 reflects at its inner sides as at the image's edges) and `warp_no_offset`
 (the warp samples the whole previous frame at the shard's local columns);
 in training (`TRAIN_SHARD_FAULTS`), `halo_grad_dropped` (the exchanges'
-backward keeps each rank's own columns' gradient and drops the halos',
-on every rank).
+backward keeps each rank's own reads' gradient and drops the halos', on
+every rank).
 """
 
 from __future__ import annotations
@@ -85,13 +86,14 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
     `n_frames_bp` if given."""
     if fault is not None and fault not in FAULTS + TRAIN_SHARD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}; one of {FAULTS + TRAIN_SHARD_FAULTS}")
-    exchange_backward = halo._Exchange.backward
+    fetch_backward = halo._Fetch.backward
     if fault == "halo_grad_dropped":
-        def local_part(ctx, g):
-            w = g.shape[-1] - ctx.left - ctx.right
-            return g[..., ctx.left : ctx.left + w], None, None, None
+        def local_part(ctx, g):  # the halos' gradients zeroed before they are sent
+            g = g.clone()
+            g[..., ctx.plan.halos[ctx.q]] = 0
+            return fetch_backward(ctx, g)
 
-        halo._Exchange.backward = staticmethod(local_part)
+        halo._Fetch.backward = staticmethod(local_part)
     trainer = Trainer(Options(**opt_kwargs), flow_fn=stub_flow, device=device)
     if n_frames_bp is not None:
         trainer.schedule.n_frames_bp = n_frames_bp
@@ -112,7 +114,7 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
                               _tensor(inst), n_load)
     finally:
         steps.all_reduce_mean = mesh.all_reduce_mean
-        halo._Exchange.backward = staticmethod(exchange_backward)
+        halo._Fetch.backward = staticmethod(fetch_backward)
 
 
 def batch_norm_rows(x, weight, bias, grad_out, update_stats: bool) -> dict:
@@ -152,22 +154,30 @@ def train_cli_rank(opt: Options, fault: str | None = None) -> dict:
     return train_cli.train_rank(opt)
 
 
-def _shard_fault(fault: str) -> None:
-    """Apply one of SHARD_FAULTS in this rank."""
+@contextlib.contextmanager
+def _shard_fault(fault: str | None):
+    """One of SHARD_FAULTS in this rank within the block (None: none)."""
+    saved = [(halo, "_halo_columns", halo._halo_columns),
+             (halo.WidthShard, "edges", halo.WidthShard.edges),
+             (composite, "warp_blend_at", composite.warp_blend_at)]
     if fault == "halo_wrong_side":
-        def wrong_side(x, left, right):
-            w = x.shape[-1]
-            return torch.cat([x[..., w - right:], x[..., :left]], -1).contiguous()
-
-        halo.edge_strips = wrong_side
+        halo._halo_columns = lambda x0, x1, left, right: (range(x1, x1 + left),
+                                                          range(x0 - right, x0))
     elif fault == "reflect_inner_edges":
         halo.WidthShard.edges = property(lambda self: halo.BOTH_EDGES)
     elif fault == "warp_no_offset":
         at = composite.warp_blend_at
         composite.warp_blend_at = lambda raw, prev, flow, weight, x0: at(
             raw, prev, flow, weight, 0)
-    else:
+    elif fault is not None:
         raise ValueError(f"unknown shard fault {fault!r}; one of {SHARD_FAULTS}")
+    halo._plan.cache_clear()
+    try:
+        yield
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+        halo._plan.cache_clear()
 
 
 def shard_serve(opt_kwargs: dict, weights: dict, labels, inst=None, *,
@@ -179,8 +189,11 @@ def shard_serve(opt_kwargs: dict, weights: dict, labels, inst=None, *,
     ("clip": fake, raw, flow, weight and the state, with the model axis's
     collectives counted), the step loop over its windows ("steps") and
     generate_clip on the encoded clip ("encoded": its frames)."""
-    if fault is not None:
-        _shard_fault(fault)
+    with _shard_fault(fault):
+        return _shard_serve(opt_kwargs, weights, labels, inst)
+
+
+def _shard_serve(opt_kwargs: dict, weights: dict, labels, inst) -> dict:
     eng = InferenceEngine(Options(**opt_kwargs), device="cpu")
     if torch.distributed.get_rank() == 0:
         eng.load_state_dict({k: _tensor(v) for k, v in weights.items()})
@@ -198,7 +211,7 @@ def shard_serve(opt_kwargs: dict, weights: dict, labels, inst=None, *,
     encoded = eng.generate_clip(eng.encode(labels, inst), eng.initial_state(b, h, w))[0].fake
     return {"clip": outs._asdict(), "state": state, "steps": torch.stack(steps, 1),
             "encoded": encoded, "counts": counts,
-            "columns": (eng.shard(w).x0, eng.shard(w).width)}
+            "columns": (eng.shard(w, h).x0, eng.shard(w, h).width)}
 
 
 def test_cli_rank(opt: Options) -> int:

@@ -78,8 +78,9 @@ class Options:
     random_drop_prob: float = 0.05
     basic_point_only: bool = False
 
-    # device topology: an empty gpu_ids (--gpu_ids -1) is the CPU; more than
-    # one device is not ported (the entry points raise)
+    # device topology: an empty gpu_ids (--gpu_ids -1) is the CPU; n_devices
+    # N > 1 is one rank of N (parallel/mesh.py): training's data x model
+    # mesh, serving's width-sharded model axis
     gpu_ids: tuple[int, ...] = (0,)
     n_gpus_gen: int = -1
     n_devices: int = 1

@@ -18,11 +18,11 @@ generator's device, so the clip's encoded pyramid never exists whole.
 
 On the model axis (`shard`, a parallel/halo.py::WidthShard of the finest
 level: the engine's or the trainer's --n_devices N) each rank holds its
-columns of every level. It encodes its columns of the raw labels with a margin
-(`encode_shard`: one column a side for the instance edges, and 2**L
-columns on the left for the L = n_scales - 1 pyramid pools, which read one
-column to the left a level; none past the image's edges, so the pools'
-border divisors stay right), runs the scales on its columns under `halo.sharded` (the
+columns of every level, each level split by its own rule. It encodes the
+columns of the raw labels that its pyramid levels are pooled from
+(`pyramid_columns`, `encode_shard`: one more a side for the instance
+edges; none past the image's edges, so the pools' border divisors stay
+right), runs the scales on its columns under `halo.sharded` (the
 layers exchange their halos), and after each scale gathers the whole frame
 (one all_gather) into the previous frames, which every rank keeps whole:
 the warp reads the whole previous frame, the previous-frame trunk its
@@ -51,7 +51,7 @@ from vid2vid_tpu_torch.ops.encode import (
     instance_edges,
     label_one_hot,
 )
-from vid2vid_tpu_torch.ops.pool import build_pyramid_video
+from vid2vid_tpu_torch.ops.pool import avg_pool_3x3s2, build_pyramid_video
 from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.parallel.halo import WidthShard
 
@@ -119,43 +119,64 @@ class Vid2VidGenerator(nn.Module):
             enc = torch.cat([enc, instance_edges(inst).unsqueeze(2)], dim=2)
         return enc
 
-    def shard_pyramid(self, enc: torch.Tensor, start: int, shard: WidthShard) -> list:
-        """The shard's columns of each pyramid level of an encoded clip
-        (B, T, C, H, w) whose columns start at the image's column `start` =
-        max(0, x0 - 2**L) (`shard_margin`) and end at the shard's last.
-        Each 3x3/s2 pool reads one column to the left of its window: a
-        level-l window's first column reads the one before `start`, which
-        is missing, so it is cropped away; 2**L columns of margin leave
-        2**(L-l) >= 1 at every level. `start` is a multiple of 2**L, so the
-        levels stay column-aligned."""
-        pyr = build_pyramid_video(enc, self.n_scales)
-        out = []
-        for level, p in enumerate(pyr):
+    def pyramid_columns(self, shard: WidthShard) -> list[tuple[int, int]]:
+        """The columns [lo, hi) of each pyramid level, finest first, from
+        which the shard's columns of every level are pooled: the coarsest
+        level's are its own; level l's hold its own and those that the
+        3x3/s2 pools of level l + 1's read, 2a - 1 .. 2b - 1 for [a, b),
+        from an even column on (the pool's windows are centred on level
+        l's even columns), with one more on the left, which is not read:
+        the window of a slice's first output column that does not start at
+        the image's edge lacks its left column, so that output is dropped."""
+        cols = [shard.at(self.n_scales - 1).bounds(shard.index)]
+        for level in range(self.n_scales - 2, -1, -1):
             sh = shard.at(level)
-            first = sh.x0 - (start >> level)
-            out.append(p[..., first : first + sh.width])
-        return out
+            (a, b), (x0, x1) = cols[0], sh.bounds(shard.index)
+            if a < b:
+                lo, hi = max(0, 2 * a - 2), min(sh.total, 2 * b)
+                if x0 < x1:
+                    lo, hi = min(lo, x0), max(hi, x1)
+                x0, x1 = lo & ~1, hi
+            cols.insert(0, (x0, x1))
+        return cols
 
-    def shard_margin(self, shard: WidthShard) -> int:
-        """The image column from which a shard's pyramid is built
-        (`shard_pyramid`)."""
-        return max(0, shard.x0 - 2 ** (self.n_scales - 1))
+    def shard_pyramid(self, enc: torch.Tensor, shard: WidthShard) -> list:
+        """The shard's columns of each pyramid level of an encoded clip
+        (B, T, C, H, w), w the finest level's `pyramid_columns`: each level
+        pooled from the one above's columns (AvgPool2d(3, 2, 1,
+        count_include_pad=False) of a slice starting at an even column c
+        gives columns c / 2 on, the first of them wrong unless c = 0), cut
+        to the next level's columns and, for the output, to the shard's."""
+        cols = self.pyramid_columns(shard)
+        b, t = enc.shape[:2]
+        cur, out = enc.reshape((b * t,) + enc.shape[2:]), []
+        for level, (lo, hi) in enumerate(cols):
+            if level:
+                prev_lo = cols[level - 1][0]
+                if lo < hi:
+                    cur = avg_pool_3x3s2(cur)[..., lo - prev_lo // 2 : hi - prev_lo // 2]
+                else:  # no columns from here on, at the level's height
+                    cur = cur.new_zeros(cur.shape[:-2] + ((cur.shape[-2] + 1) // 2, 0))
+            x0, x1 = shard.at(level).bounds(shard.index)
+            y = cur[..., x0 - lo : x1 - lo] if x0 < x1 else cur[..., :0]
+            out.append(y.reshape((b, t) + y.shape[1:]))
+        return out
 
     def encode_shard(self, labels: torch.Tensor, inst: torch.Tensor | None,
                      shard: WidthShard, device, compute_dtype=None) -> list:
         """`encode_input` + the pyramid of the shard's columns of raw labels
-        and instance maps (whole width, any device): the columns from
-        `shard_margin` to the shard's last, plus one a side (inside the
-        image) for the instance edges, encoded on `device`, cast to
-        `compute_dtype` and pooled (`shard_pyramid`)."""
-        start = self.shard_margin(shard)
-        lo, hi = max(0, start - 1), min(shard.total, shard.x0 + shard.width + 1)
+        and instance maps (whole width, any device): the finest level's
+        `pyramid_columns`, plus one a side (inside the image) for the
+        instance edges, encoded on `device`, cast to `compute_dtype` and
+        pooled (`shard_pyramid`)."""
+        start, stop = self.pyramid_columns(shard)[0]
+        lo, hi = max(0, start - 1), min(shard.total, stop + 1)
         enc = self.encode_input(
             labels[..., lo:hi].to(device), None if inst is None else inst[..., lo:hi].to(device))
-        enc = enc[..., start - lo : shard.x0 + shard.width - lo]
+        enc = enc[..., start - lo : stop - lo]
         if compute_dtype is not None:
             enc = enc.to(compute_dtype)
-        return self.shard_pyramid(enc, start, shard)
+        return self.shard_pyramid(enc, shard)
 
     # ------------------------------------------------------------------ state
 
@@ -203,8 +224,8 @@ class Vid2VidGenerator(nn.Module):
         if shard is None:
             a_pyr = build_pyramid_video(enc_a, n_scales)
         else:
-            start = self.shard_margin(shard)
-            a_pyr = self.shard_pyramid(enc_a[..., start : shard.x0 + shard.width], start, shard)
+            start, stop = self.pyramid_columns(shard)[0]
+            a_pyr = self.shard_pyramid(enc_a[..., start:stop], shard)
         bufs = tuple(stack_time(s) for s in state)
         ys = []
         for t in range(n_frames):
@@ -289,7 +310,7 @@ class Vid2VidGenerator(nn.Module):
             for i in range(4)
         )
         if shard is not None:  # differentiable: the gradient keeps this rank's columns
-            raw, flow, weight = (None if t is None else halo.gather_width(t, shard.n, shard.group)
+            raw, flow, weight = (None if t is None else halo.gather_width(t, shard)
                                  for t in (raw, flow, weight))
         new_state = tuple(unstack_time(b, self.tG - 1).detach() for b in bufs)
         return ClipOutputs(fake, raw, flow, weight), new_state
@@ -348,7 +369,7 @@ class Vid2VidGenerator(nn.Module):
             coarse = out
             frame = out.img_final
             if shard is not None:  # the whole frame, for the ring and the caller
-                frame = halo.gather_width(frame, shard.n, shard.group)
+                frame = halo.gather_width(frame, shard)
             # ring buffer: drop the oldest frame, append this one (the
             # stored, gradient-connected frames)
             new_bufs[si] = torch.cat([bufs[si][:, c_out:], frame], 1)

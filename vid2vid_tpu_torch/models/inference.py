@@ -23,9 +23,10 @@ torch.distributed group, and `step` / `generate_clip_raw` /
 WidthShard; the layers exchange their halos) and return the whole frames
 on every rank. The weights are replicated (broadcast from rank 0 whenever
 any rank's have changed since the last call); the state, the seeding and
-the first frames stay whole on every rank. The width must split into
-whole, even-aligned columns at every level (halo.check_geometry, which
-raises ValueError otherwise; JAX pads uneven shards).
+the first frames stay whole on every rank. The width must be a multiple
+of N, the JAX engine's own condition (halo.check_geometry raises
+ValueError otherwise); each coarser level splits by its own rule, its
+shards unequal or empty where they must be.
 """
 
 from __future__ import annotations
@@ -134,15 +135,15 @@ class InferenceEngine:
 
     # -------------------------------------------------------------- model axis
 
-    def shard(self, width: int) -> halo.WidthShard | None:
-        """This rank's columns of a frame `width` wide (None without a model
-        axis); raises ValueError for a width the ranks cannot split
+    def shard(self, width: int, height: int) -> halo.WidthShard | None:
+        """This rank's columns of frames `width` x `height` (None without a
+        model axis); raises ValueError for a width the ranks cannot split
         (halo.check_geometry)."""
         if self.mesh is None:
             return None
-        opt, n = self.opt, self.mesh.model
-        halo.check_geometry(width, n, 2 ** (opt.n_scales_spatial - 1), 2**opt.n_downsample_G)
-        return halo.make_shard(self.mesh.model_index, n, width, self.mesh.model_group)
+        n = self.mesh.model
+        halo.check_geometry(width, n)
+        return halo.make_shard(self.mesh.model_index, n, width, self.mesh.model_group, height)
 
     def replicate_weights(self) -> None:
         """Broadcast the generator's weights from rank 0 of the model axis
@@ -155,10 +156,10 @@ class InferenceEngine:
             replicated(self.gen, group=self.mesh.model_group)
             self._synced = version_key(state_tensors(self.gen))
 
-    def _sharded(self, width: int) -> halo.WidthShard | None:
-        """The shard of a call on frames `width` wide, the weights
+    def _sharded(self, width: int, height: int) -> halo.WidthShard | None:
+        """The shard of a call on frames `width` x `height`, the weights
         replicated first."""
-        shard = self.shard(width)
+        shard = self.shard(width, height)
         if shard is not None:
             self.replicate_weights()
         return shard
@@ -309,7 +310,7 @@ class InferenceEngine:
     ) -> tuple[ClipOutputs, State]:
         """(B, T+tG-1, C, H, W) encoded labels -> (ClipOutputs in f32, state)."""
         dt = self.compute_dtype
-        shard = self._sharded(enc_a.shape[-1])
+        shard = self._sharded(enc_a.shape[-1], enc_a.shape[-2])
         outs, new_state = self.compute_generator().generate_clip(
             enc_a.to(self.device, dt),
             tuple(s.to(self.device, dt) for s in state),
@@ -333,7 +334,7 @@ class InferenceEngine:
         dtype). With a model axis each rank encodes and runs its columns;
         the outputs are whole on every rank."""
         dt = self.compute_dtype
-        shard = self._sharded(labels.shape[-1])
+        shard = self._sharded(labels.shape[-1], labels.shape[-2])
         outs, new_state = self.compute_generator().generate_clip_streaming(
             labels, inst, tuple(s.to(self.device, dt) for s in state),
             use_raw_only=use_raw_only, compute_dtype=dt, shard=shard,

@@ -74,9 +74,10 @@ class ResnetBlock(nn.Module):
     parameter or buffer of the block changes (its version counter, storage,
     dtype or device) or x's dtype or device does (`nn.layers.eval_cached`);
     with gradients on they are rebuilt on each call, so the weights keep
-    their gradient. On a width shard, eval takes two columns of each
-    neighbour and runs `ops.respair_halo` (one exchange for both convs);
-    train mode's two pads take one each (nn/layers.py::ReflectionPad2d).
+    their gradient. On a width shard, eval takes two columns a side, from
+    whichever ranks own them, and runs `ops.respair_halo` (one exchange
+    for both convs); train mode's two pads take one each
+    (nn/layers.py::ReflectionPad2d).
     """
 
     def __init__(self, dim: int, norm: str = "batch"):
@@ -115,5 +116,8 @@ class ResnetBlock(nn.Module):
         if shard is None:
             return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)
         x = x.contiguous()
-        x_in, xoff = halo.attach(x, *halo.exchange(x, shard, 2, 2))
+        strips = halo.exchange(x, shard, 2, 2)
+        if not shard.width:  # no columns here: no launch
+            return x
+        x_in, xoff = halo.attach(x, *strips)
         return respair_halo(x, x_in, xoff, shard.edges, k0, ab0, k1, ab1, packed=packed)

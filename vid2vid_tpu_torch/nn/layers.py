@@ -31,17 +31,20 @@ sharded batch; instance norm stays per sample.
 
 On the model axis (a frame's columns split over ranks: parallel/halo.py,
 set by the generator around a frame) the layers that read across columns
-take their neighbours' columns first: the eval 7x7 (`ReflectConv7`,
-through conv7's column-halo mode), the reflection pads of the train-mode
-convs (`FoldedReflectionPad2d`, `ReflectionPad2d`: the neighbours' columns
-on inner sides, reflection only at the image's edges), the down convs
-(`DownConv2d`: one column on the left, zeros at the image's edge) and the
-transposed convs (`UpConvTranspose2d`: one on the right), in both modes
-through the differentiable `halo.padded`. The eval norms normalise by
-their running stats, pointwise; in train mode batch norm takes its
-statistics over its `group`, which the trainer sets to every rank of the
-mesh (the data axis's samples and the model axis's columns), and instance
-norm each sample's over the model axis (the shard's group).
+take the columns they read first, from whichever ranks own them: the
+eval 7x7 (`ReflectConv7`, through conv7's column-halo mode), the
+reflection pads of the train-mode convs (`FoldedReflectionPad2d`,
+`ReflectionPad2d`: reflection only at the image's edges, `halo.padded`),
+the down convs (`DownConv2d`, `halo.down_input`) and the transposed convs
+(`UpConvTranspose2d`, `halo.up_input`), whose output level is split by its
+own rule, in both modes through differentiable exchanges. A shard may hold
+no columns of a level: its convs run on zero columns and keep none
+(`valid_conv`), so that its graph, and the collectives in it, are every
+rank's. The eval norms normalise by their running stats, pointwise; in
+train mode batch norm takes its statistics over its `group`, which the
+trainer sets to every rank of the mesh (the data axis's samples and the
+model axis's columns), and instance norm each sample's over the model
+axis (the shard's group).
 """
 
 from __future__ import annotations
@@ -173,13 +176,35 @@ def sync_batch_norm(module: nn.Module, group) -> None:
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     """F.pad(x, (p, p, p, p), mode="reflect"); on a width shard its columns
-    come from the neighbours on the inner sides (`halo.padded`, which
-    carries the gradient back to them) and the reflection only at the
-    image's edges, then the rows are reflected."""
+    come from the ranks that own them (`halo.padded`, which carries the
+    gradient back to them) and the reflection only at the image's edges,
+    then the rows are reflected (by hand on a shard with no columns, which
+    F.pad refuses)."""
     shard = halo.active(x)
     if shard is None:
         return F.pad(x, (p, p, p, p), mode="reflect")
-    return F.pad(halo.padded(x, shard, p, p, "reflect"), (0, 0, p, p), mode="reflect")
+    xp = halo.padded(x, shard, p, p, "reflect")
+    if xp.shape[-1]:
+        return F.pad(xp, (0, 0, p, p), mode="reflect")
+    return torch.cat([xp[..., 1 : p + 1, :].flip(-2), xp, xp[..., -p - 1 : -1, :].flip(-2)], -2)
+
+
+def valid_conv(fn, x: torch.Tensor, k: int) -> torch.Tensor:
+    """fn(x), a conv that reads k input columns an output column (VALID
+    along the width). On an input narrower than k (a shard with no
+    columns) fn runs on k zero columns and its output keeps none: no
+    columns, and the graph of every other rank, reaching x."""
+    if x.shape[-1] >= k:
+        return fn(x)
+    return fn(F.pad(x, (0, k - x.shape[-1])))[..., :0]
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (VALID: the reflection pads ahead of it pad) that takes a
+    width shard's input with no columns (`valid_conv`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return valid_conv(super().forward, x, self.kernel_size[1])
 
 
 class ReflectionPad2d(nn.ReflectionPad2d):
@@ -193,7 +218,7 @@ class ReflectionPad2d(nn.ReflectionPad2d):
 
 def reflect_conv(cin: int, cout: int, kernel: int) -> list[nn.Module]:
     """ReflectionPad2d(kernel // 2) + Conv2d(cin, cout, kernel)."""
-    return [ReflectionPad2d(kernel // 2), nn.Conv2d(cin, cout, kernel)]
+    return [ReflectionPad2d(kernel // 2), Conv2d(cin, cout, kernel)]
 
 
 class FoldedReflectionPad2d(nn.ReflectionPad2d):
@@ -297,7 +322,7 @@ class ReflectConv7(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:  # x is padded: no shard's width
-            return super().forward(x)
+            return valid_conv(super().forward, x, 7)
         if torch.is_grad_enabled():
             w, bias, packed = self._kernel_args(x)
         else:
@@ -306,7 +331,10 @@ class ReflectConv7(nn.Conv2d):
         shard = halo.active(x)
         if shard is None:
             return conv7_reflect(x.contiguous(), w, bias, packed=packed)
-        x_in, xoff = halo.attach(x, *halo.exchange(x, shard, 3, 3))
+        strips = halo.exchange(x, shard, 3, 3)
+        if not shard.width:  # no columns here: no launch
+            return x.new_empty(x.shape[:1] + (self.out_channels,) + x.shape[2:])
+        x_in, xoff = halo.attach(x, *strips)
         return conv7_halo(x_in, w, bias, xoff, x.shape[-1], shard.edges, packed=packed)
 
 
@@ -318,16 +346,16 @@ def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
 
 class DownConv2d(nn.Conv2d):
     """Conv2d(3, stride 2, zero padding 1). On a width shard its output
-    column j reads the shard's columns 2j - 1 .. 2j + 1: the left
-    neighbour's last column first (zeros at the image's left edge;
-    `halo.padded`, differentiable)."""
+    columns [a, b) (of the level below x's) read input columns 2a - 1 ..
+    2b - 1, wherever they lie (zeros past the image's edges;
+    `halo.down_input`, differentiable)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shard = halo.active(x)
         if shard is None:
             return super().forward(x)
-        xp = halo.padded(x, shard, 1, 0, "zeros")
-        return F.conv2d(xp, self.weight, self.bias, 2, (1, 0))
+        return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, 2, (1, 0)),
+                          halo.down_input(x, shard), 3)
 
 
 def down_conv(cin: int, cout: int) -> DownConv2d:
@@ -337,17 +365,22 @@ def down_conv(cin: int, cout: int) -> DownConv2d:
 
 class UpConvTranspose2d(nn.ConvTranspose2d):
     """ConvTranspose2d(3, stride 2, padding 1, output_padding 1). On a
-    width shard its last two output columns take the right neighbour's
-    first column (zeros past the image's right edge; `halo.padded`,
-    differentiable)."""
+    width shard its output columns [a, b) (of the level above x's) read
+    input columns a // 2 .. (b - 1) // 2 + 1, wherever they lie (zeros
+    past the image's right edge; `halo.up_input`, differentiable): with no
+    column padding, output column c of input columns from j0 = a // 2 is
+    the level's column 2 j0 - 1 + c."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shard = halo.active(x)
         if shard is None:
             return super().forward(x)
-        xp = halo.padded(x, shard, 0, 1, "zeros")
-        out = F.conv_transpose2d(xp, self.weight, self.bias, 2, 1, output_padding=(1, 0))
-        return out[..., : 2 * x.shape[-1]]
+        a, b = shard.at(shard.level - 1).bounds(shard.index)
+        out = valid_conv(lambda t: F.conv_transpose2d(t, self.weight, self.bias, 2, (1, 0),
+                                                      output_padding=(1, 0)),
+                         halo.up_input(x, shard), 1)
+        first = a % 2 + 1
+        return out[..., first : first + b - a]
 
 
 def conv_transpose(cin: int, cout: int) -> UpConvTranspose2d:

@@ -359,8 +359,8 @@ def conv7_halo(
     gradient); a CPU tensor takes `conv7_halo_plain`."""
     _check(x, w, bias, True)
     if wants_grad(x, w, bias):
-        raise NotImplementedError("conv7_halo carries no gradient: training's model axis "
-                                  "is not ported")
+        raise NotImplementedError("conv7_halo carries no gradient: no train-mode path calls "
+                                  "the column-halo mode (train mode pads through halo.padded)")
     need_l = 0 if edges & LEFT_EDGE else PAD
     need_r = 0 if edges & RIGHT_EDGE else PAD
     if width < 1 or xoff < need_l or x.shape[3] < xoff + width + need_r:

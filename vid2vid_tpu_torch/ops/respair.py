@@ -73,7 +73,7 @@ def respair_halo_plain(
     return conv(h, hl, -1, w + 1, k1) * a1 + c1 + x
 
 
-def _check_shapes(x, k0, ab0, k1, ab1) -> None:
+def _check_shapes(x, k0, ab0, k1, ab1, least_w: int = 2) -> None:
     if x.dim() != 4:
         raise ValueError(f"respair: x must be (B, C, H, W), got {tuple(x.shape)}")
     c, h, w = x.shape[1:]
@@ -83,8 +83,9 @@ def _check_shapes(x, k0, ab0, k1, ab1) -> None:
     for v in (*ab0, *ab1):
         if tuple(v.shape) != (c,):
             raise ValueError(f"respair: affine {tuple(v.shape)} != {(c,)}")
-    if h < 2 or w < 2:
-        raise ValueError(f"respair: reflect padding needs H, W >= 2, got {h}x{w}")
+    if h < 2 or w < least_w:
+        raise ValueError(f"respair: reflect padding needs H, W >= 2 (W >= 1 on a width "
+                         f"shard), got {h}x{w}")
 
 
 def _check_packed(x, k0, packed) -> None:
@@ -199,13 +200,15 @@ def respair_halo(
     (parallel/halo.py::LEFT_EDGE, RIGHT_EDGE), reflected there. One
     exchange serves both convs: h is computed one column beyond x on each
     inner side. With x_in = x, xoff 0 and both edges it is `respair`, bit
-    for bit on the card. Inference only (no gradient); a CPU tensor takes
+    for bit on the card. x may be one column wide: on a side that is the
+    image's edge both convs reflect into the halo of the other side.
+    Inference only (no gradient); a CPU tensor takes
     `respair_halo_plain`."""
-    _check_shapes(x, k0, ab0, k1, ab1)
+    _check_shapes(x, k0, ab0, k1, ab1, least_w=1)
     (a0, c0), (a1, c1) = ab0, ab1
     if wants_grad(x, x_in, k0, a0, c0, k1, a1, c1):
-        raise NotImplementedError("respair_halo carries no gradient: training's model axis "
-                                  "is not ported")
+        raise NotImplementedError("respair_halo carries no gradient: no train-mode path "
+                                  "calls the column-halo mode (train mode runs the plain block)")
     need_l = 0 if edges & LEFT_EDGE else 2
     need_r = 0 if edges & RIGHT_EDGE else 2
     if (x_in.shape[:3] != x.shape[:3] or xoff < need_l

@@ -392,6 +392,8 @@ def warp_forward_cuda(prev: torch.Tensor, flow: torch.Tensor, raw: torch.Tensor 
     wrapper whose entry it is (flow_warp, warp_blend, warp_blend_at)."""
     out_like = prev if raw is None else raw
     b, c, h, w = out_like.shape
+    if w == 0:  # a width shard with no columns at this level: no launch
+        return torch.empty_like(out_like)
     wp = prev.shape[3]
     plan = plan or warp_forward_plan(c, prev.dtype, h, w, wp)
     tensors = dict(prev=prev, flow=flow) if raw is None else dict(
@@ -561,9 +563,14 @@ def warp_blend_at_bwd(
     g: the kernel `v2v_warp_blend_bwd` at column offset x0 on a CUDA tensor
     (all five in one dtype, f32 or bf16, contiguous; d_prev over the whole
     frame), `warp_blend_at_backward_plain` on a CPU tensor. At x0 = 0 with
-    Wp = W it is `warp_blend_bwd`, bit for bit on the card."""
+    Wp = W it is `warp_blend_bwd`, bit for bit on the card. With no
+    columns (W = 0: a shard with none at this level) no kernel runs and
+    d_prev is zeros."""
     _check_at(raw, prev, flow, weight, x0)
     _check_backward(prev)
+    if raw.shape[3] == 0:
+        return (torch.empty_like(raw), torch.zeros_like(prev), torch.empty_like(flow),
+                torch.empty_like(weight))
     if prev.device.type == "cpu":
         return warp_blend_at_backward_plain(raw, prev, flow, weight, g, x0)
     return _warp_blend_bwd_cuda(raw, prev, flow, weight, g, x0, warp_blend_at_bwd)

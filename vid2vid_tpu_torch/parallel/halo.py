@@ -1,26 +1,44 @@
 """The model axis's halo exchanges: a frame's columns split over the ranks of
 one group (the port's own module: the JAX package shards the width with
-GSPMD, which inserts these exchanges itself, vid2vid_tpu/parallel/mesh.py).
+GSPMD, which inserts these exchanges itself and pads the uneven levels,
+vid2vid_tpu/parallel/mesh.py).
 
 Each rank of a width-sharded generator holds a contiguous range of the
-frame's columns at every pyramid and trunk level (`WidthShard`). A layer
-that reads across columns takes its neighbours' edge columns first (one
-all_gather of every rank's packed edge strips), then computes its local
-columns alone:
+columns of every pyramid and trunk level (`WidthShard`): level l, W_l =
+W / 2**l columns wide, is split by its own rule, rank r of n holding
+[r W_l // n, (r + 1) W_l // n). The finest width is a multiple of n (the
+JAX package's own condition, `check_geometry`); a coarser level's ranges
+may be unequal, and empty where the level has fewer columns than ranks.
+Every rank derives every rank's ranges from (W, n, the level), so nothing
+about them is sent. A layer finds its input's level by its height, which
+no shard splits (`active`).
+
+A layer that reads across columns takes the columns it reads first: each
+rank's list of global columns (its `_need`, from its output columns),
+read from whichever ranks own them, the reflection or the zeros of the
+padding past the image's edges included. One all_gather moves them
+(`_Fetch`): every rank sends the columns of its own that any other rank
+reads, padded to the longest such list, and cuts what it reads from the
+gathered lists by the ranges. It is differentiable: the backward sends
+each read column's gradient back to its owner (one all_gather of every
+rank's halo gradients), which adds up the gradients of its columns in
+one order (the self reads first, then the ranks'). Its users:
 
   - the eval reflect-padded 7x7 and 3x3 convs (conv7, respair) run their
-    kernels' column-halo mode: the input carries the neighbours' columns
-    on its inner sides (`exchange`, `attach`), and reflects only at the
-    image's edges (`WidthShard.edges`, csrc/common.cuh::Cols);
-  - the reflection pads of the train-mode convs and the zero-padded
-    stride-2 down convs and transposed up convs take `padded`: the input
-    with its halo columns attached, reflected or zero only at the image's
-    edges. It is differentiable: its backward sends each halo column's
-    gradient back to the rank that owns the column, which adds it to its
-    edge columns (one all_gather of packed strips, as the forward's).
+    kernels' column-halo mode: the input carries the columns of its
+    inner sides (`exchange`, `attach`), and the kernel reflects only at
+    the image's edges (`WidthShard.edges`, csrc/common.cuh::Cols), into
+    the columns the input carries where the shard is narrower than the
+    pad;
+  - the reflection pads of the train-mode convs (`padded`), the
+    zero-padded stride-2 down convs (`down_input`) and the transposed up
+    convs (`up_input`), whose inputs and outputs lie on two levels split
+    by their own rules, so that a rank may read columns it does not hold
+    and hold columns it does not read.
 
-After each scale the generator gathers the whole frame (`gather_width`).
-Every rank then holds the whole frames, which feed two kinds of consumer:
+After each scale the generator gathers the whole frame (`gather_width`:
+the unequal shards padded to the widest, then cut by the ranges). Every
+rank then holds the whole frames, which feed two kinds of consumer:
 
   - replicated consumers compute the same thing on every rank: the
     losses, the discriminators, VGG;
@@ -41,30 +59,34 @@ share: the training step sums them over the model axis
 (train/steps.py::_apply).
 
 Every rank makes every collective in the same order, forward and
-backward, the ranks at the image's edges included (they send strips that
-no neighbour reads): a collective one rank skipped would hang the others.
-The layers' autograd graphs have the same structure on every rank, so the
-backward meets the collectives in one order.
+backward, ranks with no columns at a level included (they send and read
+nothing, padded lists of zeros): a collective one rank skipped would hang
+the others. The layers' autograd graphs have the same structure on every
+rank (a conv of a shard with no columns runs on zero columns and keeps
+none, nn/layers.py::valid_conv), so the backward meets the collectives in
+one order. An exchange that no rank needs (every list empty) is made by
+none.
 
-`with_halo_plain` and `padded_plain` assemble a padded tensor on one
-process from the strips of the whole tensor, and `collectives.LocalGroup`
-runs N shards of one process on N threads: with them the tests hold N
-shards against the whole tensor, gradients included, without ranks.
-`columns` is the plain versions' view of a column-halo input. The
-generator sets the shard of a frame (`sharded`); a layer finds its
-level's shard by its input's width (`active`). With no shard set every
-layer computes what it computes unsharded, by the same code.
+`fetch_plain` cuts what `_Fetch` gives a shard from the whole tensor on
+one process, and `collectives.LocalGroup` runs N shards of one process on
+N threads: with them the tests hold N shards against the whole tensor,
+gradients included, without ranks. `columns` is the plain versions' view
+of a column-halo input. The generator sets the shard of a frame
+(`sharded`). With no shard set every layer computes what it computes
+unsharded, by the same code.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import contextvars
 import dataclasses
+import functools
 
 import torch
 
-from vid2vid_tpu_torch.parallel.collectives import all_gather, all_reduce, group_rank
+from vid2vid_tpu_torch.parallel.collectives import all_gather, all_reduce
 
 # the image-edge flags of csrc/common.cuh::Cols
 LEFT_EDGE, RIGHT_EDGE = 1, 2
@@ -76,10 +98,10 @@ BOTH_EDGES = LEFT_EDGE | RIGHT_EDGE
 ALIGN = 8
 
 # the collectives of the model axis since the last reset, with the bytes
-# each rank sent: halo exchanges (`exchange`, `padded`) and whole-width
-# gathers (`gather_width`) in the forward; in the backward, the halo
-# gradients' exchanges (`padded`) and the all-reduces of a shared tensor's
-# gradient (`shared`; a gather's backward sends nothing)
+# each rank sent: halo exchanges (`exchange`, `padded`, `down_input`,
+# `up_input`) and whole-width gathers (`gather_width`) in the forward; in
+# the backward, the halo gradients' exchanges and the all-reduces of a
+# shared tensor's gradient (`shared`; a gather's backward sends nothing)
 COUNTS = {"exchanges": 0, "exchange_bytes": 0, "gathers": 0, "gather_bytes": 0,
           "exchanges_bwd": 0, "exchange_bytes_bwd": 0, "reduces_bwd": 0,
           "reduce_bytes_bwd": 0}
@@ -90,82 +112,94 @@ def reset_counts() -> None:
         COUNTS[k] = 0
 
 
+def split(total: int, n: int, rank: int) -> tuple[int, int]:
+    """Rank `rank`'s columns [x0, x1) of a level `total` wide on n ranks."""
+    return rank * total // n, (rank + 1) * total // n
+
+
 @dataclasses.dataclass(frozen=True)
 class WidthShard:
-    """This rank's columns of a level: [x0, x0 + width) of `total`, shard
-    `index` of `n` on the model axis's `group`."""
+    """Shard `index` of `n` on the model axis's `group`, at pyramid or
+    trunk level `level` of frames width0 x height0 (level l: 2**l times
+    narrower and lower): its columns [x0, x1) of the level's `total`
+    (`split`)."""
 
     index: int
     n: int
-    x0: int
-    width: int
-    total: int
+    width0: int
+    height0: int
     group: object = None
+    level: int = 0
+
+    @property
+    def total(self) -> int:
+        return self.width0 >> self.level
+
+    def bounds(self, rank: int) -> tuple[int, int]:
+        return split(self.total, self.n, rank)
+
+    @property
+    def x0(self) -> int:
+        return self.bounds(self.index)[0]
+
+    @property
+    def x1(self) -> int:
+        return self.bounds(self.index)[1]
+
+    @property
+    def width(self) -> int:
+        return self.x1 - self.x0
 
     @property
     def left_edge(self) -> bool:
-        return self.x0 == 0
+        return self.width > 0 and self.x0 == 0
 
     @property
     def right_edge(self) -> bool:
-        return self.x0 + self.width == self.total
+        return self.width > 0 and self.x1 == self.total
 
     @property
     def edges(self) -> int:
         """The sides that are the image's edges (LEFT_EDGE | RIGHT_EDGE)."""
         return (LEFT_EDGE if self.left_edge else 0) | (RIGHT_EDGE if self.right_edge else 0)
 
-    def at(self, level: int, factor: int = 2) -> WidthShard:
-        """The shard `level` levels coarser, each `factor` times narrower."""
-        f = factor**level
-        if self.x0 % f or self.width % f or self.total % f:
-            raise ValueError(f"shard {self.x0}:{self.x0 + self.width} of {self.total} does "
-                             f"not divide into a level {f}x coarser")
-        return dataclasses.replace(self, x0=self.x0 // f, width=self.width // f,
-                                   total=self.total // f)
+    def at(self, level: int) -> WidthShard:
+        """This rank's shard of level `level` (0: the finest)."""
+        f = 2**level
+        if level < 0 or self.width0 % f or self.height0 % f:
+            raise ValueError(f"frames {self.height0}x{self.width0} have no level {level}")
+        return dataclasses.replace(self, level=level)
 
-    def for_width(self, width: int) -> WidthShard:
-        """The shard of the level whose local width is `width` (this shard's
-        level or a coarser one)."""
-        if width == self.width:
-            return self
-        if width <= 0 or self.width % width or (self.width // width) & (self.width // width - 1):
-            raise ValueError(f"a local width of {width} is no level of shard width {self.width}")
-        return self.at(1, self.width // width)
+    def level_of(self, x: torch.Tensor) -> WidthShard:
+        """The shard of x's level, found by its height (which no shard
+        splits)."""
+        h = x.shape[-2]
+        f = self.height0 // h if h else 0
+        if f < 1 or self.height0 % h or f & (f - 1):
+            raise ValueError(f"a height of {h} is no level of frames {self.height0} high")
+        return self.at(f.bit_length() - 1)
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This shard's columns of a whole-width tensor (a view)."""
         if x.shape[-1] != self.total:
             raise ValueError(f"width {x.shape[-1]} is not the whole width {self.total}")
-        return x[..., self.x0 : self.x0 + self.width]
+        return x[..., self.x0 : self.x1]
 
 
-def make_shard(index: int, n: int, total: int, group=None) -> WidthShard:
-    """Shard `index` of `n` equal ones of `total` columns."""
-    if total % n:
-        raise ValueError(f"width {total} does not divide into {n} shards")
-    w = total // n
-    return WidthShard(index, n, index * w, w, total, group)
+def check_geometry(width: int, n: int, user: str = "a width-sharded engine") -> None:
+    """Raise ValueError unless `width` columns split into n shards: the JAX
+    package's condition, the width a multiple of n (its device_put of a
+    width-sharded batch); the coarser levels split unevenly where they
+    must. `user` names who asks (serving or training)."""
+    if width < n or width % n:
+        raise ValueError(f"{user}: width {width} on {n} ranks: the width must be a "
+                         f"multiple of the ranks, {n}")
 
 
-def check_geometry(width: int, n: int, pyramid: int, trunk: int,
-                   user: str = "a width-sharded engine") -> None:
-    """Raise ValueError unless `width` columns split into n shards that hold
-    whole, even-aligned columns at every level: the width divisible by n x
-    the pyramid factor x the trunk factor, and each shard at least as wide
-    as the widest halo of every level, 3 at the coarsest pyramid level (the
-    7x7 convs) and 2 at the coarsest trunk level (the residual blocks).
-    JAX pads uneven shards; the port refuses them. `user` names who asks
-    (serving or training)."""
-    unit = n * pyramid * trunk
-    least = max(2 * unit, 3 * n * pyramid)
-    if width % unit or width < least:
-        raise ValueError(
-            f"{user}: width {width} on {n} ranks: the width must be a multiple of ranks x "
-            f"pyramid x trunk factors = {n} x {pyramid} x {trunk} = {unit}, and at "
-            f"least {least}: each shard holds 3 columns at the coarsest pyramid level "
-            f"(the 7x7 convs' halo) and 2 at the coarsest trunk level (the residual "
-            f"blocks')")
+def make_shard(index: int, n: int, width: int, group=None, height: int = 1) -> WidthShard:
+    """Shard `index` of `n` of frames `width` x `height` (the entry points
+    hold the width to `check_geometry` first)."""
+    return WidthShard(index, n, width, height, group)
 
 
 # the shard of the frame being served (`sharded`), per thread
@@ -185,112 +219,268 @@ def sharded(shard: WidthShard | None):
 
 def active(x: torch.Tensor | None = None) -> WidthShard | None:
     """The shard set by `sharded` (None outside it, or for one shard); with
-    x, the shard of x's level, found by its width."""
+    x, the shard of x's level (`WidthShard.level_of`)."""
     shard = _ACTIVE.get()
     if shard is None or shard.n == 1:
         return None
-    return shard if x is None else shard.for_width(x.shape[-1])
+    return shard if x is None else shard.level_of(x)
 
 
-def edge_strips(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
-    """What a rank sends: its first `right` columns (its left neighbour's
-    right halo), then its last `left` columns (its right neighbour's left
-    halo)."""
-    w = x.shape[-1]
-    return torch.cat([x[..., :right], x[..., w - left:]], -1).contiguous()
+# ------------------------------------------------------------ what a rank reads
 
 
-def exchange(x: torch.Tensor, shard: WidthShard, left: int, right: int):
-    """The neighbours' columns that x's layer reads: (its left neighbour's
-    last `left` columns, its right neighbour's first `right` columns), None
-    on a side that is the image's edge or takes no halo. One all_gather
-    over the shard's group of every rank's packed strips (B, C, H, left +
-    right): for two ranks what a pairwise exchange sends. Not
-    differentiable (the eval kernels' column-halo modes); `padded` is."""
-    w = x.shape[-1]
-    if max(left, right) > w:
-        raise ValueError(f"a halo of {max(left, right)} columns is wider than the shard's {w}")
-    send = edge_strips(x, left, right)
-    parts = all_gather(send, shard.group)
-    COUNTS["exchanges"] += 1
-    COUNTS["exchange_bytes"] += send.numel() * send.element_size()
-    lstrip = (None if shard.left_edge or left == 0
-              else parts[shard.index - 1][..., right:])
-    rstrip = (None if shard.right_edge or right == 0
-              else parts[shard.index + 1][..., :right])
-    return lstrip, rstrip
+def _source(i: int, total: int, mode: str) -> int:
+    """The column that global column i of the padded level reads: i inside
+    the image; past its edges the reflection about the first or last
+    column ("reflect") or -1, a zero ("zeros")."""
+    if 0 <= i < total:
+        return i
+    if mode == "zeros":
+        return -1
+    j = -i if i < 0 else 2 * total - 2 - i
+    if mode != "reflect" or not 0 <= j < total:
+        raise ValueError(f"column {i} of a level {total} wide has no {mode!r} source")
+    return j
 
 
-class _Exchange(torch.autograd.Function):
-    """[left halo | x | right halo]: the neighbours' columns (`exchange`),
-    zeros on a side that is the image's edge. The backward returns x's
-    part of the gradient plus the halo gradients the neighbours send back
-    for x's edge columns: one all_gather of every rank's packed halo
-    gradients, made by every rank."""
+def _halo_columns(x0: int, x1: int, left: int, right: int) -> tuple[range, range]:
+    """The global columns of a halo of (left, right) around [x0, x1)."""
+    return range(x0 - left, x0), range(x1, x1 + right)
+
+
+def _need(spec: tuple, n: int, total: int, rank: int) -> list[int]:
+    """The columns (`_source`s) of a level `total` wide that `rank` reads
+    for the layer `spec`:
+
+      - ("halo", left, right, mode): its columns with `left` and `right`
+        more, padded past the image's edges by `mode` (`padded`);
+      - ("strips", left, right): the left strip, then the right one, of a
+        column-halo kernel's input, none on a side that is the image's
+        edge (the kernel reflects there: `exchange`);
+      - ("down",): the input columns 2a - 1 .. 2b - 1 of a 3x3 stride-2
+        conv of zero padding 1 whose output columns, on the level half as
+        wide, are [a, b) (`down_input`);
+      - ("up",): the input columns a // 2 .. (b - 1) // 2 + 1 of a 3x3
+        stride-2 transposed conv (padding 1, output padding 1) whose
+        output columns, on the level twice as wide, are [a, b)
+        (`up_input`).
+
+    A rank with no output columns reads none."""
+    kind = spec[0]
+    if kind == "halo":
+        _, left, right, mode = spec
+        x0, x1 = split(total, n, rank)
+        if x0 == x1:
+            return []
+        return [_source(i, total, mode) for i in range(x0 - left, x1 + right)]
+    if kind == "strips":
+        _, left, right = spec
+        x0, x1 = split(total, n, rank)
+        if x0 == x1:
+            return []
+        lcols, rcols = _halo_columns(x0, x1, left, right)
+        cols = ([] if x0 == 0 else list(lcols)) + ([] if x1 == total else list(rcols))
+        return [_source(i, total, "reflect") for i in cols]
+    if kind == "down":
+        if total % 2:
+            raise ValueError(f"a stride-2 conv of a level {total} wide")
+        a, b = split(total // 2, n, rank)
+        return [] if a == b else [_source(i, total, "zeros") for i in range(2 * a - 1, 2 * b)]
+    if kind == "up":
+        a, b = split(2 * total, n, rank)
+        return ([] if a == b else
+                [_source(i, total, "zeros") for i in range(a // 2, (b - 1) // 2 + 2)])
+    raise ValueError(f"unknown halo spec {spec!r}")
+
+
+class _Plan:
+    """Who sends which columns of a level and who reads them, for one
+    layer spec on n ranks (`_plan`). For each rank q:
+
+      - send[q]: its local columns that other ranks read (sent padded
+        with zeros to the longest such list, m);
+      - fwd[q]: for each column it reads, its index into [own | zero |
+        every rank's sent list], own = its columns `own[q]` (None: all);
+      - bsend[q]: the positions of its read columns owned by other ranks
+        (their halo gradients, sent back), padded to the longest (mb) with
+        a zero position;
+      - rounds[q]: the gradient of its columns as a sum of gathers from [its
+        read columns' gradient | zero | every rank's bsend list]: round k
+        takes each column's k-th reader (self reads first, then the ranks
+        in order), or the zero.
+    """
+
+    def __init__(self, spec: tuple, n: int, total: int):
+        ranges = [split(total, n, r) for r in range(n)]
+        starts = [x0 for x0, _ in ranges]
+        needs = [_need(spec, n, total, q) for q in range(n)]
+
+        def owner(c: int) -> int:  # the last rank starting at or before c holds it
+            return bisect.bisect_right(starts, c) - 1
+
+        owners = [[-1 if c < 0 else owner(c) for c in need] for need in needs]
+        widths = [x1 - x0 for x0, x1 in ranges]
+        sent = [sorted({c for q in range(n) if q != r
+                        for c, o in zip(needs[q], owners[q]) if o == r}) for r in range(n)]
+        self.m = max(len(s) for s in sent)
+        self.send = [[c - ranges[r][0] for c in s] for r, s in enumerate(sent)]
+        slot = [{c: j for j, c in enumerate(s)} for s in sent]
+        self.own, self.fwd = [], []
+        for q in range(n):
+            x0 = ranges[q][0]
+            mine = sorted({c - x0 for c, o in zip(needs[q], owners[q]) if o == q})
+            own = None if len(mine) == widths[q] else mine
+            at = {c: c for c in range(widths[q])} if own is None else {c: j for j, c in
+                                                                          enumerate(own)}
+            zero = widths[q] if own is None else len(own)
+            self.own.append(own)
+            self.fwd.append([zero if o < 0 else at[c - x0] if o == q
+                             else zero + 1 + o * self.m + slot[o][c]
+                             for c, o in zip(needs[q], owners[q])])
+        halos = [[p for p, o in enumerate(owners[q]) if o >= 0 and o != q] for q in range(n)]
+        self.mb = max(len(h) for h in halos)
+        self.bsend = [h + [len(needs[q])] * (self.mb - len(h)) for q, h in enumerate(halos)]
+        readers = [[[] for _ in range(w)] for w in widths]
+        for q in range(n):  # self reads first
+            for p, (c, o) in enumerate(zip(needs[q], owners[q])):
+                if o == q:
+                    readers[q][c - ranges[q][0]].append(p)
+        for q in range(n):
+            for j, p in enumerate(halos[q]):
+                o, c = owners[q][p], needs[q][p]
+                readers[o][c - ranges[o][0]].append(len(needs[o]) + 1 + q * self.mb + j)
+        self.rounds = []
+        for r in range(n):
+            depth = max((len(x) for x in readers[r]), default=0)
+            self.rounds.append([[x[k] if k < len(x) else len(needs[r]) for x in readers[r]]
+                                for k in range(depth)])
+        self.halos = halos
+        self._index: dict = {}
+
+    def index(self, name: str, rank: int, device, k: int = 0) -> torch.Tensor:
+        """One of the plan's index lists as a tensor on `device` (kept)."""
+        key = (name, rank, k, str(device))
+        if key not in self._index:
+            lists = {"send": self.send, "fwd": self.fwd, "own": self.own, "bsend": self.bsend}
+            idx = self.rounds[rank][k] if name == "round" else lists[name][rank]
+            self._index[key] = torch.tensor(idx, dtype=torch.long, device=device)
+        return self._index[key]
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(spec: tuple, n: int, total: int) -> _Plan:
+    return _Plan(spec, n, total)
+
+
+def _zero_col(x: torch.Tensor) -> torch.Tensor:
+    return x.new_zeros(x.shape[:-1] + (1,))
+
+
+class _Fetch(torch.autograd.Function):
+    """The columns this rank reads for a layer spec (`_need`), gathered
+    from their owners by one all_gather (`_Plan`); the backward returns
+    each of x's columns' gradient: its own reads' plus what the other
+    ranks send back for it (one all_gather of every rank's halo
+    gradients)."""
 
     @staticmethod
-    def forward(ctx, x, shard, left, right):
-        ctx.shard, ctx.left, ctx.right = shard, left, right
-        lstrip, rstrip = exchange(x, shard, left, right)
-        lpad = x.new_zeros(x.shape[:-1] + (left,)) if lstrip is None else lstrip
-        rpad = x.new_zeros(x.shape[:-1] + (right,)) if rstrip is None else rstrip
-        return torch.cat([lpad, x, rpad], -1)
+    def forward(ctx, x, shard, spec):
+        plan, q = _plan(spec, shard.n, shard.total), shard.index
+        ctx.plan, ctx.q, ctx.group, ctx.w = plan, q, shard.group, x.shape[-1]
+        parts = []
+        if plan.m:
+            send = x.index_select(-1, plan.index("send", q, x.device))
+            if send.shape[-1] < plan.m:
+                send = torch.cat([send, x.new_zeros(x.shape[:-1] + (plan.m - send.shape[-1],))],
+                                 -1)
+            parts = all_gather(send, shard.group)
+            COUNTS["exchanges"] += 1
+            COUNTS["exchange_bytes"] += send.numel() * send.element_size()
+        own = x if plan.own[q] is None else x.index_select(-1, plan.index("own", q, x.device))
+        return torch.cat([own, _zero_col(x), *parts], -1).index_select(
+            -1, plan.index("fwd", q, x.device))
 
     @staticmethod
     def backward(ctx, g):
-        shard, left, right = ctx.shard, ctx.left, ctx.right
-        w = g.shape[-1] - left - right
-        # what this rank's halos read: its left neighbour's last `left`
-        # columns, its right neighbour's first `right`
-        send = torch.cat([g[..., :left], g[..., left + w:]], -1).contiguous()
-        parts = all_gather(send, shard.group)
-        COUNTS["exchanges_bwd"] += 1
-        COUNTS["exchange_bytes_bwd"] += send.numel() * send.element_size()
-        gx = g[..., left : left + w].clone()
-        if left and not shard.right_edge:  # my right neighbour's left halo: my last columns
-            gx[..., w - left:] += parts[shard.index + 1][..., :left]
-        if right and not shard.left_edge:  # my left neighbour's right halo: my first columns
-            gx[..., :right] += parts[shard.index - 1][..., left:]
-        return gx, None, None, None
+        plan, q = ctx.plan, ctx.q
+        g = torch.cat([g, _zero_col(g)], -1)
+        parts = []
+        if plan.mb:
+            send = g.index_select(-1, plan.index("bsend", q, g.device))
+            parts = all_gather(send, ctx.group)
+            COUNTS["exchanges_bwd"] += 1
+            COUNTS["exchange_bytes_bwd"] += send.numel() * send.element_size()
+        g = torch.cat([g, *parts], -1)
+        gx = g.new_zeros(g.shape[:-1] + (ctx.w,))
+        for k in range(len(plan.rounds[q])):
+            gx = gx + g.index_select(-1, plan.index("round", q, g.device, k))
+        return gx, None, None
 
 
-def _pad_edges(y: torch.Tensor, shard: WidthShard, left: int, right: int,
-               mode: str) -> torch.Tensor:
-    """y = [left halo | x | right halo] with the sides that are the image's
-    edges padded by `mode`: reflected about x's first / last column
-    ("reflect"), or left as they are (zeros)."""
-    if mode == "zeros":
-        return y
-    if mode != "reflect":
-        raise ValueError(f"unknown halo mode {mode!r}")
-    w = y.shape[-1] - left - right
-    if (left and shard.left_edge and left >= w) or (right and shard.right_edge and right >= w):
-        raise ValueError(f"a reflected halo of {max(left, right)} columns needs a shard wider "
-                         f"than {w}")
-    x = y[..., left : left + w]
-    lpad = x[..., 1 : left + 1].flip(-1) if shard.left_edge else y[..., :left]
-    rpad = x[..., w - 1 - right : w - 1].flip(-1) if shard.right_edge else y[..., left + w:]
-    return torch.cat([lpad, x, rpad], -1)
+def fetch(x: torch.Tensor, shard: WidthShard, spec: tuple) -> torch.Tensor:
+    """The columns `_need(spec)` of this rank, x being its columns of
+    shard's level: one all_gather over the shard's group, made by every
+    rank (none where no rank reads another's columns). Differentiable."""
+    return _Fetch.apply(x, shard, spec)
+
+
+def fetch_plain(whole: torch.Tensor, shard: WidthShard, spec: tuple) -> torch.Tensor:
+    """`fetch` of shard's columns of the whole tensor, in one process: its
+    columns cut from `whole` (differentiable with respect to it)."""
+    need = _need(spec, shard.n, shard.total, shard.index)
+    z = torch.cat([whole, _zero_col(whole)], -1)
+    idx = torch.tensor([whole.shape[-1] if c < 0 else c for c in need], dtype=torch.long,
+                       device=whole.device)
+    return z.index_select(-1, idx)
+
+
+def exchange(x: torch.Tensor, shard: WidthShard, left: int, right: int):
+    """The columns that x's column-halo kernel reads beyond x: (the `left`
+    columns before its first, the `right` after its last), reflected
+    about the image's edges where they pass them, read from whichever
+    ranks own them; None on a side that is the image's edge (the kernel
+    reflects there) or takes no halo. Not differentiable (the eval
+    kernels); `padded` is."""
+    with torch.no_grad():
+        cols = fetch(x, shard, ("strips", left, right))
+    if not shard.width:
+        return None, None
+    nl = 0 if shard.left_edge or not left else left
+    lstrip = cols[..., :nl] if nl else None
+    rstrip = cols[..., nl:] if cols.shape[-1] > nl and right else None
+    return lstrip, rstrip
 
 
 def padded(x: torch.Tensor, shard: WidthShard, left: int, right: int,
            mode: str) -> torch.Tensor:
     """x with `left` and `right` halo columns, as a VALID layer of the
-    whole tensor reads them: the neighbours' columns on inner sides and,
-    on a side that is the image's edge, `mode`'s padding ("reflect" or
-    "zeros"). Differentiable: the halos' gradient goes back to the ranks
-    that own their columns (`_Exchange`)."""
-    return _pad_edges(_Exchange.apply(x, shard, left, right), shard, left, right, mode)
+    whole tensor reads them: the columns of the ranks that own them, and
+    past the image's edges `mode`'s padding ("reflect" or "zeros"). No
+    columns on a shard with none. Differentiable."""
+    return fetch(x, shard, ("halo", left, right, mode))
 
 
 def padded_plain(whole: torch.Tensor, shard: WidthShard, left: int, right: int,
                  mode: str) -> torch.Tensor:
-    """`padded` of shard's columns of the whole tensor, in one process: the
-    halos cut from `whole` (differentiable with respect to it)."""
-    x0, w = shard.x0, shard.width
-    lstrip = None if shard.left_edge or not left else whole[..., x0 - left : x0]
-    rstrip = None if shard.right_edge or not right else whole[..., x0 + w : x0 + w + right]
-    return with_halo_plain(shard.local(whole), lstrip, rstrip, shard, mode, (left, right))
+    """`padded` of shard's columns of the whole tensor, in one process."""
+    return fetch_plain(whole, shard, ("halo", left, right, mode))
+
+
+def down_input(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
+    """The input columns 2a - 1 .. 2b - 1 (zeros past the image's edges)
+    that a 3x3 stride-2 conv of padding 1 reads for this rank's columns
+    [a, b) of the level below x's (half as wide): 2 (b - a) + 1 of them,
+    none where it has no output column. Differentiable."""
+    return fetch(x, shard, ("down",))
+
+
+def up_input(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
+    """The input columns a // 2 .. (b - 1) // 2 + 1 (zeros past the image's
+    right edge) that a 3x3 stride-2 transposed conv (padding 1, output
+    padding 1) reads for this rank's columns [a, b) of the level above
+    x's (twice as wide), none where it has no output column.
+    Differentiable."""
+    return fetch(x, shard, ("up",))
 
 
 class _GatherWidth(torch.autograd.Function):
@@ -300,25 +490,28 @@ class _GatherWidth(torch.autograd.Function):
     it through `shared`)."""
 
     @staticmethod
-    def forward(ctx, x, n, group):
-        ctx.index, ctx.width = group_rank(group), x.shape[-1]
-        x = x.contiguous()
-        parts = all_gather(x, group)
+    def forward(ctx, x, shard):
+        ctx.cols = (shard.x0, shard.x1)
+        widths = [x1 - x0 for x0, x1 in map(shard.bounds, range(shard.n))]
+        pad = max(widths) - x.shape[-1]
+        send = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1) if pad else x.contiguous()
+        parts = all_gather(send, shard.group)
         COUNTS["gathers"] += 1
-        COUNTS["gather_bytes"] += x.numel() * x.element_size()
-        return torch.cat(parts, -1)
+        COUNTS["gather_bytes"] += send.numel() * send.element_size()
+        return torch.cat([p[..., :w] for p, w in zip(parts, widths)], -1)
 
     @staticmethod
     def backward(ctx, g):
-        x0 = ctx.index * ctx.width
-        return g[..., x0 : x0 + ctx.width], None, None
+        x0, x1 = ctx.cols
+        return g[..., x0:x1], None
 
 
-def gather_width(x: torch.Tensor, n: int, group) -> torch.Tensor:
-    """The whole width of a tensor whose last dim is split in rank order
-    over the n ranks of `group`, on every rank: one all_gather.
-    Differentiable: the gradient keeps this rank's columns."""
-    return _GatherWidth.apply(x, n, group)
+def gather_width(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
+    """The whole width of a tensor whose last dim is split over the ranks
+    of shard's group (x this rank's columns of its level, found by its
+    height), on every rank: one all_gather of the shards padded to the
+    widest. Differentiable: the gradient keeps this rank's columns."""
+    return _GatherWidth.apply(x, shard.level_of(x))
 
 
 class _Shared(torch.autograd.Function):
@@ -375,7 +568,8 @@ def columns(x: torch.Tensor, xoff: int, width: int, lo: int, hi: int,
     """Local columns lo .. hi - 1 of a column-halo input x, whose local
     column j (of `width`) is x's column j + xoff: reflected about column 0
     or width - 1 on the sides `edges` marks as the image's (i < 0 -> -i,
-    i >= width -> 2 width - 2 - i), read from x's halo elsewhere."""
+    i >= width -> 2 width - 2 - i, which may land in the halo of the other
+    side on a shard narrower than the pad), read from x's halo elsewhere."""
     idx = torch.arange(lo, hi, device=x.device)
     if edges & LEFT_EDGE:
         idx = torch.where(idx < 0, -idx, idx)
@@ -386,22 +580,3 @@ def columns(x: torch.Tensor, xoff: int, width: int, lo: int, hi: int,
         raise ValueError(f"local columns {lo}:{hi} of {width} (edges {edges}) are not in "
                          f"an input of {x.shape[-1]} columns from column {xoff}")
     return x.index_select(-1, idx)
-
-
-def with_halo_plain(x: torch.Tensor, lstrip: torch.Tensor | None,
-                    rstrip: torch.Tensor | None, shard: WidthShard, mode: str,
-                    halo: tuple[int, int]) -> torch.Tensor:
-    """x with halo = (left, right) columns on its sides, as a VALID layer of
-    the whole tensor reads them: the strips on inner sides, and on a side
-    that is the image's edge `mode`'s padding ("reflect" or "zeros")."""
-    left, right = halo
-    if mode == "reflect":
-        edges = shard.edges
-        xin, xoff = attach(x, None if shard.left_edge else lstrip,
-                           None if shard.right_edge else rstrip)
-        return columns(xin, xoff, x.shape[-1], -left, x.shape[-1] + right, edges)
-    if mode != "zeros":
-        raise ValueError(f"unknown halo mode {mode!r}")
-    lpad = x.new_zeros(x.shape[:-1] + (left,)) if shard.left_edge else lstrip
-    rpad = x.new_zeros(x.shape[:-1] + (right,)) if shard.right_edge else rstrip
-    return torch.cat([p for p in (lpad, x, rpad) if p is not None], -1)

@@ -135,7 +135,9 @@ def all_gather_width(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     all_gather."""
     if mesh.model == 1:
         return x
-    return halo.gather_width(x, mesh.model, mesh.model_group)
+    n = mesh.model
+    return halo.gather_width(x, halo.WidthShard(mesh.model_index, n, n * x.shape[-1],
+                                                x.shape[-2], mesh.model_group))
 
 
 def shard_batch(x: torch.Tensor, mesh: Mesh, batch_axis: int | None = 0) -> torch.Tensor:

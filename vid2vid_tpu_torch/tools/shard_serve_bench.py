@@ -4,7 +4,9 @@ vid2vid_tpu/tools/shard_serve_bench.py).
 Three variants, each the median over --reps calls of InferenceEngine.step
 on one 256x512 label2city window (label_nc 35 with instance maps, ngf 32,
 2 downsamples, 4 blocks, one scale; --flagship: the flagship at 2048x1024,
-bf16), each call read back before the next:
+bf16; --width W: frames W wide in its place, any multiple of N, whose
+coarser levels split unevenly where they must), each call read back before
+the next:
 
   A. the one-device engine in this process, inputs from the host;
   B. the N-rank engine (--n_devices N, the model axis: data 1 x model N),
@@ -22,6 +24,7 @@ is printed too) and exits non-zero otherwise.
 
 Run:  python -m vid2vid_tpu_torch.tools.shard_serve_bench [--n_devices 2]
       [--reps 30] [--device cpu|cuda] [--ranks_per_card N] [--flagship]
+      [--width W]
 On the CPU the ranks are gloo processes; on cards, rank r on cuda:r over
 NCCL, or with --ranks_per_card N > 1 every rank on cuda:0 over gloo.
 """
@@ -56,9 +59,11 @@ FLAGSHIP_HW = (1024, 2048)
 SEED = 0
 
 
-def config(flagship: bool) -> tuple[dict, tuple[int, int]]:
-    """(Options keywords, (H, W)) of the benched configuration."""
-    return (FLAGSHIP, FLAGSHIP_HW) if flagship else (SMALL, SMALL_HW)
+def config(flagship: bool, width: int | None = None) -> tuple[dict, tuple[int, int]]:
+    """(Options keywords, (H, W)) of the benched configuration, W = width
+    if given."""
+    kw, (h, w) = (FLAGSHIP, FLAGSHIP_HW) if flagship else (SMALL, SMALL_HW)
+    return kw, (h, width or w)
 
 
 def window(h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
@@ -115,11 +120,12 @@ def bench_rank(opt: Options, hw: tuple[int, int], on_card: bool, reps: int) -> d
 
 
 def run(n_devices: int = 2, reps: int = 30, device: str = "cpu", ranks_per_card: int = 1,
-        flagship: bool = False) -> dict:
+        flagship: bool = False, width: int | None = None) -> dict:
     """A, B and C in ms a call, the sharded-vs-single frame differences,
-    and the configuration. The ranks: gloo on the CPU; on cards rank r on
-    cuda:r over NCCL, or with ranks_per_card > 1 all on cuda:0 over gloo."""
-    kw, hw = config(flagship)
+    and the configuration (frames `width` wide if given). The ranks: gloo
+    on the CPU; on cards rank r on cuda:r over NCCL, or with ranks_per_card
+    > 1 all on cuda:0 over gloo."""
+    kw, hw = config(flagship, width)
     a_ms, single = bench_engine(Options(**kw), hw, device, reps, preplace=False)
     on_card = device != "cpu"
     if not on_card:
@@ -138,8 +144,9 @@ def run(n_devices: int = 2, reps: int = 30, device: str = "cpu", ranks_per_card:
             "B_ms_ranks": [r["B"] for r in ranks], "C_ms_ranks": [r["C"] for r in ranks],
             "mean_abs_delta": float(diff.mean()), "max_abs_delta": float(diff.max()),
             "ranks_equal": all(torch.equal(r["frame"], ranks[0]["frame"]) for r in ranks),
-            "config": "flagship 2048x1024 bf16" if flagship else
-            "label_nc 35 + instance, ngf 32, 2 downsamples, 4 blocks, 1 scale, 256x512 f32",
+            "config": (f"flagship {hw[1]}x{hw[0]} bf16" if flagship else
+                       "label_nc 35 + instance, ngf 32, 2 downsamples, 4 blocks, 1 scale, "
+                       f"{hw[0]}x{hw[1]} f32"),
             "n_devices": n_devices, "device": device, "backend": backend, "reps": reps}
 
 
@@ -150,8 +157,10 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
     p.add_argument("--ranks_per_card", type=int, default=1)
     p.add_argument("--flagship", action="store_true")
+    p.add_argument("--width", type=int, default=None,
+                   help="frames this wide (a multiple of --n_devices)")
     a = p.parse_args(argv)
-    out = run(a.n_devices, a.reps, a.device, a.ranks_per_card, a.flagship)
+    out = run(a.n_devices, a.reps, a.device, a.ranks_per_card, a.flagship, a.width)
     n = a.n_devices
     print(f"config: {out['config']}; {n} ranks on {a.device} over {out['backend']}")
     print(f"A single device, host input    : {out['A_ms']:8.2f} ms/call")

@@ -159,16 +159,16 @@ class Trainer:
             replicated(self.gen, self.engine, group=self.world_group)
         return create_train_state(self.opt, self.gen, self.engine)
 
-    def shard(self, width: int) -> halo.WidthShard | None:
-        """This rank's columns of frames `width` wide on the model axis (None
-        without one); raises ValueError for a width the shards cannot hold
-        (halo.check_geometry)."""
+    def shard(self, width: int, height: int) -> halo.WidthShard | None:
+        """This rank's columns of frames `width` x `height` on the model
+        axis (None without one); raises ValueError for a width the ranks
+        cannot split: not a multiple of them, as the JAX Trainer's
+        device_put refuses (halo.check_geometry)."""
         if self.mesh is None or self.mesh.model == 1:
             return None
-        opt, n = self.opt, self.mesh.model
-        halo.check_geometry(width, n, 2 ** (opt.n_scales_spatial - 1), 2**opt.n_downsample_G,
-                            user="training on the model axis")
-        return halo.make_shard(self.mesh.model_index, n, width, self.mesh.model_group)
+        n = self.mesh.model
+        halo.check_geometry(width, n, user="training on the model axis")
+        return halo.make_shard(self.mesh.model_index, n, width, self.mesh.model_group, height)
 
     def local_rows(self, x: torch.Tensor | None) -> torch.Tensor | None:
         """This rank's data rows of a global batch (all of it without a
@@ -255,7 +255,7 @@ class Trainer:
             use_raw_only=use_raw_only, n_frames_bp=self.schedule.n_frames_bp,
             finetune_all=self.schedule.finetune_all, chunk_start=carry.chunk_start,
             group=self.world_group, divisor=None if self.mesh is None else self.mesh.data,
-            shard=self.shard(w),
+            shard=self.shard(w, h),
         )
         outs = aux["outs"]
         self.last_outs = outs
@@ -358,7 +358,7 @@ def refresh_batch_stats(
             real_b = real_b.to(dev, torch.float32)
             n_win = max(1, real_b.shape[1] - tG + 1)
             stride = max(1, -(-n_win // max_windows_per_clip))
-            shard = trainer.shard(real_b.shape[-1])
+            shard = trainer.shard(real_b.shape[-1], real_b.shape[-2])
             for t0 in range(0, n_win, stride):
                 gen_state = gen.state_from_frames(real_b[:, t0 : t0 + tG - 1])
                 gen.generate_clip(enc_full[:, t0 : t0 + tG], gen_state, shard=shard)
