@@ -151,20 +151,26 @@ non-zero):
   14. training's model axis (parallel/halo.py, --n_devices 2 at batch 1 on
      Trainer and train_cli: data 1 x model 2): the 512x256 training recipe
      of phase 7 at its full width on two gloo ranks on this one card, each
-     on its 256 columns of every frame, one clip of 2 chunks, and one f32
-     chunk at 256x520 (the trunk's 65 columns split 32 / 33): chunk 1
-     within the training bounds of the unsharded Trainer (same seeds), the
-     ranks' weights equal bit for bit after every chunk; every blend of
-     the ranks' generator at its column offset forward and backward
-     (warp_blend_at, warp_blend_at_bwd: v2v_warp_blend_bwd with Wp and x0),
-     their calls sent back for 3b; the offset backward against its plain
-     version, the unsharded call (x0 = 0) and the whole frame's columns and
-     d_prev, both timed (and untimed at odd and 1-column widths); ms a
-     chunk a rank against the unsharded Trainer run before, the exchanges
-     and gathers a chunk forward and backward with
-     their bytes, the G gradients' reduction ms and bytes, peak memory a
-     rank; then train_cli.train for one epoch on both ranks (equal weights,
-     `latest` written once). Two ranks on one card give no scaling figure.
+     on its 256 columns of every frame (the generator, netD, every netD_T,
+     VGG and the losses; FlowNet2 on whole frames), one clip of 2 chunks,
+     and one f32 chunk at 256x520 (the trunk's 65 columns split 32 / 33):
+     chunk 1 within the training bounds of the unsharded Trainer (same
+     seeds), the ranks' weights equal bit for bit after every chunk, netD's
+     finest layer on the rank's columns; every blend of the ranks'
+     generator at its column offset forward and backward (warp_blend_at,
+     warp_blend_at_bwd: v2v_warp_blend_bwd with Wp and x0) and every loss
+     warp too (flow_warp with x0, counted on flow_warp_at and
+     flow_warp_at_bwd: v2v_flow_warp_at and its backward), their calls sent
+     back for 3b; the offset entries against their plain versions, the
+     unsharded calls (x0 = 0) and the whole frame's columns, timed (and
+     untimed at odd and 1-column widths); ms a chunk a rank against the
+     unsharded Trainer run before, the exchanges and gathers a chunk
+     forward and backward with their bytes, each collective's host time a
+     chunk by the function that made it (collective_times), the G
+     gradients' reduction ms and bytes, peak memory a rank by training
+     step beside the unsharded Trainer's; then
+     train_cli.train for one epoch on both ranks (equal weights, `latest`
+     written once). Two ranks on one card give no scaling figure.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -266,6 +272,8 @@ from vid2vid_tpu_torch.ops.respair import (  # noqa: E402
 )
 from vid2vid_tpu_torch.ops.warp import (  # noqa: E402
     flow_warp,
+    flow_warp_at,
+    flow_warp_at_bwd,
     flow_warp_backward_plain,
     flow_warp_bwd,
     flow_warp_plain,
@@ -432,13 +440,18 @@ PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
          "conv7": conv7_reflect_plain, "conv3": conv3_plain,
          "conv3_fused": conv3_fused_plain}
 # the plain versions of second entries: conv7's pre-padded entry, and the
-# column-halo modes of a width shard (phases 13 and 14)
+# column-halo and offset modes of a width shard (phases 13 and 14)
 PLAIN_OF = {conv7_padded: conv7_plain, conv7_halo: conv7_halo_plain,
             respair_halo: respair_halo_plain, warp_blend_at: warp_blend_at_plain,
-            warp_blend_at_bwd: warp_blend_at_backward_plain}
+            warp_blend_at_bwd: warp_blend_at_backward_plain,
+            flow_warp_at: flow_warp_plain, flow_warp_at_bwd: flow_warp_backward_plain}
 # the wrappers that their own module calls, from an autograd backward: the
 # path logs their calls there too (kernel_call_shapes)
-CALLED_IN_THEIR_MODULE = {"correlation_bwd", "warp_blend_at_bwd"}
+CALLED_IN_THEIR_MODULE = {"correlation_bwd", "warp_blend_at_bwd", "flow_warp_bwd"}
+# the unfused warp's entries whose launches on a width shard's columns (the
+# flow narrower than the image) count on a counter of their own: a path's
+# call is logged under that counter (LoggedCall)
+SHARD_ENTRY = {flow_warp: flow_warp_at, flow_warp_bwd: flow_warp_at_bwd}
 # phase 9's times of the f32 casts around the correlation kernels under
 # bf16, and of the kernels at the same shape (the correlation JSON row)
 FLOW_TRAIN_CASTS: dict = {}
@@ -670,6 +683,8 @@ def case_at(name, shapes, dtype, gen):
         return warp_case(h, w, dtype, gen, b, c)
     if name == "flow_warp":
         return flow_warp_case(dtype, gen, shapes[0])
+    if name == "flow_warp_bwd":
+        return bwd_case(name, shapes[0], dtype, gen)
     if name == "correlation":
         return corr_case(shapes[0], gen)
     if name == "correlation_bwd":
@@ -680,8 +695,9 @@ def case_at(name, shapes, dtype, gen):
 
 
 def halo_case(fn, shapes, dtype, gen):
-    """Seeded operands of a column-halo mode's call (phase 13) at the
-    shapes and columns a path gave it; None for any other wrapper."""
+    """Seeded operands of a column-halo or offset mode's call (phases 13
+    and 14) at the shapes and columns a path gave it; None for any other
+    wrapper."""
     if fn is conv7_halo:  # (x_in, w, bias, xoff, width, edges)
         (b, ci, h, w_in), co = shapes[0], shapes[1][0]
         return (*conv7_case(ci, co, h, w_in, dtype, gen, b), *shapes[-3:])
@@ -699,6 +715,11 @@ def halo_case(fn, shapes, dtype, gen):
         raw, prev, flow, weight, g = bwd_case("warp_blend_bwd", (b, c, h, wp), dtype, gen)
         raw, flow, weight, g = (t[..., x0 : x0 + w].contiguous() for t in (raw, flow, weight, g))
         return raw, prev, flow, weight, g, x0
+    if fn in (flow_warp_at, flow_warp_at_bwd):  # (image, flow[, g], x0)
+        (b, c, h, wp), w, x0 = shapes[0], shapes[1][3], shapes[-1]
+        image, flow, g = bwd_case("flow_warp_bwd", (b, c, h, wp), dtype, gen)
+        flow, g = (t[..., x0 : x0 + w].contiguous() for t in (flow, g))
+        return (image, flow, x0) if fn is flow_warp_at else (image, flow, g, x0)
     return None
 
 
@@ -721,7 +742,8 @@ class LoggedCall:
 
     def __call__(self, *args, **kwargs):
         name, fn, seen = self._call
-        key = (name, *call_key(fn, args))
+        shard = fn in SHARD_ENTRY and args[1].shape[-1] != args[0].shape[-1]
+        key = (name, *call_key(SHARD_ENTRY[fn] if shard else fn, args))
         seen[key] = seen.get(key, 0) + 1
         return fn(*args, **kwargs)
 
@@ -2678,6 +2700,13 @@ SHARD_BWD_SHAPE = (1, 3, 256, 512)
 SHARD_BWD_UNEVEN = [((1, 3, 64, 45), 2), ((1, 3, 64, 8), 8)]
 # the offset mode's checks and times (shard_bwd_checks), for the kernels' JSON
 SHARD_BWD: dict = {}
+# (B, C, H, W) of the loss engine's unfused warps (F_Warp, G_Warp) a chunk
+# at the recipe's width, B the chunk's 2 frames: flow_warp_at and its
+# backward are held to their plain versions and to the unsharded entries
+# there on SHARD_TRAIN_RANKS shards, and timed; untimed at SHARD_BWD_UNEVEN
+SHARD_WARP_SHAPE = (2, 3, 256, 512)
+# their checks and times (shard_warp_checks), by entry, for the kernels' JSON
+SHARD_WARP: dict = {}
 
 
 def shard_train_clip(hw=TRAIN_HW, frames: int = SHARD_TRAIN_FRAMES) -> tuple[np.ndarray,
@@ -2687,14 +2716,103 @@ def shard_train_clip(hw=TRAIN_HW, frames: int = SHARD_TRAIN_FRAMES) -> tuple[np.
     return moving_square_clip(np.random.default_rng(0), frames, *hw, 35)
 
 
-def shard_train_chunks(trainer: Trainer, labels, frames, on_bf16=None) -> dict:
+@contextlib.contextmanager
+def step_peaks(trainer: Trainer, peaks: dict):
+    """Within the block, each step of `trainer`'s bf16 chunks (its
+    reference flow and train/loop.py's g_step, d_step and dt_step) records
+    the peak device memory it reached into peaks[step] (the largest over
+    the chunks), the peak statistics reset (after a synchronize) before
+    each step. The steps' largest is the chunks' peak."""
+    from vid2vid_tpu_torch.train import loop
+
+    dev = trainer.device
+    saved = {name: getattr(loop, name) for name in ("g_step", "d_step", "dt_step")}
+    flow_fn = trainer.flow_fn
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            if not trainer.opt.bf16:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated(dev))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(loop, name, recorded(name, fn))
+    trainer.flow_fn = recorded("flow", flow_fn)
+    try:
+        yield peaks
+    finally:
+        for name, fn in saved.items():
+            setattr(loop, name, fn)
+        trainer.flow_fn = flow_fn
+
+
+@contextlib.contextmanager
+def collective_times(dev: torch.device, times: dict):
+    """Within the block, each torch.distributed all_reduce and all_gather
+    is timed on the host between two synchronizes of `dev`, by the port's
+    function that made it (the first frame of the stack outside torch,
+    parallel/collectives.py and mesh.py's all_reduce_* helpers, as
+    file.qualname; mesh._AllReduceSum is the norms' statistics, forward and
+    backward, and steps._apply the gradients' bucket):
+    times[caller] = [calls, ms in the collective, ms the synchronize before
+    it waited for the card's queued work]. Over gloo a collective of CUDA
+    tensors waits for that work anyway (it copies them to the host), so the
+    synchronizes add little."""
+    dist = torch.distributed
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    torch_dir = os.path.dirname(torch.__file__)
+
+    def skipped(code) -> bool:
+        name = code.co_filename
+        return (name.startswith(torch_dir) or name.endswith(os.path.join("parallel",
+                                                                          "collectives.py"))
+                or name.endswith(os.path.join("parallel", "mesh.py"))
+                and code.co_name.startswith("all_reduce_"))
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            frame = sys._getframe(1)
+            while frame.f_back is not None and skipped(frame.f_code):
+                frame = frame.f_back
+            code = frame.f_code
+            key = f"{os.path.basename(code.co_filename)[:-3]}.{code.co_qualname}"
+            t0 = time.perf_counter()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            row = times.setdefault(key, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += (time.perf_counter() - t1) * 1e3
+            row[2] += (t1 - t0) * 1e3
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def shard_train_chunks(trainer: Trainer, labels, frames, on_bf16=None,
+                       peaks: dict | None = None) -> dict:
     """run_chunks from fresh seeded weights (init_state) over the clip in
     chunks of the recipe's 2 frames (on every mesh: the schedule's
     n_frames_load grows with --n_devices), under deterministic algorithms
     and PyTorch's default TF32 flags: chunk 1 with the generator in f32
     (the training bounds' comparison), the later ones in the recipe's bf16
     (its path, timed and counted), `on_bf16(k)` called after each chunk
-    k (run_chunks' after_chunk, once the next chunk's precision is set)."""
+    k (run_chunks' after_chunk, once the next chunk's precision is set);
+    with `peaks`, the bf16 chunks' peak memory by step (step_peaks)."""
     recipe = trainer.opt
     trainer.opt = recipe.replace(bf16=False)
 
@@ -2706,7 +2824,8 @@ def shard_train_chunks(trainer: Trainer, labels, frames, on_bf16=None) -> dict:
     labels, frames = torch.from_numpy(labels), torch.from_numpy(frames)
     state = trainer.init_state()
     try:
-        with torch_default_tf32(), deterministic_algorithms():
+        with torch_default_tf32(), deterministic_algorithms(), (
+                contextlib.nullcontext() if peaks is None else step_peaks(trainer, peaks)):
             return run_chunks(trainer, state, labels, frames, labels,
                               TRAIN_RECIPE["max_frames_per_gpu"], after_chunk=after)
     finally:
@@ -2716,12 +2835,13 @@ def shard_train_chunks(trainer: Trainer, labels, frames, on_bf16=None) -> dict:
 def shard_train_reference(trainer: Trainer, labels: np.ndarray, frames: np.ndarray) -> dict:
     """Phase 14's unsharded Trainer (one process, the card) over the clip
     (shard_train_chunks): run_chunks' losses, digests and ms a chunk, the
-    peak memory of its bf16 chunks and the seconds it took."""
+    peak memory of its bf16 chunks (by step, step_peaks) and the seconds
+    it took."""
     t0 = time.perf_counter()
-    out = shard_train_chunks(trainer, labels, frames,
-                             lambda k: k == 0 and torch.cuda.reset_peak_memory_stats())
-    torch.cuda.synchronize()
-    out.update(peak=torch.cuda.max_memory_allocated(), seconds=time.perf_counter() - t0)
+    peaks: dict = {}
+    out = shard_train_chunks(trainer, labels, frames, peaks=peaks)
+    out.update(peak=max(peaks.values(), default=0), step_peaks=peaks,
+               seconds=time.perf_counter() - t0)
     return out
 
 
@@ -2732,8 +2852,9 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
     at batch 1 (data 1 x model world), phase 7's seeded weights and flow,
     over the clip chunk by chunk (shard_train_chunks: chunk 1 in f32, the
     rest in bf16), its kernel calls logged by shape; the launch counts, the
-    model axis's collectives a chunk and the peak memory of the bf16
-    chunks; the G gradients' reduction over every rank timed
+    model axis's collectives a chunk, each chunk's collectives timed by
+    caller (collective_times) and the peak memory of the bf16 chunks; the G
+    gradients' reduction over every rank timed
     (time_gradient_reduces); then the `uneven` clip (labels, frames) at
     SHARD_TRAIN_UNEVEN_HW by a new Trainer (shard_train_chunks: its losses
     and digests, this rank's columns of the finest level and the trunk);
@@ -2749,33 +2870,43 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
     trainer = Trainer(Options(**TRAIN_RECIPE, n_devices=world, batchSize=1), flow_fn=est,
                       device=dev)
     seconds = {"setup": time.perf_counter() - t0}
-    counts = []
+    counts, times, coll = [], [], {}
 
     def on_bf16(k):
         if k:
             counts.append(dict(halo.COUNTS))
-        else:  # the bf16 chunks' launches, collectives and peak from zero
+        else:  # the bf16 chunks' launches and collectives from zero
             reset_launches()
-            torch.cuda.reset_peak_memory_stats(dev)
         halo.reset_counts()
+        times.append(dict(coll))  # chunk k's collectives by caller
+        coll.clear()
 
     index = {id(fn): i for fns in COUNTERS.values() for i, fn in enumerate(fns)}
+    # the input widths that netD's finest layer saw: the rank's columns
+    d_widths = set()
+    getattr(trainer.engine.netD, f"scale{trainer.opt.num_D - 1}_layer0")[0] \
+        .register_forward_pre_hook(lambda m, args: d_widths.add(args[0].shape[-1]))
     t1 = time.perf_counter()
-    with kernel_call_shapes() as seen:
-        out = shard_train_chunks(trainer, labels, frames, on_bf16)
+    peaks: dict = {}
+    with kernel_call_shapes() as seen, collective_times(dev, coll):
+        out = shard_train_chunks(trainer, labels, frames, on_bf16, peaks)
         torch.cuda.synchronize(dev)
     seconds["chunks"] = time.perf_counter() - t1
     out.update(
-        launches=read_launches(), counts=counts,
+        launches=read_launches(), counts=counts, collective_ms=times,
         offset_launches={"warp_blend_at": warp_blend_at.launches,
                          "warp_blend_at_bwd": warp_blend_at_bwd.launches,
                          "warp_blend": warp_blend.launches,
-                         "warp_blend_bwd": warp_blend_bwd.launches},
+                         "warp_blend_bwd": warp_blend_bwd.launches,
+                         "flow_warp_at": flow_warp_at.launches,
+                         "flow_warp_at_bwd": flow_warp_at_bwd.launches,
+                         "flow_warp_bwd": flow_warp_bwd.launches},
+        d_widths=sorted(d_widths),
         seen=[(name, index[id(fn)], shapes, str(dtype), calls)
               for (name, fn, shapes, dtype), calls in seen.items()],
         columns=(trainer.shard(*labels.shape[:-3:-1]).x0,
                  trainer.shard(*labels.shape[:-3:-1]).width),
-        mesh=trainer.mesh.shape, peak=torch.cuda.max_memory_allocated(dev))
+        mesh=trainer.mesh.shape, peak=max(peaks.values(), default=0), step_peaks=peaks)
     (out["g_reduce_ms"], out["g_reduce_bytes"]), = time_gradient_reduces(
         [list(trainer.gen.parameters())], trainer.world_group, dev)
     del trainer
@@ -2918,6 +3049,117 @@ def shard_bwd_checks(gen: torch.Generator) -> None:
     torch.cuda.empty_cache()
 
 
+def sampled_pixels(flow: torch.Tensor, x0: int, wp: int, patch: bool) -> int:
+    """The distinct pixels of a (B, ., H, Wp) image that the bilinear warp
+    of this (B, 2, H, W) flow from column x0 reads: each sample's four
+    corners, the floor and the one after it on each axis, clamped into the
+    image as the forward clamps them, or with `patch` as the backward's
+    patch formulation does (the floor clipped to [0, size - 2])."""
+    b, _, h, w = flow.shape
+    f = flow.float()
+    sx = torch.arange(x0, x0 + w, device=f.device).view(1, 1, w) + f[:, 0]
+    sy = torch.arange(h, device=f.device).view(1, h, 1) + f[:, 1]
+    xi, yi = torch.floor(sx).long(), torch.floor(sy).long()
+    if patch:
+        xi, yi = xi.clamp(0, wp - 2), yi.clamp(0, h - 2)
+    seen = torch.zeros((b, h * wp), dtype=torch.bool, device=f.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            idx = (yi + dy).clamp(0, h - 1) * wp + (xi + dx).clamp(0, wp - 1)
+            seen.scatter_(1, idx.view(b, -1), True)
+    return int(seen.sum())
+
+
+def shard_warp_case(shape, n: int, timed: bool) -> dict:
+    """flow_warp_at and flow_warp_at_bwd (f32, the losses' dtype) on each
+    of n shards (those with columns) of one case (bwd_case's image, flow
+    of several pixels and cotangent): each against its plain version
+    (compare); the forward's columns and the backward's d_flow bit for bit
+    with the unsharded flow_warp / flow_warp_bwd's columns; the shards'
+    d_image (each over the whole frame) summed against the unsharded one
+    (TOL). With `timed`, the shards' calls (events)
+    summed against the unsharded call's, their plain versions' and
+    grid_sample's (and its backward) at each shard's grid. Returns
+    {entry: {max_abs_err, and with `timed` ms, ms_unsharded, plain_ms,
+    library_ms, bytes, ops}}."""
+    dtype = torch.float32
+    image, flow, g = bwd_case("flow_warp_bwd", shape, dtype, torch.Generator().manual_seed(19))
+    want, want_b = flow_warp(image, flow), flow_warp_bwd(image, flow, g)
+    tol = TOL[("flow_warp_bwd", dtype)]
+    out = {"flow_warp_at": dict(max_abs_err=0.0), "flow_warp_at_bwd": dict(max_abs_err=0.0)}
+    dimage, calls = torch.zeros_like(image), []
+    for sh in (halo.make_shard(i, n, shape[3]) for i in range(n)):
+        if not sh.width:
+            continue
+        fl, gl = sh.local(flow).contiguous(), sh.local(g).contiguous()
+        fwd, bwd = (image, fl, sh.x0), (image, fl, gl, sh.x0)
+        for name, kernel, call in (("flow_warp", flow_warp_at, fwd),
+                                   ("flow_warp_bwd", flow_warp_at_bwd, bwd)):
+            row = out[kernel.__name__]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     compare(name, call, dtype, kernel, PLAIN_OF[kernel]))
+        got_b = flow_warp_at_bwd(*bwd)
+        if not torch.equal(flow_warp_at(*fwd), sh.local(want)) or \
+                not torch.equal(got_b[1], sh.local(want_b[1])):
+            raise AssertionError(f"flow_warp_at {shape} shard {sh.index} of {n}: differs from "
+                                 "the unsharded entries' columns")
+        dimage += got_b[0]
+        calls.append((sh, fwd, bwd))
+    if not torch.allclose(dimage, want_b[0], **tol):
+        off = float((dimage - want_b[0]).abs().max())
+        raise AssertionError(f"flow_warp_at_bwd {shape} on {n}: the shards' d_image summed is "
+                             f"off the unsharded call's by {off}")
+    if timed:
+        b, c, h, w = shape
+        fwd_lib = [(grid_sample, (image, sampling_grid(fwd[1], sh.x0, w))) for sh, fwd, _ in calls]
+        bwd_lib = [(grid_sample_backward(image, bwd[1], bwd[2], sh.x0), ())
+                   for sh, _, bwd in calls]
+        for entry, kernel, whole, k, lib in (
+                ("flow_warp_at", flow_warp_at, (flow_warp, (image, flow)), 1, fwd_lib),
+                ("flow_warp_at_bwd", flow_warp_at_bwd, (flow_warp_bwd, (image, flow, g)), 2,
+                 bwd_lib)):
+            ms = [time_ms(kernel, call[k]) for call in calls]
+            # the forward reads the image's pixels its samples reach
+            # (sampled_pixels, measured from this run's flow) and the
+            # shard's flow, and writes its columns; the backward reads the
+            # pixels its patches reach and the shard's flow and cotangent,
+            # writes d_image's whole frame (the entry's contract: the
+            # splat, f32) and the shard's d_flow
+            nb = 4 * sum(c * sampled_pixels(fwd[1], sh.x0, w, k == 2)
+                         + ((2 + c) * sh.width if k == 1 else c * w + (4 + c) * sh.width) * b * h
+                         for sh, fwd, _ in calls)
+            out[entry].update(ms=sum(ms), ms_shards=ms, ms_unsharded=time_ms(*whole),
+                              plain_ms=sum(time_ms(PLAIN_OF[kernel], call[k]) for call in calls),
+                              library_ms=sum(time_ms(*fn_args) for fn_args in lib), bytes=nb,
+                              ops=(10 if k == 1 else 40) * b * c * h * w)
+    del image, flow, g, want, want_b, dimage, calls
+    return out
+
+
+def shard_warp_checks() -> None:
+    """Phase 14: the loss engine's offset warps (v2v_flow_warp_at,
+    v2v_flow_warp_at_bwd) checked untimed at SHARD_BWD_UNEVEN (odd local
+    widths, 1-column shards), then checked and timed at SHARD_WARP_SHAPE
+    on SHARD_TRAIN_RANKS shards (shard_warp_case), into SHARD_WARP."""
+    for shape, n in SHARD_BWD_UNEVEN + [(SHARD_WARP_SHAPE, SHARD_TRAIN_RANKS)]:
+        shape = (2,) + shape[1:]
+        timed = shape == SHARD_WARP_SHAPE
+        out = shard_warp_case(shape, n, timed)
+        if timed:
+            SHARD_WARP.update(out)
+        for entry, row in out.items():
+            say("offset_mode", kernel=entry, shape="x".join(map(str, shape)), dtype="float32",
+                shards=n, max_abs_err=f"{row['max_abs_err']:.3g}",
+                columns_bit_for_bit_with_unsharded=True,
+                **({} if not timed else dict(
+                    ms_unsharded=f"{row['ms_unsharded']:.4f}",
+                    ms_shards=",".join(f"{v:.4f}" for v in row["ms_shards"]),
+                    shards_over_unsharded=f"{row['ms'] / row['ms_unsharded']:.4f}",
+                    plain_ms=f"{row['plain_ms']:.4f}",
+                    grid_sample_ms_shards=f"{row['library_ms']:.4f}")))
+    torch.cuda.empty_cache()
+
+
 def shard_train_path(card: str, seen: dict) -> dict:
     """Phase 14: training's model axis (--n_devices 2 at batch 1: data 1 x
     model 2) at the 512x256 recipe's full width, on SHARD_TRAIN_RANKS gloo
@@ -2930,16 +3172,23 @@ def shard_train_path(card: str, seen: dict) -> dict:
         equal bit for bit after every chunk;
       - every blend of the ranks' generator, forward and backward, at its
         column offset (warp_blend_at, warp_blend_at_bwd; no unsharded
-        warp_blend call), their calls sent back for 3b; the offset
-        backward checked and timed against the unsharded call
-        (shard_bwd_checks);
+        warp_blend call), and every warp of the loss engine (F_Warp and
+        G_Warp: flow_warp_at, and F_Warp's backward flow_warp_at_bwd; no
+        unsharded flow_warp_bwd call), their calls sent back for 3b; the
+        offset backward of the blend and both offset warps checked and
+        timed against the unsharded calls (shard_bwd_checks,
+        shard_warp_checks);
+      - netD, every netD_T and VGG on the ranks' columns: netD's finest
+        layer saw each rank's columns (256 of 512);
       - the uneven width: one f32 chunk at SHARD_TRAIN_UNEVEN_HW (the
         trunk's 65 columns split 32 / 33) on the same ranks against the
         unsharded Trainer's within the training bounds, the ranks bit for
         bit, its calls sent back for 3b;
       - ms a chunk a rank, the exchanges and gathers a chunk forward and
-        backward with their bytes, the G gradients' reduction ms and
-        bytes, peak memory a rank;
+        backward with their bytes, each chunk's collectives by caller with
+        their host ms and the card's queued work they waited for
+        (collective_times), the G gradients' reduction ms and bytes, peak
+        memory a rank beside the unsharded Trainer's;
       - train_cli.train on both ranks for one epoch of one clip: equal
         weights, `latest` written once.
     Two ranks share one card: no scaling figure. Returns the launch counts
@@ -2975,6 +3224,8 @@ def shard_train_path(card: str, seen: dict) -> dict:
         f"{SHARD_TRAIN_FRAMES} frames (2 chunks of 2: chunk 1 with the "
         "generator in f32, the rest in the recipe's bf16, timed and counted); deterministic "
         "algorithms",
+        sharded="G, netD, every netD_T, VGG, the losses (each rank's share), the loss warps "
+        "at their offset; whole on every rank: FlowNet2 and the face D (not in this recipe)",
         launch_s=f"{launch_s:.1f}", reference_s=f"{ref['seconds']:.1f}",
         rank_s=json.dumps([{k: round(v, 1) for k, v in r["seconds"].items()} for r in ranks]),
         columns=json.dumps([r["columns"] for r in ranks]),
@@ -2983,10 +3234,23 @@ def shard_train_path(card: str, seen: dict) -> dict:
         ms_is="chunk 1 f32, the others bf16",
         order="unsharded,sharded",
         collectives_per_chunk_rank0=json.dumps(per_chunk),
+        collective_ms_by_caller_rank0=json.dumps(
+            [{k: [v[0], round(v[1], 1), round(v[2], 1)] for k, v in sorted(c.items())}
+             for c in first["collective_ms"]]),
+        collective_ms_is="per chunk (chunk 1 f32, then bf16): {caller: [calls, ms in the "
+        "collective, ms its synchronize waited for the card's queued work]}",
+        collective_ms_total_rank0=",".join(f"{sum(v[1] for v in c.values()):.1f}"
+                                           for c in first["collective_ms"]),
+        collective_wait_ms_total_rank0=",".join(f"{sum(v[2] for v in c.values()):.1f}"
+                                                for c in first["collective_ms"]),
         g_reduce_ms_ranks=",".join(f"{r['g_reduce_ms']:.1f}" for r in ranks),
         g_reduce_bytes=first["g_reduce_bytes"],
         peak_mem_gib_ranks=",".join(f"{r['peak'] / 2**30:.3f}" for r in ranks),
         peak_mem_gib_unsharded=f"{ref['peak'] / 2**30:.3f}",
+        peak_mem_gib_by_step_rank0=json.dumps({k: round(v / 2**30, 3)
+                                               for k, v in first["step_peaks"].items()}),
+        peak_mem_gib_by_step_unsharded=json.dumps({k: round(v / 2**30, 3)
+                                                   for k, v in ref["step_peaks"].items()}),
         f32_chunk1=json.dumps({k: [first["losses"][0][k], ref["losses"][0][k]] for k in keys}),
         bf16_chunk2_rel_diff=json.dumps({k: float(f"{v:.3g}") for k, v in bf16_rel.items()}),
         loss_G_total=",".join(f"{c['loss_G_total']:.6g}" for c in first["losses"]),
@@ -3031,7 +3295,13 @@ def shard_train_path(card: str, seen: dict) -> dict:
                 at["warp_blend_bwd"]:
             raise AssertionError(f"shard_train: the blend's launches {at}: want every one at "
                                  "its column offset")
-        for name in ("flow_warp", "flow_warp_bwd", "correlation"):
+        if at["flow_warp_at"] == 0 or at["flow_warp_at_bwd"] == 0 or at["flow_warp_bwd"]:
+            raise AssertionError(f"shard_train: the loss warps' launches {at}: want every one "
+                                 "at its column offset")
+        if rank["d_widths"] != [labels.shape[-1] // SHARD_TRAIN_RANKS]:
+            raise AssertionError(f"shard_train: netD's finest layer saw widths "
+                                 f"{rank['d_widths']}, not the rank's columns")
+        for name in ("flow_warp", "correlation"):  # FlowNet2, on whole frames
             if rank["launches"][name] == 0:
                 raise AssertionError(f"shard_train: a rank never launched {name}")
         launches.update(rank["launches"])
@@ -3039,11 +3309,16 @@ def shard_train_path(card: str, seen: dict) -> dict:
             key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
             seen[key] = seen.get(key, 0) + calls
     SHARD_BWD["launches"] = sum(r["offset_launches"]["warp_blend_at_bwd"] for r in ranks)
+    for entry in ("flow_warp_at", "flow_warp_at_bwd"):
+        SHARD_WARP[entry + "_launches"] = sum(r["offset_launches"][entry] for r in ranks)
     t0 = time.perf_counter()
     shard_bwd_checks(torch.Generator().manual_seed(14))
+    shard_warp_checks()
     say("shard_train_checks", f32_chunk1_within_training_bounds=True,
         ranks_equal_bit_for_bit=True, cli_ranks_equal=True,
-        blends_at_their_offset=True, bwd_checks_s=f"{time.perf_counter() - t0:.1f}",
+        blends_and_loss_warps_at_their_offset=True,
+        d_finest_layer_widths=json.dumps([r["d_widths"] for r in ranks]),
+        bwd_checks_s=f"{time.perf_counter() - t0:.1f}",
         launches=json.dumps(dict(launches)))
     return {name: launches[name] for name in COUNTERS}
 
@@ -4420,6 +4695,34 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                  "the two ranks' counted run of phase 14 (launches_by_path: the "
                  "warp_blend_bwd counter, both entries)",
     })
+    # the loss engine's unfused warp and its backward at a column offset
+    # (phase 14): rows of their own, from that phase's checks and times
+    for entry, counter, replaces, what in (
+            ("flow_warp_at", "flow_warp", "vid2vid_tpu/ops/warp.py:271",
+             "v2v_flow_warp_at: F_Warp's and G_Warp's forward; library: F.grid_sample at "
+             "each shard's grid"),
+            ("flow_warp_at_bwd", "flow_warp_bwd", "vid2vid_tpu/ops/warp.py:300",
+             "v2v_flow_warp_at_bwd: F_Warp's backward (d_flow at the shard's columns, "
+             "d_image over the whole frame); library: F.grid_sample's backward at each "
+             "shard's grid")):
+        row = SHARD_WARP[entry]
+        b_ms, b_by = bound_ms(row["bytes"], row["ops"], F32_FLOPS)
+        kernels.append({
+            "name": entry, "route": "cuda",
+            "source": "vid2vid_tpu_torch/csrc/warp_blend.cu", "replaces": replaces,
+            "launches": SHARD_WARP[entry + "_launches"],
+            "launches_by_path": {p: launches[p][counter] for p in launches},
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": row["library_ms"], "ms_unsharded_call": row["ms_unsharded"],
+            "ms_is": f"f32, {what}: the {SHARD_TRAIN_RANKS} shards' calls at {SHARD_WARP_SHAPE} "
+                     "summed, events per call; bound: the image's pixels the samples reach "
+                     "(measured from the flow), the shard's flow and output (and the whole "
+                     "d_image the backward writes); "
+                     "ms_unsharded_call: the unsharded entry on the whole frame; launches: "
+                     f"the two ranks' counted run of phase 14 (launches_by_path: the "
+                     f"{counter} counter, both entries)",
+        })
     return kernels
 
 

@@ -1,5 +1,6 @@
-"""Training's model axis (vid2vid_tpu_torch/parallel/halo.py, the
-width-sharded generator in Trainer) on the CPU.
+"""Training's model axis (vid2vid_tpu_torch/parallel/halo.py: the
+width-sharded generator, discriminators, VGG and losses in Trainer) on the
+CPU.
 
   - One process, no ranks: N = 2 and 4 shards of a frame, each on a thread
     of a parallel.collectives.LocalGroup (the collectives answered in
@@ -10,8 +11,18 @@ width-sharded generator in Trainer) on the CPU.
         down and transposed up convs, batch norm over the group, instance
         norm over the model axis, the residual block): forward, input
         gradient and the shards' weight gradients summed;
+      - the loss side's modules (D's 4x4 convs at stride 2 and 1, VGG's
+        3x3 conv, the 2x2 max and average pools and the 3x3/s2 average
+        pool, MultiscaleDiscriminator with num_D and n_layers_D 2 or 3 in
+        train mode, Vgg19Features) on 2, 4 and 8 shards, unequal and empty
+        ones too: every output the whole's columns, input gradients and
+        summed weight gradients the whole's (f32, 1e-5);
+      - the losses' shares (share_mean, gan_loss in its three modes,
+        feature matching, masked_l1) and vgg_loss, whose pooling test reads
+        the whole width: the shards' values summed and their gradients;
       - warp_blend_at's plain backward at each shard's offset against
-        warp_blend's on the whole frame (d_prev summed over the shards);
+        warp_blend's on the whole frame (d_prev summed over the shards),
+        and flow_warp_at with its backward against flow_warp's;
       - one composite scale: its parameter gradients summed over the shards
         against the unsharded scale's, rtol 1e-5 (and 1e-5 of the largest
         gradient absolute: the biases ahead of a norm have a gradient of
@@ -25,8 +36,13 @@ width-sharded generator in Trainer) on the CPU.
     its model = 2 mesh (Options(n_devices=2, batchSize=1)) from the same
     weights (utils/from_jax.py), within tests/torch_parity.py::
     losses_within; the ranks' weights equal bit for bit after each chunk;
-    the exchanges' backward dropping the halos' gradient leaves those
-    bounds.
+    netD's finest layer sees the shard's columns; three faults leave those
+    bounds: the exchanges' backward dropping the halos' gradient, D's
+    gradients averaged over the model axis (not summed), each rank's
+    losses its own columns' means; the training slice's configuration
+    (VGG, two D copies) on the same ranks against the JAX model mesh and
+    the port's one process; the face D with sparse_D against the port's
+    one process, and a face box per rank leaving its bounds.
   - One launch of 4 gloo ranks (data 2 x model 2, batch 2) against the
     port's one-process Trainer, within the same bounds, with BPTT across
     the chunk's frames (the warp's shared previous frame).
@@ -66,7 +82,16 @@ from vid2vid_tpu_torch.nn.layers import (
     sync_batch_norm,
     update_running_stats,
 )
+from vid2vid_tpu_torch import losses
+from vid2vid_tpu_torch.nn.discriminator import MultiscaleDiscriminator
+from vid2vid_tpu_torch.nn.layers import ShardConv2d
+from vid2vid_tpu_torch.nn.vgg import Vgg19Features
+from vid2vid_tpu_torch.ops.pool import avg_pool_2x2, avg_pool_3x3s2, max_pool_2x2
 from vid2vid_tpu_torch.ops.warp import (
+    flow_warp,
+    flow_warp_at,
+    flow_warp_at_bwd,
+    flow_warp_backward_plain,
     warp_blend,
     warp_blend_at,
     warp_blend_at_backward_plain,
@@ -238,6 +263,156 @@ def test_instance_norm_running_stats_on_shards_equal_the_whole(n, width):
         torch.testing.assert_close(var, whole.running_var, rtol=1e-5, atol=1e-6)
 
 
+# ---------------------------------------- the loss side's modules, one process
+
+# (factory of a module or pool, widths): each runs as fn(x, shard) (None:
+# whole) inside `_Flat`; 2, 4 and 8 shards at even and uneven widths, and
+# shards with no columns (4 on 8, and every narrow layer of D and VGG)
+_WIDTHS = [(2, WIDTH), (4, WIDTH), (4, 10), (8, 8), (8, 4)]
+_VGG_WIDTHS = [(2, WIDTH), (4, 26), (8, 16), (8, 20)]
+
+
+class _Flat(torch.nn.Module):
+    """fn(x, shard) (a module of the loss side, registered as this one's
+    child, or a pool) with its outputs as one flat list: D's per-copy
+    lists of features, VGG's taps, a layer's output."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x, shard=None):
+        out = self.fn(x, shard)
+        return [t for o in (out if isinstance(out, list) else [out])
+                for t in (o if isinstance(o, list) else [o])]
+
+
+LOSS_SIDE = {
+    "d_conv_stride2": (lambda: ShardConv2d(4, 3, 4, 2, 2), _WIDTHS),
+    "d_conv_stride1": (lambda: ShardConv2d(4, 3, 4, 1, 2), _WIDTHS),
+    "vgg_conv": (lambda: ShardConv2d(4, 3, 3, padding=1), _WIDTHS),
+    "max_pool_2x2": (lambda: max_pool_2x2, _WIDTHS),
+    "avg_pool_3x3s2": (lambda: avg_pool_3x3s2, _WIDTHS),
+    "avg_pool_2x2": (lambda: avg_pool_2x2, _WIDTHS),
+    "discriminator_2x2": (lambda: MultiscaleDiscriminator(4, 8, 2, "batch", 2, True), _WIDTHS),
+    "discriminator_3x3": (lambda: MultiscaleDiscriminator(4, 8, 3, "batch", 3, True), _WIDTHS),
+    "vgg19": (Vgg19Features, _VGG_WIDTHS),
+}
+
+
+@pytest.mark.parametrize("name,n,width", [
+    pytest.param(name, n, w, id=f"{name}-{w}_on_{n}")
+    for name, (_, widths) in LOSS_SIDE.items() for n, w in widths])
+def test_a_loss_side_module_on_shards_equals_the_whole(name, n, width):
+    """Each shard runs the module (a 4x4 conv of D at stride 2 and 1, VGG's
+    3x3 conv, the pools, netD with num_D and n_layers_D 2 or 3 in train
+    mode with batch norm over the shards' group, VGG19) on its columns of
+    (2, 4, H, width) or, for VGG, (1, 3, 16, width) frames: every output
+    is the whole output's columns of its width (D's W / 2 + 1 and W + 1,
+    each split by the same rule; shards with none), f32 within rtol 1e-5
+    and atol 1e-5; the shards' input gradients side by side are the whole
+    input's and their weight gradients sum to the whole module's (atol
+    1e-5 of the largest weight gradient)."""
+    module = _Flat(LOSS_SIDE[name][0]())
+    init_weights(module, torch.Generator().manual_seed(0))
+    module.train()
+    update_running_stats(module, False)
+    params = [p for p in module.parameters() if p.requires_grad]
+    x = _seeded(1, 3, 16, width) if name == "vgg19" else _seeded(2, 4, 12, width)
+    xw = x.clone().requires_grad_(True)
+    ys = module(xw)
+    cots = [_seeded(*y.shape, seed=3 + i) for i, y in enumerate(ys)]
+    want = torch.autograd.grad(sum((y * c).sum() for y, c in zip(ys, cots)), [xw] + params)
+
+    def run(sh):
+        m = copy.deepcopy(module)
+        sync_batch_norm(m, sh.group)
+        xl = sh.local(x).clone().requires_grad_(True)
+        got, loss = m(xl, sh), 0.0
+        assert len(got) == len(ys)
+        for yl, y, c in zip(got, ys, cots):
+            cols = slice(*sh.of_width(y.shape[-1]).bounds(sh.index))
+            assert yl.shape == y[..., cols].shape
+            torch.testing.assert_close(yl, y.detach()[..., cols], rtol=1e-5, atol=1e-5)
+            loss = loss + (yl * c[..., cols]).sum()
+        return torch.autograd.grad(loss, [xl] + [p for p in m.parameters() if p.requires_grad])
+
+    out = on_shards(n, width, run)
+    _close(torch.cat([o[0] for o in out], -1), want[0])
+    scale = max(float(g.abs().max()) for g in want[1:]) if params else None
+    for i, w in enumerate(want[1:]):
+        _close(sum(o[1 + i] for o in out), w, scale)
+
+
+@pytest.mark.parametrize("n,width", _WIDTHS, ids=[f"{w}_on_{n}" for n, w in _WIDTHS])
+def test_the_losses_global_means_on_shards_equal_the_whole(n, width):
+    """share_mean, gan_loss (ls, original, hinge), feature_matching_loss
+    and masked_l1 on each shard's columns given the whole widths: the
+    shards' shares sum to the whole tensors' values, f32 within rtol 1e-5
+    and atol 1e-6, and the shards' gradients side by side are the whole's
+    (1 / the global count at each element, no collective)."""
+    pred = [[_seeded(2, 3, 5, width, seed=i + 2 * s) for i in range(2)] for s in range(2)]
+    real = [[_seeded(2, 3, 5, width, seed=9 + i + 2 * s) for i in range(2)] for s in range(2)]
+    mask = torch.sigmoid(_seeded(2, 1, 5, width, seed=20))
+
+    def all_losses(p, r, m, total):
+        widths = None if total is None else [[total] * 2] * 2
+        out = [losses.share_mean(p[0][0], total), losses.masked_l1(p[0][0], r[0][0], m, total),
+               losses.feature_matching_loss(p, r, 2, 1, 10.0, widths)]
+        for mode in ("ls", "original", "hinge"):
+            out += [losses.gan_loss(p, True, mode, widths=widths),
+                    losses.gan_loss(p, False, mode, for_discriminator=False, widths=widths)]
+        return out
+
+    leaves = [t.clone().requires_grad_(True) for scale in pred for t in scale]
+    want = all_losses([leaves[:2], leaves[2:]], real, mask, None)
+    want_grads = [torch.autograd.grad(v, leaves, allow_unused=True) for v in want]
+
+    def run(sh):
+        local = [sh.local(t).clone().requires_grad_(True) for scale in pred for t in scale]
+        rl = [[sh.local(t) for t in scale] for scale in real]
+        got = all_losses([local[:2], local[2:]], rl, sh.local(mask), width)
+        return [v.detach() for v in got], [torch.autograd.grad(v, local, allow_unused=True)
+                                           for v in got]
+
+    out = on_shards(n, width, run)
+    for k, w in enumerate(want):
+        torch.testing.assert_close(sum(o[0][k] for o in out), w.detach(), rtol=1e-5, atol=1e-6)
+    out = [o[1] for o in out]
+    for k, grads in enumerate(want_grads):
+        for j, w in enumerate(grads):
+            got = [o[k][j] for o in out]
+            if w is None:
+                assert all(g is None for g in got)
+                continue
+            torch.testing.assert_close(torch.cat(got, -1), w, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("max_width", [1024, 24], ids=["full", "pooled"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_vgg_loss_on_shards_reads_the_whole_width(n, max_width):
+    """vgg_loss on each shard's columns (its share) summed over the shards
+    equals the whole frames' within f32 rtol 1e-5: at max_width 24 the
+    whole 32-column frames take one 2x2 pool, which a shard's 16 or 8
+    columns alone would skip; the gradients of x side by side are the
+    whole's."""
+    vgg = Vgg19Features()
+    init_weights(vgg, torch.Generator().manual_seed(0))
+    x, y = _seeded(1, 3, 32, WIDTH), _seeded(1, 3, 32, WIDTH, seed=1)
+    xw = x.clone().requires_grad_(True)
+    want = losses.vgg_loss(vgg, xw, y, max_width)
+    (gx,) = torch.autograd.grad(want, [xw])
+
+    def run(sh):
+        xl = sh.local(x).clone().requires_grad_(True)
+        got = losses.vgg_loss(vgg, xl, sh.local(y), max_width, shard=sh)
+        return got.detach(), torch.autograd.grad(got, [xl])[0]
+
+    out = on_shards(n, WIDTH, run, 32)
+    torch.testing.assert_close(sum(o[0] for o in out), want.detach(), rtol=1e-5, atol=1e-7)
+    _close(torch.cat([o[1] for o in out], -1), gx)
+
+
 def test_a_batch_norm_on_a_shard_without_a_group_raises():
     with halo.sharded(halo.make_shard(0, 2, 16, height=4)), pytest.raises(ValueError,
                                                                           match="group"):
@@ -282,6 +457,35 @@ def test_the_warp_backward_at_an_offset_equals_the_whole(n, width):
     whole = [t.clone().requires_grad_(True) for t in (raw, prev, flow, weight)]
     auto = torch.autograd.grad((warp_blend(*whole) * g).sum(), whole)
     assert all(torch.equal(a, b) for a, b in zip(auto, want))
+
+
+@pytest.mark.parametrize("n,width", _cases({"2": (2, 48), "4": (4, 48)}, [(4, 10), (8, 4)]))
+def test_the_offset_warp_equals_the_whole(n, width):
+    """flow_warp_at on each shard's columns (x0 > 0 on all but the first,
+    flows of several pixels that sample across the shards and past the
+    borders) is flow_warp's columns on the whole frame bit for bit;
+    flow_warp_at_bwd gives d_flow at the shard's columns bit for bit with
+    the whole backward's, and the shards' d_image (each over the whole
+    frame) sum to the whole's (atol 1e-5); the autograd of flow_warp_at
+    gives the same; at x0 = 0 with the whole width it is flow_warp's
+    backward bit for bit; with no columns, d_image is zeros."""
+    _, image, flow, _, g = _warp_inputs(width)
+    want = flow_warp(image, flow)
+    want_bwd = flow_warp_backward_plain(image, flow, g)
+    at0 = flow_warp_at_bwd(image, flow, g, 0)
+    assert torch.equal(flow_warp_at(image, flow, 0), want)
+    assert all(torch.equal(a, b) for a, b in zip(at0, want_bwd))
+    dimage = torch.zeros_like(image)
+    for sh in (halo.make_shard(i, n, width) for i in range(n)):
+        fl, gl = sh.local(flow).contiguous(), sh.local(g).contiguous()
+        assert torch.equal(flow_warp_at(image, fl, sh.x0), sh.local(want))
+        got = flow_warp_at_bwd(image, fl, gl, sh.x0)
+        assert torch.equal(got[1], sh.local(want_bwd[1]))
+        dimage += got[0]
+        leaves = [image.clone().requires_grad_(True), fl.clone().requires_grad_(True)]
+        auto = torch.autograd.grad((flow_warp_at(*leaves, sh.x0) * gl).sum(), leaves)
+        assert all(torch.equal(a, b) for a, b in zip(auto, got))
+    torch.testing.assert_close(dimage, want_bwd[0], rtol=0, atol=1e-5)
 
 
 # ----------------------------------------------- the generator, one process
@@ -440,12 +644,13 @@ def _clip(batch: int, seed: int = 11, w: int = tp.W):
     return labels, real
 
 
-def _jax_model_trainer(w: int = tp.W):
-    """The JAX Trainer at batch 1 on --n_devices 2 for frames tp.H x w: its
-    mesh is data 1 x model 2 (GSPMD shards the width, padding the uneven
-    levels); its state from weights drawn with numpy on jax.eval_shape's
-    trees (tests/test_torch_parallel.py::_draw), the same at every w."""
-    trainer = JaxTrainer(JaxOptions(**{**tp.CONFIG, **SMALL, "batchSize": 1, "n_devices": 2,
+def _jax_model_trainer(w: int = tp.W, cut: dict = SMALL):
+    """The JAX Trainer of tp.CONFIG with `cut` at batch 1 on --n_devices 2
+    for frames tp.H x w: its mesh is data 1 x model 2 (GSPMD shards the
+    width, padding the uneven levels); its state from weights drawn with
+    numpy on jax.eval_shape's trees (tests/test_torch_parallel.py::_draw),
+    the same at every w."""
+    trainer = JaxTrainer(JaxOptions(**{**tp.CONFIG, **cut, "batchSize": 1, "n_devices": 2,
                                        "fineSize": w}),
                          flow_fn=tp.jax_stub_flow)
     key, rng = jax.random.key(0), np.random.default_rng(5)
@@ -464,10 +669,12 @@ def _jax_model_trainer(w: int = tp.W):
 @pytest.fixture(scope="module")
 def runs():
     """The 2-rank launch (data 1 x model 2: the Trainer's chunks, the
-    fault, the packages loaded, the chunks at the uneven width) and the
+    faults, the packages loaded, the chunks at the uneven width, the
+    training slice's configuration, the face D with sparse_D) and the
     4-rank launch (data 2 x model 2), with the port's one-process Trainer
-    at batch 2, in threads while the JAX Trainer trains two chunks here on
-    its model = 2 mesh at both widths."""
+    at batch 2, at the training slice's configuration and with the face D,
+    in threads while the JAX Trainer trains two chunks here on its model =
+    2 mesh at both widths and at the training slice's configuration."""
     with tp.torch_threads(1):
         trainer, state = _jax_model_trainer()
         assert dict(trainer.mesh.shape) == {"data": 1, "model": 2}
@@ -481,24 +688,43 @@ def runs():
         trainer_u, state_u = _jax_model_trainer(UNEVEN_W)
         kw_u = dict(kw, weights=(generator_state_dict(state_u.gparams, opt),
                                  loss_engine_state_dict(state_u.dparams, opt)))
+        full_cfg = {**tp.CONFIG, "batchSize": 1}
+        trainer_f, state_f = _jax_model_trainer(cut={})
+        opt_f = Options(**tp.CONFIG)
+        kw_f = dict(n_load=tp.N_LOAD, weights=(generator_state_dict(state_f.gparams, opt_f),
+                                               loss_engine_state_dict(state_f.dparams, opt_f)))
+        face_cfg = {**tp.CONFIG, **SMALL, "batchSize": 1, "add_face_disc": True,
+                    "sparse_D": True}
         calls = [("train_chunks", (model_cfg, labels, real), kw),
                  ("train_chunks", (model_cfg, labels, real), dict(kw, fault="halo_grad_dropped")),
                  ("loaded_packages", (), {}),
-                 ("train_chunks", ({**model_cfg, "fineSize": UNEVEN_W}, labels_u, real_u), kw_u)]
+                 ("train_chunks", ({**model_cfg, "fineSize": UNEVEN_W}, labels_u, real_u), kw_u),
+                 ("train_chunks", (model_cfg, labels, real), dict(kw, fault="d_grads_averaged")),
+                 ("train_chunks", (model_cfg, labels, real), dict(kw, fault="local_loss_means")),
+                 ("train_chunks", ({**full_cfg, "n_devices": 2}, labels, real), kw_f),
+                 ("train_chunks", ({**face_cfg, "n_devices": 2}, labels, real),
+                  dict(n_load=tp.N_LOAD)),
+                 ("train_chunks", ({**face_cfg, "n_devices": 2}, labels, real),
+                  dict(n_load=tp.N_LOAD, fault="face_box_per_rank"))]
         both_cfg = {**tp.CONFIG, **SMALL, "batchSize": 2}
         labels2, real2 = _clip(2, seed=12)
         kw2 = dict(n_load=tp.N_LOAD, weights=weights, n_frames_bp=tp.N_LOAD)
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        with concurrent.futures.ThreadPoolExecutor(5) as pool:
             two = pool.submit(launch, functools.partial(torch_ranks.run_all, calls), 2,
                               devices=["cpu"] * 2, deadline_s=DEADLINE_S, threads=1)
             four = pool.submit(launch, functools.partial(torch_ranks.train_chunks, **kw2), 4,
                                args=({**both_cfg, "n_devices": 4}, labels2, real2),
                                devices=["cpu"] * 4, deadline_s=DEADLINE_S, threads=1)
             one = pool.submit(torch_ranks.train_chunks, both_cfg, labels2, real2, **kw2)
+            full_one = pool.submit(torch_ranks.train_chunks, full_cfg, labels, real, **kw_f)
+            face_one = pool.submit(torch_ranks.train_chunks, face_cfg, labels, real,
+                                   n_load=tp.N_LOAD)
             want = _jax_chunks(trainer, state, labels, real)
             want_u = _jax_chunks(trainer_u, state_u, labels_u, real_u)
-            return dict(want=want, want_uneven=want_u, two=two.result(), four=four.result(),
-                        one=one.result())
+            want_f = _jax_chunks(trainer_f, state_f, labels, real)
+            return dict(want=want, want_uneven=want_u, want_full=want_f, two=two.result(),
+                        four=four.result(), one=one.result(), full_one=full_one.result(),
+                        face_one=face_one.result())
 
 
 def test_two_ranks_match_the_jax_model_mesh(runs):
@@ -530,6 +756,74 @@ def test_two_ranks_on_an_uneven_width_match_the_jax_model_mesh(runs):
 def test_an_exchange_that_drops_the_halo_gradient_leaves_the_bounds(runs):
     got = runs["two"][0][1]["losses"]
     assert tp.losses_within(got, runs["want"]) != []
+
+
+def test_the_discriminators_run_on_the_shards_columns(runs):
+    """netD's finest layer saw the shard's columns on the model axis (32 of
+    64; 18 of the uneven 36), the whole width in one process."""
+    two = runs["two"]
+    assert [r[0]["d_widths"] for r in two] == [[tp.W // 2]] * 2
+    assert [r[3]["d_widths"] for r in two] == [[UNEVEN_W // 2]] * 2
+    assert [r[6]["d_widths"] for r in two] == [[tp.W // 2]] * 2
+    assert runs["full_one"]["d_widths"] == [tp.W]
+
+
+def test_d_gradients_averaged_over_the_model_axis_leave_the_bounds(runs):
+    """netD's and netD_T's gradients averaged over the model axis instead
+    of summed: each rank's is its columns' share, so the grad norms fall by
+    half (Adam would hide the scale in the weights: the norms show it)."""
+    bad = tp.losses_within(runs["two"][0][4]["losses"], runs["want"])
+    assert any(b.startswith("chunk 0 D_grad_norm") for b in bad)
+    assert any(b.startswith("chunk 0 D_T_grad_norm0") for b in bad)
+
+
+def test_local_loss_means_leave_the_bounds(runs):
+    """Each rank's losses as the means of its own columns: the losses read
+    off the whole frame's, and their gradients count each column twice."""
+    bad = tp.losses_within(runs["two"][0][5]["losses"], runs["want"])
+    assert any(b.startswith("chunk 0 D_real") for b in bad)
+    assert any(b.startswith("chunk 0 G_grad_norm") for b in bad)
+
+
+def test_two_ranks_with_vgg_and_two_d_copies_match_one_process(runs):
+    """The training slice's own configuration (VGG, num_D 2, n_layers_D 2,
+    two residual blocks) on model 2 from the JAX model mesh's weights: VGG
+    and both D copies on the shards' columns, within losses_within of the
+    port's one process, the ranks bit for bit."""
+    rank0, rank1 = (r[6] for r in runs["two"])
+    assert tp.losses_within(rank0["losses"], runs["full_one"]["losses"]) == []
+    assert rank0["losses"][0]["G_VGG"] > 0
+    assert rank0["losses"] == rank1["losses"] and rank0["digests"] == rank1["digests"]
+
+
+def test_two_ranks_with_vgg_and_two_d_copies_match_the_jax_model_mesh(runs):
+    """The same run within losses_within of the JAX Trainer on its model =
+    2 mesh at that configuration (GSPMD partitions VGG, both D copies and
+    the losses over the width), from the same weights."""
+    assert tp.losses_within(runs["two"][0][6]["losses"], runs["want_full"]) == []
+
+
+FACE_KEYS = ("G_f_GAN", "G_f_GAN_Feat", "D_f_real", "D_f_fake")
+
+
+def test_two_ranks_with_the_face_d_and_sparse_d_match_one_process(runs):
+    """--add_face_disc and --sparse_D on model 2: the face box over both
+    ranks' columns, the crop gathered whole, netD_f whole on each rank with
+    a half share of its losses, the sparse temporal buffers at the rank's
+    columns; every loss and the face losses within losses_within of the
+    port's one process from the same seeded weights, the face found (its
+    losses nonzero), the ranks bit for bit."""
+    rank0, rank1 = (r[7] for r in runs["two"])
+    assert tp.losses_within(rank0["losses"], runs["face_one"]["losses"], FACE_KEYS) == []
+    assert all(c["D_f_real"] > 0 and c["G_f_GAN"] > 0 for c in rank0["losses"])
+    assert rank0["losses"] == rank1["losses"] and rank0["digests"] == rank1["digests"]
+
+
+def test_a_face_box_per_rank_on_the_model_axis_leaves_the_bounds(runs):
+    """Each rank's face box from its own columns alone: the ranks crop
+    different windows, and the face losses leave the bounds."""
+    bad = tp.losses_within(runs["two"][0][8]["losses"], runs["face_one"]["losses"], FACE_KEYS)
+    assert any(b.startswith("chunk 0 D_f_") or b.startswith("chunk 0 G_f_") for b in bad)
 
 
 def test_data_2_x_model_2_matches_one_process(runs):

@@ -29,7 +29,11 @@ reflects at its inner sides as at the image's edges) and `warp_no_offset`
 (the warp samples the whole previous frame at the shard's local columns);
 in training (`TRAIN_SHARD_FAULTS`), `halo_grad_dropped` (the exchanges'
 backward keeps each rank's own reads' gradient and drops the halos', on
-every rank).
+every rank), `d_grads_averaged` (netD's and netD_T's gradients averaged
+over the model axis, not summed: the D steps' `divisor` dropped) and
+`local_loss_means` (each rank's losses the means of its own columns:
+losses.py's `share_mean` replaced by torch.mean). `train_chunks` also
+reports the widths that netD's finest layer saw (`d_widths`).
 """
 
 from __future__ import annotations
@@ -40,19 +44,20 @@ import sys
 import torch
 import torch.distributed as dist
 
-from vid2vid_tpu_torch import test_cli, train_cli
+from vid2vid_tpu_torch import losses, test_cli, train_cli
 from vid2vid_tpu_torch.config import Options
 from vid2vid_tpu_torch.models.inference import InferenceEngine
 from vid2vid_tpu_torch.nn import composite
 from vid2vid_tpu_torch.nn.layers import BatchNorm2d, sync_batch_norm
 from vid2vid_tpu_torch.parallel import halo, mesh
+from vid2vid_tpu_torch.losses import share_mean
 from vid2vid_tpu_torch.parallel.workers import deterministic_algorithms, run_chunks
-from vid2vid_tpu_torch.train import steps
+from vid2vid_tpu_torch.train import loop, steps
 from vid2vid_tpu_torch.train.loop import Trainer
 
 FAULTS = ("unsynced_norms", "summed_gradients", "face_box_per_rank")
 SHARD_FAULTS = ("halo_wrong_side", "reflect_inner_edges", "warp_no_offset")
-TRAIN_SHARD_FAULTS = ("halo_grad_dropped",)
+TRAIN_SHARD_FAULTS = ("halo_grad_dropped", "d_grads_averaged", "local_loss_means")
 
 
 def stub_flow(cur: torch.Tensor, prev: torch.Tensor):
@@ -83,7 +88,8 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
     with `weights` ((generator, engine) state dicts) if given, trained on
     the global clip (labels, frames, inst) chunk by chunk (`run_chunks`,
     under `deterministic_algorithms` if asked), its BPTT cadence
-    `n_frames_bp` if given."""
+    `n_frames_bp` if given; run_chunks' result with `d_widths`, the input
+    widths that netD's finest layer saw."""
     if fault is not None and fault not in FAULTS + TRAIN_SHARD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}; one of {FAULTS + TRAIN_SHARD_FAULTS}")
     fetch_backward = halo._Fetch.backward
@@ -94,7 +100,17 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
             return fetch_backward(ctx, g)
 
         halo._Fetch.backward = staticmethod(local_part)
+    elif fault == "d_grads_averaged":
+        def averaged(step):
+            return lambda *args, **kwargs: step(*args, **{**kwargs, "divisor": None})
+
+        loop.d_step, loop.dt_step = averaged(steps.d_step), averaged(steps.dt_step)
+    elif fault == "local_loss_means":
+        losses.share_mean = lambda x, total=None: torch.mean(x)
     trainer = Trainer(Options(**opt_kwargs), flow_fn=stub_flow, device=device)
+    finest = getattr(trainer.engine.netD, f"scale{trainer.opt.num_D - 1}_layer0")[0]
+    d_widths = set()
+    finest.register_forward_pre_hook(lambda m, args: d_widths.add(args[0].shape[-1]))
     if n_frames_bp is not None:
         trainer.schedule.n_frames_bp = n_frames_bp
     state = trainer.init_state()
@@ -110,11 +126,14 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
         steps.all_reduce_mean = _all_reduce_sum_in_place
     try:
         with deterministic_algorithms() if deterministic else contextlib.nullcontext():
-            return run_chunks(trainer, state, _tensor(labels), _tensor(frames),
-                              _tensor(inst), n_load)
+            out = run_chunks(trainer, state, _tensor(labels), _tensor(frames),
+                             _tensor(inst), n_load)
+        return {**out, "d_widths": sorted(d_widths)}
     finally:
         steps.all_reduce_mean = mesh.all_reduce_mean
         halo._Fetch.backward = staticmethod(fetch_backward)
+        loop.d_step, loop.dt_step = steps.d_step, steps.dt_step
+        losses.share_mean = share_mean
 
 
 def batch_norm_rows(x, weight, bias, grad_out, update_stats: bool) -> dict:

@@ -5,10 +5,12 @@
 // in the JAX package, not a Pallas kernel) together with the blend of
 // vid2vid_tpu/nn/composite.py::_blend; the reference ran the warp as a CUDA
 // op (resample2d). Two entries share one kernel template:
-//   v2v_warp_blend:  out = raw * w + bilinear_border(prev, flow) * (1 - w)
-//   v2v_flow_warp:   out = bilinear_border(image, flow)
+//   v2v_warp_blend:   out = raw * w + bilinear_border(prev, flow) * (1 - w)
+//   v2v_flow_warp_at: out = bilinear_border(image, flow)
 // the second for the unfused callers (FlowNet2's four warps and the
-// FlowEstimator confidence, models/flownet2/{flownet2,wrapper}.py).
+// FlowEstimator confidence, models/flownet2/{flownet2,wrapper}.py, and the
+// loss engine's warps). Both take a width shard's column offset (training's
+// and serving's model axis); the unsharded call is Wp = W, x0 = 0.
 // prev, raw: (B, C, H, W); flow: (B, 2, H, W), channel 0 = dx in pixels;
 // w: (B, 1, H, W). Every output pixel samples prev at (x + dx, y + dy) with
 // the floor / clamp semantics of flow_warp_ref (warp.py:57-82): corner
@@ -72,7 +74,7 @@
 // of pixels, and so did 8 bf16 pixels a thread against 2 or 4 (more
 // registers, fewer warps).
 //
-// The backward (v2v_flow_warp_bwd, v2v_warp_blend_bwd; one template
+// The backward (v2v_flow_warp_at_bwd, v2v_warp_blend_bwd; one template
 // warp_bwd_kernel<T, BLEND>) replaces the JAX package's hand-written VJP,
 // vid2vid_tpu/ops/warp.py::_flow_warp_bwd with _warp_x_cotangent (a
 // sort + cumsum segment sum there, because XLA's scatter-add serialises on
@@ -620,29 +622,36 @@ extern "C" int v2v_warp_blend(const void* raw, const void* prev,
                              cols, smem_bytes, static_cast<int*>(staged), dtype, stream);
 }
 
-extern "C" int v2v_flow_warp(const void* image, const void* flow, void* out,
-                             int B, int C, int H, int W, int rows, int cols,
-                             int smem_bytes, void* staged, int dtype, void* stream) {
-  return v2v::dispatch<false>(nullptr, image, flow, nullptr, out, B, C, H, W, W, 0,
+// The unfused warp: image (B, C, H, Wp), the whole frame; flow and out: W
+// columns from the frame's column x0 (a width shard's: the loss engine's
+// F_Warp and G_Warp on the model axis; the unsharded call: Wp = W, x0 = 0).
+extern "C" int v2v_flow_warp_at(const void* image, const void* flow, void* out,
+                                int B, int C, int H, int W, int Wp, int x0, int rows,
+                                int cols, int smem_bytes, void* staged, int dtype,
+                                void* stream) {
+  return v2v::dispatch<false>(nullptr, image, flow, nullptr, out, B, C, H, W, Wp, x0,
                               rows, cols, smem_bytes, static_cast<int*>(staged), dtype,
                               stream);
 }
 
-// dimage in the dtype; splat: f32 scratch of the same shape, which the
-// entry zeroes and accumulates into (in f32 it must be dimage itself).
-extern "C" int v2v_flow_warp_bwd(const void* image, const void* flow,
-                                 const void* g, void* dimage, void* splat,
-                                 void* dflow, int B, int C, int H, int W,
-                                 int dtype, void* stream) {
+// The backward of v2v_flow_warp_at: image, dimage, splat (B, C, H, Wp), the
+// whole frame (on a shard, its splat: the shards' dimage sum to the whole
+// frame's); flow, g, dflow: W columns from the frame's column x0. dimage in
+// the dtype; splat: f32 scratch of the same shape, which the entry zeroes
+// and accumulates into (in f32 it must be dimage itself).
+extern "C" int v2v_flow_warp_at_bwd(const void* image, const void* flow,
+                                    const void* g, void* dimage, void* splat,
+                                    void* dflow, int B, int C, int H, int W, int Wp,
+                                    int x0, int dtype, void* stream) {
   return v2v::dispatch_bwd<false>(nullptr, image, flow, nullptr, g, nullptr,
-                                  dimage, splat, dflow, nullptr, B, C, H, W, W,
-                                  0, dtype, stream);
+                                  dimage, splat, dflow, nullptr, B, C, H, W, Wp,
+                                  x0, dtype, stream);
 }
 
 // prev, dprev, splat: (B, C, H, Wp), the whole frame; raw, flow, weight, g,
 // draw, dflow, dweight: W columns from the frame's column x0 (the unsharded
 // call: Wp = W, x0 = 0). draw, dprev, dflow, dweight in the dtype; splat
-// as v2v_flow_warp_bwd's.
+// as v2v_flow_warp_at_bwd's.
 extern "C" int v2v_warp_blend_bwd(const void* raw, const void* prev,
                                   const void* flow, const void* weight,
                                   const void* g, void* draw, void* dprev,

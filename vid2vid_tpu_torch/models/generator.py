@@ -62,7 +62,9 @@ class ClipOutputs(NamedTuple):
     """Per-clip outputs at the finest scale, (B, T, C, H, W) each.
 
     fake: blended frames; raw: hallucinated frames; flow / weight: (B, T,
-    2 / 1, H, W), or None when the generator has no flow branch.
+    2 / 1, H, W), or None when the generator has no flow branch. From a
+    width shard's training clip (`generate_clip(..., local=True)`) they
+    are this rank's columns.
     """
 
     fake: torch.Tensor
@@ -202,6 +204,7 @@ class Vid2VidGenerator(nn.Module):
         self, enc_a: torch.Tensor, state: State, *, use_raw_only: bool = False,
         train: bool = False, n_frames_bp: int = 1, finetune_all: bool = True,
         params: list[dict] | None = None, shard: WidthShard | None = None,
+        local: bool = False,
     ) -> tuple[ClipOutputs, State]:
         """T frames, in order, from T+tG-1 encoded inputs (B, T+tG-1, C, H, W)
         and the per-level ring buffers. Returns (ClipOutputs, new state).
@@ -217,7 +220,10 @@ class Vid2VidGenerator(nn.Module):
         new state is detached: it crosses the chunk boundary. With `shard`
         this rank runs its columns of the whole encoded clip, and the
         outputs come whole (gathered: in training their gradient keeps this
-        rank's columns).
+        rank's columns). With `local` it returns (ClipOutputs, new state,
+        the whole fakes detached), and on a shard the outputs stay at this
+        rank's columns, as the training step's sharded losses take them
+        (the whole fakes are the frames gathered for the ring buffers).
         """
         tG, n_scales = self.tG, self.n_scales
         n_frames = enc_a.shape[1] - (tG - 1)
@@ -237,7 +243,7 @@ class Vid2VidGenerator(nn.Module):
                 remat=train and self.opt.remat, params=params, shard=shard,
             )
             ys.append(y)
-        return self._clip_result(ys, bufs, shard)
+        return self._clip_result(ys, bufs, shard, local)
 
     @torch.no_grad()
     def generate_clip_streaming(
@@ -300,20 +306,26 @@ class Vid2VidGenerator(nn.Module):
             ys.append(y)
         return self._clip_result(ys, bufs, shard)
 
-    def _clip_result(self, ys: list, bufs: tuple,
-                     shard: WidthShard | None = None) -> tuple[ClipOutputs, State]:
+    def _clip_result(self, ys: list, bufs: tuple, shard: WidthShard | None = None,
+                     local: bool = False) -> tuple:
         """The frame passes' outputs stacked over time, and the new state
         (detached: it crosses the chunk boundary). On a shard the frames
-        come whole; raw, flow and weight are gathered here, once a clip."""
-        fake, raw, flow, weight = (
+        come whole and raw, flow and weight are gathered here, once a clip;
+        with `local` all four stay at this rank's columns, and the whole
+        frames, detached, come third."""
+        fake, raw, flow, weight, whole = (
             None if ys[0][i] is None else torch.stack([y[i] for y in ys], 1)
-            for i in range(4)
+            for i in range(5)
         )
-        if shard is not None:  # differentiable: the gradient keeps this rank's columns
+        if shard is None:
+            whole = fake
+        elif not local:  # differentiable: the gradient keeps this rank's columns
+            fake = whole
             raw, flow, weight = (None if t is None else halo.gather_width(t, shard)
                                  for t in (raw, flow, weight))
         new_state = tuple(unstack_time(b, self.tG - 1).detach() for b in bufs)
-        return ClipOutputs(fake, raw, flow, weight), new_state
+        outs = ClipOutputs(fake, raw, flow, weight)
+        return (outs, new_state, whole.detach()) if local else (outs, new_state)
 
     def _apply_scale(self, s: int, params: dict | None, shard: WidthShard | None,
                      *args) -> CompositeOut:
@@ -334,11 +346,12 @@ class Vid2VidGenerator(nn.Module):
 
         wins: per-level (B, tG, C, H, W) encoded windows, finest first;
         bufs: per-level channel-stacked (B, (tG-1)*3, H, W) ring buffers.
-        Returns (new bufs, (fake, raw, flow, weight)). With `shard` the
-        windows are this rank's columns and the buffers whole: each scale
-        runs under halo.sharded, and its frame is gathered whole (the fake
-        returned is whole; raw, flow and weight are this rank's columns).
-        The gathers are differentiable (halo.gather_width).
+        Returns (new bufs, (fake, raw, flow, weight, the whole fake)). With
+        `shard` the windows are this rank's columns and the buffers whole:
+        each scale runs under halo.sharded, and its frame is gathered whole
+        into the buffers (fake, raw, flow and weight are this rank's
+        columns, the whole fake the gathered frame; None unsharded). The
+        gathers are differentiable (halo.gather_width).
         """
         opt = self.opt
         tG, n_scales = self.tG, self.n_scales
@@ -367,10 +380,11 @@ class Vid2VidGenerator(nn.Module):
             if detach_coarse and s != n_scales - 1:
                 out = CompositeOut(*(None if x is None else x.detach() for x in out))
             coarse = out
-            frame = out.img_final
+            frame = whole = out.img_final
             if shard is not None:  # the whole frame, for the ring and the caller
-                frame = halo.gather_width(frame, shard)
+                whole = halo.gather_width(frame, shard)
             # ring buffer: drop the oldest frame, append this one (the
             # stored, gradient-connected frames)
-            new_bufs[si] = torch.cat([bufs[si][:, c_out:], frame], 1)
-        return tuple(new_bufs), (frame, coarse.img_raw, coarse.flow, coarse.weight)
+            new_bufs[si] = torch.cat([bufs[si][:, c_out:], whole], 1)
+        return tuple(new_bufs), (frame, coarse.img_raw, coarse.flow, coarse.weight,
+                                 None if shard is None else whole)

@@ -12,6 +12,11 @@ then trim the buffer to tD^(t_scales-1)*(tD-1) trailing frames.
 
 Sparse (`skipped_frames_sparse`, --sparse_D): per-scale buffers that keep
 only the stride-subsampled stream.
+
+None of them reads across columns: on training's model axis the trainer
+gives them its rank's columns of the frames, flows and confidence
+(train/loop.py), and the groups they return feed the temporal
+discriminators at those columns.
 """
 
 from __future__ import annotations

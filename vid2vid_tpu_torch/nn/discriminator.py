@@ -12,6 +12,17 @@ copies over an input pyramid (3x3/s2 average pooling between copies). Copy
 i runs at the i-th level and is named `scale{num_D-1-i}` with
 min(64, ndf * 2**i) channels, so `scale{num_D-1}` sees full resolution
 with ndf channels; its blocks are `scale{d}_layer{n}`.
+
+On the model axis (`forward(x, shard)`: x this rank's columns of frames
+shard.total wide, parallel/halo.py) every copy runs on the rank's columns,
+as the JAX mesh partitions it: each 4x4 conv fetches the columns its output
+columns read (nn/layers.py::ShardConv2d; a stride-2 layer's output is W / 2
++ 1 wide, a stride-1 layer's W + 1, each split by the same rule), the
+train-mode norms take their statistics over the whole width
+(`run_sharded`), and the pyramid between copies is the sharded 3x3/s2
+average pool. The features for feature matching stay at the rank's
+columns; `widths` gives the whole widths of the outputs (the losses'
+shares, losses.py).
 """
 
 from __future__ import annotations
@@ -19,22 +30,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vid2vid_tpu_torch.nn.layers import norm_layer
+from vid2vid_tpu_torch.nn.layers import ShardConv2d, norm_layer, run_sharded
 from vid2vid_tpu_torch.ops.pool import avg_pool_3x3s2
+from vid2vid_tpu_torch.parallel import halo
 
 
 def nlayer_blocks(input_nc: int, ndf: int, n_layers: int, norm: str) -> list[nn.Sequential]:
     """The n_layers + 2 Sequential blocks of one NLayerDiscriminator."""
-    blocks = [nn.Sequential(nn.Conv2d(input_nc, ndf, 4, 2, 2), nn.LeakyReLU(0.2, True))]
+    blocks = [nn.Sequential(ShardConv2d(input_nc, ndf, 4, 2, 2), nn.LeakyReLU(0.2, True))]
     nf = ndf
     for n in range(1, n_layers + 1):
         nf_prev, nf = nf, min(nf * 2, 512)
         stride = 2 if n < n_layers else 1
         blocks.append(nn.Sequential(
-            nn.Conv2d(nf_prev, nf, 4, stride, 2), norm_layer(norm, nf),
+            ShardConv2d(nf_prev, nf, 4, stride, 2), norm_layer(norm, nf),
             nn.LeakyReLU(0.2, True),
         ))
-    blocks.append(nn.Sequential(nn.Conv2d(nf, 1, 4, 1, 2)))
+    blocks.append(nn.Sequential(ShardConv2d(nf, 1, 4, 1, 2)))
     return blocks
 
 
@@ -59,15 +71,33 @@ class MultiscaleDiscriminator(nn.Module):
             for n, blk in enumerate(blocks):
                 self.add_module(f"scale{d}_layer{n}", blk)
 
-    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+    def forward(self, x: torch.Tensor,
+                shard: halo.WidthShard | None = None) -> list[list[torch.Tensor]]:
+        """With `shard` (x this rank's columns of frames shard.total wide)
+        every activation is this rank's columns of the whole one's."""
         results = []
         for i in range(self.num_d):
             d = self.num_d - 1 - i
-            feats, h = [], x
+            feats, h, sh = [], x, shard
             for n in range(self.n_layers + 2):
-                h = getattr(self, f"scale{d}_layer{n}")(h)
+                h, sh = run_sharded(getattr(self, f"scale{d}_layer{n}"), h, sh)
                 feats.append(h)
             results.append(feats if self.get_interm_feat else [h])
             if i != self.num_d - 1:
-                x = avg_pool_3x3s2(x)
+                x = avg_pool_3x3s2(x, shard)
+                shard = None if shard is None else shard.of_width(
+                    halo.window_width(shard.total, 3, 2, 1))
         return results
+
+    def widths(self, width: int) -> list[list[int]]:
+        """The whole widths of forward's outputs, nested as they are, for
+        an input `width` wide."""
+        out = []
+        for i in range(self.num_d):
+            d, ws, w = self.num_d - 1 - i, [], width
+            for n in range(self.n_layers + 2):
+                w = getattr(self, f"scale{d}_layer{n}")[0].output_width(w)
+                ws.append(w)
+            out.append(ws if self.get_interm_feat else ws[-1:])
+            width = halo.window_width(width, 3, 2, 1)
+        return out

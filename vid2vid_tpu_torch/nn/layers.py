@@ -60,6 +60,7 @@ from vid2vid_tpu_torch.ops.conv7 import (
     conv7_reflect,
     pack_for_kernel,
 )
+from vid2vid_tpu_torch.ops.pool import max_pool_2x2
 from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.parallel.collectives import group_size
 from vid2vid_tpu_torch.parallel.mesh import all_reduce_sum
@@ -189,14 +190,7 @@ def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     return torch.cat([xp[..., 1 : p + 1, :].flip(-2), xp, xp[..., -p - 1 : -1, :].flip(-2)], -2)
 
 
-def valid_conv(fn, x: torch.Tensor, k: int) -> torch.Tensor:
-    """fn(x), a conv that reads k input columns an output column (VALID
-    along the width). On an input narrower than k (a shard with no
-    columns) fn runs on k zero columns and its output keeps none: no
-    columns, and the graph of every other rank, reaching x."""
-    if x.shape[-1] >= k:
-        return fn(x)
-    return fn(F.pad(x, (0, k - x.shape[-1])))[..., :0]
+valid_conv = halo.valid_conv
 
 
 class Conv2d(nn.Conv2d):
@@ -205,6 +199,58 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return valid_conv(super().forward, x, self.kernel_size[1])
+
+
+class ShardConv2d(nn.Conv2d):
+    """nn.Conv2d with equal zero padding on both axes (the discriminators'
+    4x4 and VGG's 3x3 convs), which also runs on a width shard of a tensor
+    of any width: `forward(x, shard)`, x this rank's columns of a tensor
+    shard.total wide, fetches the columns its output columns read
+    (`halo.window`: zeros past the image's edges, the neighbours' columns
+    at its inner sides) and returns its columns of the output, split by the
+    same rule (`output_shard`). Without a shard it is nn.Conv2d."""
+
+    def output_width(self, width: int) -> int:
+        """The output's width for an input `width` wide."""
+        return halo.window_width(width, self.kernel_size[1], self.stride[1], self.padding[1])
+
+    def output_shard(self, shard: halo.WidthShard) -> halo.WidthShard:
+        return shard.of_width(self.output_width(shard.total))
+
+    def forward(self, x: torch.Tensor, shard: halo.WidthShard | None = None) -> torch.Tensor:
+        if shard is None:
+            return super().forward(x)
+        k, s, p = self.kernel_size[1], self.stride[1], self.padding[1]
+        xf, _ = halo.window(x, shard, k, s, p)
+        return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, self.stride,
+                                             (self.padding[0], 0)), xf, k)
+
+
+def run_sharded(layers: nn.Sequential, x: torch.Tensor,
+                shard: halo.WidthShard | None) -> tuple[torch.Tensor, halo.WidthShard | None]:
+    """`layers` (a discriminator's block, a slice of VGG's features) on x:
+    (output, its shard). On a width shard of a tensor that is no pyramid
+    level each layer runs on the rank's columns: the convs fetch what they
+    read (`ShardConv2d`), a 2x2 max pool too (ops/pool.py::max_pool_2x2),
+    train-mode batch norm takes its statistics over its group, which must
+    span the model axis, and instance norm each sample's over the shard's
+    group (`InstanceNorm2d._synced`); activations are pointwise."""
+    if shard is None:
+        return layers(x), None
+    for layer in layers:
+        if isinstance(layer, ShardConv2d):
+            x, shard = layer(x, shard), layer.output_shard(shard)
+        elif isinstance(layer, nn.MaxPool2d):
+            x, shard = max_pool_2x2(x, shard), shard.of_width(shard.total // 2)
+        elif isinstance(layer, BatchNorm2d) and layer.training and group_size(layer.group) == 1:
+            raise ValueError("BatchNorm2d in train mode on a width shard takes its statistics "
+                             "over the model axis: give it a group (sync_batch_norm)")
+        elif isinstance(layer, InstanceNorm2d) and (layer.training
+                                                    or not layer.track_running_stats):
+            x = layer._synced(x, shard)
+        else:
+            x = layer(x)
+    return x, shard
 
 
 class ReflectionPad2d(nn.ReflectionPad2d):

@@ -7,12 +7,21 @@ torchvision state_dict loads with `load_state_dict(strict=False)` and the
 JAX package's VGG carries across with utils/from_jax.py. The inputs are
 the generator's [-1, 1] frames, without ImageNet renormalisation, as the
 reference feeds them.
+
+On the model axis (`forward(x, shard)`, parallel/halo.py) it runs on the
+rank's columns: each 3x3 conv fetches the columns its output columns read
+(nn/layers.py::ShardConv2d, zero padding 1) and each 2x2 max pool the
+pairs its output columns take (nn/layers.py::run_sharded); every tap is
+the rank's columns of the whole one (`tap_widths` wide).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from vid2vid_tpu_torch.nn.layers import ShardConv2d, run_sharded
+from vid2vid_tpu_torch.parallel import halo
 
 # torchvision's vgg19 configuration 'E' up to conv5_1: widths, 'M' = 2x2 max pool
 _CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -31,16 +40,29 @@ class Vgg19Features(nn.Module):
             if v == "M":
                 layers.append(nn.MaxPool2d(2, 2))
             else:
-                layers += [nn.Conv2d(in_ch, v, 3, padding=1), nn.ReLU(True)]
+                layers += [ShardConv2d(in_ch, v, 3, padding=1), nn.ReLU(True)]
                 in_ch = v
         self.features = nn.Sequential(*layers)
         self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                shard: halo.WidthShard | None = None) -> list[torch.Tensor]:
+        """With `shard` (x this rank's columns of frames shard.total wide)
+        each tap is this rank's columns of the whole one."""
         taps, start = [], 0
         for cut in _CUTS:
-            for i in range(start, cut):
-                x = self.features[i](x)
+            x, shard = run_sharded(self.features[start:cut], x, shard)
             taps.append(x)
             start = cut
         return taps
+
+    def tap_widths(self, width: int) -> list[int]:
+        """The whole widths of forward's taps for an input `width` wide
+        (each 2x2 max pool floors it by half)."""
+        widths, start = [], 0
+        for cut in _CUTS:
+            pools = sum(isinstance(m, nn.MaxPool2d) for m in self.features[start:cut])
+            width >>= pools
+            widths.append(width)
+            start = cut
+        return widths

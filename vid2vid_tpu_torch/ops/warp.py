@@ -4,9 +4,16 @@
 bilinearly, with the coordinates clamped to the border: the semantics of
 vid2vid_tpu/ops/warp.py::flow_warp_ref, computed with the same f32 floor /
 clamp arithmetic. On a CUDA tensor it launches the hand-written kernel in
-csrc/warp_blend.cu (the unfused entry `v2v_flow_warp`), on a CPU tensor
+csrc/warp_blend.cu (the unfused entry `v2v_flow_warp_at`), on a CPU tensor
 `flow_warp_plain`; FlowNet2 and its confidence, and the loss engine's warp
-losses, call it unfused. It equals the reference's
+losses, call it unfused. `flow_warp(image, flow, x0)` is the warp of a
+width shard (the loss engine's F_Warp and G_Warp on training's model axis):
+image the whole (B, C, H, Wp) frame, flow the shard's W columns from the
+frame's column x0, sampled at (x0 + x + u, y + v) and clamped to the whole
+frame's border; its backward gives d_flow at the shard's columns and
+d_image over the whole frame. The unsharded call is x0 = 0 with W = Wp.
+A shard's launches (W < Wp) count on `flow_warp_at` / `flow_warp_at_bwd`,
+the whole frame's on `flow_warp` / `flow_warp_bwd`. It equals the reference's
 `F.grid_sample(image, grid, mode="bilinear", padding_mode="border",
 align_corners=True)` over a normalized [-1, 1] meshgrid plus the
 normalized flow, up to the rounding of the normalization round trip
@@ -37,10 +44,10 @@ fractional weights clipped to [0, 1].
     integer sample coordinate, so every zero flow) the clip passes half the
     gradient, and none beyond. `flow_warp_ref`'s autodiff gives the full
     gradient there instead; the port follows the JAX package's flow_warp.
-The backward is the kernel `v2v_flow_warp_bwd` / `v2v_warp_blend_bwd` on a
+The backward is the kernel `v2v_flow_warp_at_bwd` / `v2v_warp_blend_bwd` on a
 CUDA tensor (one ctypes call: the entry zeroes its f32 splat and, in bf16,
-rounds it into d/dimage itself; the blend's at a column offset, `Wp` and
-`x0`, as its forward) and `flow_warp_backward_plain` /
+rounds it into d/dimage itself; both at a column offset, `Wp` and `x0`, as
+their forwards) and `flow_warp_backward_plain` /
 `warp_blend_backward_plain` / `warp_blend_at_backward_plain` on a CPU
 tensor. It needs H and W (of the whole frame) of at least 2.
 
@@ -65,23 +72,24 @@ from vid2vid_tpu_torch.ops import library
 from vid2vid_tpu_torch.ops.conv7 import wants_grad
 
 
-def _check_flow(image: torch.Tensor, flow: torch.Tensor) -> None:
-    s = image.shape
-    if len(s) != 4 or flow.shape != (s[0], 2, s[2], s[3]):
+def _check_flow(image: torch.Tensor, flow: torch.Tensor, x0: int = 0) -> None:
+    if (image.dim() != 4 or flow.dim() != 4 or flow.shape[1] != 2
+            or image.shape[0] != flow.shape[0] or image.shape[2] != flow.shape[2]
+            or not 0 <= x0 <= image.shape[3] - flow.shape[3]):
         raise ValueError(
-            f"flow_warp: image {tuple(image.shape)} and flow "
-            f"{tuple(flow.shape)} must share (B, H, W) and flow must have "
-            "2 channels"
+            f"flow_warp: image {tuple(image.shape)} and flow {tuple(flow.shape)} "
+            f"at x0 {x0}: they must share (B, H), flow must have 2 channels and "
+            "its columns from x0 must lie within the image's"
         )
 
 
 def _check_blend(raw, prev, flow, weight) -> None:
-    _check_flow(prev, flow)
     s = prev.shape
-    if raw.shape != s or weight.shape != (s[0], 1, s[2], s[3]):
+    if (len(s) != 4 or raw.shape != s or flow.shape != (s[0], 2, s[2], s[3])
+            or weight.shape != (s[0], 1, s[2], s[3])):
         raise ValueError(
-            f"warp_blend: raw {tuple(raw.shape)}, prev {tuple(prev.shape)} "
-            f"and weight {tuple(weight.shape)} disagree"
+            f"warp_blend: raw {tuple(raw.shape)}, prev {tuple(prev.shape)}, "
+            f"flow {tuple(flow.shape)} and weight {tuple(weight.shape)} disagree"
         )
 
 
@@ -103,11 +111,12 @@ def _work_dtype(*tensors: torch.Tensor) -> torch.dtype:
     return dtype
 
 
-def flow_warp_plain(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def flow_warp_plain(image: torch.Tensor, flow: torch.Tensor, x0: int = 0) -> torch.Tensor:
     """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy), in
-    plain PyTorch (gathers)."""
-    _check_flow(image, flow)
-    return _sample_plain(image, flow, 0)
+    plain PyTorch (gathers); with x0, flow_warp's shard: image the whole
+    (B, C, H, Wp) frame, flow its W columns from x0."""
+    _check_flow(image, flow, x0)
+    return _sample_plain(image, flow, x0)
 
 
 def _sample_plain(image: torch.Tensor, flow: torch.Tensor, x0: int) -> torch.Tensor:
@@ -212,13 +221,14 @@ def _patch_backward(image, flow, g, x0: int = 0):
 
 
 def flow_warp_backward_plain(
-    image: torch.Tensor, flow: torch.Tensor, g: torch.Tensor
+    image: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, x0: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(d/dimage, d/dflow) of flow_warp at (image, flow) for the output
-    cotangent g, in plain PyTorch; each in its input's dtype."""
-    _check_flow(image, flow)
+    """(d/dimage, d/dflow) of flow_warp at (image, flow[, x0]) for the
+    output cotangent g, in plain PyTorch, each in its input's dtype: on a
+    shard d/dimage over the whole frame, d/dflow at the shard's columns."""
+    _check_flow(image, flow, x0)
     _check_backward(image)
-    dimage, dflow, _ = _patch_backward(image, flow, g)
+    dimage, dflow, _ = _patch_backward(image, flow, g, x0)
     return dimage.to(image.dtype), dflow.to(flow.dtype)
 
 
@@ -377,7 +387,7 @@ def staged_tiles(flow: torch.Tensor, plan: WarpPlan, c: int, wp: int | None = No
     return int((box <= plan.smem_bytes).sum())
 
 
-_FLOW_WARP_ARGS = [_VOID] * 3 + [_INT] * 7 + [_VOID, _INT, _VOID]
+_FLOW_WARP_ARGS = [_VOID] * 3 + [_INT] * 9 + [_VOID, _INT, _VOID]
 _WARP_BLEND_ARGS = [_VOID] * 5 + [_INT] * 9 + [_VOID, _INT, _VOID]
 
 
@@ -385,15 +395,15 @@ def warp_forward_cuda(prev: torch.Tensor, flow: torch.Tensor, raw: torch.Tensor 
                       weight: torch.Tensor | None = None, x0: int = -1,
                       plan: WarpPlan | None = None,
                       staged: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch of the forward kernel on CUDA tensors: `v2v_flow_warp`
-    (no raw), else `v2v_warp_blend` (x0 >= 0: at that column of the whole
-    prev), under `plan` (default: warp_forward_plan's). `staged`, an int32
-    tensor of one element, adds the launch's staged tiles. Counted on the
-    wrapper whose entry it is (flow_warp, warp_blend, warp_blend_at)."""
-    out_like = prev if raw is None else raw
-    b, c, h, w = out_like.shape
+    """One launch of the forward kernel on CUDA tensors: `v2v_flow_warp_at`
+    (no raw), else `v2v_warp_blend`, at column x0 of the whole prev (x0 < 0:
+    the unsharded blend), under `plan` (default: warp_forward_plan's).
+    `staged`, an int32 tensor of one element, adds the launch's staged
+    tiles. Counted on flow_warp (the whole frame) or flow_warp_at (a
+    shard's columns), warp_blend or warp_blend_at (x0 >= 0)."""
+    b, c, h, w = prev.shape[:2] + flow.shape[2:]  # the output's: the flow's columns
     if w == 0:  # a width shard with no columns at this level: no launch
-        return torch.empty_like(out_like)
+        return prev.new_empty((b, c, h, 0))
     wp = prev.shape[3]
     plan = plan or warp_forward_plan(c, prev.dtype, h, w, wp)
     tensors = dict(prev=prev, flow=flow) if raw is None else dict(
@@ -402,14 +412,14 @@ def warp_forward_cuda(prev: torch.Tensor, flow: torch.Tensor, raw: torch.Tensor 
     code = build.require_cuda_operands(what, prev.device, prev.dtype, **tensors)
     if staged is not None and (staged.dtype != torch.int32 or staged.device != prev.device):
         raise ValueError(f"{what}: the staged count must be an int32 tensor on {prev.device}")
-    out = torch.empty_like(out_like)
+    out = prev.new_empty((b, c, h, w))
     count = staged.data_ptr() if staged is not None else None
     tile = (plan.rows, plan.cols, plan.smem_bytes, count, code)
     if raw is None:
-        fn = build.function("v2v_flow_warp", _FLOW_WARP_ARGS)
+        fn = build.function("v2v_flow_warp_at", _FLOW_WARP_ARGS)
         err = build.launch(fn, prev.device, prev.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                           b, c, h, w, *tile)
-        counter = flow_warp
+                           b, c, h, w, wp, max(x0, 0), *tile)
+        counter = flow_warp if w == wp else flow_warp_at
     else:
         fn = build.function("v2v_warp_blend", _WARP_BLEND_ARGS)
         err = build.launch(fn, prev.device, raw.data_ptr(), prev.data_ptr(), flow.data_ptr(),
@@ -421,10 +431,10 @@ def warp_forward_cuda(prev: torch.Tensor, flow: torch.Tensor, raw: torch.Tensor 
     return out
 
 
-def _flow_warp_forward(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def _flow_warp_forward(image: torch.Tensor, flow: torch.Tensor, x0: int) -> torch.Tensor:
     if image.device.type == "cpu":
-        return flow_warp_plain(image, flow)
-    return warp_forward_cuda(image, flow)
+        return flow_warp_plain(image, flow, x0)
+    return warp_forward_cuda(image, flow, x0=x0)
 
 
 def _splat_buffers(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -438,61 +448,84 @@ def _splat_buffers(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def flow_warp_bwd(
-    image: torch.Tensor, flow: torch.Tensor, g: torch.Tensor
+    image: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, x0: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(d/dimage, d/dflow) of flow_warp for the cotangent g: the kernel
-    `v2v_flow_warp_bwd` on a CUDA tensor (all three in one dtype, f32 or
-    bf16, contiguous), `flow_warp_backward_plain` on a CPU tensor."""
-    _check_flow(image, flow)
+    `v2v_flow_warp_at_bwd` on a CUDA tensor (all three in one dtype, f32 or
+    bf16, contiguous), `flow_warp_backward_plain` on a CPU tensor. On a
+    shard (flow and g its columns from x0) d/dimage is over the whole frame
+    (the shard's splat: the shards' sum to the whole frame's); with no
+    columns no kernel runs and d/dimage is zeros."""
+    _check_flow(image, flow, x0)
     _check_backward(image)
+    if flow.shape[3] == 0:
+        return torch.zeros_like(image), torch.empty_like(flow)
     if image.device.type == "cpu":
-        return flow_warp_backward_plain(image, flow, g)
+        return flow_warp_backward_plain(image, flow, g, x0)
     code = build.require_cuda_operands(
         "flow_warp_bwd", image.device, image.dtype, image=image, flow=flow, g=g
     )
-    fn = build.function("v2v_flow_warp_bwd", [_VOID] * 6 + [_INT] * 5 + [_VOID])
-    b, c, h, w = image.shape
+    fn = build.function("v2v_flow_warp_at_bwd", [_VOID] * 6 + [_INT] * 7 + [_VOID])
+    b, c, h, wp = image.shape
+    w = flow.shape[3]
     dimage, splat = _splat_buffers(image)
     dflow = torch.empty_like(flow)
     err = build.launch(fn, image.device, image.data_ptr(), flow.data_ptr(), g.data_ptr(),
-                       dimage.data_ptr(), splat.data_ptr(), dflow.data_ptr(), b, c, h, w,
-                       code)
+                       dimage.data_ptr(), splat.data_ptr(), dflow.data_ptr(), b, c, h, w, wp,
+                       x0, code)
     build.check(err, "flow_warp backward kernel launch")
-    flow_warp_bwd.launches += 1
-    flow_warp_bwd.second_kernels += image.dtype == torch.bfloat16 and image.numel() > 0  # the splat's cast
+    counter = flow_warp_bwd if w == wp else flow_warp_at_bwd
+    counter.launches += 1
+    counter.second_kernels += image.dtype == torch.bfloat16 and image.numel() > 0  # the cast
     return dimage, dflow
-
-
-flow_warp_bwd.launches = 0
-flow_warp_bwd.second_kernels = 0  # the casts of the f32 splat to bf16
 
 
 class _FlowWarp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, image, flow):
+    def forward(ctx, image, flow, x0):
         ctx.save_for_backward(image, flow)
-        return _flow_warp_forward(image, flow)
+        ctx.x0 = x0
+        return _flow_warp_forward(image, flow, x0)
 
     @staticmethod
     def backward(ctx, g):
         image, flow = ctx.saved_tensors
-        return flow_warp_bwd(image, flow, g.contiguous())
+        return (*flow_warp_bwd(image, flow, g.contiguous(), ctx.x0), None)
 
 
-def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy).
+def flow_warp(image: torch.Tensor, flow: torch.Tensor, x0: int = 0) -> torch.Tensor:
+    """(B, C, H, W) image warped by (B, 2, H, W) pixel flow (dx, dy); with
+    x0, a width shard's (image the whole (B, C, H, Wp) frame, flow its W
+    columns from the frame's column x0: the shard's columns of the whole
+    warp).
 
     A CPU tensor takes `flow_warp_plain`; a CUDA tensor launches the kernel
     (image and flow in one dtype, f32 or bf16, contiguous) or raises. The
     gradient is `flow_warp_bwd`.
     """
-    _check_flow(image, flow)
+    _check_flow(image, flow, x0)
     if wants_grad(image, flow):
-        return _FlowWarp.apply(image, flow)
-    return _flow_warp_forward(image, flow)
+        return _FlowWarp.apply(image, flow, x0)
+    return _flow_warp_forward(image, flow, x0)
 
 
-flow_warp.launches = 0
+def flow_warp_at(image: torch.Tensor, flow: torch.Tensor, x0: int) -> torch.Tensor:
+    """flow_warp of a width shard's columns from x0; the launches of every
+    flow_warp call on a shard (W < Wp) count here."""
+    return flow_warp(image, flow, x0)
+
+
+def flow_warp_at_bwd(image: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                     x0: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """flow_warp_bwd of a width shard's columns from x0; the launches of
+    every flow_warp_bwd call on a shard count here."""
+    return flow_warp_bwd(image, flow, g, x0)
+
+
+flow_warp.launches = flow_warp_at.launches = 0
+for _counter in (flow_warp_bwd, flow_warp_at_bwd):
+    _counter.launches = 0
+    _counter.second_kernels = 0  # the casts of the f32 splat to bf16
 
 
 def _warp_blend_cuda(raw, prev, flow, weight, x0=-1) -> torch.Tensor:

@@ -34,36 +34,41 @@ one order (the self reads first, then the ranks'). Its users:
     zero-padded stride-2 down convs (`down_input`) and the transposed up
     convs (`up_input`), whose inputs and outputs lie on two levels split
     by their own rules, so that a rank may read columns it does not hold
-    and hold columns it does not read.
+    and hold columns it does not read;
+  - in training, the zero-padded convs and pools of the discriminators
+    and VGG (`window`), on tensors of any width (a 4x4 conv of padding 2
+    gives W / 2 + 1 or W + 1 columns): each width is split by the same
+    rule (`WidthShard.of_width`).
 
 After each scale the generator gathers the whole frame (`gather_width`:
-the unequal shards padded to the widest, then cut by the ranges). Every
-rank then holds the whole frames, which feed two kinds of consumer:
-
-  - replicated consumers compute the same thing on every rank: the
-    losses, the discriminators, VGG;
-  - per-rank consumers differ by rank: the next frame's previous-frame
-    trunk reads this rank's columns of the ring (nn/composite.py::
-    local_columns), and its warp reads the whole previous frame at this
-    rank's column offset.
+the unequal shards padded to the widest, then cut by the ranges) into its
+previous frames, whose consumers differ by rank: the next frame's
+previous-frame trunk reads this rank's columns of the ring (nn/
+composite.py::local_columns), and its warp reads the whole previous frame
+at this rank's column offset. The training losses take the frames at the
+rank's columns (the discriminators, VGG and the losses run sharded; each
+rank's loss is its share of the whole frame's, models/loss_engine.py);
+what they read whole is gathered without a gradient (the previous frames
+that the loss warps sample) or read whole on every rank (the face crop,
+`gather`, whose loss each rank holds a 1 / n share of).
 
 The gradient invariant: the gradient that reaches rank r's columns is the
 replicated part counted once plus the per-rank parts summed over the
 ranks. So `gather_width`'s backward keeps this rank's columns of the
-whole frame's gradient (the replicated part is the same on every rank,
-and the trunk's part is this rank's own), and the warp's previous frame
-passes through `shared`, the identity whose backward sums the gradient
-over the ranks. Each rank's gradients of its local activations are then
-the whole model's, and a parameter's gradient on a rank is its columns'
-share: the training step sums them over the model axis
-(train/steps.py::_apply).
+whole tensor's gradient (the replicated part is the same on every rank,
+and the trunk's part is this rank's own), while the warp's previous frame
+passes through `shared` and the face crop through `gather`, whose
+backwards sum the gradient over the ranks (each rank's part is its
+share's). Each rank's gradients of its local activations are then the
+whole model's, and a parameter's gradient on a rank is its share's: the
+training step sums them over the model axis (train/steps.py::_apply).
 
 Every rank makes every collective in the same order, forward and
 backward, ranks with no columns at a level included (they send and read
 nothing, padded lists of zeros): a collective one rank skipped would hang
 the others. The layers' autograd graphs have the same structure on every
 rank (a conv of a shard with no columns runs on zero columns and keeps
-none, nn/layers.py::valid_conv), so the backward meets the collectives in
+none, `valid_conv`), so the backward meets the collectives in
 one order. An exchange that no rank needs (every list empty) is made by
 none.
 
@@ -108,6 +113,7 @@ COUNTS = {"exchanges": 0, "exchange_bytes": 0, "gathers": 0, "gather_bytes": 0,
 
 
 def reset_counts() -> None:
+    """Zero COUNTS."""
     for k in COUNTS:
         COUNTS[k] = 0
 
@@ -170,6 +176,12 @@ class WidthShard:
             raise ValueError(f"frames {self.height0}x{self.width0} have no level {level}")
         return dataclasses.replace(self, level=level)
 
+    def of_width(self, total: int) -> WidthShard:
+        """This rank's shard, by the same rule, of a tensor `total` columns
+        wide that is no pyramid level (a discriminator's or VGG's layer:
+        `window`): its columns [r total // n, (r + 1) total // n)."""
+        return dataclasses.replace(self, width0=total, height0=0, level=0)
+
     def level_of(self, x: torch.Tensor) -> WidthShard:
         """The shard of x's level, found by its height (which no shard
         splits)."""
@@ -184,6 +196,12 @@ class WidthShard:
         if x.shape[-1] != self.total:
             raise ValueError(f"width {x.shape[-1]} is not the whole width {self.total}")
         return x[..., self.x0 : self.x1]
+
+
+def local(x: torch.Tensor | None, shard: WidthShard | None) -> torch.Tensor | None:
+    """This shard's columns of a whole-width tensor (a view); x itself
+    without a shard."""
+    return x if x is None or shard is None else shard.local(x)
 
 
 def check_geometry(width: int, n: int, user: str = "a width-sharded engine") -> None:
@@ -263,7 +281,15 @@ def _need(spec: tuple, n: int, total: int, rank: int) -> list[int]:
       - ("up",): the input columns a // 2 .. (b - 1) // 2 + 1 of a 3x3
         stride-2 transposed conv (padding 1, output padding 1) whose
         output columns, on the level twice as wide, are [a, b)
-        (`up_input`).
+        (`up_input`);
+      - ("window", k, stride, pad): the input columns stride a - pad ..
+        stride (b - 1) - pad + k - 1 (zeros past the image's edges) of a
+        k-wide window of `stride` and zero padding `pad` whose output
+        columns, of the (total + 2 pad - k) // stride + 1 it has, are
+        [a, b) (`window`): the discriminators' 4x4 convs (padding 2,
+        stride 2 or 1), VGG's 3x3 convs (padding 1) and 2x2 max pools,
+        the 3x3/s2 average pool between D copies (padding 1) and the 2x2
+        average pool of the VGG loss.
 
     A rank with no output columns reads none."""
     kind = spec[0]
@@ -290,7 +316,19 @@ def _need(spec: tuple, n: int, total: int, rank: int) -> list[int]:
         a, b = split(2 * total, n, rank)
         return ([] if a == b else
                 [_source(i, total, "zeros") for i in range(a // 2, (b - 1) // 2 + 2)])
+    if kind == "window":
+        _, k, stride, pad = spec
+        a, b = split(window_width(total, k, stride, pad), n, rank)
+        return ([] if a == b else
+                [_source(i, total, "zeros") for i in range(stride * a - pad,
+                                                           stride * (b - 1) - pad + k)])
     raise ValueError(f"unknown halo spec {spec!r}")
+
+
+def window_width(total: int, k: int, stride: int, pad: int) -> int:
+    """The output width of a k-wide window of `stride` and zero padding
+    `pad` over `total` columns."""
+    return (total + 2 * pad - k) // stride + 1
 
 
 class _Plan:
@@ -483,15 +521,37 @@ def up_input(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
     return fetch(x, shard, ("up",))
 
 
+def valid_conv(fn, x: torch.Tensor, k: int) -> torch.Tensor:
+    """fn(x), a conv or pool that reads k input columns an output column
+    (VALID along the width). On an input narrower than k (a shard with no
+    columns) fn runs on k zero columns and its output keeps none: no
+    columns, and the graph of every other rank, reaching x."""
+    if x.shape[-1] >= k:
+        return fn(x)
+    return fn(torch.nn.functional.pad(x, (0, k - x.shape[-1])))[..., :0]
+
+
+def window(x: torch.Tensor, shard: WidthShard, k: int, stride: int,
+           pad: int) -> tuple[torch.Tensor, WidthShard]:
+    """The input columns (zeros past the image's edges) that a k-wide
+    window of `stride` and zero padding `pad` (a conv or a pool, VALID
+    along the width on them) reads for this rank's output columns, x being
+    its columns of a tensor `shard.total` wide; and the output's shard
+    (`WidthShard.of_width`). Differentiable."""
+    out = shard.of_width(window_width(shard.total, k, stride, pad))
+    return fetch(x, shard, ("window", k, stride, pad)), out
+
+
 class _GatherWidth(torch.autograd.Function):
     """The whole width from every rank's columns; the backward keeps this
-    rank's columns of the whole tensor's gradient (the gradient
-    invariant: every consumer of the whole tensor is replicated or reads
-    it through `shared`)."""
+    rank's columns of the whole tensor's gradient (the gradient invariant:
+    every consumer of the whole tensor is replicated or reads it through
+    `shared`), summed over the ranks first with `summed` (a consumer whose
+    loss each rank holds a share of)."""
 
     @staticmethod
-    def forward(ctx, x, shard):
-        ctx.cols = (shard.x0, shard.x1)
+    def forward(ctx, x, shard, summed):
+        ctx.cols, ctx.group, ctx.summed = (shard.x0, shard.x1), shard.group, summed
         widths = [x1 - x0 for x0, x1 in map(shard.bounds, range(shard.n))]
         pad = max(widths) - x.shape[-1]
         send = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], -1) if pad else x.contiguous()
@@ -503,7 +563,12 @@ class _GatherWidth(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x0, x1 = ctx.cols
-        return g[..., x0:x1], None
+        if ctx.summed:
+            g = g.contiguous().clone()
+            all_reduce(g, ctx.group)
+            COUNTS["reduces_bwd"] += 1
+            COUNTS["reduce_bytes_bwd"] += g.numel() * g.element_size()
+        return g[..., x0:x1], None, None
 
 
 def gather_width(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
@@ -511,7 +576,15 @@ def gather_width(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
     of shard's group (x this rank's columns of its level, found by its
     height), on every rank: one all_gather of the shards padded to the
     widest. Differentiable: the gradient keeps this rank's columns."""
-    return _GatherWidth.apply(x, shard.level_of(x))
+    return _GatherWidth.apply(x, shard.level_of(x), False)
+
+
+def gather(x: torch.Tensor, shard: WidthShard) -> torch.Tensor:
+    """The whole of a tensor whose columns split as `shard` says (its own
+    total, not a level of the frames: the face crop's rows), read whole by
+    a loss that each rank holds a share of: the backward sums the gradient
+    over the ranks (one all-reduce) and keeps this rank's columns."""
+    return _GatherWidth.apply(x, shard, True)
 
 
 class _Shared(torch.autograd.Function):

@@ -18,11 +18,13 @@ model + model index), and both axes are written out:
     layers exchanging halos and each scale's frame gathered whole; the
     generator's batch norms take their statistics over both axes
     (`Mesh.world_group`);
+  - the model axis in training shards the discriminators, VGG and the
+    losses too (models/loss_engine.py): each rank's loss is its share of
+    the whole frame's, and the shards' losses sum to it;
   - the gradients (train/steps.py::_apply) are reduced in one flat f32
-    bucket over the world before the grad norms and Adam: the generator's
-    summed over the model axis (each rank's is its columns' share) and
-    averaged over the data axis, the discriminators' (equal on the ranks
-    of a row) averaged over every rank,
+    bucket over the world before the grad norms and Adam: summed over the
+    model axis (each rank's is its share's) and averaged over the data
+    axis,
 so a step on a data x model mesh computes what one process computes on
 the whole batch at the whole width. Serving takes a mesh of data 1 x
 model N (models/inference.py).

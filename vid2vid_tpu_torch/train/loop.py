@@ -20,11 +20,15 @@ first CUDA device unless the caller passes device='cpu'.
 
 With --n_devices N it is one rank of the JAX Trainer's mesh, data =
 gcd(batchSize, N) x model = N / data (parallel/mesh.py): it keeps its data
-rows of each global batch, and on a model axis it runs the generator on
-its columns of every frame (a parallel/halo.py::WidthShard of the finest
-level; `shard`), whose outputs come whole, so that the reference flow,
-the discriminators, VGG and the losses run on whole frames, the same on
-every rank of a row. Sharding those is later work (ROADMAP.md).
+rows of each global batch, and on a model axis it runs its columns of
+every frame (a parallel/halo.py::WidthShard of the finest level; `shard`),
+as the JAX mesh partitions every activation over the width: the
+generator, netD, every netD_T, VGG and every loss (each rank's loss its
+share of the whole frame's; the reported losses their sum). The real frames, the reference flows and their confidence are
+sliced to the rank's columns; the previous frames that the warps sample
+stay whole (the generator's whole fakes, detached, and the real frames).
+The reference flow (FlowNet2) still runs on whole frames, the same on
+every rank of a row, and so does the face discriminator on its crop.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from vid2vid_tpu_torch.config import Options
-from vid2vid_tpu_torch.models.generator import Vid2VidGenerator
+from vid2vid_tpu_torch.models.generator import ClipOutputs, Vid2VidGenerator
 from vid2vid_tpu_torch.models.loss_engine import LossEngine
 from vid2vid_tpu_torch.models.temporal import (
     skipped_flows,
@@ -133,16 +137,20 @@ class Trainer:
         # package, never update the running ones
         update_running_stats(self.gen, False)
         update_running_stats(self.engine, False)
-        # the generator's norms take their statistics over the global batch
-        # at the whole width, the engine's (on whole frames) and the face
-        # box over the global batch
+        # the norms of the generator and of the discriminators that a model
+        # axis shards take their statistics over the global batch at the
+        # whole width (every rank), the face D's (on the whole crop) over
+        # the data axis; the face box spans every rank's frames and columns
         sync_batch_norm(self.gen, self.world_group)
-        sync_batch_norm(self.engine, self.group)
-        self.engine.group = self.group
+        sync_batch_norm(self.engine, self.world_group)
+        if self.engine.netD_f is not None:
+            sync_batch_norm(self.engine.netD_f, self.group)
+        self.engine.group = self.world_group
         self.flow_fn = flow_fn or zero_flow_fn
         self.schedule = Schedule(opt)
-        # the last chunk's ClipOutputs (detached) and its (labels, real_b,
-        # flow_ref, conf_ref), for train_cli.py's visuals
+        # the last chunk's ClipOutputs (detached; on a model axis made whole,
+        # `_whole_outputs`) and its (labels, real_b, flow_ref, conf_ref), for
+        # train_cli.py's visuals
         self.last_outs = None
         self.last_inputs = None
 
@@ -218,13 +226,19 @@ class Trainer:
                 carry.gen_state = self.gen.state_from_frames(real_b[:, : tG - 1])
             carry.fake_prev_first = real_b[:, tG - 2 : tG - 1]
 
-        # reference flows for the chunk's current frames
+        # reference flows for the chunk's current frames (whole frames), then
+        # on a model axis this rank's columns of the frames and flows
+        shard = self.shard(w, h)
         real_b_cur = real_b[:, tG - 1:]
         real_b_prev = real_b[:, tG - 2 : -1]
-        flow_ref, conf_ref = self.flow_fn(real_b_cur, real_b_prev)
+        self.last_inputs = (labels, real_b, *self.flow_fn(real_b_cur, real_b_prev))
+        flow_ref, conf_ref = (halo.local(t, shard) for t in self.last_inputs[2:])
 
-        # temporal real / flow buffers and groups
+        # temporal real / flow buffers and groups (the rank's columns; the
+        # dense buffer of real frames stays whole: the coarser scales'
+        # flows are computed on whole frames)
         if opt.sparse_D:
+            real_b_cur = halo.local(real_b_cur, shard)
             if carry.real_all is None:
                 carry.real_all = [None] * t_scales
                 carry.flow_all = [None] * t_scales
@@ -246,7 +260,9 @@ class Trainer:
             for s in range(1, t_scales):
                 rb = real_skipped[s]
                 if rb is not None:
-                    flow_skipped[s], _ = self.flow_fn(rb[:, 1:], rb[:, :-1])
+                    flow_skipped[s] = halo.local(self.flow_fn(rb[:, 1:], rb[:, :-1])[0], shard)
+            real_skipped = [halo.local(r, shard) for r in real_skipped]
+        divisor = None if self.mesh is None else self.mesh.data
 
         # G step
         loss_g, aux = g_step(
@@ -254,21 +270,20 @@ class Trainer:
             carry.fake_prev_first, carry.fake_buf, real_skipped, flow_skipped,
             use_raw_only=use_raw_only, n_frames_bp=self.schedule.n_frames_bp,
             finetune_all=self.schedule.finetune_all, chunk_start=carry.chunk_start,
-            group=self.world_group, divisor=None if self.mesh is None else self.mesh.data,
-            shard=self.shard(w, h),
+            group=self.world_group, divisor=divisor, shard=shard,
         )
         outs = aux["outs"]
-        self.last_outs = outs
-        self.last_inputs = (labels, real_b, flow_ref, conf_ref)
+        self.last_outs = outs if shard is None else self._whole_outputs(
+            outs, aux["fake_whole"], shard)
         carry.gen_state = aux["gen_state"]
         carry.fake_buf = aux["fake_buf"]
-        carry.fake_prev_first = outs.fake[:, -1:]
+        carry.fake_prev_first = aux["fake_whole"][:, -1:]
         fake_skipped = aux["fake_skipped"]
 
         # D step
         loss_d, d_losses = d_step(
             state, opt, enc_a, real_b, outs.fake, None if use_raw_only else outs.raw,
-            group=self.world_group)
+            group=self.world_group, divisor=divisor, shard=shard)
 
         # temporal D steps
         dt_losses = []
@@ -276,7 +291,8 @@ class Trainer:
             if real_skipped[s] is None or fake_skipped[s] is None:
                 continue
             _, dtl = dt_step(state, opt, real_skipped[s], fake_skipped[s],
-                             flow_skipped[s], scale=s, group=self.world_group)
+                             flow_skipped[s], scale=s, group=self.world_group,
+                             divisor=divisor, shard=shard)
             dt_losses.append(dtl)
 
         carry.chunk_start += n_load
@@ -284,8 +300,9 @@ class Trainer:
 
         # ONE transfer for every loss scalar (the JAX package measured a
         # per-key readback at 2.7x the whole step's host cost), after one
-        # all-reduce on a data axis: the global batch's means (the ranks of
-        # a model axis computed the same ones)
+        # all-reduce on a mesh: each loss summed over the model axis (each
+        # rank holds its share) and averaged over the data axis; the grad
+        # norms, of the reduced gradients, are the same on every rank
         out = dict(aux["losses"])
         out["G_grad_norm"] = aux["grad_norm"]
         out.update(d_losses)
@@ -296,8 +313,23 @@ class Trainer:
         out["loss_G_total"] = loss_g
         out["loss_D_total"] = loss_d
         values = torch.stack([v.float().reshape(()) for v in out.values()])
-        all_reduce_mean([values], self.group)
+        is_loss = torch.tensor(["_grad_norm" not in k for k in out], device=values.device)
+        summed = values * is_loss
+        all_reduce_mean([summed], self.world_group, divisor)
+        values = torch.where(is_loss, summed, values)
         return state, carry, dict(zip(out, values.cpu().tolist()))
+
+    @staticmethod
+    def _whole_outputs(outs: ClipOutputs, fake_whole: torch.Tensor,
+                       shard: halo.WidthShard) -> ClipOutputs:
+        """A shard's ClipOutputs made whole for the visuals: the whole fakes,
+        and the last frame of raw, flow and weight (those that exist: flow
+        and weight come together) gathered by one all_gather."""
+        parts = [t[:, -1:] for t in (outs.raw, outs.flow, outs.weight) if t is not None]
+        whole = halo.gather_width(torch.cat(parts, 2), shard).split(
+            [t.shape[2] for t in parts], 2)
+        raw, flow, weight = (*whole, None, None)[:3]
+        return ClipOutputs(fake_whole, raw, flow, weight)
 
     def train_clip(self, state, labels, real_b, inst=None):
         """Every chunk of one clip; returns (state, the last loss dict)."""
