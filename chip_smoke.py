@@ -152,7 +152,10 @@ non-zero):
      Trainer and train_cli: data 1 x model 2): the 512x256 training recipe
      of phase 7 at its full width on two gloo ranks on this one card, each
      on its 256 columns of every frame (the generator, netD, every netD_T,
-     VGG and the losses; FlowNet2 on whole frames), one clip of 2 chunks,
+     VGG, the losses, and FlowNet2 with its confidence from the whole
+     frames: FlowNetC's correlation in its column-halo mode,
+     v2v_correlation_cols, counted on correlation_halo; no unsharded
+     correlation or flow_warp launch on a rank), one clip of 2 chunks,
      and one f32 chunk at 256x520 (the trunk's 65 columns split 32 / 33):
      chunk 1 within the training bounds of the unsharded Trainer (same
      seeds), the ranks' weights equal bit for bit after every chunk, netD's
@@ -170,7 +173,15 @@ non-zero):
      gradients' reduction ms and bytes, peak memory a rank by training
      step beside the unsharded Trainer's; then
      train_cli.train for one epoch on both ranks (equal weights, `latest`
-     written once). Two ranks on one card give no scaling figure.
+     written once); then the ranks' sharded FlowEstimator on two pairs at
+     256x512 and at 256x520 (resized to 512 and back) against the
+     unsharded one (flow within 1e-4 (1 + max|flow|), the confidence equal
+     away from its threshold), with the exchanges and bytes of a call and
+     its ms a rank; the column-halo correlation against its plain version
+     and the unsharded kernel's columns (bit for bit where the plans
+     agree) at narrow, 1-column and empty shards, and timed at the
+     recipe's (2, 256, 32, 64) on 2 shards against the unsharded call.
+     Two ranks on one card give no scaling figure.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernels' JSON.
 Long tables go to build/chip_smoke_profile*.txt.
@@ -250,6 +261,7 @@ from vid2vid_tpu_torch.ops.correlation import (  # noqa: E402
     BWD_SMEM_BYTES,
     BWD_THREAD_CHANNELS,
     BWD_THREADS,
+    KERNEL_MAX_DISPLACEMENT,
     KERNEL_RADIUS,
     TILE_BLOCKS_PER_SM,
     TILE_SMEM_BYTES,
@@ -259,6 +271,8 @@ from vid2vid_tpu_torch.ops.correlation import (  # noqa: E402
     correlation_bwd,
     correlation_bwd_fmas,
     correlation_bwd_plan,
+    correlation_halo,
+    correlation_halo_plain,
     correlation_plain,
     correlation_plan,
     correlation_taps,
@@ -444,10 +458,12 @@ PLAIN = {"respair": respair_plain, "warp_blend": warp_blend_plain,
 PLAIN_OF = {conv7_padded: conv7_plain, conv7_halo: conv7_halo_plain,
             respair_halo: respair_halo_plain, warp_blend_at: warp_blend_at_plain,
             warp_blend_at_bwd: warp_blend_at_backward_plain,
-            flow_warp_at: flow_warp_plain, flow_warp_at_bwd: flow_warp_backward_plain}
+            flow_warp_at: flow_warp_plain, flow_warp_at_bwd: flow_warp_backward_plain,
+            correlation_halo: correlation_halo_plain}
 # the wrappers that their own module calls, from an autograd backward: the
 # path logs their calls there too (kernel_call_shapes)
-CALLED_IN_THEIR_MODULE = {"correlation_bwd", "warp_blend_at_bwd", "flow_warp_bwd"}
+CALLED_IN_THEIR_MODULE = {"correlation_bwd", "warp_blend_at_bwd", "flow_warp_bwd",
+                          "correlation_halo"}
 # the unfused warp's entries whose launches on a width shard's columns (the
 # flow narrower than the image) count on a counter of their own: a path's
 # call is logged under that counter (LoggedCall)
@@ -720,6 +736,8 @@ def halo_case(fn, shapes, dtype, gen):
         image, flow, g = bwd_case("flow_warp_bwd", (b, c, h, wp), dtype, gen)
         flow, g = (t[..., x0 : x0 + w].contiguous() for t in (flow, g))
         return (image, flow, x0) if fn is flow_warp_at else (image, flow, g, x0)
+    if fn is correlation_halo:  # (f1 (B, C, H, w), f2 (B, C, H, w + 40))
+        return corr_case(shapes[0], gen)[0], corr_case(shapes[1], gen)[0]
     return None
 
 
@@ -742,6 +760,8 @@ class LoggedCall:
 
     def __call__(self, *args, **kwargs):
         name, fn, seen = self._call
+        if kwargs.get("shard") is not None:  # its column-halo entry logs the call
+            return fn(*args, **kwargs)
         shard = fn in SHARD_ENTRY and args[1].shape[-1] != args[0].shape[-1]
         key = (name, *call_key(SHARD_ENTRY[fn] if shard else fn, args))
         seen[key] = seen.get(key, 0) + 1
@@ -1022,10 +1042,11 @@ def label_stream(opt: Options, frames: int, h: int, w: int):
     return labels, inst
 
 
-def stub_flow(cur, prev):
+def stub_flow(cur, prev, shard=None):
     """A deterministic stand-in for FlowNet2 on (B, T, 3, H, W) frames (the
-    training reference's; tests/test_train_oracle.py uses it too)."""
-    d = cur - prev
+    training reference's; tests/test_train_oracle.py uses it too); on a
+    width shard, its columns."""
+    d = halo.local(cur - prev, shard)
     flow = torch.stack([2.0 * torch.tanh(3.0 * d[:, :, 0]),
                         2.0 * torch.tanh(3.0 * d[:, :, 1])], 2)
     return flow, torch.sigmoid(d[:, :, 2:3])
@@ -2871,11 +2892,15 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
                       device=dev)
     seconds = {"setup": time.perf_counter() - t0}
     counts, times, coll = [], [], {}
+    # the launches of the unsharded entries FlowNet2 would make whole: none
+    # on a rank (read before the counters restart, and at the end)
+    unsharded = {"correlation": 0, "flow_warp": 0}
 
     def on_bf16(k):
         if k:
             counts.append(dict(halo.COUNTS))
         else:  # the bf16 chunks' launches and collectives from zero
+            unsharded.update(correlation=correlation.launches, flow_warp=flow_warp.launches)
             reset_launches()
         halo.reset_counts()
         times.append(dict(coll))  # chunk k's collectives by caller
@@ -2900,7 +2925,10 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
                          "warp_blend_bwd": warp_blend_bwd.launches,
                          "flow_warp_at": flow_warp_at.launches,
                          "flow_warp_at_bwd": flow_warp_at_bwd.launches,
-                         "flow_warp_bwd": flow_warp_bwd.launches},
+                         "flow_warp_bwd": flow_warp_bwd.launches,
+                         "flow_warp": flow_warp.launches,
+                         "correlation": correlation.launches,
+                         "correlation_halo": correlation_halo.launches},
         d_widths=sorted(d_widths),
         seen=[(name, index[id(fn)], shapes, str(dtype), calls)
               for (name, fn, shapes, dtype), calls in seen.items()],
@@ -2940,7 +2968,87 @@ def shard_train_rank(labels: np.ndarray, frames: np.ndarray, device: str, root: 
     sched = cli_trainer.schedule
     out["cli"] = dict(chunk_ms=chunk_ms, epoch=sched.epoch, total_steps=sched.total_steps,
                       digest=mesh.weights_digest(cli_trainer.gen, cli_trainer.engine))
+    t1 = time.perf_counter()
+    out["flow"] = shard_flow_rank(est, cli_trainer, dev)
+    seconds["flow"] = time.perf_counter() - t1
+    out["unsharded_launches"] = {"correlation": unsharded["correlation"] + correlation.launches,
+                                 "flow_warp": unsharded["flow_warp"] + flow_warp.launches}
     out["seconds"] = seconds
+    return out
+
+
+# (H, W) of phase 14's FlowNet2 comparison: the recipe's frames, and the
+# uneven width, which FlowNet2 resizes to 512 and back
+SHARD_FLOW_HW = [TRAIN_HW, SHARD_TRAIN_UNEVEN_HW]
+
+
+def shard_flow_rank(est: FlowEstimator, trainer: Trainer, dev: torch.device) -> dict:
+    """On a rank of phase 14: the sharded FlowEstimator (the trainer's
+    shard of the frames' width) on SHARD_FLOW_HW's frame pairs
+    (frame_pairs(2, H, W), whole on every rank): this rank's flow and conf,
+    and at FlowNet2's size its flow and warp error (CPU tensors), the host
+    ms of a call after a warm-up call, and that call's exchanges and the
+    bytes this rank sent."""
+    out = {}
+    for h, w in SHARD_FLOW_HW:
+        im1, im2 = (t.to(dev) for t in frame_pairs(2, h, w, seed=5))
+        sh = trainer.shard(w, h)
+        est(im1, im2, shard=sh)  # warm-up
+        torch.cuda.synchronize(dev)
+        halo.reset_counts()
+        t0 = time.perf_counter()
+        flow, conf = est(im1, im2, shard=sh)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(halo.COUNTS)
+        net_flow, err, _ = est.flow_and_error(im1[0], im2[0], sh)
+        out[(h, w)] = dict(flow=flow.cpu(), conf=conf.cpu(), net_flow=net_flow.cpu(),
+                           err=err.cpu(), ms=ms, exchanges=counts["exchanges"],
+                           exchange_bytes=counts["exchange_bytes"], columns=(sh.x0, sh.width))
+    return out
+
+
+def shard_flow_compare(est: FlowEstimator, ranks: list) -> dict:
+    """Phase 14: the ranks' FlowEstimator outputs (shard_flow_rank) side by
+    side against the unsharded FlowEstimator on the same pairs here, by
+    the CPU tests' criteria (tests/test_torch_shard_flow.py): the flow, at
+    FlowNet2's size and after the resize back, within 1e-4 (1 + max|flow|);
+    the confidence at FlowNet2's size equal wherever the unsharded warp
+    error lies more than 1e-4 from the threshold (and, unresized, the
+    returned confidence too). Raises off them; returns by (H, W) the
+    unsharded call's host ms (after a warm-up call), the largest flow
+    differences and the confidence's flips near the threshold."""
+    thr, out = est.conf_threshold, {}
+    for h, w in SHARD_FLOW_HW:
+        im1, im2 = (t.to(DEV) for t in frame_pairs(2, h, w, seed=5))
+        est(im1, im2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow, conf = est(im1, im2)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        net_flow, err, _ = est.flow_and_error(im1[0], im2[0])
+        got = {k: torch.cat([r["flow"][(h, w)][k] for r in ranks], -1).to(DEV)
+               for k in ("flow", "conf", "net_flow", "err")}
+        row = dict(ms_unsharded=ms)
+        for k, want in (("flow", flow), ("net_flow", net_flow)):
+            diff, atol = float((got[k] - want).abs().max()), 1e-4 * (1 + float(want.abs().max()))
+            row[k + "_max_diff"], row[k + "_atol"] = diff, atol
+            if not diff <= atol:
+                raise AssertionError(f"shard_train FlowNet2 {h}x{w}: the ranks' {k} is off the "
+                                     f"unsharded one by {diff} (atol {atol})")
+        away = (err - thr).abs() > 1e-4
+        flips = int(((got["err"] < thr) != (err < thr)).sum())
+        row.update(conf_flips=flips, conf_flips_away=int(((got["err"] < thr) != (err < thr))[away]
+                                                        .sum()),
+                   conf_mean=float(conf.mean()))
+        if row["conf_flips_away"] or (h, w) == tuple(net_flow.shape[-2:]) and not torch.equal(
+                got["conf"][away.view(conf.shape)], conf[away.view(conf.shape)]):
+            raise AssertionError(f"shard_train FlowNet2 {h}x{w}: the ranks' confidence differs "
+                                 "away from the threshold")
+        out[(h, w)] = row
+        del im1, im2, flow, conf, net_flow, err, got
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3160,6 +3268,84 @@ def shard_warp_checks() -> None:
     torch.cuda.empty_cache()
 
 
+# the column-halo correlation (shard_corr_checks): held untimed at narrow,
+# 1-column and empty shards and an odd width, (whole (B, C, H, W), shards),
+# then checked and timed at SHARD_CORR_SHAPE, FlowNetC's 1/8 level of the
+# recipe's two 256x512 pairs, on SHARD_TRAIN_RANKS shards
+SHARD_CORR_UNEVEN = [((1, 64, 9, 24), 8), ((1, 32, 8, 5), 8), ((2, 256, 32, 65), 2)]
+SHARD_CORR_SHAPE = CORR_SHAPES[2]
+# its checks and times, and the ranks' launches, for the kernels' JSON
+SHARD_CORR: dict = {}
+
+
+def shard_corr_case(shape, n: int, timed: bool) -> dict:
+    """correlation_halo on each of n shards (those with columns) of one
+    seeded case, f2 with its 20-column halo cut from the whole tensor
+    (halo.padded_plain: the neighbours' columns, zeros past the image's
+    edges): against its plain version (compare, TOL["correlation"]), and
+    against the unsharded kernel's columns, bit for bit where the two
+    launches' plans agree (the same channel parts summed in one order),
+    else within TOL. With `timed`, the shards' calls (events) summed
+    against the unsharded call's and their plain versions'; the bound's
+    bytes (f1's and the output's columns, f2's padded row) and FFMAs (one
+    a tap inside the whole image: correlation_taps with x0)."""
+    f1, f2 = corr_case(shape, torch.Generator().manual_seed(23))
+    want = correlation(f1, f2)
+    n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
+    b, c, h, w = shape
+    tol, md = TOL[("correlation", torch.float32)], KERNEL_MAX_DISPLACEMENT
+    out, calls = dict(max_abs_err=0.0, bit_for_bit=0), []
+    for sh in (halo.make_shard(i, n, w) for i in range(n)):
+        if not sh.width:
+            continue
+        call = (sh.local(f1).contiguous(),
+                halo.padded_plain(f2, sh, md, md, "zeros").contiguous())
+        out["max_abs_err"] = max(out["max_abs_err"], compare(
+            "correlation", call, torch.float32, correlation_halo, correlation_halo_plain))
+        got, cols = correlation_halo(*call), sh.local(want)
+        if correlation_plan(b, c, h, sh.width, n_sm) == correlation_plan(b, c, h, w, n_sm):
+            ok = torch.equal(got, cols)
+            out["bit_for_bit"] += 1
+        else:
+            ok = torch.allclose(got, cols, **tol)
+        if not ok:
+            raise AssertionError(f"correlation_halo {shape} shard {sh.index} of {n}: off the "
+                                 "unsharded kernel's columns")
+        calls.append((sh, call))
+    if timed:
+        ms = [time_ms(correlation_halo, call) for _, call in calls]
+        out.update(ms=sum(ms), ms_shards=ms, ms_unsharded=time_ms(correlation, (f1, f2)),
+                   plain_ms=sum(time_ms(correlation_halo_plain, call) for _, call in calls),
+                   bytes=4 * sum(b * c * h * (2 * sh.width + 2 * md) + b * 441 * h * sh.width
+                                 for sh, _ in calls),
+                   ops=sum(2.0 * b * c * correlation_taps(h, sh.width, sh.x0, w)
+                           for sh, _ in calls))
+    del f1, f2, want, calls
+    return out
+
+
+def shard_corr_checks() -> None:
+    """Phase 14: FlowNetC's correlation in its column-halo mode
+    (v2v_correlation_cols) checked untimed at SHARD_CORR_UNEVEN, then
+    checked and timed at SHARD_CORR_SHAPE on SHARD_TRAIN_RANKS shards
+    (shard_corr_case), into SHARD_CORR."""
+    for shape, n in SHARD_CORR_UNEVEN + [(SHARD_CORR_SHAPE, SHARD_TRAIN_RANKS)]:
+        timed = shape == SHARD_CORR_SHAPE
+        row = shard_corr_case(shape, n, timed)
+        if timed:
+            SHARD_CORR.update(row)
+        say("halo_mode", kernel="correlation_halo", shape="x".join(map(str, shape)),
+            dtype="float32", shards=n, max_abs_err=f"{row['max_abs_err']:.3g}",
+            shards_bit_for_bit_with_unsharded=row["bit_for_bit"],
+            **({} if not timed else dict(
+                ms_unsharded=f"{row['ms_unsharded']:.4f}",
+                ms_shards=",".join(f"{v:.4f}" for v in row["ms_shards"]),
+                shards_over_unsharded=f"{row['ms'] / row['ms_unsharded']:.4f}",
+                plain_ms=f"{row['plain_ms']:.4f}",
+                bound_ms=f"{bound_ms(row['bytes'], row['ops'], F32_FLOPS)[0]:.4f}")))
+    torch.cuda.empty_cache()
+
+
 def shard_train_path(card: str, seen: dict) -> dict:
     """Phase 14: training's model axis (--n_devices 2 at batch 1: data 1 x
     model 2) at the 512x256 recipe's full width, on SHARD_TRAIN_RANKS gloo
@@ -3180,6 +3366,12 @@ def shard_train_path(card: str, seen: dict) -> dict:
         shard_warp_checks);
       - netD, every netD_T and VGG on the ranks' columns: netD's finest
         layer saw each rank's columns (256 of 512);
+      - FlowNet2 on the ranks' columns (flow_fn(..., shard=)): every
+        correlation in its column-halo mode and every warp at its offset
+        over a rank's whole run (no unsharded correlation or flow_warp
+        launch); the sharded FlowEstimator against the unsharded one at
+        SHARD_FLOW_HW (shard_flow_rank, shard_flow_compare), and the
+        column-halo correlation checked and timed (shard_corr_checks);
       - the uneven width: one f32 chunk at SHARD_TRAIN_UNEVEN_HW (the
         trunk's 65 columns split 32 / 33) on the same ranks against the
         unsharded Trainer's within the training bounds, the ranks bit for
@@ -3210,6 +3402,7 @@ def shard_train_path(card: str, seen: dict) -> dict:
         cli_files = sorted(os.listdir(os.path.join(root, "shard_train_cli")))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    flows = shard_flow_compare(trainer.flow_fn, ranks)
     del trainer
     torch.cuda.empty_cache()
     first = ranks[0]
@@ -3225,7 +3418,9 @@ def shard_train_path(card: str, seen: dict) -> dict:
         "generator in f32, the rest in the recipe's bf16, timed and counted); deterministic "
         "algorithms",
         sharded="G, netD, every netD_T, VGG, the losses (each rank's share), the loss warps "
-        "at their offset; whole on every rank: FlowNet2 and the face D (not in this recipe)",
+        "at their offset, FlowNet2 and its confidence (the correlation in its column-halo "
+        "mode, the warps at their offset); whole on every rank: the face D (not in this "
+        "recipe)",
         launch_s=f"{launch_s:.1f}", reference_s=f"{ref['seconds']:.1f}",
         rank_s=json.dumps([{k: round(v, 1) for k, v in r["seconds"].items()} for r in ranks]),
         columns=json.dumps([r["columns"] for r in ranks]),
@@ -3265,6 +3460,20 @@ def shard_train_path(card: str, seen: dict) -> dict:
         uneven_f32_chunk1=json.dumps({k: [first["uneven"]["losses"][0][k],
                                           ref_u["losses"][0][k]] for k in keys}),
         card=repr(card))
+    for (h, w), row in flows.items():
+        say("shard_flow", frames=f"2 pairs {h}x{w}", shards=SHARD_TRAIN_RANKS,
+            columns=json.dumps([r["flow"][(h, w)]["columns"] for r in ranks]),
+            exchanges_per_call_ranks=json.dumps([r["flow"][(h, w)]["exchanges"] for r in ranks]),
+            exchange_bytes_per_call_ranks=json.dumps([r["flow"][(h, w)]["exchange_bytes"]
+                                                      for r in ranks]),
+            ms_per_call_ranks=",".join(f"{r['flow'][(h, w)]['ms']:.1f}" for r in ranks),
+            ms_per_call_unsharded=f"{row['ms_unsharded']:.1f}",
+            ms_is="host clock around one call after a warm-up, synchronized; the ranks' "
+            "calls ran together on this card, the unsharded one alone after them",
+            flow_max_diff=f"{row['flow_max_diff']:.3g}", flow_atol=f"{row['flow_atol']:.3g}",
+            net_flow_max_diff=f"{row['net_flow_max_diff']:.3g}",
+            conf_flips_near_threshold=row["conf_flips"], conf_flips_away=row["conf_flips_away"],
+            conf_mean=f"{row['conf_mean']:.4f}", card=repr(card))
     for r in ranks[1:]:
         if r["digests"] != first["digests"] or r["losses"] != first["losses"]:
             raise AssertionError("shard_train: the ranks' weights or losses differ")
@@ -3301,22 +3510,31 @@ def shard_train_path(card: str, seen: dict) -> dict:
         if rank["d_widths"] != [labels.shape[-1] // SHARD_TRAIN_RANKS]:
             raise AssertionError(f"shard_train: netD's finest layer saw widths "
                                  f"{rank['d_widths']}, not the rank's columns")
-        for name in ("flow_warp", "correlation"):  # FlowNet2, on whole frames
+        for name in ("flow_warp", "correlation"):  # FlowNet2, on the rank's columns
             if rank["launches"][name] == 0:
                 raise AssertionError(f"shard_train: a rank never launched {name}")
+        if at["correlation_halo"] == 0 or any(rank["unsharded_launches"].values()):
+            raise AssertionError(f"shard_train: FlowNet2's launches {at}, unsharded over the "
+                                 f"rank's run {rank['unsharded_launches']}: want every "
+                                 "correlation in its column-halo mode, every warp at its "
+                                 "offset")
         launches.update(rank["launches"])
         for name, i, shapes, dtype, calls in rank["seen"] + rank["uneven"]["seen"]:
             key = (name, COUNTERS[name][i], shapes, getattr(torch, dtype.split(".")[1]))
             seen[key] = seen.get(key, 0) + calls
     SHARD_BWD["launches"] = sum(r["offset_launches"]["warp_blend_at_bwd"] for r in ranks)
+    SHARD_CORR["launches"] = sum(r["offset_launches"]["correlation_halo"] for r in ranks)
     for entry in ("flow_warp_at", "flow_warp_at_bwd"):
         SHARD_WARP[entry + "_launches"] = sum(r["offset_launches"][entry] for r in ranks)
     t0 = time.perf_counter()
     shard_bwd_checks(torch.Generator().manual_seed(14))
     shard_warp_checks()
+    shard_corr_checks()
     say("shard_train_checks", f32_chunk1_within_training_bounds=True,
         ranks_equal_bit_for_bit=True, cli_ranks_equal=True,
         blends_and_loss_warps_at_their_offset=True,
+        flownet2_on_the_ranks_columns_within_the_unsharded_criteria=True,
+        unsharded_flownet2_launches_on_the_ranks=0,
         d_finest_layer_widths=json.dumps([r["d_widths"] for r in ranks]),
         bwd_checks_s=f"{time.perf_counter() - t0:.1f}",
         launches=json.dumps(dict(launches)))
@@ -4723,6 +4941,26 @@ def kernels_json(errs: dict, ms: dict, work: dict, launches: dict) -> list:
                      f"the two ranks' counted run of phase 14 (launches_by_path: the "
                      f"{counter} counter, both entries)",
         })
+    # FlowNetC's correlation in its column-halo mode (phase 14): its own row
+    row = SHARD_CORR
+    b_ms, b_by = bound_ms(row["bytes"], row["ops"], F32_FLOPS)
+    kernels.append({
+        "name": "correlation_halo", "route": "cuda",
+        "source": "vid2vid_tpu_torch/csrc/correlation.cu",
+        "replaces": "vid2vid_tpu/ops/correlation_pallas.py:35",
+        "launches": row["launches"],
+        "launches_by_path": {p: launches[p]["correlation"] for p in launches},
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "ms_unsharded_call": row["ms_unsharded"],
+        "ms_is": f"f32, v2v_correlation_cols: the {SHARD_TRAIN_RANKS} shards' calls at "
+                 f"{SHARD_CORR_SHAPE} summed (each f2 40 columns wider), events per call; "
+                 "bound: FFMA, one FMA a tap inside the whole image (a neighbour's column "
+                 "counts), f1's and the output's columns and f2's padded row once; "
+                 "ms_unsharded_call: v2v_correlation on the whole tensor; no library call "
+                 "computes it; launches: the two ranks' counted run of phase 14 "
+                 "(launches_by_path: the correlation counter, both entries)",
+    })
     return kernels
 
 

@@ -10,6 +10,14 @@ across parities, the pairs of columns). The walk checks that every output
 is written exactly once, that every tap a thread reads is the staged value
 of that tap or an out-of-image zero, and that the cost volume it computes
 from the staged windows equals JAX's correlation_ref.
+
+The column-halo mode (`v2v_correlation_cols`, a width shard of training's
+model axis) runs the same map on a shard's w columns from x0 of an image
+`total` wide, with f2's rows w + 40 long: the shard's columns with 20 more
+on each side, its neighbours' and zeros past the image's edges
+(parallel/halo.py::padded). Its walk stages f2 from that row (the taps
+past it zero-filled) and holds the cost volume to the shard's columns of
+correlation_ref over the whole image.
 """
 
 import functools
@@ -38,6 +46,13 @@ F2_ROWS_PER_PASS, F1_ROWS_PER_PASS = NT // WIN, NT // TX
 SHAPES = [(2, 17, 1, 1), (1, 3, 45, 130), (1, 256, 8, 16), (2, 256, 32, 64),
           (1, 1, 5, 20), (2, 9, 7, 33)]
 IDS = ["x".join(map(str, s)) for s in SHAPES]
+# the column-halo mode: (B, C, H, w) of a shard and its (x0, total): a
+# middle shard, the left and right edges (the right one two x tiles wide),
+# a shard narrower than the halo whose f2 row spans the whole image and
+# the zeros past both of its edges
+HALO_SHAPES = [((1, 17, 13, 24), (24, 72)), ((2, 9, 7, 33), (0, 66)),
+               ((1, 20, 6, 70), (140, 210)), ((1, 3, 10, 5), (3, 8))]
+HALO_IDS = ["x".join(map(str, s)) + f"_from{x0}_of{t}" for s, (x0, t) in HALO_SHAPES]
 
 
 def _stage_slots(x0, u0, n0, par):
@@ -79,13 +94,24 @@ def _compute_slots():
 
 
 @functools.cache
-def walk(shape):
-    """(cost volume, writes per output and part, f2 taps copied from
-    global memory) of the kernel's map on seeded inputs of `shape`; raises
-    AssertionError at the first slot or tap that is off."""
+def walk(shape, cols=None):
+    """(f1, f2, cost volume, writes per output and part, f2 taps copied
+    from global memory) of the kernel's map on seeded inputs of `shape`;
+    raises AssertionError at the first slot or tap that is off. With cols
+    = (x0, total), the column-halo mode on a shard of w = shape[3] columns
+    from x0 of an image `total` wide: f1 and f2 are the whole image's, the
+    kernel reads f1's shard and f2's row of w + 40 columns from x0 - 20
+    (zeros past the image's edges), and the cost volume is the shard's."""
     b_n, c_n, h, w_n = shape
     rng = np.random.default_rng(sum(shape))
-    f1, f2 = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    x_first, total = (0, w_n) if cols is None else cols
+    whole = (b_n, c_n, h, total)
+    f1, f2 = (rng.standard_normal(whole).astype(np.float32) for _ in range(2))
+    halo = 0 if cols is None else MD
+    f1_read = f1[..., x_first : x_first + w_n]
+    # f2's row as the kernel reads it: halo more columns on each side
+    f2_read = np.pad(f2, ((0, 0), (0, 0), (0, 0), (halo, halo)))[
+        ..., x_first : x_first + w_n + 2 * halo]
     plan = corr.correlation_plan(*shape)
     chunks = -(-c_n // CC)
     parts = np.zeros((plan.split, b_n, ND * ND, h, w_n), np.float32)
@@ -119,7 +145,9 @@ def walk(shape):
                 for ch in range(CC):
                     assert written[a_slot + ch * ROW1].all()
                     assert written[w_slot + ch * ROW2].all()
-                in_image = written & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w_n)
+                # f2's taps lie in its row of w + 2 halo columns from -halo
+                lo, hi = np.where(is_f2, -halo, 0), np.where(is_f2, w_n + halo, w_n)
+                in_image = written & (yy >= 0) & (yy < h) & (xx >= lo) & (xx < hi)
                 # the compute map: thread (nl, lane), row q, pixel e, dx i
                 x = x0 + 4 * t16 + px
                 xe = x[..., None] + 2 * np.arange(2)                      # [nl, lane, e]
@@ -140,10 +168,10 @@ def walk(shape):
                     live = in_image & (c < c_n)
                     f2_copied += int((live & is_f2).sum())
                     vals = np.zeros(STAGE, np.float32)
-                    vals[live & is_f2] = f2[b, c[live & is_f2], yy[live & is_f2],
-                                            xx[live & is_f2]]
+                    vals[live & is_f2] = f2_read[b, c[live & is_f2], yy[live & is_f2],
+                                                 xx[live & is_f2] + halo]
                     live1 = live & ~is_f2
-                    vals[live1] = f1[b, c[live1], yy[live1], xx[live1]]
+                    vals[live1] = f1_read[b, c[live1], yy[live1], xx[live1]]
                     for ch in range(CC):
                         a = vals[a_slot + ch * ROW1]                      # [nl, lane, q, e]
                         wv = vals[w_slot + ch * ROW2]                     # [nl, lane, e, i]
@@ -177,6 +205,37 @@ def walk(shape):
 def test_every_output_is_written_exactly_once(shape):
     _, _, _, writes, _ = walk(shape)
     assert (writes == 1).all(), np.argwhere(writes != 1)[:5]
+
+
+@pytest.mark.parametrize("shape,cols", HALO_SHAPES, ids=HALO_IDS)
+def test_the_column_halo_mode_writes_every_output_once_and_matches_the_whole(shape, cols):
+    """The column-halo grid (the plan at the shard's width): each of the
+    shard's outputs written once, every tap read from its staged slot of
+    f2's padded row (the neighbours' columns, the zeros past the image's
+    edges) or zero-filled past that row, and the cost volume the shard's
+    columns of correlation_ref over the whole image at 1e-6; f2's copies
+    are f2_stagings' count with its halo."""
+    f1, f2, got, writes, copied = walk(shape, cols)
+    assert (writes == 1).all(), np.argwhere(writes != 1)[:5]
+    x0, w = cols[0], shape[3]
+    want = correlation_ref(jnp.asarray(np.moveaxis(f1, 1, -1)),
+                           jnp.asarray(np.moveaxis(f2, 1, -1)), MD, 2)
+    np.testing.assert_allclose(got, np.moveaxis(np.asarray(want), -1, 1)[..., x0 : x0 + w],
+                               atol=1e-6, rtol=0)
+    b, c, h, _ = shape
+    assert copied == pytest.approx(corr.f2_stagings(h, w, halo=MD) * b * c * h * w)
+
+
+@pytest.mark.parametrize("shape,cols", HALO_SHAPES, ids=HALO_IDS)
+def test_correlation_taps_of_a_shard_count_its_neighbours_columns(shape, cols):
+    """correlation_taps(h, w, x0, total), the column-halo mode's bound,
+    counts the taps that read a neighbour's column as inside the image
+    and only those past its edges as zero: the sum of the whole image's
+    all-ones cost volume over the shard's columns, at C = 1."""
+    (_, _, h, w), (x0, total) = shape, cols
+    ones = jnp.ones((1, h, total, 1), jnp.float32)
+    vol = np.asarray(correlation_ref(ones, ones))[:, :, x0 : x0 + w]
+    assert int(vol.sum()) == corr.correlation_taps(h, w, x0, total)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)

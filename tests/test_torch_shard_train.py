@@ -42,7 +42,10 @@ CPU.
     losses its own columns' means; the training slice's configuration
     (VGG, two D copies) on the same ranks against the JAX model mesh and
     the port's one process; the face D with sparse_D against the port's
-    one process, and a face box per rank leaving its bounds.
+    one process, and a face box per rank leaving its bounds; the Trainer
+    with a seeded FlowEstimator at 64 x 128 (FlowNet2 and its confidence
+    on the ranks' columns: flow_fn(..., shard=)) against the port's one
+    process.
   - One launch of 4 gloo ranks (data 2 x model 2, batch 2) against the
     port's one-process Trainer, within the same bounds, with BPTT across
     the chunk's frames (the warp's shared previous frame).
@@ -644,6 +647,19 @@ def _clip(batch: int, seed: int = 11, w: int = tp.W):
     return labels, real
 
 
+# the FlowNet2 case: one chunk of frames FLOW_HW (FlowNet2 takes multiples
+# of 64: 64 columns a rank, 1 at its coarsest level)
+FLOW_HW = (64, 128)
+
+
+def _flow_clip(seed: int = 17):
+    rng = np.random.default_rng(seed)
+    h, w = FLOW_HW
+    labels = rng.integers(0, tp.LABEL_NC, (1, tp.N_LOAD + tp.TG - 1, h, w)).astype(np.int32)
+    real = rng.uniform(-1, 1, (1, tp.N_LOAD + tp.TG - 1, 3, h, w)).astype(np.float32)
+    return labels, real
+
+
 def _jax_model_trainer(w: int = tp.W, cut: dict = SMALL):
     """The JAX Trainer of tp.CONFIG with `cut` at batch 1 on --n_devices 2
     for frames tp.H x w: its mesh is data 1 x model 2 (GSPMD shards the
@@ -670,7 +686,8 @@ def _jax_model_trainer(w: int = tp.W, cut: dict = SMALL):
 def runs():
     """The 2-rank launch (data 1 x model 2: the Trainer's chunks, the
     faults, the packages loaded, the chunks at the uneven width, the
-    training slice's configuration, the face D with sparse_D) and the
+    training slice's configuration, the face D with sparse_D, FlowNet2 as
+    the flow) and the
     4-rank launch (data 2 x model 2), with the port's one-process Trainer
     at batch 2, at the training slice's configuration and with the face D,
     in threads while the JAX Trainer trains two chunks here on its model =
@@ -695,6 +712,8 @@ def runs():
                                                loss_engine_state_dict(state_f.dparams, opt_f)))
         face_cfg = {**tp.CONFIG, **SMALL, "batchSize": 1, "add_face_disc": True,
                     "sparse_D": True}
+        flow_cfg = {**tp.CONFIG, **SMALL, "batchSize": 1, "fineSize": FLOW_HW[1]}
+        flow_clip, flow_kw = _flow_clip(), dict(n_load=tp.N_LOAD, flow="flownet2")
         calls = [("train_chunks", (model_cfg, labels, real), kw),
                  ("train_chunks", (model_cfg, labels, real), dict(kw, fault="halo_grad_dropped")),
                  ("loaded_packages", (), {}),
@@ -705,11 +724,12 @@ def runs():
                  ("train_chunks", ({**face_cfg, "n_devices": 2}, labels, real),
                   dict(n_load=tp.N_LOAD)),
                  ("train_chunks", ({**face_cfg, "n_devices": 2}, labels, real),
-                  dict(n_load=tp.N_LOAD, fault="face_box_per_rank"))]
+                  dict(n_load=tp.N_LOAD, fault="face_box_per_rank")),
+                 ("train_chunks", ({**flow_cfg, "n_devices": 2}, *flow_clip), flow_kw)]
         both_cfg = {**tp.CONFIG, **SMALL, "batchSize": 2}
         labels2, real2 = _clip(2, seed=12)
         kw2 = dict(n_load=tp.N_LOAD, weights=weights, n_frames_bp=tp.N_LOAD)
-        with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        with concurrent.futures.ThreadPoolExecutor(6) as pool:
             two = pool.submit(launch, functools.partial(torch_ranks.run_all, calls), 2,
                               devices=["cpu"] * 2, deadline_s=DEADLINE_S, threads=1)
             four = pool.submit(launch, functools.partial(torch_ranks.train_chunks, **kw2), 4,
@@ -719,12 +739,13 @@ def runs():
             full_one = pool.submit(torch_ranks.train_chunks, full_cfg, labels, real, **kw_f)
             face_one = pool.submit(torch_ranks.train_chunks, face_cfg, labels, real,
                                    n_load=tp.N_LOAD)
+            flow_one = pool.submit(torch_ranks.train_chunks, flow_cfg, *flow_clip, **flow_kw)
             want = _jax_chunks(trainer, state, labels, real)
             want_u = _jax_chunks(trainer_u, state_u, labels_u, real_u)
             want_f = _jax_chunks(trainer_f, state_f, labels, real)
             return dict(want=want, want_uneven=want_u, want_full=want_f, two=two.result(),
                         four=four.result(), one=one.result(), full_one=full_one.result(),
-                        face_one=face_one.result())
+                        face_one=face_one.result(), flow_one=flow_one.result())
 
 
 def test_two_ranks_match_the_jax_model_mesh(runs):
@@ -824,6 +845,21 @@ def test_a_face_box_per_rank_on_the_model_axis_leaves_the_bounds(runs):
     different windows, and the face losses leave the bounds."""
     bad = tp.losses_within(runs["two"][0][8]["losses"], runs["face_one"]["losses"], FACE_KEYS)
     assert any(b.startswith("chunk 0 D_f_") or b.startswith("chunk 0 G_f_") for b in bad)
+
+
+def test_two_ranks_with_flownet2_on_their_columns_match_one_process(runs):
+    """A seeded FlowEstimator as the Trainer's flow_fn on model 2 at 64 x
+    128: each rank's reference flow and confidence come back at its 64
+    columns (FlowNet2 sharded, flow_fn(..., shard=)), the one process's at
+    128, and chunk 1's losses and grad norms are within losses_within of
+    the port's one process, the ranks bit for bit."""
+    rank0, rank1 = (r[9] for r in runs["two"])
+    one = runs["flow_one"]
+    assert rank0["flow_widths"] == rank1["flow_widths"] == [FLOW_HW[1] // 2]
+    assert one["flow_widths"] == [FLOW_HW[1]]
+    assert tp.losses_within(rank0["losses"], one["losses"]) == []
+    assert rank0["losses"][0]["F_Flow"] > 0
+    assert rank0["losses"] == rank1["losses"] and rank0["digests"] == rank1["digests"]
 
 
 def test_data_2_x_model_2_matches_one_process(runs):

@@ -7,7 +7,8 @@ imports torch and the port and nothing of JAX (a test module does). Each
 function takes numpy arrays or CPU tensors and returns CPU values.
 
   - `train_chunks`: a Trainer on this rank's rows of a global clip, chunk by
-    chunk (parallel/workers.py::run_chunks), with the stub flow;
+    chunk (parallel/workers.py::run_chunks), with the stub flow or a
+    seeded FlowEstimator (`flow="flownet2"`);
   - `batch_norm_rows`: one synchronised BatchNorm2d forward and backward on
     this rank's rows;
   - `train_cli_rank`: train_cli's rank (train_cli.train_rank);
@@ -46,6 +47,8 @@ import torch.distributed as dist
 
 from vid2vid_tpu_torch import losses, test_cli, train_cli
 from vid2vid_tpu_torch.config import Options
+from vid2vid_tpu_torch.models.flownet2.nets import init_flownet_weights
+from vid2vid_tpu_torch.models.flownet2.wrapper import FlowEstimator
 from vid2vid_tpu_torch.models.inference import InferenceEngine
 from vid2vid_tpu_torch.nn import composite
 from vid2vid_tpu_torch.nn.layers import BatchNorm2d, sync_batch_norm
@@ -60,10 +63,10 @@ SHARD_FAULTS = ("halo_wrong_side", "reflect_inner_edges", "warp_no_offset")
 TRAIN_SHARD_FAULTS = ("halo_grad_dropped", "d_grads_averaged", "local_loss_means")
 
 
-def stub_flow(cur: torch.Tensor, prev: torch.Tensor):
+def stub_flow(cur: torch.Tensor, prev: torch.Tensor, shard: halo.WidthShard | None = None):
     """A deterministic stand-in for FlowNet2 on (B, T, 3, H, W) frames
-    (tests/test_train_oracle.py's)."""
-    d = cur - prev
+    (tests/test_train_oracle.py's); on a width shard, its columns."""
+    d = halo.local(cur - prev, shard)
     flow = torch.stack([2.0 * torch.tanh(3.0 * d[:, :, 0]),
                         2.0 * torch.tanh(3.0 * d[:, :, 1])], 2)
     return flow, torch.sigmoid(d[:, :, 2:3])
@@ -80,16 +83,26 @@ def _all_reduce_sum_in_place(tensors, group, divisor=None) -> None:
             dist.all_reduce(t, group=group)
 
 
+def seeded_flow_estimator(seed: int = 0) -> FlowEstimator:
+    """FlowEstimator with the reference flow nets' init from a seeded
+    torch.Generator (the same on every rank)."""
+    est = FlowEstimator()
+    init_flownet_weights(est, torch.Generator().manual_seed(seed))
+    return est.eval()
+
+
 def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
                  device: str = "cpu", weights: tuple | None = None,
                  fault: str | None = None, deterministic: bool = False,
-                 n_frames_bp: int | None = None) -> dict:
-    """A Trainer of Options(**opt_kwargs) on `device` with the stub flow,
-    with `weights` ((generator, engine) state dicts) if given, trained on
-    the global clip (labels, frames, inst) chunk by chunk (`run_chunks`,
-    under `deterministic_algorithms` if asked), its BPTT cadence
-    `n_frames_bp` if given; run_chunks' result with `d_widths`, the input
-    widths that netD's finest layer saw."""
+                 n_frames_bp: int | None = None, flow: str = "stub") -> dict:
+    """A Trainer of Options(**opt_kwargs) on `device` with the stub flow
+    (or with flow="flownet2" `seeded_flow_estimator`), with `weights`
+    ((generator, engine) state dicts) if given, trained on the global clip
+    (labels, frames, inst) chunk by chunk (`run_chunks`, under
+    `deterministic_algorithms` if asked), its BPTT cadence `n_frames_bp` if
+    given; run_chunks' result with `d_widths`, the input widths that
+    netD's finest layer saw, and `flow_widths`, the widths of the flows
+    flow_fn returned."""
     if fault is not None and fault not in FAULTS + TRAIN_SHARD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}; one of {FAULTS + TRAIN_SHARD_FAULTS}")
     fetch_backward = halo._Fetch.backward
@@ -107,7 +120,17 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
         loop.d_step, loop.dt_step = averaged(steps.d_step), averaged(steps.dt_step)
     elif fault == "local_loss_means":
         losses.share_mean = lambda x, total=None: torch.mean(x)
-    trainer = Trainer(Options(**opt_kwargs), flow_fn=stub_flow, device=device)
+    flow_fn = {"stub": stub_flow, "flownet2": seeded_flow_estimator}[flow]
+    if flow == "flownet2":
+        flow_fn = flow_fn().to(device)
+    flow_widths = set()
+
+    def recorded_flow(*args, **kwargs):
+        out = flow_fn(*args, **kwargs)
+        flow_widths.add(out[0].shape[-1])
+        return out
+
+    trainer = Trainer(Options(**opt_kwargs), flow_fn=recorded_flow, device=device)
     finest = getattr(trainer.engine.netD, f"scale{trainer.opt.num_D - 1}_layer0")[0]
     d_widths = set()
     finest.register_forward_pre_hook(lambda m, args: d_widths.add(args[0].shape[-1]))
@@ -128,7 +151,7 @@ def train_chunks(opt_kwargs: dict, labels, frames, inst=None, *, n_load: int,
         with deterministic_algorithms() if deterministic else contextlib.nullcontext():
             out = run_chunks(trainer, state, _tensor(labels), _tensor(frames),
                              _tensor(inst), n_load)
-        return {**out, "d_widths": sorted(d_widths)}
+        return {**out, "d_widths": sorted(d_widths), "flow_widths": sorted(flow_widths)}
     finally:
         steps.all_reduce_mean = mesh.all_reduce_mean
         halo._Fetch.backward = staticmethod(fetch_backward)

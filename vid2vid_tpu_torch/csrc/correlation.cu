@@ -9,7 +9,10 @@
 // f1, f2: (B, C, H, W) f32, contiguous; out: (B, 441, H, W) f32. Any B, C,
 // H, W: out-of-image taps read zero in both axes, so no padded copy of f2
 // exists (the TPU kernel padded rows and masked columns with an iota
-// diagonal; the semantics are the same).
+// diagonal; the semantics are the same). The column-halo mode of a width
+// shard (v2v_correlation_cols, training's model axis) runs the same kernel
+// on the shard's columns, f2 carrying 20 more on each side that the caller
+// fetched from the neighbouring ranks (zeros past the image's edges).
 //
 // What bounds it on the H100. FMAs on the CUDA cores: 441 * C per output
 // pixel, 7.4 G at (2, 256, 128, 256), 0.221 ms at 67 TFLOP/s. The
@@ -170,11 +173,16 @@ __device__ __forceinline__ void chunk_fmas(const float* cur, int f1_read, int f2
 
 // Grid: x tiles, row groups * NDG, (part * B + b) * 2 + parity. `out`
 // holds part `part` at out + part * part_stride (split > 1: scratch, raw
-// sums, scale 1) or is the result (split 1, scale 1/C).
+// sums, scale 1) or is the result (split 1, scale 1/C). f2's rows are W2
+// columns long and output column x reads f2 column x + xoff2 + 2(i - 10):
+// W2 = W, xoff2 = 0 for the whole image; the column-halo mode (a width
+// shard's W columns, f2 carrying MD more on each side: its neighbours'
+// columns, zeros past the image's edges) has W2 = W + 2 MD, xoff2 = MD,
+// and its f2 taps all lie inside that row. Taps past f2's row read zero.
 __global__ void __launch_bounds__(NT)
 correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                   float* __restrict__ out, int B, int C, int H, int W,
-                   int chunks_per_part, size_t part_stride, float scale) {
+                   float* __restrict__ out, int B, int C, int H, int W, int W2,
+                   int xoff2, int chunks_per_part, size_t part_stride, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -189,9 +197,9 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   if (u0 >= hp) return;                  // the block has no output row
   const int k0 = part * chunks_per_part;
   const int k1 = min((C + CC - 1) / CC, k0 + chunks_per_part);
-  const size_t hw = (size_t)H * W;
+  const size_t hw = (size_t)H * W, hw2 = (size_t)H * W2;
   const float* f1b = f1 + (size_t)b * C * hw;
-  const float* f2b = f2 + (size_t)b * C * hw;
+  const float* f2b = f2 + (size_t)b * C * hw2;
 
   // the staging map, fixed for the whole kernel: thread t copies column
   // p2 of the f2 row slots n * CC + cc with cc = r2 (mod F2_ROWS_PER_PASS)
@@ -200,8 +208,8 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   const int t = threadIdx.x;
   const int p2 = t % WIN, r2 = t / WIN;
   const bool stages_f2 = r2 < F2_ROWS_PER_PASS;
-  const int x2 = x0 - MD + p2;
-  const bool x2_in = x2 >= 0 && x2 < W;
+  const int x2 = x0 - MD + p2 + xoff2;  // the column of f2's row
+  const bool x2_in = x2 >= 0 && x2 < W2;
   const int d2 = r2 * ROW2 + (p2 & 1) * ODD2 + (p2 >> 1);
   const int p1 = t % TX, r1 = t / TX;
   const int x1 = x0 + p1;
@@ -219,7 +227,7 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       for (int n = 0; n < M; ++n) {
         const int yy = 2 * (u0 + n0 + n - RAD) + par;
         const bool row_in = x2_in && yy >= 0 && yy < H;
-        const float* src = f2b + (size_t)(c0 + r2) * hw + (row_in ? (size_t)yy * W + x2 : 0);
+        const float* src = f2b + (size_t)(c0 + r2) * hw2 + (row_in ? (size_t)yy * W2 + x2 : 0);
 #pragma unroll
         for (int cc = 0; cc < CC; cc += F2_ROWS_PER_PASS) {
           float* dst = buf + d2 + (n * CC + cc) * ROW2;
@@ -229,7 +237,7 @@ correlation_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
             const bool in = row_in && r2 + cc < c_left;
             cp_async4(dst, in ? src : f2b, in ? 4 : 0);
           }
-          src += F2_ROWS_PER_PASS * hw;
+          src += F2_ROWS_PER_PASS * hw2;
         }
       }
     }
@@ -637,16 +645,14 @@ correlation_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f
 }  // namespace
 }  // namespace v2v
 
-// dtype must be f32 (code 0): the cost volume is taken in f32, as the
-// Pallas kernel's preferred_element_type. `split` parts of
-// `chunks_per_part` channel chunks each (ops/correlation.py::
-// correlation_plan); split > 1 needs `scratch` of split * B * 441 * H * W
-// floats, split == 1 none (it may be null).
-extern "C" int v2v_correlation(const void* f1, const void* f2, void* out,
-                               void* scratch, int B, int C, int H, int W,
-                               int split, int chunks_per_part, int dtype,
-                               void* stream) {
-  using namespace v2v;
+namespace v2v {
+namespace {
+
+// One forward launch (and the second pass of a split channel sum): f2's
+// rows W2 columns long, output column 0 at its column xoff2.
+int launch_correlation(const void* f1, const void* f2, void* out, void* scratch, int B,
+                       int C, int H, int W, int W2, int xoff2, int split,
+                       int chunks_per_part, int dtype, void* stream) {
   if (dtype != kFloat32 || C <= 0 || split < 1 || chunks_per_part < 1 ||
       (split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -664,7 +670,7 @@ extern "C" int v2v_correlation(const void* f1, const void* f2, void* out,
   float* dst = static_cast<float*>(split > 1 ? scratch : out);
   correlation_kernel<<<grid, NT, SMEM_BYTES, s>>>(
       static_cast<const float*>(f1), static_cast<const float*>(f2), dst, B, C, H,
-      W, chunks_per_part, n, split > 1 ? 1.f : inv_c);
+      W, W2, xoff2, chunks_per_part, n, split > 1 ? 1.f : inv_c);
   if (split > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -675,6 +681,38 @@ extern "C" int v2v_correlation(const void* f1, const void* f2, void* out,
                                                 split, inv_c);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace v2v
+
+// dtype must be f32 (code 0): the cost volume is taken in f32, as the
+// Pallas kernel's preferred_element_type. `split` parts of
+// `chunks_per_part` channel chunks each (ops/correlation.py::
+// correlation_plan); split > 1 needs `scratch` of split * B * 441 * H * W
+// floats, split == 1 none (it may be null).
+extern "C" int v2v_correlation(const void* f1, const void* f2, void* out,
+                               void* scratch, int B, int C, int H, int W,
+                               int split, int chunks_per_part, int dtype,
+                               void* stream) {
+  return v2v::launch_correlation(f1, f2, out, scratch, B, C, H, W, W, 0, split,
+                                 chunks_per_part, dtype, stream);
+}
+
+// The column-halo mode of a width shard (training's model axis): f1 the
+// shard's (B, C, H, W) columns, f2 (B, C, H, W + 40) its columns with 20
+// more on each side (the neighbours' columns, zeros past the image's
+// edges: parallel/halo.py::padded), out the shard's (B, 441, H, W)
+// columns of the whole image's cost volume. The rows are padded here, as
+// v2v_correlation pads them; the grid and its plan are v2v_correlation's
+// at width W.
+extern "C" int v2v_correlation_cols(const void* f1, const void* f2, void* out,
+                                    void* scratch, int B, int C, int H, int W,
+                                    int split, int chunks_per_part, int dtype,
+                                    void* stream) {
+  using namespace v2v;
+  return launch_correlation(f1, f2, out, scratch, B, C, H, W, W + 2 * MD, MD, split,
+                            chunks_per_part, dtype, stream);
 }
 
 // The backward: f1, f2 (B, C, H, W), g (B, 441, H, W), all f32 and

@@ -8,12 +8,22 @@ FlowNetFusion over an 11-channel combination. div_flow = 20; the flow is
 upsampled x4 bilinearly (align_corners=False) after C and S1, x4 nearest
 after S2 and SD. The warps are vid2vid_tpu_torch.ops.warp.flow_warp (the
 CUDA kernel on the card).
+
+On training's model axis each cascade also runs on a width shard:
+`forward(x1, x2, shard)`, the frames whole on every rank and shard the
+split of their width (a multiple of 64), returns this rank's columns of
+the flow. What every rank holds whole it computes whole: the means (no
+collective) and the normalised pair that FlowNetC and FlowNetSD read. The
+flow nets run on the shard (models/flownet2/nets.py), the x4 upsamplings
+resize the rank's columns (ops/resize.py: the source columns fetched), the
+warps sample the whole normalised x2 at the rank's column offset
+(`flow_warp(x2, flow, x0)`) and the channel norms are per pixel. Without a
+shard each cascade runs as it did, unsharded calls unchanged.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from vid2vid_tpu_torch.models.flownet2.nets import (
@@ -23,8 +33,9 @@ from vid2vid_tpu_torch.models.flownet2.nets import (
     FlowNetSD,
 )
 from vid2vid_tpu_torch.ops.channelnorm import channel_norm
-from vid2vid_tpu_torch.ops.resize import resize_bilinear
+from vid2vid_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from vid2vid_tpu_torch.ops.warp import flow_warp
+from vid2vid_tpu_torch.parallel import halo
 
 
 def _mean_normalize(x1: torch.Tensor, x2: torch.Tensor, rgb_max: float = 1.0):
@@ -33,22 +44,45 @@ def _mean_normalize(x1: torch.Tensor, x2: torch.Tensor, rgb_max: float = 1.0):
     return (x1 - mean) / rgb_max, (x2 - mean) / rgb_max
 
 
-def _up4_bilinear(flow: torch.Tensor) -> torch.Tensor:
-    return resize_bilinear(flow, flow.shape[-2] * 4, flow.shape[-1] * 4)
+def _quarter(shard: halo.WidthShard | None) -> halo.WidthShard | None:
+    """The shard of the flow nets' 1/4-resolution outputs."""
+    return None if shard is None else shard.of_width(shard.total // 4)
 
 
-def _up4_nearest(flow: torch.Tensor) -> torch.Tensor:
-    # at an integer factor torch's "nearest" picks the source pixel that
-    # jax.image.resize's "nearest" picks: floor(dst / 4)
-    size = (flow.shape[-2] * 4, flow.shape[-1] * 4)
-    return F.interpolate(flow, size=size, mode="nearest")
+def _up4_bilinear(flow: torch.Tensor, shard: halo.WidthShard | None = None) -> torch.Tensor:
+    """x4 bilinear; on a shard (the input's full width's), its columns."""
+    return resize_bilinear(flow, flow.shape[-2] * 4, 4 * (flow.shape[-1] if shard is None
+                                                          else shard.total // 4),
+                           _quarter(shard))
 
 
-def _warp_branch(x, x1, x2, flow, div_flow):
+def _up4_nearest(flow: torch.Tensor, shard: halo.WidthShard | None = None) -> torch.Tensor:
+    """x4 nearest; on a shard, its columns. At an integer factor torch's
+    "nearest" picks the source pixel that jax.image.resize's "nearest"
+    picks: floor(dst / 4)."""
+    return resize_nearest(flow, flow.shape[-2] * 4, 4 * (flow.shape[-1] if shard is None
+                                                         else shard.total // 4),
+                          _quarter(shard))
+
+
+def _run(net: nn.Module, x: torch.Tensor, shard: halo.WidthShard | None):
+    """net(x), or net(x, shard) on a shard (the unsharded call unchanged)."""
+    return net(x) if shard is None else net(x, shard)
+
+
+def _warp(x2: torch.Tensor, flow: torch.Tensor, shard: halo.WidthShard | None):
+    """flow_warp(x2, flow); on a shard, the whole x2 sampled at the rank's
+    column offset."""
+    return flow_warp(x2, flow) if shard is None else flow_warp(x2, flow, shard.x0)
+
+
+def _warp_branch(x, x1, x2, flow, div_flow, shard=None):
     """[x, warp(x2, flow), flow / div_flow, ||x1 - warp(x2, flow)||]: the
-    12-channel input of the next FlowNetS."""
-    warped = flow_warp(x2, flow)
-    return torch.cat([x, warped, flow / div_flow, channel_norm(x1 - warped)], 1)
+    12-channel input of the next FlowNetS (on a shard, its columns: x, x1
+    and x2 whole, flow the rank's columns)."""
+    warped = _warp(x2, flow, shard)
+    return torch.cat([halo.local(x, shard), warped, flow / div_flow,
+                      channel_norm(halo.local(x1, shard) - warped)], 1)
 
 
 class FlowNet2(nn.Module):
@@ -64,36 +98,41 @@ class FlowNet2(nn.Module):
         self.flownets_d = FlowNetSD()
         self.flownetfusion = FlowNetFusion()
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                shard: halo.WidthShard | None = None) -> torch.Tensor:
         """x1, x2: (B, 3, H, W) frame pair, H and W divisible by 64.
 
-        Returns the (B, 2, H, W) flow that warps x2 toward x1.
+        Returns the (B, 2, H, W) flow that warps x2 toward x1; on a shard
+        (of W), this rank's columns of it.
         """
         x1, x2 = _mean_normalize(x1, x2, self.rgb_max)
         x = torch.cat([x1, x2], 1)
+        x1_local = halo.local(x1, shard)
 
-        (c_flow2,) = self.flownetc(x)
-        c_flow = _up4_bilinear(c_flow2 * self.div_flow)
+        (c_flow2,) = _run(self.flownetc, x, shard)
+        c_flow = _up4_bilinear(c_flow2 * self.div_flow, shard)
 
-        (s1_flow2,) = self.flownets_1(_warp_branch(x, x1, x2, c_flow, self.div_flow))
-        s1_flow = _up4_bilinear(s1_flow2 * self.div_flow)
+        (s1_flow2,) = _run(self.flownets_1,
+                           _warp_branch(x, x1, x2, c_flow, self.div_flow, shard), shard)
+        s1_flow = _up4_bilinear(s1_flow2 * self.div_flow, shard)
 
         # large-displacement branch
-        (s2_flow2,) = self.flownets_2(_warp_branch(x, x1, x2, s1_flow, self.div_flow))
-        s2_flow = _up4_nearest(s2_flow2 * self.div_flow)
-        diff_s2 = channel_norm(x1 - flow_warp(x2, s2_flow))
+        (s2_flow2,) = _run(self.flownets_2,
+                           _warp_branch(x, x1, x2, s1_flow, self.div_flow, shard), shard)
+        s2_flow = _up4_nearest(s2_flow2 * self.div_flow, shard)
+        diff_s2 = channel_norm(x1_local - _warp(x2, s2_flow, shard))
 
         # small-displacement branch
-        (sd_flow2,) = self.flownets_d(x)
-        sd_flow = _up4_nearest(sd_flow2 / self.div_flow)
-        diff_sd = channel_norm(x1 - flow_warp(x2, sd_flow))
+        (sd_flow2,) = _run(self.flownets_d, x, shard)
+        sd_flow = _up4_nearest(sd_flow2 / self.div_flow, shard)
+        diff_sd = channel_norm(x1_local - _warp(x2, sd_flow, shard))
 
         fusion_in = torch.cat(
-            [x1, sd_flow, s2_flow, channel_norm(sd_flow), channel_norm(s2_flow),
+            [x1_local, sd_flow, s2_flow, channel_norm(sd_flow), channel_norm(s2_flow),
              diff_sd, diff_s2],
             1,
         )
-        return self.flownetfusion(fusion_in)
+        return _run(self.flownetfusion, fusion_in, shard)
 
 
 class FlowNet2C(nn.Module):
@@ -105,10 +144,11 @@ class FlowNet2C(nn.Module):
         self.rgb_max = rgb_max
         self.flownetc = FlowNetC()
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                shard: halo.WidthShard | None = None) -> torch.Tensor:
         x1, x2 = _mean_normalize(x1, x2, self.rgb_max)
-        (flow2,) = self.flownetc(torch.cat([x1, x2], 1))
-        return _up4_bilinear(flow2 * self.div_flow)
+        (flow2,) = _run(self.flownetc, torch.cat([x1, x2], 1), shard)
+        return _up4_bilinear(flow2 * self.div_flow, shard)
 
 
 class FlowNet2CS(nn.Module):
@@ -121,13 +161,15 @@ class FlowNet2CS(nn.Module):
         self.flownetc = FlowNetC()
         self.flownets_1 = FlowNetS()
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                shard: halo.WidthShard | None = None) -> torch.Tensor:
         x1, x2 = _mean_normalize(x1, x2, self.rgb_max)
         x = torch.cat([x1, x2], 1)
-        (c_flow2,) = self.flownetc(x)
-        c_flow = _up4_bilinear(c_flow2 * self.div_flow)
-        (s1_flow2,) = self.flownets_1(_warp_branch(x, x1, x2, c_flow, self.div_flow))
-        return _up4_bilinear(s1_flow2 * self.div_flow)
+        (c_flow2,) = _run(self.flownetc, x, shard)
+        c_flow = _up4_bilinear(c_flow2 * self.div_flow, shard)
+        (s1_flow2,) = _run(self.flownets_1,
+                           _warp_branch(x, x1, x2, c_flow, self.div_flow, shard), shard)
+        return _up4_bilinear(s1_flow2 * self.div_flow, shard)
 
 
 class FlowNet2CSS(nn.Module):
@@ -141,12 +183,15 @@ class FlowNet2CSS(nn.Module):
         self.flownets_1 = FlowNetS()
         self.flownets_2 = FlowNetS()
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                shard: halo.WidthShard | None = None) -> torch.Tensor:
         x1, x2 = _mean_normalize(x1, x2, self.rgb_max)
         x = torch.cat([x1, x2], 1)
-        (c_flow2,) = self.flownetc(x)
-        c_flow = _up4_bilinear(c_flow2 * self.div_flow)
-        (s1_flow2,) = self.flownets_1(_warp_branch(x, x1, x2, c_flow, self.div_flow))
-        s1_flow = _up4_bilinear(s1_flow2 * self.div_flow)
-        (s2_flow2,) = self.flownets_2(_warp_branch(x, x1, x2, s1_flow, self.div_flow))
-        return _up4_bilinear(s2_flow2 * self.div_flow)
+        (c_flow2,) = _run(self.flownetc, x, shard)
+        c_flow = _up4_bilinear(c_flow2 * self.div_flow, shard)
+        (s1_flow2,) = _run(self.flownets_1,
+                           _warp_branch(x, x1, x2, c_flow, self.div_flow, shard), shard)
+        s1_flow = _up4_bilinear(s1_flow2 * self.div_flow, shard)
+        (s2_flow2,) = _run(self.flownets_2,
+                           _warp_branch(x, x1, x2, s1_flow, self.div_flow, shard), shard)
+        return _up4_bilinear(s2_flow2 * self.div_flow, shard)

@@ -44,7 +44,10 @@ rank's. The eval norms normalise by their running stats, pointwise; in
 train mode batch norm takes its statistics over its `group`, which the
 trainer sets to every rank of the mesh (the data axis's samples and the
 model axis's columns), and instance norm each sample's over the model
-axis (the shard's group).
+axis (the shard's group). The layers of tensors that are no pyramid
+level take their shard explicitly, `forward(x, shard)`: the zero-padded
+convs of the discriminators, VGG and FlowNet (`ShardConv2d`, `halo.window`)
+and FlowNet's transposed convs (`ShardConvTranspose2d`, kind "transpose").
 """
 
 from __future__ import annotations
@@ -203,12 +206,14 @@ class Conv2d(nn.Conv2d):
 
 class ShardConv2d(nn.Conv2d):
     """nn.Conv2d with equal zero padding on both axes (the discriminators'
-    4x4 and VGG's 3x3 convs), which also runs on a width shard of a tensor
-    of any width: `forward(x, shard)`, x this rank's columns of a tensor
-    shard.total wide, fetches the columns its output columns read
+    4x4, VGG's 3x3 and FlowNet's convs), which also runs on a width shard
+    of a tensor of any width: `forward(x, shard)`, x this rank's columns of
+    a tensor shard.total wide, fetches the columns its output columns read
     (`halo.window`: zeros past the image's edges, the neighbours' columns
     at its inner sides) and returns its columns of the output, split by the
-    same rule (`output_shard`). Without a shard it is nn.Conv2d."""
+    same rule (`output_shard`); with `whole`, x is the whole tensor, which
+    every rank holds, and the columns are cut from it with no exchange.
+    Without a shard it is nn.Conv2d."""
 
     def output_width(self, width: int) -> int:
         """The output's width for an input `width` wide."""
@@ -217,13 +222,45 @@ class ShardConv2d(nn.Conv2d):
     def output_shard(self, shard: halo.WidthShard) -> halo.WidthShard:
         return shard.of_width(self.output_width(shard.total))
 
+    def forward(self, x: torch.Tensor, shard: halo.WidthShard | None = None,
+                whole: bool = False) -> torch.Tensor:
+        if shard is None:
+            return super().forward(x)
+        k, s, p = self.kernel_size[1], self.stride[1], self.padding[1]
+        xf, _ = halo.window(x, shard, k, s, p, whole)
+        return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, self.stride,
+                                             (self.padding[0], 0)), xf, k)
+
+
+class ShardConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d with equal padding on both axes and no output
+    padding (FlowNet's 4x4 stride-2 deconvs and flow upsamplings: twice the
+    input's width), which also runs on a width shard, as ShardConv2d does:
+    `forward(x, shard)` fetches the input columns whose taps reach this
+    rank's output columns (`halo.fetch`, kind "transpose": zeros past the
+    image's edges), runs the transposed conv on them with no column padding
+    and keeps its columns of the output, split by the same rule
+    (`output_shard`): from input columns j0.., output column c is the
+    whole output's stride j0 - pad + c. Without a shard it is
+    nn.ConvTranspose2d."""
+
+    def output_width(self, width: int) -> int:
+        """The output's width for an input `width` wide."""
+        return halo.transpose_width(width, self.kernel_size[1], self.stride[1], self.padding[1])
+
+    def output_shard(self, shard: halo.WidthShard) -> halo.WidthShard:
+        return shard.of_width(self.output_width(shard.total))
+
     def forward(self, x: torch.Tensor, shard: halo.WidthShard | None = None) -> torch.Tensor:
         if shard is None:
             return super().forward(x)
         k, s, p = self.kernel_size[1], self.stride[1], self.padding[1]
-        xf, _ = halo.window(x, shard, k, s, p)
-        return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, self.stride,
-                                             (self.padding[0], 0)), xf, k)
+        out = self.output_shard(shard)
+        xf = halo.fetch(x, shard, ("transpose", k, s, p))
+        y = valid_conv(lambda t: F.conv_transpose2d(t, self.weight, self.bias, self.stride,
+                                                    (self.padding[0], 0)), xf, 1)
+        first = out.x0 - s * halo.transpose_first(out.x0, k, s, p) + p
+        return y[..., first : first + out.width]
 
 
 def run_sharded(layers: nn.Sequential, x: torch.Tensor,

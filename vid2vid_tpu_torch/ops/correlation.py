@@ -18,6 +18,15 @@ differentiates `correlation_ref`; on a CUDA tensor the backward kernel of
 csrc/correlation.cu (`v2v_correlation_bwd`, the same configuration and
 dtype, or a raise).
 
+On training's model axis (parallel/halo.py) FlowNetC's correlation runs
+on a width shard: `correlation(f1, f2, shard=shard)`, f1 and f2 this
+rank's columns of the 1/8 level, fetches f2's 20 columns on each side
+(`halo.padded`: the neighbours' columns, zeros past the image's edges) and
+calls `correlation_halo`, the column-halo mode: csrc/correlation.cu's
+`v2v_correlation_cols` on a CUDA tensor (the same kernel, f2's rows W + 40
+long; forward only: FlowNet2 is frozen in training), `correlation_halo_plain`
+on a CPU tensor. Its launches count on `correlation_halo`.
+
 The kernel's tile is mirrored here as plain constants (`TILE_ROWS`, ...;
 the source note in csrc/correlation.cu explains them) with
 `correlation_plan`, which sizes its grid and picks how many parts the
@@ -26,7 +35,9 @@ map in numpy. The backward's tile likewise (`BWD_*`,
 `correlation_bwd_plan`, its one launch's grid), walked by
 tests/test_torch_flow_train.py. `correlation_taps` counts the products
 either direction needs (the taps inside the image), which is what its
-bound counts.
+bound counts. The column-halo mode's grid is the plan at the shard's
+width, and its window's columns inside f2's padded row are staged
+(`f2_stagings(..., halo=KERNEL_MAX_DISPLACEMENT)`).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import torch.nn.functional as F
 
 from vid2vid_tpu_torch.kernels import build
 from vid2vid_tpu_torch.ops.conv7 import plain_vjp, wants_grad
+from vid2vid_tpu_torch.parallel import halo
 
 # the configuration the CUDA kernel is built for (FlowNetC's)
 KERNEL_MAX_DISPLACEMENT = 20
@@ -105,16 +117,19 @@ BWD_G_STAGE = BWD_ROWS * (2 * KERNEL_RADIUS + 1) * BWD_G_ROW  # 5376
 BWD_SMEM_BYTES = BWD_STAGES * 4 * (BWD_F_STAGE + BWD_G_STAGE)  # 97408
 
 
-def correlation_taps(h: int, w: int) -> int:
+def correlation_taps(h: int, w: int, x0: int = 0, total: int | None = None) -> int:
     """The (y, x, j, i) with y and y + 2(j - R), x and x + 2(i - R) all
     inside an H x W image: the products one channel of one image needs,
     in the cost volume or in either gradient, with the zero taps outside
     the image left out. Rows and columns count apart: the rows' taps
-    times the columns'."""
-    def taps(n: int) -> int:
-        return sum(0 <= p + KERNEL_STRIDE2 * (j - KERNEL_RADIUS) < n
-                   for p in range(n) for j in range(2 * KERNEL_RADIUS + 1))
-    return taps(h) * taps(w)
+    times the columns'. With x0 and total, the taps of a width shard's w
+    columns from x0 of an image `total` wide: a tap that reads a
+    neighbour's column is inside the image, only those past its edges are
+    not."""
+    def taps(n: int, p0: int, size: int) -> int:
+        return sum(0 <= p + KERNEL_STRIDE2 * (j - KERNEL_RADIUS) < size
+                   for p in range(p0, p0 + n) for j in range(2 * KERNEL_RADIUS + 1))
+    return taps(h, 0, h) * taps(w, x0, w if total is None else total)
 
 
 def correlation_bwd_rows(u0: int, hp: int) -> range:
@@ -171,11 +186,14 @@ def correlation_plan(b: int, c: int, h: int, w: int, n_sm: int = H100_SMS) -> Co
                            per_part)
 
 
-def f2_stagings(h: int, w: int) -> float:
+def f2_stagings(h: int, w: int, halo: int = 0) -> float:
     """How many times the kernel copies each f2 value into shared memory,
     averaged over the image: the in-image taps of every block's staged
     window (out-of-image taps are zero-filled, not read), over H * W. The
-    channel split does not change it (each part stages its own channels)."""
+    channel split does not change it (each part stages its own channels).
+    With `halo`, the column-halo mode's (f2 `halo` columns wider on each
+    side, whose columns are all read: its neighbours' and the zeros past
+    the image's edges), over H * w."""
     staged = 0
     for par in range(2):
         hp = (h - par + 1) // 2
@@ -184,17 +202,21 @@ def f2_stagings(h: int, w: int) -> float:
             rows = sum(0 <= 2 * (u0 + n - KERNEL_RADIUS) + par < h
                        for n in range(TILE_DIAG_GROUPS * TILE_DIAGS))
             for x0 in range(0, w, TILE_X):
-                cols = min(w, x0 + TILE_X + KERNEL_MAX_DISPLACEMENT) - max(
-                    0, x0 - KERNEL_MAX_DISPLACEMENT)
+                cols = min(w + halo, x0 + TILE_X + KERNEL_MAX_DISPLACEMENT) - max(
+                    -halo, x0 - KERNEL_MAX_DISPLACEMENT)
                 staged += rows * cols
     return staged / (h * w)
 
 
-def _check(f1: torch.Tensor, f2: torch.Tensor) -> None:
-    if f1.dim() != 4 or f1.shape != f2.shape:
+def _check(f1: torch.Tensor, f2: torch.Tensor, halo_cols: int = 0) -> None:
+    """f1 and f2 (B, C, H, W) alike, f2 `halo_cols` columns wider on each
+    side in the column-halo mode."""
+    want = tuple(f1.shape[:3]) + (f1.shape[3] + 2 * halo_cols,) if f1.dim() == 4 else None
+    if f1.dim() != 4 or f2.dim() != 4 or tuple(f2.shape) != want:
+        more = f", f2 {2 * halo_cols} columns wider" if halo_cols else ""
         raise ValueError(
             f"correlation: f1 {tuple(f1.shape)} and f2 {tuple(f2.shape)} must "
-            "be equal (B, C, H, W)"
+            f"be equal (B, C, H, W){more}"
         )
 
 
@@ -213,6 +235,24 @@ def correlation_plain(
             y0, x0 = pad + j * stride2, pad + i * stride2
             shifted = f2p[:, :, y0 : y0 + h, x0 : x0 + w]
             planes.append((f1 * shifted).sum(1) / c)
+    return torch.stack(planes, 1)
+
+
+def correlation_halo_plain(
+    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride2: int = 2
+) -> torch.Tensor:
+    """The column-halo mode in plain PyTorch: f2 carries max_displacement
+    more columns on each side (the neighbours' columns, zeros past the
+    image's edges), its rows are padded with zeros here."""
+    _check(f1, f2, max_displacement)
+    _, c, h, w = f1.shape
+    rad, pad = max_displacement // stride2, max_displacement
+    f2p = F.pad(f2, (0, 0, pad, pad))
+    planes = []
+    for j in range(-rad, rad + 1):
+        for i in range(-rad, rad + 1):
+            y0, x0 = pad + j * stride2, pad + i * stride2
+            planes.append((f1 * f2p[:, :, y0 : y0 + h, x0 : x0 + w]).sum(1) / c)
     return torch.stack(planes, 1)
 
 
@@ -286,14 +326,26 @@ class _Correlation(torch.autograd.Function):
 
 
 def correlation(
-    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride2: int = 2
+    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride2: int = 2,
+    shard: halo.WidthShard | None = None,
 ) -> torch.Tensor:
     """(B, C, H, W) x 2 -> (B, D*D, H, W) cost volume.
 
     A CPU tensor takes `correlation_plain`; a CUDA tensor launches the
     kernel (f32, contiguous, max_displacement 20, stride2 2) or raises. The
-    gradient is `correlation_bwd`'s.
+    gradient is `correlation_bwd`'s. On a width shard (f1 and f2 this
+    rank's columns of a level shard.total wide) it is this rank's columns
+    of the whole cost volume: f2's halo fetched (`halo.padded`, zeros past
+    the image's edges; one exchange, which every rank makes), then
+    `correlation_halo`.
     """
+    if shard is not None:
+        _check(f1, f2)
+        f2h = halo.padded(f2, shard, max_displacement, max_displacement, "zeros")
+        if not shard.width:  # no columns here: no launch
+            d = 2 * (max_displacement // stride2) + 1
+            return f1.new_zeros((f1.shape[0], d * d, f1.shape[2], 0))
+        return correlation_halo(f1.contiguous(), f2h.contiguous(), max_displacement, stride2)
     _check(f1, f2)
     if wants_grad(f1, f2):
         return _Correlation.apply(f1, f2, max_displacement, stride2)
@@ -303,6 +355,48 @@ def correlation(
 correlation.launches = 0
 # the second passes that added a split channel sum's parts (a kernel each)
 correlation.second_kernels = 0
+
+
+def correlation_halo(
+    f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20, stride2: int = 2
+) -> torch.Tensor:
+    """The column-halo mode: f1 a width shard's (B, C, H, W) columns, f2
+    (B, C, H, W + 2 max_displacement) the same columns with max_displacement
+    more on each side (the neighbours', zeros past the image's edges) ->
+    the shard's (B, D*D, H, W) columns of the whole cost volume, forward
+    only. A CPU tensor takes `correlation_halo_plain`; a CUDA tensor
+    launches csrc/correlation.cu's `v2v_correlation_cols` (f32, contiguous,
+    max_displacement 20, stride2 2, no gradient wanted) or raises."""
+    _check(f1, f2, max_displacement)
+    if f1.device.type == "cpu":
+        return correlation_halo_plain(f1, f2, max_displacement, stride2)
+    if wants_grad(f1, f2):
+        raise ValueError("correlation_halo: the column-halo kernel has no backward "
+                         "(FlowNet2 runs frozen, under no_grad)")
+    code = _kernel_operands("correlation_halo", max_displacement, stride2, f1, f2=f2)
+    b, c, h, w = f1.shape
+    d = 2 * (max_displacement // stride2) + 1
+    out = torch.empty((b, d * d, h, w), dtype=torch.float32, device=f1.device)
+    if out.numel() == 0:
+        return out
+    fn = build.function("v2v_correlation_cols", [_VOID] * 4 + [_INT] * 7 + [_VOID])
+    plan = correlation_plan(
+        b, c, h, w, torch.cuda.get_device_properties(f1.device).multi_processor_count)
+    scratch = None
+    if plan.split > 1:
+        scratch = torch.empty((plan.split, *out.shape), dtype=torch.float32,
+                              device=f1.device)
+    err = build.launch(fn, f1.device, f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(), b, c, h, w,
+                       plan.split, plan.chunks_per_part, code)
+    build.check(err, "correlation column-halo kernel launch")
+    correlation_halo.launches += 1
+    correlation_halo.second_kernels += plan.split > 1
+    return out
+
+
+correlation_halo.launches = 0
+correlation_halo.second_kernels = 0
 
 
 def correlation_bwd(

@@ -38,7 +38,16 @@ one order (the self reads first, then the ranks'). Its users:
   - in training, the zero-padded convs and pools of the discriminators
     and VGG (`window`), on tensors of any width (a 4x4 conv of padding 2
     gives W / 2 + 1 or W + 1 columns): each width is split by the same
-    rule (`WidthShard.of_width`).
+    rule (`WidthShard.of_width`);
+  - in training, FlowNet2 (models/flownet2): its zero-padded convs
+    (`window`), its 4x4 stride-2 transposed convs (`transpose`), FlowNetC's
+    correlation (`padded` with zeros: f2's 20 columns on each side, which
+    span several ranks at a narrow shard) and its bilinear and nearest
+    resizes between two widths (`resize`, ops/resize.py: the source
+    columns a rank's output columns sample, clamped to the image's edge),
+    each width split by the same rule. What every rank holds whole (the
+    frames, their means) it cuts its windows from with no exchange
+    (`fetch_plain`).
 
 After each scale the generator gathers the whole frame (`gather_width`:
 the unequal shards padded to the widest, then cut by the ranges) into its
@@ -89,6 +98,7 @@ import contextvars
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from vid2vid_tpu_torch.parallel.collectives import all_gather, all_reduce
@@ -250,11 +260,14 @@ def active(x: torch.Tensor | None = None) -> WidthShard | None:
 def _source(i: int, total: int, mode: str) -> int:
     """The column that global column i of the padded level reads: i inside
     the image; past its edges the reflection about the first or last
-    column ("reflect") or -1, a zero ("zeros")."""
+    column ("reflect"), that column itself ("edge") or -1, a zero
+    ("zeros")."""
     if 0 <= i < total:
         return i
     if mode == "zeros":
         return -1
+    if mode == "edge" and total:
+        return 0 if i < 0 else total - 1
     j = -i if i < 0 else 2 * total - 2 - i
     if mode != "reflect" or not 0 <= j < total:
         raise ValueError(f"column {i} of a level {total} wide has no {mode!r} source")
@@ -289,7 +302,18 @@ def _need(spec: tuple, n: int, total: int, rank: int) -> list[int]:
         [a, b) (`window`): the discriminators' 4x4 convs (padding 2,
         stride 2 or 1), VGG's 3x3 convs (padding 1) and 2x2 max pools,
         the 3x3/s2 average pool between D copies (padding 1) and the 2x2
-        average pool of the VGG loss.
+        average pool of the VGG loss; FlowNet2's convs (padding (k - 1) // 2);
+      - ("transpose", k, stride, pad): the input columns ceil((a + pad - k
+        + 1) / stride) .. (b - 1 + pad) // stride (zeros past the image's
+        edges) of a k-wide transposed conv of `stride` and padding `pad`
+        (no output padding) whose output columns, of the (total - 1)
+        stride - 2 pad + k it has, are [a, b): every input column whose
+        taps reach them (FlowNet's 4x4 stride-2 deconvs and upsamplings);
+      - ("resize", out_total, mode): the source columns of a resize to
+        out_total columns whose output columns are [a, b) (`resize_taps`):
+        "linear", the first source column of each output column and the
+        one after it, clamped to the image's edge past the last; "nearest",
+        the one source column of each.
 
     A rank with no output columns reads none."""
     kind = spec[0]
@@ -322,6 +346,20 @@ def _need(spec: tuple, n: int, total: int, rank: int) -> list[int]:
         return ([] if a == b else
                 [_source(i, total, "zeros") for i in range(stride * a - pad,
                                                            stride * (b - 1) - pad + k)])
+    if kind == "transpose":
+        _, k, stride, pad = spec
+        a, b = split(transpose_width(total, k, stride, pad), n, rank)
+        return ([] if a == b else
+                [_source(i, total, "zeros") for i in range(transpose_first(a, k, stride, pad),
+                                                           (b - 1 + pad) // stride + 1)])
+    if kind == "resize":
+        _, out_total, mode = spec
+        a, b = split(out_total, n, rank)
+        if a == b:
+            return []
+        first, _ = resize_taps(total, out_total, a, b, mode)
+        last = int(first[-1]) + (mode == "linear")
+        return [_source(i, total, "edge") for i in range(int(first[0]), last + 1)]
     raise ValueError(f"unknown halo spec {spec!r}")
 
 
@@ -329,6 +367,50 @@ def window_width(total: int, k: int, stride: int, pad: int) -> int:
     """The output width of a k-wide window of `stride` and zero padding
     `pad` over `total` columns."""
     return (total + 2 * pad - k) // stride + 1
+
+
+def transpose_width(total: int, k: int, stride: int, pad: int) -> int:
+    """The output width of a k-wide transposed conv of `stride` and padding
+    `pad` (no output padding) over `total` columns."""
+    return (total - 1) * stride - 2 * pad + k
+
+
+def transpose_first(a: int, k: int, stride: int, pad: int) -> int:
+    """The first input column (maybe past the image's left edge) whose taps
+    reach output column a of a k-wide transposed conv of `stride` and
+    padding `pad`: output column o takes input column i at tap o + pad -
+    stride i, in [0, k)."""
+    return -((k - 1 - a - pad) // stride)
+
+
+def resize_taps(in_total: int, out_total: int, a: int, b: int,
+                mode: str) -> tuple[np.ndarray, np.ndarray]:
+    """(first source column, weight of the column after it) of each output
+    column in [a, b) of a resize from in_total to out_total columns (or
+    rows), in PyTorch's float32 arithmetic (aten's upsample kernels), so
+    that a shard samples where F.interpolate of the whole tensor samples:
+
+      - "linear" (align_corners=False): the source coordinate (d + 0.5)
+        in / out - 0.5, clamped at 0, the product and difference rounded
+        once (the fused multiply-add that aten's kernels compile to, on
+        the CPU and on the card; one rounding more moves the coordinate by
+        an ulp of the width); its floor and fraction (the column after the
+        floor, or the last column past it, takes the fraction);
+      - "nearest": floor(d in / out) with in / out in float32, at most the
+        last column; weight 0.
+    """
+    d = np.arange(a, b)
+    scale = np.float32(in_total) / np.float32(out_total)
+    if mode == "nearest":
+        first = np.minimum(np.floor(d.astype(np.float32) * scale).astype(np.int64),
+                           in_total - 1)
+        return first, np.zeros(len(d), np.float32)
+    if mode != "linear":
+        raise ValueError(f"unknown resize mode {mode!r}")
+    fused = np.float64(scale) * (d.astype(np.float32) + np.float32(0.5)) - 0.5
+    src = np.maximum(fused.astype(np.float32), np.float32(0.0))
+    first = src.astype(np.int64)
+    return first, (src - first.astype(np.float32)).astype(np.float32)
 
 
 class _Plan:
@@ -455,10 +537,14 @@ class _Fetch(torch.autograd.Function):
         return gx, None, None
 
 
-def fetch(x: torch.Tensor, shard: WidthShard, spec: tuple) -> torch.Tensor:
+def fetch(x: torch.Tensor, shard: WidthShard, spec: tuple, whole: bool = False) -> torch.Tensor:
     """The columns `_need(spec)` of this rank, x being its columns of
     shard's level: one all_gather over the shard's group, made by every
-    rank (none where no rank reads another's columns). Differentiable."""
+    rank (none where no rank reads another's columns). Differentiable.
+    With `whole`, x is the whole tensor, which every rank holds: the
+    columns are cut from it here (`fetch_plain`), with no exchange."""
+    if whole:
+        return fetch_plain(x, shard, spec)
     return _Fetch.apply(x, shard, spec)
 
 
@@ -532,14 +618,15 @@ def valid_conv(fn, x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def window(x: torch.Tensor, shard: WidthShard, k: int, stride: int,
-           pad: int) -> tuple[torch.Tensor, WidthShard]:
+           pad: int, whole: bool = False) -> tuple[torch.Tensor, WidthShard]:
     """The input columns (zeros past the image's edges) that a k-wide
     window of `stride` and zero padding `pad` (a conv or a pool, VALID
     along the width on them) reads for this rank's output columns, x being
-    its columns of a tensor `shard.total` wide; and the output's shard
-    (`WidthShard.of_width`). Differentiable."""
+    its columns of a tensor `shard.total` wide (with `whole`, the whole
+    tensor: `fetch`); and the output's shard (`WidthShard.of_width`).
+    Differentiable."""
     out = shard.of_width(window_width(shard.total, k, stride, pad))
-    return fetch(x, shard, ("window", k, stride, pad)), out
+    return fetch(x, shard, ("window", k, stride, pad), whole), out
 
 
 class _GatherWidth(torch.autograd.Function):

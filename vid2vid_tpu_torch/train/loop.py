@@ -15,20 +15,25 @@ The port of vid2vid_tpu/train/loop.py, with the reference's epoch -> clip
 Layouts: labels (B, T, H, W) integer ids (or (B, T, C, H, W) float maps),
 frames (B, T, 3, H, W) in [-1, 1], flows (B, T, 2, H, W). `flow_fn(cur,
 prev)` returns (flow, confidence) for two equal frame stacks, as
-`models/flownet2/wrapper.py::FlowEstimator` does. The Trainer runs on the
-first CUDA device unless the caller passes device='cpu'.
+`models/flownet2/wrapper.py::FlowEstimator` does; on a model axis the
+Trainer calls `flow_fn(cur, prev, shard=shard)`, the frames whole, for this
+rank's columns of both. The Trainer runs on the first CUDA device unless
+the caller passes device='cpu'.
 
 With --n_devices N it is one rank of the JAX Trainer's mesh, data =
 gcd(batchSize, N) x model = N / data (parallel/mesh.py): it keeps its data
 rows of each global batch, and on a model axis it runs its columns of
 every frame (a parallel/halo.py::WidthShard of the finest level; `shard`),
 as the JAX mesh partitions every activation over the width: the
-generator, netD, every netD_T, VGG and every loss (each rank's loss its
-share of the whole frame's; the reported losses their sum). The real frames, the reference flows and their confidence are
-sliced to the rank's columns; the previous frames that the warps sample
-stay whole (the generator's whole fakes, detached, and the real frames).
-The reference flow (FlowNet2) still runs on whole frames, the same on
-every rank of a row, and so does the face discriminator on its crop.
+generator, netD, every netD_T, VGG, every loss (each rank's loss its
+share of the whole frame's; the reported losses their sum) and the
+reference flow (FlowNet2 and its confidence, computed on the rank's
+columns by `flow_fn(..., shard=)` for the chunk and for each coarser
+temporal scale). The real frames are sliced to the rank's columns; the
+previous frames that the warps sample stay whole (the generator's whole
+fakes, detached, and the real frames), and so do the frames FlowNet2
+reads. The face discriminator runs whole on its crop, on every rank of a
+row.
 """
 
 from __future__ import annotations
@@ -83,9 +88,12 @@ class ClipCarry:
     chunk_start: int = 0
 
 
-def zero_flow_fn(real_b: torch.Tensor, real_b_prev: torch.Tensor):
-    """The no-flownet fallback: zero flow, full confidence."""
+def zero_flow_fn(real_b: torch.Tensor, real_b_prev: torch.Tensor,
+                 shard: halo.WidthShard | None = None):
+    """The no-flownet fallback: zero flow, full confidence (on a shard, at
+    its columns)."""
     b, t, _, h, w = real_b.shape
+    w = w if shard is None else shard.width
     return (torch.zeros((b, t, 2, h, w), device=real_b.device),
             torch.ones((b, t, 1, h, w), device=real_b.device))
 
@@ -149,8 +157,8 @@ class Trainer:
         self.flow_fn = flow_fn or zero_flow_fn
         self.schedule = Schedule(opt)
         # the last chunk's ClipOutputs (detached; on a model axis made whole,
-        # `_whole_outputs`) and its (labels, real_b, flow_ref, conf_ref), for
-        # train_cli.py's visuals
+        # `_whole_outputs`) and its (labels, real_b, flow_ref, conf_ref; the
+        # flows whole too, `_whole_flows`), for train_cli.py's visuals
         self.last_outs = None
         self.last_inputs = None
 
@@ -226,13 +234,13 @@ class Trainer:
                 carry.gen_state = self.gen.state_from_frames(real_b[:, : tG - 1])
             carry.fake_prev_first = real_b[:, tG - 2 : tG - 1]
 
-        # reference flows for the chunk's current frames (whole frames), then
-        # on a model axis this rank's columns of the frames and flows
+        # reference flows for the chunk's current frames (on a model axis
+        # this rank's columns of them, from the whole frames)
         shard = self.shard(w, h)
         real_b_cur = real_b[:, tG - 1:]
         real_b_prev = real_b[:, tG - 2 : -1]
-        self.last_inputs = (labels, real_b, *self.flow_fn(real_b_cur, real_b_prev))
-        flow_ref, conf_ref = (halo.local(t, shard) for t in self.last_inputs[2:])
+        flow_ref, conf_ref = self._flows(real_b_cur, real_b_prev, shard)
+        self.last_inputs = (labels, real_b, *self._whole_flows(flow_ref, conf_ref, shard))
 
         # temporal real / flow buffers and groups (the rank's columns; the
         # dense buffer of real frames stays whole: the coarser scales'
@@ -260,7 +268,7 @@ class Trainer:
             for s in range(1, t_scales):
                 rb = real_skipped[s]
                 if rb is not None:
-                    flow_skipped[s] = halo.local(self.flow_fn(rb[:, 1:], rb[:, :-1])[0], shard)
+                    flow_skipped[s] = self._flows(rb[:, 1:], rb[:, :-1], shard)[0]
             real_skipped = [halo.local(r, shard) for r in real_skipped]
         divisor = None if self.mesh is None else self.mesh.data
 
@@ -318,6 +326,24 @@ class Trainer:
         all_reduce_mean([summed], self.world_group, divisor)
         values = torch.where(is_loss, summed, values)
         return state, carry, dict(zip(out, values.cpu().tolist()))
+
+    def _flows(self, cur: torch.Tensor, prev: torch.Tensor, shard: halo.WidthShard | None):
+        """flow_fn's (flow, confidence) of the frame pairs: on a model axis
+        this rank's columns, computed there (`flow_fn(..., shard=)`)."""
+        if shard is None:
+            return self.flow_fn(cur, prev)
+        return self.flow_fn(cur, prev, shard=shard)
+
+    @staticmethod
+    def _whole_flows(flow: torch.Tensor, conf: torch.Tensor,
+                     shard: halo.WidthShard | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """A shard's reference flow and confidence made whole for the
+        visuals: one all_gather, without a gradient."""
+        if shard is None:
+            return flow, conf
+        with torch.no_grad():
+            whole = halo.gather_width(torch.cat([flow, conf.to(flow.dtype)], 2), shard)
+        return whole[:, :, :2], whole[:, :, 2:].to(conf.dtype)
 
     @staticmethod
     def _whole_outputs(outs: ClipOutputs, fake_whole: torch.Tensor,

@@ -89,10 +89,12 @@ def train(opt: Options, dataset=None, flow_fn=None):
 
     `dataset` (default: create_dataset(opt)) yields TemporalDataset's items;
     `flow_fn` (default: FlowNet2, or zero flow under --no_flow) computes
-    the reference flow, as Trainer takes it. As one rank of a mesh
-    (--n_devices N, a process group of N) it draws the same global batches
-    as one process would and trains on its rows (and, on a model axis, its
-    generator columns); rank 0 alone prints,
+    the reference flow, as Trainer takes it (on a model axis with
+    `shard=`). As one rank of a mesh (--n_devices N, a process group of N)
+    it draws the same global batches as one process would and trains on
+    its rows (and, on a model axis, its columns: the generator, the
+    discriminators, VGG, the losses and FlowNet2; the visuals' flows
+    gathered whole); rank 0 alone prints,
     plots, writes the visuals and saves, the others wait at a barrier after
     each save; a resume or warm-start restores every rank."""
     if opt.debug:

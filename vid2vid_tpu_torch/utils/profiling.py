@@ -35,7 +35,7 @@ import torch
 
 from vid2vid_tpu_torch.ops.conv3 import conv3_fused_padded, conv3_padded
 from vid2vid_tpu_torch.ops.conv7 import conv7_halo, conv7_padded, conv7_reflect
-from vid2vid_tpu_torch.ops.correlation import correlation, correlation_bwd
+from vid2vid_tpu_torch.ops.correlation import correlation, correlation_bwd, correlation_halo
 from vid2vid_tpu_torch.ops.respair import respair, respair_halo
 from vid2vid_tpu_torch.ops.warp import (
     flow_warp,
@@ -50,12 +50,13 @@ from vid2vid_tpu_torch.ops.warp import (
 
 # the launch counters of each kernel: one per entry (conv7 has three; the
 # column-halo modes of a width shard are respair_halo, warp_blend_at and
-# conv7_halo, warp_blend_at_bwd the blend's backward at a column offset,
-# flow_warp_at and flow_warp_at_bwd the unfused warp's and its backward's)
+# conv7_halo and correlation_halo, warp_blend_at_bwd the blend's backward
+# at a column offset, flow_warp_at and flow_warp_at_bwd the unfused warp's
+# and its backward's)
 COUNTERS = {
     "respair": (respair, respair_halo), "warp_blend": (warp_blend, warp_blend_at),
     "flow_warp": (flow_warp, flow_warp_at),
-    "correlation": (correlation,), "correlation_bwd": (correlation_bwd,),
+    "correlation": (correlation, correlation_halo), "correlation_bwd": (correlation_bwd,),
     "warp_blend_bwd": (warp_blend_bwd, warp_blend_at_bwd),
     "flow_warp_bwd": (flow_warp_bwd, flow_warp_at_bwd),
     "conv7": (conv7_reflect, conv7_padded, conv7_halo), "conv3": (conv3_padded,),
