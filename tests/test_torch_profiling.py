@@ -1,6 +1,5 @@
 """utils/profiling.py on the CPU: a trace that summarize_trace reads, the
-kernel families on a hand-written trace, StepTimer's window, and no card's
-memory stats."""
+kernel families on a hand-written trace, and no card's memory stats."""
 
 import gzip
 import json
@@ -52,16 +51,6 @@ def test_summarize_groups_kernels_by_family(tmp_path):
                    ("warp kernels (ours)", 0.04),
                    ("memset (the warp backward's splat, others)", 0.01)]
     assert profiling.summarize_trace(str(tmp_path), top=2) == got[:2]
-
-
-def test_step_timer_keeps_its_window():
-    timer = profiling.StepTimer(window=3)
-    for _ in range(5):
-        timer.start()
-        dt = timer.stop()
-        assert dt >= 0.0
-    assert len(timer.times) == 3
-    assert timer.mean == sum(timer.times) / 3
 
 
 def test_no_card_no_memory_stats():

@@ -54,6 +54,7 @@ from vid2vid_tpu_torch.ops.encode import (
 from vid2vid_tpu_torch.ops.pool import avg_pool_3x3s2, build_pyramid_video
 from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.parallel.halo import WidthShard
+from vid2vid_tpu_torch.utils.profiling import INPUT, span
 
 State = tuple[torch.Tensor, ...]
 
@@ -173,12 +174,13 @@ class Vid2VidGenerator(nn.Module):
         pooled (`shard_pyramid`)."""
         start, stop = self.pyramid_columns(shard)[0]
         lo, hi = max(0, start - 1), min(shard.total, stop + 1)
-        enc = self.encode_input(
-            labels[..., lo:hi].to(device), None if inst is None else inst[..., lo:hi].to(device))
-        enc = enc[..., start - lo : stop - lo]
-        if compute_dtype is not None:
-            enc = enc.to(compute_dtype)
-        return self.shard_pyramid(enc, shard)
+        with span(INPUT):
+            enc = self.encode_input(labels[..., lo:hi].to(device),
+                                    None if inst is None else inst[..., lo:hi].to(device))
+            enc = enc[..., start - lo : stop - lo]
+            if compute_dtype is not None:
+                enc = enc.to(compute_dtype)
+            return self.shard_pyramid(enc, shard)
 
     # ------------------------------------------------------------------ state
 
@@ -227,11 +229,12 @@ class Vid2VidGenerator(nn.Module):
         """
         tG, n_scales = self.tG, self.n_scales
         n_frames = enc_a.shape[1] - (tG - 1)
-        if shard is None:
-            a_pyr = build_pyramid_video(enc_a, n_scales)
-        else:
-            start, stop = self.pyramid_columns(shard)[0]
-            a_pyr = self.shard_pyramid(enc_a[..., start:stop], shard)
+        with span(INPUT):
+            if shard is None:
+                a_pyr = build_pyramid_video(enc_a, n_scales)
+            else:
+                start, stop = self.pyramid_columns(shard)[0]
+                a_pyr = self.shard_pyramid(enc_a[..., start:stop], shard)
         bufs = tuple(stack_time(s) for s in state)
         ys = []
         for t in range(n_frames):
@@ -276,13 +279,14 @@ class Vid2VidGenerator(nn.Module):
                 return self.encode_shard(
                     labels[:, t : t + 1], None if inst is None else inst[:, t : t + 1],
                     shard, device, compute_dtype)
-            enc = self.encode_input(
-                labels[:, t : t + 1].to(device),
-                None if inst is None else inst[:, t : t + 1].to(device),
-            )
-            if compute_dtype is not None:
-                enc = enc.to(compute_dtype)
-            return build_pyramid_video(enc, n_scales)
+            with span(INPUT):
+                enc = self.encode_input(
+                    labels[:, t : t + 1].to(device),
+                    None if inst is None else inst[:, t : t + 1].to(device),
+                )
+                if compute_dtype is not None:
+                    enc = enc.to(compute_dtype)
+                return build_pyramid_video(enc, n_scales)
 
         rings: list[torch.Tensor] = []
 

@@ -52,6 +52,7 @@ from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.parallel.mesh import Mesh, make_mesh, replicated, visible_devices
 from vid2vid_tpu_torch.utils.device import require_device
 from vid2vid_tpu_torch.utils.precision import cudnn_f32
+from vid2vid_tpu_torch.utils.profiling import INPUT, STEP, span
 
 
 def make_single_image_generator(opt: Options) -> tuple[nn.Module, bool]:
@@ -167,9 +168,10 @@ class InferenceEngine:
     # ----------------------------------------------------------------- encode
 
     def encode(self, labels: torch.Tensor, inst: torch.Tensor | None = None):
-        return self.gen.encode_input(
-            labels.to(self.device), None if inst is None else inst.to(self.device)
-        )
+        with span(INPUT):
+            return self.gen.encode_input(
+                labels.to(self.device), None if inst is None else inst.to(self.device)
+            )
 
     # ------------------------------------------------------------ first frame
 
@@ -311,11 +313,11 @@ class InferenceEngine:
         """(B, T+tG-1, C, H, W) encoded labels -> (ClipOutputs in f32, state)."""
         dt = self.compute_dtype
         shard = self._sharded(enc_a.shape[-1], enc_a.shape[-2])
+        with span(INPUT):
+            enc_a = enc_a.to(self.device, dt)
+            state = tuple(s.to(self.device, dt) for s in state)
         outs, new_state = self.compute_generator().generate_clip(
-            enc_a.to(self.device, dt),
-            tuple(s.to(self.device, dt) for s in state),
-            use_raw_only=use_raw_only, shard=shard,
-        )
+            enc_a, state, use_raw_only=use_raw_only, shard=shard)
         return (
             ClipOutputs(*(None if o is None else o.float() for o in outs)),
             new_state,
@@ -360,10 +362,11 @@ class InferenceEngine:
         model axis it is `generate_clip_raw` of the window (each rank
         encodes its columns); the frame is whole on every rank.
         """
-        if self.mesh is not None:
-            outs, new_state = self.generate_clip_raw(labels_window, inst_window, state,
-                                                     use_raw_only)
+        with span(STEP):
+            if self.mesh is not None:
+                outs, new_state = self.generate_clip_raw(labels_window, inst_window, state,
+                                                         use_raw_only)
+                return outs.fake[:, 0], new_state
+            enc = self.encode(labels_window, inst_window)
+            outs, new_state = self.generate_clip(enc, state, use_raw_only)
             return outs.fake[:, 0], new_state
-        enc = self.encode(labels_window, inst_window)
-        outs, new_state = self.generate_clip(enc, state, use_raw_only)
-        return outs.fake[:, 0], new_state

@@ -32,6 +32,7 @@ from vid2vid_tpu_torch.nn.layers import (
 from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel
 from vid2vid_tpu_torch.ops.respair import respair, respair_halo
 from vid2vid_tpu_torch.parallel import halo
+from vid2vid_tpu_torch.utils.profiling import RESBLOCK, span
 
 
 def conv_stem(cin: int, cout: int, norm: str) -> list[nn.Module]:
@@ -105,19 +106,20 @@ class ResnetBlock(nn.Module):
         return k0, ab0, k1, ab1, packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return x + self.conv_block(x)
-        if torch.is_grad_enabled():
-            k0, ab0, k1, ab1, packed = self._respair_args(x)
-        else:
-            k0, ab0, k1, ab1, packed = eval_cached(
-                self, x, lambda: state_tensors(self.conv_block), self._respair_args)
-        shard = halo.active(x)
-        if shard is None:
-            return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)
-        x = x.contiguous()
-        strips = halo.exchange(x, shard, 2, 2)
-        if not shard.width:  # no columns here: no launch
-            return x
-        x_in, xoff = halo.attach(x, *strips)
-        return respair_halo(x, x_in, xoff, shard.edges, k0, ab0, k1, ab1, packed=packed)
+        with span(RESBLOCK):
+            if self.training:
+                return x + self.conv_block(x)
+            if torch.is_grad_enabled():
+                k0, ab0, k1, ab1, packed = self._respair_args(x)
+            else:
+                k0, ab0, k1, ab1, packed = eval_cached(
+                    self, x, lambda: state_tensors(self.conv_block), self._respair_args)
+            shard = halo.active(x)
+            if shard is None:
+                return respair(x.contiguous(), k0, ab0, k1, ab1, packed=packed)
+            x = x.contiguous()
+            strips = halo.exchange(x, shard, 2, 2)
+            if not shard.width:  # no columns here: no launch
+                return x
+            x_in, xoff = halo.attach(x, *strips)
+            return respair_halo(x, x_in, xoff, shard.edges, k0, ab0, k1, ab1, packed=packed)

@@ -44,6 +44,7 @@ from vid2vid_tpu_torch.nn.blocks import (
 )
 from vid2vid_tpu_torch.ops.warp import warp_blend, warp_blend_at
 from vid2vid_tpu_torch.parallel import halo
+from vid2vid_tpu_torch.utils.profiling import WARP_BLEND, span
 
 
 def local_columns(prev_frames: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -109,13 +110,14 @@ class _Heads(nn.Module):
         if use_raw_only or self.no_flow:
             img_final = img_raw
         else:
-            prev = prev_frames[:, -img_raw.shape[1]:].contiguous()
-            shard = halo.active(img_raw)
-            if shard is None:
-                img_final = warp_blend(img_raw, prev, flow.contiguous(), weight)
-            else:
-                img_final = warp_blend_at(img_raw.contiguous(), halo.shared(prev, shard),
-                                          flow.contiguous(), weight.contiguous(), shard.x0)
+            with span(WARP_BLEND):
+                prev = prev_frames[:, -img_raw.shape[1]:].contiguous()
+                shard = halo.active(img_raw)
+                if shard is None:
+                    img_final = warp_blend(img_raw, prev, flow.contiguous(), weight)
+                else:
+                    img_final = warp_blend_at(img_raw.contiguous(), halo.shared(prev, shard),
+                                              flow.contiguous(), weight.contiguous(), shard.x0)
         if self.use_fg:
             img_fg = self.indv_final(fg_feat)
             img_final = img_fg * mask + img_final * (1.0 - mask)

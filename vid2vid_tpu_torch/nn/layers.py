@@ -67,6 +67,7 @@ from vid2vid_tpu_torch.ops.pool import max_pool_2x2
 from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.parallel.collectives import group_size
 from vid2vid_tpu_torch.parallel.mesh import all_reduce_sum
+from vid2vid_tpu_torch.utils.profiling import CONV7, DOWN, NORM, UP, span
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -80,14 +81,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and group_size(self.group) == 1 and halo.active(x) is not None:
-            raise ValueError("BatchNorm2d in train mode on a width shard takes its statistics "
-                             "over the model axis: give it a group (sync_batch_norm)")
-        if self.training and group_size(self.group) > 1:
-            return self._synced(x)
-        if not self.training or self.update_stats:
-            return super().forward(x)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with span(NORM):
+            if self.training and group_size(self.group) == 1 and halo.active(x) is not None:
+                raise ValueError("BatchNorm2d in train mode on a width shard takes its statistics "
+                                 "over the model axis: give it a group (sync_batch_norm)")
+            if self.training and group_size(self.group) > 1:
+                return self._synced(x)
+            if not self.training or self.update_stats:
+                return super().forward(x)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode over the group's global batch, in f32 (on a width
@@ -404,21 +406,22 @@ class ReflectConv7(nn.Conv2d):
         return w, self.bias.float(), packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:  # x is padded: no shard's width
-            return valid_conv(super().forward, x, 7)
-        if torch.is_grad_enabled():
-            w, bias, packed = self._kernel_args(x)
-        else:
-            w, bias, packed = eval_cached(self, x, lambda: (self.weight, self.bias),
-                                          self._kernel_args)
-        shard = halo.active(x)
-        if shard is None:
-            return conv7_reflect(x.contiguous(), w, bias, packed=packed)
-        strips = halo.exchange(x, shard, 3, 3)
-        if not shard.width:  # no columns here: no launch
-            return x.new_empty(x.shape[:1] + (self.out_channels,) + x.shape[2:])
-        x_in, xoff = halo.attach(x, *strips)
-        return conv7_halo(x_in, w, bias, xoff, x.shape[-1], shard.edges, packed=packed)
+        with span(CONV7):
+            if self.training:  # x is padded: no shard's width
+                return valid_conv(super().forward, x, 7)
+            if torch.is_grad_enabled():
+                w, bias, packed = self._kernel_args(x)
+            else:
+                w, bias, packed = eval_cached(self, x, lambda: (self.weight, self.bias),
+                                              self._kernel_args)
+            shard = halo.active(x)
+            if shard is None:
+                return conv7_reflect(x.contiguous(), w, bias, packed=packed)
+            strips = halo.exchange(x, shard, 3, 3)
+            if not shard.width:  # no columns here: no launch
+                return x.new_empty(x.shape[:1] + (self.out_channels,) + x.shape[2:])
+            x_in, xoff = halo.attach(x, *strips)
+            return conv7_halo(x_in, w, bias, xoff, x.shape[-1], shard.edges, packed=packed)
 
 
 def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
@@ -434,11 +437,12 @@ class DownConv2d(nn.Conv2d):
     `halo.down_input`, differentiable)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shard = halo.active(x)
-        if shard is None:
-            return super().forward(x)
-        return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, 2, (1, 0)),
-                          halo.down_input(x, shard), 3)
+        with span(DOWN):
+            shard = halo.active(x)
+            if shard is None:
+                return super().forward(x)
+            return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, 2, (1, 0)),
+                              halo.down_input(x, shard), 3)
 
 
 def down_conv(cin: int, cout: int) -> DownConv2d:
@@ -455,15 +459,16 @@ class UpConvTranspose2d(nn.ConvTranspose2d):
     the level's column 2 j0 - 1 + c."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shard = halo.active(x)
-        if shard is None:
-            return super().forward(x)
-        a, b = shard.at(shard.level - 1).bounds(shard.index)
-        out = valid_conv(lambda t: F.conv_transpose2d(t, self.weight, self.bias, 2, (1, 0),
-                                                      output_padding=(1, 0)),
-                         halo.up_input(x, shard), 1)
-        first = a % 2 + 1
-        return out[..., first : first + b - a]
+        with span(UP):
+            shard = halo.active(x)
+            if shard is None:
+                return super().forward(x)
+            a, b = shard.at(shard.level - 1).bounds(shard.index)
+            out = valid_conv(lambda t: F.conv_transpose2d(t, self.weight, self.bias, 2, (1, 0),
+                                                          output_padding=(1, 0)),
+                             halo.up_input(x, shard), 1)
+            first = a % 2 + 1
+            return out[..., first : first + b - a]
 
 
 def conv_transpose(cin: int, cout: int) -> UpConvTranspose2d:

@@ -1,6 +1,27 @@
 """Profiling and tracing on torch.profiler (the port of
 vid2vid_tpu/utils/profiling.py).
 
+- `span(name)`: a named range of the program on the profiler's clock
+  (`torch.profiler.record_function`) while a profiler records; otherwise
+  one read of the profiler's enabled flag and a shared null context, so
+  spans cost an untraced run nothing. The names (with a 2048x1024
+  label2city step's count), each opened where its work is done:
+  - `v2v.engine.step` (STEP, 1): `InferenceEngine.step`, its whole body;
+  - `v2v.input` (INPUT, 3): the labels' upload, one-hot and instance
+    edges (`InferenceEngine.encode`; the streamed clip's `encode_frame`,
+    `Vid2VidGenerator.encode_shard`), their cast to the compute dtype
+    (`InferenceEngine.generate_clip`) and pyramid
+    (`Vid2VidGenerator.generate_clip`);
+  - `v2v.nn.resblock` (RESBLOCK, 45): `nn/blocks.py::ResnetBlock.forward`;
+  - `v2v.nn.conv7` (CONV7, 21): `nn/layers.py::ReflectConv7.forward`;
+  - `v2v.nn.norm` (NORM, 39): `nn/layers.py::BatchNorm2d.forward` (the
+    eval ResnetBlock folds its own norms into respair);
+  - `v2v.nn.down`, `v2v.nn.up` (DOWN, UP, 15 + 15): `DownConv2d.forward`,
+    `UpConvTranspose2d.forward`;
+  - `v2v.nn.warp_blend` (WARP_BLEND, 3): the temporal blend of
+    `nn/composite.py::_Heads._compose`.
+  They fire wherever the layers run (training, the model axis) while a
+  profiler records.
 - `trace(log_dir, device)`: a torch.profiler window over the block (CPU,
   and CUDA activity on a CUDA device) that writes a Chrome trace
   (`*.pt.trace.json.gz`) under log_dir, for TensorBoard or Perfetto.
@@ -8,7 +29,6 @@ vid2vid_tpu/utils/profiling.py).
   family (`FAMILIES`), the largest first.
 - `device_memory_stats()`: `torch.cuda.memory_stats` of each visible card,
   with JAX's `bytes_in_use` / `bytes_limit` beside them (--debug).
-- `StepTimer`: a rolling wall-clock step time; `stop` synchronizes the card.
 - `profile_once` / `profile_by_family`: one step's kernels by family from
   `key_averages()`, held to the port's launch counters (`COUNTERS`), with a
   window recorded anew when the profiler drops one of our kernels.
@@ -32,6 +52,7 @@ import re
 import time
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from vid2vid_tpu_torch.ops.conv3 import conv3_fused_padded, conv3_padded
 from vid2vid_tpu_torch.ops.conv7 import conv7_halo, conv7_padded, conv7_reflect
@@ -47,6 +68,28 @@ from vid2vid_tpu_torch.ops.warp import (
     warp_blend_at_bwd,
     warp_blend_bwd,
 )
+
+# the program's spans (`span`; the module docstring says where each opens)
+STEP = "v2v.engine.step"
+INPUT = "v2v.input"
+RESBLOCK = "v2v.nn.resblock"
+CONV7 = "v2v.nn.conv7"
+NORM = "v2v.nn.norm"
+DOWN = "v2v.nn.down"
+UP = "v2v.nn.up"
+WARP_BLEND = "v2v.nn.warp_blend"
+SPANS = (STEP, INPUT, RESBLOCK, CONV7, NORM, DOWN, UP, WARP_BLEND)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range `name` of the program on the profiler's clock while a
+    torch.profiler records (`record_function`); otherwise the shared null
+    context, after one read of the profiler's enabled flag."""
+    if autograd_profiler._is_profiler_enabled:
+        return autograd_profiler.record_function(name)
+    return _NO_SPAN
+
 
 # the launch counters of each kernel: one per entry (conv7 has three; the
 # column-halo modes of a width shard are respair_halo, warp_blend_at and
@@ -190,33 +233,6 @@ def device_memory_stats() -> dict:
         st["bytes_limit"] = torch.cuda.get_device_properties(i).total_memory
         stats[f"cuda:{i}"] = st
     return stats
-
-
-class StepTimer:
-    """Rolling average step time (seconds) over the last `window` steps."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times: list[float] = []
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, barrier: torch.device | str | None = None) -> float:
-        """The step's time; with `barrier` (a CUDA device) the card's work
-        is waited for first."""
-        if barrier is not None:
-            torch.cuda.synchronize(barrier)
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
 
 
 # ----------------------------------------------------- kernels by family
