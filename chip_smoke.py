@@ -1715,12 +1715,17 @@ def trace_frame(frame, profile, tries: int = 3) -> None:
 def conv7_on_cudnn(net: torch.nn.Module):
     """Within the block, every eval ReflectConv7 of `net` runs as before the
     composite was routed through conv7: ReflectionPad2d(3) + nn.Conv2d
-    (cuDNN) in the module's dtype. For the A/B only; nothing in the port
-    selects it."""
+    (cuDNN) in the module's dtype, on the kernel's own weight arguments
+    (a tied norm folded in: nn/layers.py::FoldsNorm). For the A/B only;
+    nothing in the port selects it."""
     convs = [m for m in net.modules() if isinstance(m, ReflectConv7)]
+
+    def on_cudnn(x, m):
+        w, bias, _ = m.eval_weights(x, m._kernel_args)
+        return F.conv2d(F.pad(x, (3, 3, 3, 3), mode="reflect"), w, bias.to(x.dtype))
+
     for m in convs:
-        m.forward = lambda x, m=m: F.conv2d(F.pad(x, (3, 3, 3, 3), mode="reflect"),
-                                            m.weight, m.bias)
+        m.forward = lambda x, m=m: on_cudnn(x, m)
     try:
         yield len(convs)
     finally:

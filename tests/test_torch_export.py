@@ -172,6 +172,20 @@ def test_graph_reads_the_eval_caches(artifact, monkeypatch):
         t.untyped_storage().data_ptr() in params for t in program.constants.values())
 
 
+def test_the_graph_holds_no_batch_norm(artifact):
+    """The stems', down and up convs' norms are folded into their weights
+    (nn/layers.py::tie_norm): the exported step, whose frames are the
+    eager step's (test_artifact_round_trip_equals_engine_step), holds no
+    batch-norm node; the eager step that fills the caches and the trace
+    fold all 10 each (2 trunks x 3, 2 up blocks a branch)."""
+    _, eng, _ = artifact
+    with torch_threads(1):
+        folded = port_layers.folded_calls
+        program = export.build_exported(Options(**CFG), eng, 1, H, W)[0]
+    assert port_layers.folded_calls - folded == 2 * 10
+    assert not [k for k in _node_counts(program) if "batch_norm" in k]
+
+
 def test_main_without_checkpoint_warns_and_exports(tmp_path, capsys):
     out = tmp_path / "exported"
     with torch_threads(1):

@@ -35,6 +35,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 from PIL import Image
+from torch import nn
 
 import torch_ranks
 from torch_parity import nhwc, torch_threads
@@ -45,7 +46,8 @@ from vid2vid_tpu.models.inference import InferenceEngine as JaxEngine
 from vid2vid_tpu_torch import test_cli
 from vid2vid_tpu_torch.config import Options, parse_args
 from vid2vid_tpu_torch.models.generator import Vid2VidGenerator
-from vid2vid_tpu_torch.nn.blocks import ResnetBlock
+from vid2vid_tpu_torch.nn import layers as nn_layers
+from vid2vid_tpu_torch.nn.blocks import ResnetBlock, conv_stem, down_block, up_block
 from vid2vid_tpu_torch.nn.layers import DownConv2d, ReflectConv7, UpConvTranspose2d, init_weights
 from vid2vid_tpu_torch.ops.conv7 import (
     conv7_halo,
@@ -185,16 +187,24 @@ def test_the_exchange_gives_each_shard_its_halo_columns(width, n):
                                            [(40, 4), (16, 8), (8, 8)]))
 def test_the_layers_run_their_shards_in_one_process(width, n):
     """ReflectConv7, ResnetBlock, DownConv2d and UpConvTranspose2d in eval
-    mode under halo.sharded, each shard on a thread of one LocalGroup: each
-    shard's output is the whole output's columns of its level (the down
-    conv's a level below, the up conv's above, each split by its own rule:
-    unequal, 1-column and empty shards)."""
+    mode under halo.sharded, alone and as the stem, down and up blocks
+    with their norms folded in (random running stats), each shard on a
+    thread of one LocalGroup: each shard's output is the whole output's
+    columns of its level (the down conv's a level below, the up conv's
+    above, each split by its own rule: unequal, 1-column and empty
+    shards), and each shard's call of a block folds its norm."""
     gen = torch.Generator().manual_seed(0)
     layers = [ReflectConv7(4, 3), ResnetBlock(4), DownConv2d(4, 3, 3, stride=2, padding=1),
-              UpConvTranspose2d(4, 3, 3, stride=2, padding=1, output_padding=1)]
+              UpConvTranspose2d(4, 3, 3, stride=2, padding=1, output_padding=1),
+              nn.Sequential(*conv_stem(4, 3, "batch")), nn.Sequential(*down_block(4, 3, "batch")),
+              nn.Sequential(*up_block(4, 3, "instance"))]
     x = _seeded(1, 4, 6, width)
     for layer in layers:
         init_weights(layer, gen)
+        for m in layer.modules():
+            if isinstance(m, (nn.BatchNorm2d, nn.InstanceNorm2d)):
+                m.running_mean.copy_(torch.randn(m.num_features, generator=gen))
+                m.running_var.copy_(torch.rand(m.num_features, generator=gen) + 0.5)
         layer.eval()
         with torch.no_grad():
             whole = layer(x)
@@ -203,7 +213,10 @@ def test_the_layers_run_their_shards_in_one_process(width, n):
             with torch.no_grad(), halo.sharded(sh):
                 return layer(sh.level_of(x).local(x).contiguous())
 
-        for sh, got in zip(_shards(2 * width, n, 12), on_shards(n, 2 * width, 12, run)):
+        folded = nn_layers.folded_calls
+        shards = on_shards(n, 2 * width, 12, run)
+        assert nn_layers.folded_calls - folded == n * isinstance(layer, nn.Sequential)
+        for sh, got in zip(_shards(2 * width, n, 12), shards):
             want = sh.level_of(whole).local(whole)
             torch.testing.assert_close(got, want, atol=1e-6, rtol=0,
                                        msg=f"{type(layer).__name__} shard {sh.index}")

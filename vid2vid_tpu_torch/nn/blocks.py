@@ -7,7 +7,12 @@ trunk, and its indices are the checkpoint's names. `ResnetBlock` is a
 module, as in the reference, with its `conv_block` Sequential. Every 7x7
 stem and head is a `reflect_conv7`: in eval mode it runs the conv7 kernel
 (the composite generators of nn/composite.py and the single-image nets of
-nn/pix2pixhd.py alike). On a width shard (parallel/halo.py) the layers
+nn/pix2pixhd.py alike). No eval norm runs a pass of its own: the stems,
+down and up blocks tie their norm to the conv before it
+(nn/layers.py::tie_norm), which folds it into its weight and bias while
+both are in eval mode, and the eval ResnetBlock folds its two into
+respair's epilogues. Train mode runs every norm as before, and
+norm_layer('none') has nothing to fold. On a width shard (parallel/halo.py) the layers
 take their neighbours' columns first (nn/layers.py); the eval
 `ResnetBlock` runs respair's column-halo mode, the train-mode one its
 plain layers, whose two reflection pads exchange a column a side each.
@@ -28,6 +33,7 @@ from vid2vid_tpu_torch.nn.layers import (
     reflect_conv,
     reflect_conv7,
     state_tensors,
+    tie_norm,
 )
 from vid2vid_tpu_torch.ops.conv7 import pack_for_kernel
 from vid2vid_tpu_torch.ops.respair import respair, respair_halo
@@ -35,20 +41,32 @@ from vid2vid_tpu_torch.parallel import halo
 from vid2vid_tpu_torch.utils.profiling import RESBLOCK, span
 
 
+def _tied(conv: nn.Module, norm: str, cout: int) -> list[nn.Module]:
+    """[conv, its norm], the norm folded into the conv in eval mode
+    (nn/layers.py::tie_norm)."""
+    layer = norm_layer(norm, cout)
+    tie_norm(conv, layer)
+    return [conv, layer]
+
+
 def conv_stem(cin: int, cout: int, norm: str) -> list[nn.Module]:
     """ReflectionPad(3) + Conv7x7 + norm + ReLU (4 entries); the 7x7 conv
-    runs the conv7 kernel in eval mode (reflect_conv7)."""
-    return [*reflect_conv7(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
+    runs the conv7 kernel in eval mode (reflect_conv7), the norm folded
+    into it."""
+    pad, conv = reflect_conv7(cin, cout)
+    return [pad, *_tied(conv, norm, cout), nn.ReLU(True)]
 
 
 def down_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
-    """Conv3x3 stride 2, zero padding 1, + norm + ReLU (3 entries)."""
-    return [down_conv(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
+    """Conv3x3 stride 2, zero padding 1, + norm + ReLU (3 entries); eval
+    folds the norm into the conv."""
+    return [*_tied(down_conv(cin, cout), norm, cout), nn.ReLU(True)]
 
 
 def up_block(cin: int, cout: int, norm: str) -> list[nn.Module]:
-    """ConvTranspose(3, s2, p1, op1) + norm + ReLU (3 entries)."""
-    return [conv_transpose(cin, cout), norm_layer(norm, cout), nn.ReLU(True)]
+    """ConvTranspose(3, s2, p1, op1) + norm + ReLU (3 entries); eval folds
+    the norm into the conv."""
+    return [*_tied(conv_transpose(cin, cout), norm, cout), nn.ReLU(True)]
 
 
 def tanh_head(cin: int, cout: int) -> list[nn.Module]:

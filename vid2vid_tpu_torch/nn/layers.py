@@ -18,6 +18,21 @@ lists that callers splice into their Sequentials, padding layers included.
     behaviour the reference's single-image checkpoints depend on).
   - norm_layer('none'): Identity, which keeps the Sequential's indices.
 
+Eval mode folds each norm that follows a conv of the block builders
+(nn/blocks.py: the stems' ReflectConv7, DownConv2d, UpConvTranspose2d)
+into that conv, as the eval ResnetBlock folds its own into respair: the
+norm with running stats is a per-channel affine y = x * a + c
+(`eval_affine`), so the conv runs with weight W * a along its
+output-channel axis and bias b * a + c, both in f32 and rounded once to
+x's dtype, and the norm passes its input through (`tie_norm`: the conv
+holds the norm in a plain tuple, which nn.Module registers nowhere, so the
+state-dict names stay the reference's). Under `torch.no_grad()` the
+folded weights are kept (`eval_cached`, keyed by the conv's and the
+norm's tensors); with gradients on they are made on each call from the
+live tensors. `folded_calls` counts the eval conv calls that ran so.
+Train mode, and norm_layer('none'), which has nothing to fold, run as
+before.
+
 Train mode normalizes with the batch's (instance norm: each sample's)
 statistics and updates the running stats as torch.nn's norms do (momentum
 0.1, unbiased variance), as the JAX norms do under mutable batch_stats. The
@@ -69,6 +84,17 @@ from vid2vid_tpu_torch.parallel.collectives import group_size
 from vid2vid_tpu_torch.parallel.mesh import all_reduce_sum
 from vid2vid_tpu_torch.utils.profiling import CONV7, DOWN, NORM, UP, span
 
+# the eval conv calls that ran with a norm folded in (`FoldsNorm`), counted
+# as the kernel wrappers count their launches
+folded_calls = 0
+
+
+def folded_into_conv(norm: nn.Module) -> bool:
+    """Whether this call of `norm` is folded into the conv before it: tied
+    to one (`tie_norm`), and both in eval mode. The norm then passes its
+    input through."""
+    return bool(norm._conv) and not (norm.training or norm._conv[0].training)
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train mode leaves the running stats alone while
@@ -79,9 +105,12 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     update_stats = True
     group = None
+    _conv: tuple = ()  # (the conv it is folded into,): `tie_norm`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span(NORM):
+            if folded_into_conv(self):
+                return x
             if self.training and group_size(self.group) == 1 and halo.active(x) is not None:
                 raise ValueError("BatchNorm2d in train mode on a width shard takes its statistics "
                                  "over the model axis: give it a group (sync_batch_norm)")
@@ -128,8 +157,11 @@ class InstanceNorm2d(nn.InstanceNorm2d):
     no running stats), it takes them over the whole width (`_synced`)."""
 
     update_stats = True
+    _conv: tuple = ()  # (the conv it is folded into,): `tie_norm`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if folded_into_conv(self):
+            return x
         shard = halo.active(x)
         if shard is not None and (self.training or not self.track_running_stats):
             return self._synced(x, shard)
@@ -380,40 +412,94 @@ def packs_on(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-class ReflectConv7(nn.Conv2d):
+class FoldsNorm:
+    """A conv (nn.Conv2d or nn.ConvTranspose2d) that the norm after it may
+    be tied to (`tie_norm`). While both are in eval mode its calls take
+    the norm's eval affine (a, c) folded into the weight (times a along
+    the output-channel axis: dim 0, or dim 1 transposed) and the bias
+    (b * a + c), from f32 rounded once (`folded`)."""
+
+    _norm: tuple = ()  # (the tied norm,): a plain tuple, registered nowhere
+    # (key, the call's weight args, {arg index: own parameter's name}): eval_cached
+    _eval_cache: tuple | None = None
+
+    def folded_norm(self) -> nn.Module | None:
+        """The norm this call folds in, or None."""
+        if not self._norm or self.training or self._norm[0].training:
+            return None
+        return self._norm[0]
+
+    def folded(self, norm: nn.Module, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weight in x's dtype, f32 bias) with `norm` folded in."""
+        a, c = eval_affine(norm, self.out_channels, x.device)
+        axis = (1, -1, 1, 1) if self.transposed else (-1, 1, 1, 1)
+        return (self.weight.float() * a.view(axis)).to(x.dtype), self.bias.float() * a + c
+
+    def library_weights(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weight, bias) of a library conv's call on x: its own, or with
+        the norm folded in, both in x's dtype (`eval_weights`)."""
+        if self.folded_norm() is None:
+            return self.weight, self.bias
+        return self.eval_weights(x, lambda x, norm: tuple(
+            t.to(x.dtype) for t in self.folded(norm, x)))
+
+    def eval_weights(self, x: torch.Tensor, build) -> tuple:
+        """`build(x, norm)` (the call's weight arguments; norm None when
+        nothing is folded), kept under `torch.no_grad()` (`eval_cached`,
+        keyed by the weight, the bias and the folded norm's tensors)."""
+        norm = self.folded_norm()
+        if norm is not None:
+            global folded_calls
+            folded_calls += 1
+        if torch.is_grad_enabled():
+            return build(x, norm)
+        tensors = (self.weight, self.bias) if norm is None else (
+            self.weight, self.bias, *state_tensors(norm))
+        return eval_cached(self, x, lambda: tensors, lambda x: build(x, norm))
+
+
+def tie_norm(conv: FoldsNorm, norm: nn.Module) -> None:
+    """Fold `norm`, the norm after `conv` in a block builder's list, into
+    `conv` in eval mode (a BatchNorm2d or an InstanceNorm2d with running
+    stats; `norm_layer('none')` has nothing to fold). Each module keeps
+    the other in a plain tuple, which `copy.deepcopy`'s memo points at the
+    copy's own module."""
+    if isinstance(norm, (BatchNorm2d, InstanceNorm2d)) and norm.track_running_stats:
+        conv._norm, norm._conv = (norm,), (conv,)
+
+
+class ReflectConv7(FoldsNorm, nn.Conv2d):
     """Conv2d(cin, cout, 7) behind a `FoldedReflectionPad2d`. Train mode is
     the plain conv of the padded input; eval mode runs ops.conv7.
     conv7_reflect on the unpadded input: the hand-written kernel on a CUDA
-    tensor, the plain version on a CPU one. Under `torch.no_grad()` its
-    kernel arguments (the weight in x's dtype, the f32 bias and, on the
-    card where `conv7_body` picks the tensor cores, their packed weight:
-    bf16, or f32 as 3xTF32) are kept and rebuilt only when the weight or
-    bias changes (`version_key`) or x's dtype or device does
-    (`eval_cached`); with gradients on they are made on each call, so the
-    weights keep their gradient."""
+    tensor, the plain version on a CPU one, with a tied norm folded in
+    (`FoldsNorm`). Under `torch.no_grad()` its kernel arguments (the weight
+    in x's dtype, the f32 bias and, on the card where `conv7_body` picks
+    the tensor cores, their packed weight: bf16, or f32 as 3xTF32) are kept
+    and rebuilt only when the weight or bias, or a folded norm's weight,
+    bias or running stats, change (`version_key`) or x's dtype or device
+    does (`eval_cached`); with gradients on they are made on each call, so
+    the weights keep their gradient."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 7)
-        # (key, conv7_reflect's weight args, {arg index: own parameter's name})
-        self._eval_cache: tuple | None = None
 
-    def _kernel_args(self, x: torch.Tensor) -> tuple:
-        w = self.weight.to(x.dtype)
+    def _kernel_args(self, x: torch.Tensor, norm: nn.Module | None) -> tuple:
+        if norm is None:
+            w, bias = self.weight.to(x.dtype), self.bias.float()
+        else:
+            w, bias = self.folded(norm, x)
         packed = None
         body = conv7_body(x.dtype, self.in_channels, self.out_channels)
         if packs_on(x) and body == TENSOR_CORES:
             packed = pack_for_kernel(w)
-        return w, self.bias.float(), packed
+        return w, bias, packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span(CONV7):
             if self.training:  # x is padded: no shard's width
                 return valid_conv(super().forward, x, 7)
-            if torch.is_grad_enabled():
-                w, bias, packed = self._kernel_args(x)
-            else:
-                w, bias, packed = eval_cached(self, x, lambda: (self.weight, self.bias),
-                                              self._kernel_args)
+            w, bias, packed = self.eval_weights(x, self._kernel_args)
             shard = halo.active(x)
             if shard is None:
                 return conv7_reflect(x.contiguous(), w, bias, packed=packed)
@@ -430,18 +516,20 @@ def reflect_conv7(cin: int, cout: int) -> list[nn.Module]:
     return [FoldedReflectionPad2d(), ReflectConv7(cin, cout)]
 
 
-class DownConv2d(nn.Conv2d):
-    """Conv2d(3, stride 2, zero padding 1). On a width shard its output
-    columns [a, b) (of the level below x's) read input columns 2a - 1 ..
-    2b - 1, wherever they lie (zeros past the image's edges;
-    `halo.down_input`, differentiable)."""
+class DownConv2d(FoldsNorm, nn.Conv2d):
+    """Conv2d(3, stride 2, zero padding 1), with a tied norm folded in in
+    eval mode (`FoldsNorm`; kept under `torch.no_grad()`).
+    On a width shard its output columns [a, b) (of the level below x's)
+    read input columns 2a - 1 .. 2b - 1, wherever they lie (zeros past the
+    image's edges; `halo.down_input`, differentiable)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span(DOWN):
+            w, bias = self.library_weights(x)
             shard = halo.active(x)
             if shard is None:
-                return super().forward(x)
-            return valid_conv(lambda t: F.conv2d(t, self.weight, self.bias, 2, (1, 0)),
+                return self._conv_forward(x, w, bias)
+            return valid_conv(lambda t: F.conv2d(t, w, bias, 2, (1, 0)),
                               halo.down_input(x, shard), 3)
 
 
@@ -450,21 +538,23 @@ def down_conv(cin: int, cout: int) -> DownConv2d:
     return DownConv2d(cin, cout, 3, stride=2, padding=1)
 
 
-class UpConvTranspose2d(nn.ConvTranspose2d):
-    """ConvTranspose2d(3, stride 2, padding 1, output_padding 1). On a
-    width shard its output columns [a, b) (of the level above x's) read
-    input columns a // 2 .. (b - 1) // 2 + 1, wherever they lie (zeros
-    past the image's right edge; `halo.up_input`, differentiable): with no
-    column padding, output column c of input columns from j0 = a // 2 is
-    the level's column 2 j0 - 1 + c."""
+class UpConvTranspose2d(FoldsNorm, nn.ConvTranspose2d):
+    """ConvTranspose2d(3, stride 2, padding 1, output_padding 1), with a
+    tied norm folded in in eval mode, as DownConv2d. On a width shard its
+    output columns [a, b) (of the level above x's) read input columns
+    a // 2 .. (b - 1) // 2 + 1, wherever they lie (zeros past the image's
+    right edge; `halo.up_input`, differentiable): with no column padding,
+    output column c of input columns from j0 = a // 2 is the level's
+    column 2 j0 - 1 + c."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span(UP):
+            w, bias = self.library_weights(x)
             shard = halo.active(x)
             if shard is None:
-                return super().forward(x)
+                return F.conv_transpose2d(x, w, bias, 2, 1, output_padding=1)
             a, b = shard.at(shard.level - 1).bounds(shard.index)
-            out = valid_conv(lambda t: F.conv_transpose2d(t, self.weight, self.bias, 2, (1, 0),
+            out = valid_conv(lambda t: F.conv_transpose2d(t, w, bias, 2, (1, 0),
                                                           output_padding=(1, 0)),
                              halo.up_input(x, shard), 1)
             first = a % 2 + 1

@@ -28,7 +28,8 @@ serializes a function, and its parameters travel beside it. An
 ExportedProgram holds its weights (the state_dict and the constants), so
 one file carries both. The weights are the engine's compute-dtype copy of
 the generator (bf16 under --bf16); the eval layers' kernel arguments (the
-folded norm affines and, on the card, the packed tensor-core weights;
+folded norm affines, the conv weights and biases with their norm folded
+in, and, on the card, the packed tensor-core weights;
 nn/layers.py::eval_cached) enter the graph as constants, filled by one
 eager step before the export, so the served step never re-packs them.
 Shapes are static, as in JAX. The state keeps the initial state's dtypes

@@ -14,8 +14,10 @@ vid2vid_tpu/utils/profiling.py).
     (`Vid2VidGenerator.generate_clip`);
   - `v2v.nn.resblock` (RESBLOCK, 45): `nn/blocks.py::ResnetBlock.forward`;
   - `v2v.nn.conv7` (CONV7, 21): `nn/layers.py::ReflectConv7.forward`;
-  - `v2v.nn.norm` (NORM, 39): `nn/layers.py::BatchNorm2d.forward` (the
-    eval ResnetBlock folds its own norms into respair);
+  - `v2v.nn.norm` (NORM, 39): `nn/layers.py::BatchNorm2d.forward`; in
+    eval mode each is folded into the conv before it
+    (`nn/layers.py::tie_norm`), so its range holds no device work (the
+    eval ResnetBlock folds its own norms into respair and opens none);
   - `v2v.nn.down`, `v2v.nn.up` (DOWN, UP, 15 + 15): `DownConv2d.forward`,
     `UpConvTranspose2d.forward`;
   - `v2v.nn.warp_blend` (WARP_BLEND, 3): the temporal blend of
